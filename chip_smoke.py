@@ -1,0 +1,530 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of LazyBatching on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, always all of them, in order:
+
+  build    compile every CUDA source of ``src/repro_torch/csrc`` with nvcc
+           (one process per source, all started together); print seconds
+           and what ptxas reports per kernel.
+  kernels  run each hand-written kernel against its plain PyTorch version on
+           the card at the serving path's shapes, in float32 (tolerance
+           2e-5) and bfloat16 (2e-2); time kernel, plain version and one
+           PyTorch library call (the yardstick, never used by the port) as
+           medians over CUDA events with the L2 flushed before each call,
+           and compute each call's roofline bound at 3.35 TB/s and the
+           card's peak rate for the input type.
+  serve    full-width llama3.2-1b (16 layers, d_model 2048, random weights
+           from a seed) in bfloat16: TorchEngine + ServingSession +
+           LazyBatching(max_batch=8) serve 24 Poisson-arriving requests;
+           checks every handle DONE, streamed tokens == engine tokens, and
+           that every kernel's launch counter moved during this phase.
+  exact    full width in float32 with TF32 off: four requests served
+           batched (fused runs), then each alone through the same engine
+           (node by node); tokens must be equal, apart from near-ties
+           (reference top-2 logit gap below 1e-3), which are printed. The
+           launch counters are reset before and read after each of the two
+           paths: every kernel must have run on both.
+
+Any failure exits non-zero. The last lines are the card's name and power
+limit, one JSON line of per-kernel numbers, and ``{"ok": true, ...}``.
+Exits non-zero before printing any result when no CUDA device is present.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12,             # dense bf16 tensor cores
+              "float32": 67e12}               # f32 outside the tensor cores
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+REPLACES = {
+    "ragged_decode_attention": "src/repro/kernels/ragged_decode_attn.py:92",
+    "fused_rmsnorm": "src/repro/kernels/rmsnorm.py:28",
+    "flash_attention": "src/repro/kernels/flash_attn.py:72",
+}
+SOURCES = {
+    "ragged_decode_attention": ("cuda",
+                                "src/repro_torch/csrc/ragged_decode_attn.cu"),
+    "fused_rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py"),
+    "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attn.cu"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, msg: str):
+    if not ok:
+        raise SmokeFailure(msg)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+def cuda_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median time of ``fn`` in ms over CUDA events, L2 flushed before each
+    call (the serving path meets its operands cold)."""
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def traced_device_s(torch, fn):
+    """(device seconds, the profiler's averages of the CUDA events, fn's
+    result) of one call of ``fn`` under torch.profiler; device seconds sum
+    every kernel's and copy's self time. A trace that recorded no device
+    event (it happens) is taken once more; a second empty one gives None
+    seconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in dev)
+        if us > 0:
+            return us / 1e6, dev, out
+    return None, [], out
+
+
+def device_ms(torch, fn, reps: int = 10):
+    """Device time per call in ms from the profiler over ``reps`` calls
+    (L2 warm); unlike :func:`cuda_ms` it excludes the host's launch gaps.
+    None when the profiler recorded nothing."""
+    fn()
+    torch.cuda.synchronize()
+    secs, _, _ = traced_device_s(torch, lambda: [fn() for _ in range(reps)])
+    return None if secs is None else secs * 1e3 / reps
+
+
+def bound(nbytes: float, flops: float, dtype_name: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_launched(counts: dict, what: str):
+    for name, c in counts.items():
+        check(c > 0, f"{what}: kernel {name} was never launched on this "
+                     f"path (counts {counts})")
+
+
+def compare(torch, got, ref, dtype_name: str, what: str) -> float:
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = TOL[dtype_name]
+    ok = torch.allclose(got.float(), ref.float(), rtol=tol, atol=tol)
+    check(bool(ok), f"{what}: kernel disagrees with its plain version "
+                    f"(max |err| {err:.3e}, tolerance {tol})")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    secs = time.perf_counter() - t0
+    print(f"[build] {len(logs)} CUDA sources built in {secs:.2f} s "
+          f"(parallel nvcc, sm_90a)")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+def kernel_decode(torch, K, dtype, n_slots=32, layer=5):
+    B, H, KV, D, T, L = 8, 32, 8, 64, 1024, 16
+    g = torch.Generator(device="cuda").manual_seed(1)
+    N = L * n_slots
+    q = torch.randn((B, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((N, T, KV, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((N, T, KV, D), generator=g, device="cuda").to(dtype)
+    lens = [1, 1024, 77, 300, 512, 640, 999, 1]
+    slots = [3, 17, 0, 31, 8, 22, 11, 2 ** 30]    # last row: padding
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    rows = torch.tensor(slots, dtype=torch.int32, device="cuda") \
+        + layer * n_slots
+    out = K.ragged_decode_attention(q, k, v, lengths, slots=rows)
+    ref = K.ragged_decode_attention_plain(q, k, v, lengths, slots=rows)
+    torch.cuda.synchronize()
+    res = {"shape": f"q{tuple(q.shape)} arena{tuple(k.shape)} "
+                    f"lengths{lens}", "out": out, "ref": ref}
+    # library yardstick: SDPA over the gathered, head-repeated rows
+    grow = torch.clamp(rows.long(), max=N - 1)
+    kg = k[grow].transpose(1, 2).repeat_interleave(H // KV, dim=1)
+    vg = v[grow].transpose(1, 2).repeat_interleave(H // KV, dim=1)
+    mask = (torch.arange(T, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    F = torch.nn.functional
+    res["fns"] = (
+        lambda: K.ragged_decode_attention(q, k, v, lengths, slots=rows),
+        lambda: K.ragged_decode_attention_plain(q, k, v, lengths, slots=rows),
+        lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask))
+    elt = q.element_size()
+    tot = sum(lens)
+    res["bytes"] = 2 * q.numel() * elt + 2 * tot * KV * D * elt + 8 * B
+    res["flops"] = 4 * H * D * tot
+    return res
+
+
+def kernel_rmsnorm(torch, K, dtype, shape):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = (torch.randn(shape, generator=g, device="cuda") * 3.0).to(dtype)
+    scale = torch.randn((shape[-1],), generator=g, device="cuda")
+    out = K.fused_rmsnorm(x, scale)
+    ref = K.fused_rmsnorm_plain(x, scale)
+    torch.cuda.synchronize()
+    w = scale.to(dtype)
+    F = torch.nn.functional
+    return {"shape": f"x{tuple(shape)}", "out": out, "ref": ref,
+            "fns": (lambda: K.fused_rmsnorm(x, scale),
+                    lambda: K.fused_rmsnorm_plain(x, scale),
+                    lambda: F.rms_norm(x, (shape[-1],), w, 1e-5)),
+            "bytes": 2 * x.numel() * x.element_size() + 4 * shape[-1],
+            "flops": 4 * x.numel()}
+
+
+def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, S, KV, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S, KV, D), generator=g, device="cuda").to(dtype)
+    out = K.flash_attention(q, k, v)
+    ref = K.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).repeat_interleave(H // KV, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(H // KV, dim=1).contiguous()
+    F = torch.nn.functional
+    elt = q.element_size()
+    return {"shape": f"q{tuple(q.shape)} kv{tuple(k.shape)} causal",
+            "out": out, "ref": ref,
+            "fns": (lambda: K.flash_attention(q, k, v),
+                    lambda: K.flash_attention_plain(q, k, v),
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True)),
+            "bytes": (2 * q.numel() + 2 * k.numel()) * elt,
+            "flops": 4 * B * H * D * S * (S + 1) // 2}
+
+
+def phase_kernels(torch):
+    """Each kernel against its plain version at the main path's shapes;
+    returns the bf16 main-shape row per kernel for the JSON line."""
+    import repro_torch.kernels as K
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        cases.append(("ragged_decode_attention", dt,
+                      lambda dt=dt: kernel_decode(torch, K, dt)))
+        for shape in ((8, 2048), (4, 256, 2048)):
+            cases.append(("fused_rmsnorm", dt,
+                          lambda dt=dt, s=shape: kernel_rmsnorm(torch, K, dt,
+                                                                s)))
+        for S in (64, 512):
+            cases.append(("flash_attention", dt,
+                          lambda dt=dt, S=S: kernel_flash(torch, K, dt, S)))
+    rows = {}
+    for name, dt, make in cases:
+        dname = str(dt).replace("torch.", "")
+        r = make()
+        err = compare(torch, r["out"], r["ref"], dname, f"{name} {r['shape']}")
+        ms, plain_ms, lib_ms = (cuda_ms(torch, f) for f in r["fns"])
+        dev_ms, dev_plain, dev_lib = (device_ms(torch, f) for f in r["fns"])
+        b_ms, b_by = bound(r["bytes"], r["flops"], dname)
+        fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"
+        print(f"[kernels] {name} {dname} {r['shape']}: max|err| {err:.3e} | "
+              f"events (L2 cold, launch included) kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms | device time "
+              f"(profiler, L2 warm) kernel {fmt(dev_ms)}, plain "
+              f"{fmt(dev_plain)}, library {fmt(dev_lib)} | bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})")
+        # the JSON row: bfloat16 at the decode / full-width prefill shape
+        main = (dname == "bfloat16"
+                and (name != "fused_rmsnorm" or "(8, 2048)" in r["shape"])
+                and (name != "flash_attention" or ", 512," in r["shape"]))
+        if main:
+            route, source = SOURCES[name]
+            rows[name] = {"name": name, "route": route, "source": source,
+                          "replaces": REPLACES[name], "max_abs_err": err,
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                          "bound_by": b_by, "library_ms": lib_ms,
+                          "device_ms": dev_ms, "plain_device_ms": dev_plain,
+                          "library_device_ms": dev_lib,
+                          "shape": f"{dname} {r['shape']}"}
+        del r
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _serve(torch, engine, cfg, *, n, rate, seed, prompts, decodes,
+           max_batch, sla):
+    from repro_torch.core.policies import LazyBatching
+    from repro_torch.core.slack import SlackPredictor
+    from repro_torch.serving import (H100_SXM, LengthDist, NPUPerfModel,
+                                     ServingSession, from_model_config)
+    import numpy as np
+    wl = from_model_config(
+        cfg, prompt_dist=LengthDist(prompts, (1 / len(prompts),) * len(prompts)),
+        decode_dist=LengthDist(decodes, (1 / len(decodes),) * len(decodes)))
+    pred = SlackPredictor.build([wl], NPUPerfModel(H100_SXM), sla)
+    session = ServingSession(LazyBatching(pred, max_batch=max_batch), engine,
+                             seed=seed)
+    streamed = {}
+
+    def on_token(handle, token):
+        streamed.setdefault(handle.request.rid, []).append(token)
+
+    rng = np.random.default_rng(seed)
+    handles, t = [], 0.0
+    for _ in range(n):
+        t += rng.exponential(1.0 / rate) if rate else 0.0
+        r = wl.sample_request(rng, t)
+        handles.append(session.submit(r, on_token=on_token))
+    session.duration = t
+    t0 = time.perf_counter()
+    stats = session.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wl, session, handles, streamed, stats, wall
+
+
+def phase_serve(torch):
+    import numpy as np
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.serving import HandleState, TorchEngine
+    cfg = get_config("llama3.2-1b")
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, max_len=1024, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name} full width ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params) bf16 "
+          f"init in {time.perf_counter() - t0:.2f} s")
+    kw = dict(rate=20.0, prompts=(64, 128, 256, 384), decodes=(16, 32, 64),
+              max_batch=8, sla=10.0)
+    # warmup: first launches build the Triton kernel and load the libraries
+    _serve(torch, engine, cfg, n=3, seed=99, **kw)
+    K.reset_launch_counts()
+    runs0 = engine.runs_executed
+    san0 = engine.sanitizer_stats()
+    wl, session, handles, streamed, stats, wall = _serve(
+        torch, engine, cfg, n=24, seed=0, **kw)
+    counts = K.launch_counts()
+    states = [h.state for h in handles]
+    check(all(s is HandleState.DONE for s in states),
+          f"serve: not every request finished: {states}")
+    n_tok = 0
+    for h in handles:
+        rid = h.request.rid
+        got = engine.states[rid].generated[:h.request.decode_len]
+        check(streamed.get(rid, [])[:len(got)] == got == h.tokens[:len(got)],
+              f"serve: rid {rid} streamed tokens diverge from tokens()")
+        check(len(got) == h.request.decode_len,
+              f"serve: rid {rid} generated {len(got)} tokens, wanted "
+              f"{h.request.decode_len}")
+        n_tok += len(got)
+    check_launched(counts, "serve")
+    san = engine.sanitizer_stats()
+    s = stats.summary(sla=kw["sla"])
+    lat = [h.latency for h in handles]
+    ttft = [h.ttft for h in handles]
+    runs = engine.runs_executed - runs0
+    print(f"[serve] 24 requests, {n_tok} tokens in {wall:.3f} s wall: "
+          f"{n_tok / wall:.1f} tokens/s, {runs} runs, "
+          f"{runs and n_tok / runs:.2f} tokens/run")
+    print(f"[serve] latency p50 {np.percentile(lat, 50) * 1e3:.1f} ms p99 "
+          f"{np.percentile(lat, 99) * 1e3:.1f} ms; TTFT p50 "
+          f"{np.percentile(ttft, 50) * 1e3:.1f} ms p99 "
+          f"{np.percentile(ttft, 99) * 1e3:.1f} ms (session clock); "
+          f"SLA {kw['sla']} s violation rate "
+          f"{s.get('sla_violation_rate', float('nan')):.3f}; preemptions "
+          f"{session.policy.n_preemptions}")
+    print(f"[serve] sanitizer: syncs {san.host_syncs - san0.host_syncs} for "
+          f"{san.runs - san0.runs} runs, max/run {san.max_syncs_per_run}, "
+          f"new shape keys {san.retraces - san0.retraces}")
+    print(f"[serve] memory_stats {engine.memory_stats()}")
+    print(f"[serve] kernel launches on the main path: {counts}")
+    check(san.max_syncs_per_run <= 1, "serve: more than one sync in a run")
+    profile_window(torch, engine, cfg, kw)
+    del engine, session
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_window(torch, engine, cfg, kw, n=8):
+    """Where the serve phase's time goes: a separate traced serve of ``n``
+    requests (after the measured one, so tracing perturbs none of its
+    numbers). Device busy = the sum of every CUDA kernel's and copy's self
+    time; its share of the traced wall time is a lower bound on the
+    untraced one, since tracing slows the host."""
+    busy, dev, res = traced_device_s(
+        torch, lambda: _serve(torch, engine, cfg, n=n, seed=5, **kw))
+    wall = res[-1]
+    if busy is None:
+        print("[profile] the profiler recorded no device time: busy share "
+              "not measured")
+        return
+    print(f"[profile] traced serve of {n} requests: wall {wall:.3f} s, "
+          f"device busy {busy:.3f} s ({100 * busy / wall:.1f}%), idle "
+          f"{100 * (1 - busy / wall):.1f}%")
+    # one ragged decode launch per layer per decode step: the device ops
+    # issued per decode layer-step (prefill's few included) say how much
+    # launch work the host does for each
+    n_ops = sum(e.count for e in dev)
+    n_dec = sum(e.count for e in dev if "ragged_decode" in e.key)
+    print(f"[profile] {n_ops} device ops (kernels and copies) for {n_dec} "
+          f"decode layer-steps: {n_dec and n_ops / n_dec:.1f} ops per "
+          f"decode layer-step")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
+        t = e.self_device_time_total / 1e6
+        print(f"[profile]   {100 * t / busy:5.1f}% {t * 1e3:9.3f} ms "
+              f"x{e.count:<6d} {e.key[:90]}")
+
+
+def _isolated(engine, wl, prompt, n_tokens):
+    """Generate alone through the same engine (batch of 1, node by node):
+    the ground truth lazy batching must reproduce."""
+    import numpy as np
+    from repro_torch.core.request import SubBatch
+    req = wl.sample_request(np.random.default_rng(123), 0.0)
+    seq, prefix_len, cycle_len = wl.build_sequence(len(prompt), n_tokens)
+    req.sequence, req.prefix_len, req.cycle_len = seq, prefix_len, cycle_len
+    req.prompt_len, req.decode_len = len(prompt), n_tokens
+    engine.register(req, prompt)
+    sb = SubBatch([req])
+    while not req.done:
+        engine.execute("m", sb, req.next_node_id)
+        sb.advance(0.0)
+    return engine.states[req.rid].generated[:n_tokens]
+
+
+def phase_exact(torch):
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.serving import HandleState, TorchEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama3.2-1b")
+    engine = TorchEngine(cfg, max_len=512, dtype=torch.float32, seed=0)
+    K.reset_launch_counts()
+    wl, session, handles, _, _, wall = _serve(
+        torch, engine, cfg, n=4, seed=7, rate=0.0, prompts=(64, 128, 256, 384),
+        decodes=(16,), max_batch=4, sla=10.0)
+    batched_counts = K.launch_counts()
+    check(all(h.state is HandleState.DONE for h in handles),
+          "exact: not every request finished")
+    check_launched(batched_counts, "exact (batched, fused runs)")
+    print(f"[exact] 4 requests batched (f32, TF32 off) in {wall:.3f} s, "
+          f"{engine.runs_executed} runs; kernel launches {batched_counts}")
+    K.reset_launch_counts()
+    refs = {}
+    for h in handles:
+        r = h.request
+        refs[r.rid] = _isolated(engine, wl, engine.states[r.rid].prompt_np,
+                                r.decode_len)
+    isolated_counts = K.launch_counts()
+    check_launched(isolated_counts, "exact (isolated, node by node)")
+    print(f"[exact] isolated references (node by node): kernel launches "
+          f"{isolated_counts}")
+    n_equal, n_ties = 0, 0
+    for h in handles:
+        r = h.request
+        st = engine.states[r.rid]
+        got = st.generated[:r.decode_len]
+        ref = refs[r.rid]
+        if got == ref:
+            n_equal += 1
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
+        seq = [int(t) for t in st.prompt_np] + ref[:j]
+        with torch.no_grad():
+            logits, _ = engine.model.prefill(
+                engine.params, torch.tensor([seq], device="cuda"))
+        top2 = torch.topk(logits[0].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        check(gap < 1e-3, f"exact: rid {r.rid} diverges at token {j} "
+                          f"({got[j]} vs isolated {ref[j]}), top-2 gap "
+                          f"{gap:.3e} is no near-tie")
+        n_ties += 1
+        print(f"[exact] rid {r.rid}: near-tie at token {j} (top-2 gap "
+              f"{gap:.3e}); batched {got[j]} vs isolated {ref[j]}")
+    print(f"[exact] {n_equal}/4 batched generations equal the isolated "
+          f"ones token for token, {n_ties} near-ties")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device — this script runs on the GPU only",
+              file=sys.stderr)
+        return 2
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    smi = smi_line()
+    print(f"[env] {smi}")
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} device "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t_all = time.perf_counter()
+    phase_build()
+    rows = phase_kernels(torch)
+    counts = phase_serve(torch)                   # the main path's launches
+    phase_exact(torch)
+    print(f"[done] build, kernels, serve, exact in "
+          f"{time.perf_counter() - t_all:.1f} s")
+    for name, row in rows.items():
+        row["launches"] = counts[name]
+    print(smi)
+    print(json.dumps({"kernels": [rows[n] for n in REPLACES]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,28 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+Every wrapper counts the kernels it launches in a plain integer attribute
+(``fused_rmsnorm.launches`` ...): a run can show that its main path went
+through the kernels and not through their plain versions.
+"""
+from .flash_attn import flash_attention, flash_attention_plain
+from .ragged_decode_attn import (ragged_decode_attention,
+                                 ragged_decode_attention_plain)
+from .rmsnorm import fused_rmsnorm, fused_rmsnorm_plain
+
+KERNELS = (ragged_decode_attention, fused_rmsnorm, flash_attention)
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+__all__ = [
+    "flash_attention", "flash_attention_plain", "ragged_decode_attention",
+    "ragged_decode_attention_plain", "fused_rmsnorm", "fused_rmsnorm_plain",
+    "KERNELS", "launch_counts", "reset_launch_counts",
+]

@@ -1,0 +1,127 @@
+"""Build the port's CUDA sources into shared libraries and bind them.
+
+Each ``csrc/<name>.cu`` compiles, with ``nvcc`` for ``sm_90a``, into its
+own ``build/repro_torch/lib<name>.so`` under the repository root, at first
+use, and again whenever a source (or a shared ``.cuh`` header) is newer
+than its library. The libraries export plain C functions that take raw
+device pointers, sizes, a dtype code and the CUDA stream; they are loaded
+with ``ctypes``. Nothing here includes PyTorch's C++ headers, so a build
+takes seconds, not minutes.
+
+``build_all()`` starts one ``nvcc`` per stale source, all at once, and
+waits for every one of them.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C signatures of the exported launchers: (symbol, argtypes)
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "ragged_decode_attn": (
+        "repro_ragged_decode_attention",
+        # q, k, v, lengths, slots, out, B, H, KV, D, N, T, block_t, dtype,
+        # stream
+        [_VP] * 6 + [_I] * 8 + [_VP]),
+    "flash_attn": (
+        "repro_flash_attention",
+        # q, k, v, o, B, S, T, H, KV, D, q_offset, window, dtype, stream
+        [_VP] * 4 + [_I] * 9 + [_VP]),
+}
+
+_LOADED: Dict[str, object] = {}
+
+
+def sources() -> Sequence[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the port's "
+            "CUDA kernels are built from source at first use")
+    return str(path)
+
+
+def _stale(name: str) -> bool:
+    lib = library_path(name)
+    if not lib.exists():
+        return True
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return max(p.stat().st_mtime for p in deps) > lib.stat().st_mtime
+
+
+def build_all(names: Sequence[str] = ()) -> Dict[str, str]:
+    """Compile every stale source (or ``names``) in parallel; returns
+    ``{name: compiler log}`` for the ones built. Raises on a failure."""
+    todo = [n for n in (names or sources()) if _stale(n)]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    exe = nvcc()
+    procs = {}
+    for name in todo:
+        tmp = library_path(name).with_suffix(f".so.{os.getpid()}.tmp")
+        cmd = [exe, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def function(name: str):
+    """The bound C launcher of ``csrc/<name>.cu``, building it first when
+    its library is missing or stale."""
+    fn = _LOADED.get(name)
+    if fn is None:
+        if _stale(name):
+            build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LOADED[name] = fn
+    return fn
+
+
+def dtype_code(dtype) -> int:
+    """0 for float32, 1 for bfloat16 (the csrc/common.cuh DType codes)."""
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    return codes[dtype]
+

@@ -1,0 +1,103 @@
+"""Flash prefill attention: the CUDA kernel's wrapper and plain version.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attn.py``
+(``flash_attention``): causal attention with a query offset and an
+optional sliding window, for the prefill ``P<i>`` nodes. Source, bound and
+design notes: ``csrc/flash_attn.cu``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+
+def pick_chunk(s: int, target: int = 2048) -> int:
+    """Largest divisor of ``s`` that is <= target."""
+    c = min(s, target)
+    while s % c:
+        c -= 1
+    return c
+
+
+def flash_attention_plain(q, k, v, *, window: Optional[int] = None,
+                          q_offset: int = 0, chunk: int = 2048):
+    """The JAX model's ``chunked_causal_attention`` in plain PyTorch: one
+    pass per query chunk over the keys that chunk can see, with float32
+    scores, masked softmax and float32 P·V, cast to q.dtype at the end
+    (in float32 it is the JAX function term for term).
+
+    q: (B, S, H, D); k, v: (B, T, KV, D) with KV dividing H: query head h
+    reads KV head h // (H // KV), so the heads are never repeated. Query i
+    sits at key position ``q_offset + i``. Returns (B, S, H, D)."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    chunk = pick_chunk(S, chunk)
+    qg = q.to(torch.float32).reshape(B, S, KV, G, D)
+    outs = []
+    for i in range(S // chunk):
+        q_i = qg[:, i * chunk:(i + 1) * chunk]
+        hi = min(q_offset + (i + 1) * chunk, T)    # exclusive key bound
+        lo = 0 if window is None else max(0, hi - chunk - window)
+        k_i = k[:, lo:hi].to(torch.float32)
+        v_i = v[:, lo:hi].to(torch.float32)
+        scores = torch.einsum("bskgd,btkd->bkgst", q_i, k_i) * scale
+        qpos = q_offset + i * chunk + torch.arange(chunk, device=q.device)
+        kpos = lo + torch.arange(hi - lo, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        probs = torch.softmax(scores, dim=-1)
+        outs.append(torch.einsum("bkgst,btkd->bskgd", probs, v_i))
+    return torch.cat(outs, dim=1).reshape(B, S, H, D).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, window: Optional[int] = None,
+                    q_offset: int = 0):
+    """q: (B, S, H, D); k, v: (B, T, KV, D), KV dividing H. Causal with
+    ``q_offset`` (query i attends keys <= q_offset + i); optional sliding
+    ``window``. Returns (B, S, H, D) in q.dtype.
+
+    A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor
+    launches the kernel on the current stream or raises."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, window=window,
+                                     q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    B, S, H, D = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[3] != D or H % k.shape[2] != 0:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
+                         f"k {tuple(k.shape)} / v {tuple(v.shape)}")
+    if D not in (32, 64, 128):
+        raise ValueError(f"flash_attention: head_dim {D} not in (32, 64, 128)")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k, v on different devices")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k, v dtypes differ")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k, v must be contiguous")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window must be > 0, got {window}")
+    T, KV = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    fn = _build.function("flash_attn")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             B, S, T, H, KV, D, q_offset, -1 if window is None else window,
+             _build.dtype_code(q.dtype),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention: CUDA error {err} at launch "
+                           f"(B={B}, S={S}, T={T}, H={H}, KV={KV}, D={D})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

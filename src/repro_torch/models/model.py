@@ -1,0 +1,248 @@
+"""Dense decoder model of the port (the dense slice of ``repro.models.model``).
+
+``Model`` consumes a ``ModelConfig`` and provides:
+
+  * ``init(generator)``   — parameter dict on the generator's device, with
+                             the JAX ``Model.init`` layout, shapes and scales
+                             (blocks stacked on a leading layer axis),
+  * ``prefill(params, tokens)`` — full-context forward, returns
+                             (last-token logits, decode cache),
+  * ``decode_step(params, cache, token, pos)`` — ONE token with ragged
+                             per-row positions (lazily merged batches),
+  * ``init_cache(batch, max_len)``,
+  * per-block and per-span application for the LazyBatching engine.
+
+The JAX package scans homogeneous layer stacks with ``lax.scan``; here a
+span is a Python loop over per-layer parameter views, and the flat slot
+arena is updated in place. Other families (MoE, MLA, SSM, hybrid) and the
+``RuntimeFlags`` variants of the JAX model are not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import layers as L
+
+
+@dataclass(frozen=True)
+class RuntimeFlags:
+    dtype: torch.dtype = torch.bfloat16
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _gather_rows(tree, slots):
+    """Select per-batch rows out of a slot arena (no-op without slots).
+    Slot indices are clamped in range: batch-bucket padding rows carry an
+    out-of-range slot, and the clamped gather reads some live row whose
+    output is discarded downstream."""
+    if slots is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _gather_rows(v, slots) for k, v in tree.items()}
+    return tree[torch.clamp(slots, max=tree.shape[0] - 1)]
+
+
+def _scatter_rows(arena, rows, slots, live: Optional[int] = None):
+    """Write updated batch rows back into their arena slots, in place.
+    Only the first ``live`` rows are written: padding rows (the tail) must
+    never corrupt a live slot, and their out-of-range slot would make
+    ``index_put_`` raise."""
+    if slots is None:
+        return rows
+    if isinstance(arena, dict):
+        return {k: _scatter_rows(arena[k], rows[k], slots, live)
+                for k in arena}
+    n = rows.shape[0] if live is None else live
+    arena[slots[:n]] = rows[:n].to(arena.dtype)
+    return arena
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, flags: RuntimeFlags = RuntimeFlags()):
+        if (cfg.family == "ssm" or cfg.hybrid is not None
+                or cfg.moe is not None or cfg.attention != "gqa"):
+            raise NotImplementedError(
+                f"{cfg.name}: the PyTorch port serves dense GQA models only "
+                f"so far (MoE, MLA, SSM and hybrid stacks come in later "
+                f"slices)")
+        self.cfg = cfg
+        self.flags = flags
+
+    # ------------------------------------------------------------------
+    # Parameters
+    # ------------------------------------------------------------------
+    def _init_block(self, gen: torch.Generator) -> dict:
+        cfg, dtype, dev = self.cfg, self.flags.dtype, gen.device
+        d = cfg.d_model
+        return {"ln1": L.init_rmsnorm(d, dev),
+                "attn": L.init_attention(gen, cfg, dtype, dev),
+                "ln2": L.init_rmsnorm(d, dev),
+                "mlp": L.init_mlp(gen, d, cfg.d_ff, dtype, dev)}
+
+    def init(self, gen: torch.Generator) -> dict:
+        """Seeded parameters on ``gen.device``: the shapes and scales of the
+        JAX ``Model.init`` (normal draws in float32 cast to the model dtype,
+        norm scales float32 ones). The numbers differ from JAX's: a torch
+        generator is not a JAX key — load JAX weights through
+        :func:`repro_torch.models.convert.params_from_jax` to match them."""
+        cfg, dtype = self.cfg, self.flags.dtype
+        d = cfg.d_model
+        params = {
+            "embed": {"tok": L._normal(gen, (cfg.vocab_size, d),
+                                       1.0 / math.sqrt(d), dtype, gen.device)},
+            "final_norm": L.init_rmsnorm(d, gen.device),
+        }
+        if not cfg.tie_embeddings:
+            params["unembed"] = L._normal(gen, (d, cfg.vocab_size),
+                                          1.0 / math.sqrt(d), dtype,
+                                          gen.device)
+        params["blocks"] = _stack([self._init_block(gen)
+                                   for _ in range(cfg.num_layers)])
+        return params
+
+    def layer_params(self, params: dict) -> List[dict]:
+        """Per-layer views into the stacked ``params["blocks"]``."""
+        return [_index(params["blocks"], i)
+                for i in range(self.cfg.num_layers)]
+
+    # ------------------------------------------------------------------
+    # Single-block application
+    # ------------------------------------------------------------------
+    def _rope(self, positions):
+        return L.rope_tables(positions, self.cfg.head_dim,
+                             self.cfg.rope_theta)
+
+    def apply_block_dense(self, bp: dict, x, *, return_cache: bool,
+                          rope=None):
+        """One prefill block; ``rope``: the ``layers.rope_tables`` of the
+        positions, by default those of 0..S-1."""
+        cfg = self.cfg
+        h, kv = L.apply_attention_dense(
+            bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg,
+            rope=rope)
+        x = x + h
+        x = x + L.apply_mlp(bp["mlp"], L.rms_norm(x, bp["ln2"], cfg.norm_eps))
+        return x, ({"k": kv[0], "v": kv[1]} if return_cache else None)
+
+    def apply_block_decode(self, bp: dict, x, cache, pos, *, slots=None,
+                           ctx=None, live=None, rope=None, lengths=None):
+        """One decode step for one block; the cache (a slot arena with
+        ``slots``) is updated in place. ``ctx`` bounds plain-version reads
+        to a context bucket, ``live`` counts the real (non-padding) rows,
+        and ``rope``/``lengths`` carry the step's per-position tensors — see
+        ``layers.apply_attention_decode``."""
+        cfg = self.cfg
+        h, cache = L.apply_attention_decode(
+            bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cache, pos,
+            cfg, slots=slots, ctx=ctx, live=live, rope=rope, lengths=lengths)
+        x = x + h
+        x = x + L.apply_mlp(bp["mlp"], L.rms_norm(x, bp["ln2"], cfg.norm_eps))
+        return x, cache
+
+    # ------------------------------------------------------------------
+    # Span application (run-fused serving dispatch)
+    # ------------------------------------------------------------------
+    def apply_span_decode(self, layer_bps: Sequence[dict], x, flat_arena,
+                          pos, *, offs: Sequence[int], slots, ctx=None,
+                          live=None):
+        """One decode step through a span of layers. ``flat_arena`` folds
+        the layer axis into the slot axis — leaves are
+        ``(span_len * n_slots, ...)`` and layer k's rows live at
+        ``slots + offs[k]`` ((B,) int32) — and is updated in place. The
+        step's RoPE tables and lengths are computed once for the span."""
+        rope = self._rope(pos)
+        lengths = (pos + 1).to(torch.int32)
+        for bp, off in zip(layer_bps, offs):
+            x, _ = self.apply_block_decode(bp, x, flat_arena, pos,
+                                           slots=slots + off, ctx=ctx,
+                                           live=live, rope=rope,
+                                           lengths=lengths)
+        return x, flat_arena
+
+    def apply_span_prefill(self, layer_bps: Sequence[dict], flat_arena, x, *,
+                           offs: Sequence[int], write=None):
+        """Full-prompt prefill (positions 0..S-1) through a span of layers
+        (flat arena layout as in :meth:`apply_span_decode`).
+        ``write(flat_arena, cache, off)`` stores each layer's prefill cache
+        into its members' arena rows."""
+        rope = self._rope(torch.arange(x.shape[1], device=x.device)[None, :])
+        for bp, off in zip(layer_bps, offs):
+            x, cache = self.apply_block_dense(bp, x, return_cache=True,
+                                              rope=rope)
+            if write is not None:
+                write(flat_arena, cache, off)
+        return x, flat_arena
+
+    # ------------------------------------------------------------------
+    # Embedding / head
+    # ------------------------------------------------------------------
+    def embed(self, params, tokens):
+        return params["embed"]["tok"][tokens].to(self.flags.dtype)
+
+    def unembed(self, params, x):
+        """x: (..., d) -> logits (..., V)."""
+        if self.cfg.tie_embeddings:
+            return x @ params["embed"]["tok"].T
+        return x @ params["unembed"]
+
+    # ------------------------------------------------------------------
+    # Public steps
+    # ------------------------------------------------------------------
+    def prefill(self, params, tokens):
+        """Returns (last-token logits (B, V), cache) with the cache in the
+        JAX layout ``({"k": (L, B, S, KV, hd), "v": ...}, [])``."""
+        cfg = self.cfg
+        x = self.embed(params, tokens)
+        rope = self._rope(torch.arange(x.shape[1], device=x.device)[None, :])
+        ks, vs = [], []
+        for bp in self.layer_params(params):
+            x, c = self.apply_block_dense(bp, x, return_cache=True,
+                                          rope=rope)
+            ks.append(c["k"])
+            vs.append(c["v"])
+        x = L.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+        return self.unembed(params, x), ({"k": torch.stack(ks),
+                                          "v": torch.stack(vs)}, [])
+
+    def decode_step(self, params, cache, token, pos):
+        """token: (B,) int; pos: (B,) int ragged positions. Returns
+        (logits (B, V), cache) — the cache is updated in place."""
+        cfg = self.cfg
+        x = self.embed(params, token)
+        group, _tail = cache
+        rope = self._rope(pos)
+        lengths = (pos + 1).to(torch.int32)
+        for i, bp in enumerate(self.layer_params(params)):
+            x, _ = self.apply_block_decode(bp, x, _index(group, i), pos,
+                                           rope=rope, lengths=lengths)
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self.unembed(params, x), cache
+
+    # ------------------------------------------------------------------
+    # Cache construction
+    # ------------------------------------------------------------------
+    def _init_layer_cache(self, batch: int, max_len: int, device=None):
+        return L.init_attention_cache(self.cfg, batch, max_len,
+                                      self.flags.dtype, device=device)
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        one = self._init_layer_cache(batch, max_len, device)
+        n = self.cfg.num_layers
+        return ({k: torch.zeros((n,) + v.shape, dtype=v.dtype,
+                                device=v.device) for k, v in one.items()}, [])

@@ -1,0 +1,257 @@
+"""The port's kernels against the JAX package's Pallas kernels and oracles.
+
+On the CPU each wrapper of ``repro_torch.kernels`` takes its plain PyTorch
+version; that version is held against the Pallas kernel in interpret mode
+(as ``tests/test_kernels.py`` runs it) and against ``repro.kernels.ref``,
+over the same shape and dtype sweeps. Inputs are made once with numpy from
+a fixed seed and handed to both frameworks with identical values (bf16
+inputs are rounded once, on the JAX side, and copied over).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops, ref  # noqa: E402
+from repro.models.layers import chunked_causal_attention as jax_chunked  # noqa: E402
+from repro.models.layers import rms_norm as jax_rms_norm  # noqa: E402
+import repro_torch.kernels as K  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+
+_PAD_SLOT = 2 ** 30
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == jnp.bfloat16 \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+def _pair(a: np.ndarray, dtype=jnp.float32):
+    """(jax array, torch tensor) holding the same values in ``dtype``."""
+    j = jnp.asarray(a, dtype)
+    t = torch.from_numpy(np.array(j.astype(jnp.float32)))
+    return j, t.to(torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# ragged decode attention
+# ---------------------------------------------------------------------------
+
+DECODE_SHAPES = [
+    (4, 8, 8, 64, 256),      # MHA
+    (4, 8, 2, 64, 256),      # GQA 4:1
+    (2, 16, 1, 128, 512),    # MQA, large D
+    (3, 6, 3, 32, 128),      # odd sizes
+]
+
+
+def _decode_inputs(B, H, KV, D, T, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    q = _pair(rng.standard_normal((B, H, D)), dtype)
+    k = _pair(rng.standard_normal((B, T, KV, D)), dtype)
+    v = _pair(rng.standard_normal((B, T, KV, D)), dtype)
+    # ragged lengths incl. edge cases: 1, exactly one block, full T
+    lens = np.array([1, T // 4 + 3, T // 2, T][:B] + [T // 3] * max(0, B - 4),
+                    np.int32)
+    return q, k, v, (jnp.asarray(lens), torch.from_numpy(lens))
+
+
+@pytest.mark.parametrize("B,H,KV,D,T", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_ragged_decode_plain_matches_pallas_and_ref(B, H, KV, D, T, dtype):
+    (qj, qt), (kj, kt), (vj, vt), (lj, lt) = _decode_inputs(B, H, KV, D, T,
+                                                            dtype)
+    pallas = ops.ragged_decode_attention(qj, kj, vj, lj, block_t=64,
+                                         interpret=True)
+    oracle = ref.ragged_decode_attention_ref(qj, kj, vj, lj)
+    got = K.ragged_decode_attention(qt, kt, vt, lt)
+    assert got.dtype == qt.dtype and got.shape == (B, H, D)
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(oracle), **_tol(dtype))
+
+
+def test_ragged_decode_ctx_bound_invariance():
+    """The static ``ctx`` bound changes what the plain version reads, never
+    its result, as long as it covers every row's length."""
+    B, H, KV, D, T = 2, 4, 2, 64, 256
+    (_, q), (_, k), (_, v), _ = _decode_inputs(B, H, KV, D, T, jnp.float32,
+                                               seed=1)
+    lengths = torch.tensor([100, 120], dtype=torch.int32)
+    slots = torch.tensor([1, 0], dtype=torch.int32)
+    outs = [K.ragged_decode_attention(q, k, v, lengths, slots=slots, ctx=c)
+            for c in (None, 128, 256, 512)]
+    for o in outs[1:]:
+        np.testing.assert_array_equal(_np(outs[0]), _np(o))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_ragged_decode_slot_indexed_arena_read(dtype):
+    """Row i reads arena row slots[i]; a padding row at _PAD_SLOT reads the
+    clamped last row, exactly as the JAX engine's clamped slot vector
+    drives the Pallas kernel (test_engine_arena.py's slot indirection)."""
+    rng = np.random.default_rng(0)
+    B, N, T, H, KV, D = 4, 6, 32, 4, 2, 16
+    qj, qt = _pair(rng.standard_normal((B, H, D)), dtype)
+    kj, kt = _pair(rng.standard_normal((N, T, KV, D)), dtype)
+    vj, vt = _pair(rng.standard_normal((N, T, KV, D)), dtype)
+    lens = np.array([5, 17, 32, 1], np.int32)
+    slots = np.array([4, 0, 2, _PAD_SLOT], np.int32)
+    gslots = np.minimum(slots, N - 1)
+    pallas = ops.ragged_decode_attention(qj, kj, vj, jnp.asarray(lens),
+                                         slots=jnp.asarray(gslots),
+                                         block_t=16, interpret=True)
+    got = K.ragged_decode_attention(qt, kt, vt, torch.from_numpy(lens),
+                                    slots=torch.from_numpy(slots))
+    gathered = K.ragged_decode_attention(
+        qt, kt[torch.from_numpy(gslots).long()],
+        vt[torch.from_numpy(gslots).long()], torch.from_numpy(lens))
+    np.testing.assert_array_equal(_np(got), _np(gathered))
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
+
+
+# ---------------------------------------------------------------------------
+# flash prefill attention
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    (2, 256, 4, 64, None, 0),
+    (2, 256, 4, 64, 64, 0),           # sliding window
+    (1, 128, 2, 32, None, 128),       # catch-up chunk: q_offset > 0, T > S
+    (2, 128, 8, 128, 96, 64),         # window + offset
+]
+
+
+@pytest.mark.parametrize("B,S,H,D,window,q_offset", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_flash_plain_matches_pallas_and_ref(B, S, H, D, window, q_offset,
+                                            dtype):
+    rng = np.random.default_rng(2)
+    T = q_offset + S
+    qj, qt = _pair(rng.standard_normal((B, S, H, D)), dtype)
+    kj, kt = _pair(rng.standard_normal((B, T, H, D)), dtype)
+    vj, vt = _pair(rng.standard_normal((B, T, H, D)), dtype)
+    pallas = ops.flash_attention(qj, kj, vj, window=window, q_offset=q_offset,
+                                 block_q=64, block_k=64, interpret=True)
+    oracle = ref.flash_attention_ref(qj, kj, vj, window=window,
+                                     q_offset=q_offset)
+    got = K.flash_attention(qt, kt, vt, window=window, q_offset=q_offset)
+    assert got.dtype == qt.dtype and got.shape == (B, S, H, D)
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(oracle), **_tol(dtype))
+
+
+@pytest.mark.parametrize("KV", [1, 2])
+def test_flash_reads_gqa_heads_without_repeat(KV):
+    """The port's flash takes KV heads dividing H (query head h reads KV
+    head h // (H // KV)); it equals the JAX oracle on repeated heads."""
+    rng = np.random.default_rng(4)
+    B, S, H, D = 2, 64, 4, 32
+    qj, qt = _pair(rng.standard_normal((B, S, H, D)))
+    kj, kt = _pair(rng.standard_normal((B, S, KV, D)))
+    vj, vt = _pair(rng.standard_normal((B, S, KV, D)))
+    oracle = ref.flash_attention_ref(qj, jnp.repeat(kj, H // KV, axis=2),
+                                     jnp.repeat(vj, H // KV, axis=2))
+    got = K.flash_attention(qt, kt, vt)
+    np.testing.assert_allclose(_np(got), _np(oracle), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("KV", [1, 2])
+def test_flash_plain_chunks_gqa_like_jax_chunked_on_repeated_heads(KV):
+    """Chunked, with KV heads read by h // G: the JAX model's
+    ``chunked_causal_attention`` on heads repeated ``H // KV`` times."""
+    rng = np.random.default_rng(5)
+    B, S, H, D = 2, 96, 4, 32
+    qj, qt = _pair(rng.standard_normal((B, S, H, D)))
+    kj, kt = _pair(rng.standard_normal((B, S, KV, D)))
+    vj, vt = _pair(rng.standard_normal((B, S, KV, D)))
+    got = K.flash_attention_plain(qt, kt, vt, chunk=32)
+    want = jax_chunked(qj, jnp.repeat(kj, H // KV, axis=2),
+                       jnp.repeat(vj, H // KV, axis=2), chunk=32)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_matches_model_chunked_attention():
+    """The plain version is the JAX model's chunked attention (the serving
+    path): chunk by chunk it equals ``chunked_causal_attention``, with and
+    without a window, and the chunk size changes nothing."""
+    rng = np.random.default_rng(3)
+    B, S, H, D = 2, 256, 4, 64
+    qj, qt = _pair(rng.standard_normal((B, S, H, D)))
+    kj, kt = _pair(rng.standard_normal((B, S, H, D)))
+    vj, vt = _pair(rng.standard_normal((B, S, H, D)))
+    for window in (None, 48):
+        a = K.flash_attention(qt, kt, vt, window=window)
+        b = K.flash_attention_plain(qt, kt, vt, window=window, chunk=128)
+        c = jax_chunked(qj, kj, vj, window=window, chunk=128)
+        np.testing.assert_allclose(_np(a), _np(b), rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(_np(b), _np(c), rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# fused rmsnorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(8, 128), (2, 64, 256), (3, 5, 512)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_fused_rmsnorm_plain_matches_pallas_and_ref(shape, dtype):
+    rng = np.random.default_rng(4)
+    xj, xt = _pair(rng.standard_normal(shape) * 3.0, dtype)
+    sj, st = _pair(rng.standard_normal((shape[-1],)))
+    pallas = ops.fused_rmsnorm(xj, sj, interpret=True)
+    oracle = ref.fused_rmsnorm_ref(xj, sj)
+    got = K.fused_rmsnorm(xt, st)
+    assert got.dtype == xt.dtype and got.shape == shape
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(oracle), **_tol(dtype))
+
+
+def test_fused_rmsnorm_matches_layer():
+    rng = np.random.default_rng(6)
+    xj, xt = _pair(rng.standard_normal((4, 16, 128)))
+    p_j = {"scale": jnp.full((128,), 1.5, jnp.float32)}
+    p_t = {"scale": torch.full((128,), 1.5, dtype=torch.float32)}
+    a = K.fused_rmsnorm(xt, p_t["scale"], eps=1e-5)
+    b = TL.rms_norm(xt, p_t, 1e-5)
+    c = jax_rms_norm(xj, p_j, 1e-5)
+    np.testing.assert_array_equal(_np(a), _np(b))
+    np.testing.assert_allclose(_np(b), _np(c), rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: CPU dispatch, launch counters, build plumbing
+# ---------------------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
+    K.reset_launch_counts()
+    x = torch.randn(4, 64)
+    K.fused_rmsnorm(x, torch.ones(64))
+    q = torch.randn(2, 4, 32)
+    kv = torch.randn(2, 16, 2, 32)
+    K.ragged_decode_attention(q, kv, kv, torch.tensor([3, 16],
+                                                      dtype=torch.int32))
+    K.flash_attention(torch.randn(1, 8, 4, 32), torch.randn(1, 8, 2, 32),
+                      torch.randn(1, 8, 2, 32))
+    assert K.launch_counts() == {"ragged_decode_attention": 0,
+                                 "fused_rmsnorm": 0, "flash_attention": 0}
+
+
+def test_build_sources_and_dtype_codes():
+    assert list(_build.sources()) == ["flash_attn", "ragged_decode_attn"]
+    assert set(_build.SIGNATURES) == set(_build.sources())
+    for name in _build.sources():
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR and path.name == f"lib{name}.so"
+    assert _build.dtype_code(torch.float32) == 0
+    assert _build.dtype_code(torch.bfloat16) == 1
+    with pytest.raises(TypeError):
+        _build.dtype_code(torch.float16)

@@ -1,0 +1,198 @@
+"""The port's hand-written kernels on the card, against their plain versions.
+
+Every test here is marked ``cuda`` and skips where no CUDA device is
+present. The file imports no JAX (the machine with the card has none), so
+it runs there as it stands:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+It sweeps the shapes of ``tests/test_kernels.py`` — MHA, GQA, MQA, head
+dims 32/64/128, ragged lengths, padding rows at an out-of-range slot,
+sliding windows, query offsets and tails that are no multiple of a tile —
+in float32 (tolerance 2e-5) and bfloat16 (2e-2).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch.kernels as K  # noqa: E402
+
+_PAD_SLOT = 2 ** 30
+
+DECODE_SHAPES = [
+    (4, 8, 8, 64, 256),      # MHA
+    (4, 8, 2, 64, 256),      # GQA 4:1
+    (2, 16, 1, 128, 512),    # MQA, large D
+    (3, 6, 3, 32, 128),      # odd sizes
+    (8, 32, 8, 64, 1024),    # llama3.2-1b decode
+]
+
+FLASH_CASES = [
+    (2, 256, 4, 64, None, 0),
+    (2, 256, 4, 64, 64, 0),           # sliding window
+    (1, 128, 2, 32, None, 128),       # catch-up chunk: q_offset > 0, T > S
+    (2, 128, 8, 128, 96, 64),         # window + offset
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run "
+                    "only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,D,T", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_decode_kernel_on_card(cuda, B, H, KV, D, T, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    N = B + 2
+    q = torch.randn((B, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((N, T, KV, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((N, T, KV, D), generator=g, device=cuda).to(dtype)
+    lens = [1, T // 4 + 3, T // 2, T][:B] + [T // 3] * max(0, B - 4)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    slots = torch.tensor(list(range(1, B)) + [_PAD_SLOT], dtype=torch.int32,
+                         device=cuda)
+    n0 = K.ragged_decode_attention.launches
+    got = K.ragged_decode_attention(q, k, v, lengths, slots=slots)
+    want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
+    assert K.ragged_decode_attention.launches == n0 + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_ragged_decode_kernel_blocksize_invariance(cuda):
+    """The kernel's T tile changes the order of its online softmax, not
+    its result."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    B, H, KV, D, T = 2, 4, 2, 64, 256
+    q = torch.randn((B, H, D), generator=g, device=cuda)
+    k = torch.randn((B, T, KV, D), generator=g, device=cuda)
+    v = torch.randn((B, T, KV, D), generator=g, device=cuda)
+    lengths = torch.tensor([100, 256], dtype=torch.int32, device=cuda)
+    outs = [K.ragged_decode_attention(q, k, v, lengths, block_t=bt)
+            for bt in (32, 64, 128, 256)]
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D,window,q_offset", FLASH_CASES)
+@pytest.mark.parametrize("KV_div", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_on_card(cuda, B, S, H, D, window, q_offset, KV_div,
+                              dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    T = q_offset + S - 3                  # ragged tails on both axes
+    S = S - 5
+    KV = H // KV_div
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
+    got = K.flash_attention(q, k, v, window=window, q_offset=q_offset)
+    want = K.flash_attention_plain(q, k, v, window=window, q_offset=q_offset)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128), (2, 64, 256), (3, 5, 512),
+                                   (8, 2048), (7, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_on_card(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.randn(shape, generator=g, device=cuda) * 3.0).to(dtype)
+    scale = torch.randn((shape[-1],), generator=g, device=cuda)
+    got = K.fused_rmsnorm(x, scale)
+    want = K.fused_rmsnorm_plain(x, scale)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_engine_on_card_matches_cpu_engine(cuda):
+    """A tiny llama through TorchEngine on the card (all three kernels)
+    generates the CPU engine's tokens (the kernels' plain versions), in
+    float32 with TF32 off, under ServingSession + LazyBatching."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policies import LazyBatching
+    from repro_torch.core.slack import SlackPredictor
+    from repro_torch.serving import (H100_SXM, LengthDist, NPUPerfModel,
+                                     ServingSession, TorchEngine,
+                                     from_model_config)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              d_model=64, d_ff=128, vocab_size=128)
+    wl = from_model_config(cfg, prompt_dist=LengthDist((5, 9, 20), (.4, .3, .3)),
+                           decode_dist=LengthDist((2, 4, 6), (.4, .3, .3)))
+    params = None
+    tokens = {}
+    K.reset_launch_counts()
+    for device in ("cpu", cuda):
+        engine = TorchEngine(cfg, max_len=64, device=device, params=params)
+        params = engine.params
+        pred = SlackPredictor.build([wl], NPUPerfModel(H100_SXM), 60.0)
+        session = ServingSession(LazyBatching(pred, max_batch=3), engine,
+                                 seed=0)
+        rng = np.random.default_rng(0)
+        handles, t = [], 0.0
+        for _ in range(6):
+            t += rng.exponential(0.05)
+            handles.append(session.submit(wl.sample_request(rng, t)))
+        session.drain()
+        tokens[str(device)] = [engine.states[h.request.rid].generated
+                               for h in handles]
+    assert tokens["cpu"] == tokens["cuda"]
+    assert all(n > 0 for n in K.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_fused_runs_make_no_hidden_host_sync(cuda):
+    """Inside a committed run nothing waits for the card: with torch's sync
+    debug mode set to raise, warm fused runs (prefill + decode cycles,
+    padded batch) complete; only the run boundary's explicit device
+    synchronize — which that mode does not flag — waits."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.request import SubBatch
+    from repro_torch.serving import LengthDist, TorchEngine, from_model_config
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              d_model=64, d_ff=128, vocab_size=128)
+    wl = from_model_config(cfg, prompt_dist=LengthDist((9,), (1.0,)),
+                           decode_dist=LengthDist((4,), (1.0,)))
+    engine = TorchEngine(cfg, max_len=64, device=cuda, n_slots=8)
+    rng = np.random.default_rng(0)
+
+    def schedule():
+        reqs = []
+        for _ in range(3):                       # Bp = 4: one padding row
+            r = wl.sample_request(rng, 0.0)
+            engine.register(r, rng.integers(2, cfg.vocab_size, size=9))
+            reqs.append(r)
+        sb = SubBatch(reqs)
+        while sb.size:
+            run = sb.run_nodes(stop_after={"head"})
+            assert len(run) > 1
+            engine.execute_run("m", sb, run)
+            sb.advance_n(len(run), 0.0)
+        return [engine.states[r.rid].generated for r in reqs]
+
+    schedule()                                    # warmup: build, allocate
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = schedule()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(len(g) == 4 for g in got)
