@@ -9,23 +9,39 @@ Phases, always all of them, in order:
            (one process per source, all started together); print seconds
            and what ptxas reports per kernel.
   kernels  run each hand-written kernel against its plain PyTorch version on
-           the card at the serving path's shapes, in float32 (tolerance
-           2e-5) and bfloat16 (2e-2); time kernel, plain version and one
-           PyTorch library call (the yardstick, never used by the port) as
-           medians over CUDA events with the L2 flushed before each call,
-           and compute each call's roofline bound at 3.35 TB/s and the
-           card's peak rate for the input type.
+           the card at the serving paths' shapes (RMSNorm at llama's width
+           2048 and mamba's 2560 and 5120), in float32 (tolerance 2e-5;
+           the SSD scan 1e-4) and bfloat16 (2e-2; the SSD scan 5e-2 on y,
+           1e-4 on its float32 final state, and in both types every head's
+           ||y - y_ref|| / ||y_ref|| below 1e-2); time kernel, plain version
+           and one PyTorch library call where one computes the same
+           function (the yardstick, never used by the port) as medians over
+           CUDA events with the L2 flushed before each call, and compute
+           each call's roofline bound at 3.35 TB/s and the card's peak rate
+           for the input type.
   serve    full-width llama3.2-1b (16 layers, d_model 2048, random weights
            from a seed) in bfloat16: TorchEngine + ServingSession +
-           LazyBatching(max_batch=8) serve 24 Poisson-arriving requests;
-           checks every handle DONE, streamed tokens == engine tokens, and
-           that every kernel's launch counter moved during this phase.
+           LazyBatching(max_batch=8) serve 24 Poisson-arriving requests
+           after a warmup over every prompt length and batch bucket (the
+           dispatch shape keys first seen in the measured serve are
+           printed); checks every handle DONE, streamed tokens == engine
+           tokens, and
+           that every kernel of the llama path (ragged decode, RMSNorm,
+           flash prefill) launched during this phase.
   exact    full width in float32 with TF32 off: four requests served
            batched (fused runs), then each alone through the same engine
            (node by node); tokens must be equal, apart from near-ties
            (reference top-2 logit gap below 1e-3), which are printed. The
            launch counters are reset before and read after each of the two
-           paths: every kernel must have run on both.
+           paths: every kernel of the path must have run on both.
+  mamba serve  full-width mamba2-2.7b (64 layers, d_model 2560, 80 SSD
+           heads of 64, state 128) in bfloat16, as the serve phase: 24
+           requests at 20/s with prompts of 65, 129, 257 and 385 tokens
+           (prefill lengths 64 … 384, SSD chunks 64, 128, 256, 128), after
+           a warmup over every prompt length; the SSD scan and RMSNorm must
+           launch.
+  mamba exact  as exact, on full-width mamba2-2.7b in float32, with prompts
+           of 34, 97, 257 and 385 tokens: SSD chunks 1, 32, 256 and 128.
 
 Any failure exits non-zero. The last lines are the card's name and power
 limit, one JSON line of per-kernel numbers, and ``{"ok": true, ...}``.
@@ -47,17 +63,24 @@ HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,             # dense bf16 tensor cores
               "float32": 67e12}               # f32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}    # y; its f32 states: 1e-4
+SSD_HEAD_REL_TOL = 1e-2          # per head: ||y - y_ref|| / ||y_ref||
 REPLACES = {
     "ragged_decode_attention": "src/repro/kernels/ragged_decode_attn.py:92",
     "fused_rmsnorm": "src/repro/kernels/rmsnorm.py:28",
     "flash_attention": "src/repro/kernels/flash_attn.py:72",
+    "ssd_chunked": "src/repro/kernels/ssd_chunk.py:64",
 }
 SOURCES = {
     "ragged_decode_attention": ("cuda",
                                 "src/repro_torch/csrc/ragged_decode_attn.cu"),
     "fused_rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attn.cu"),
+    "ssd_chunked": ("cuda", "src/repro_torch/csrc/ssd_chunk.cu"),
 }
+# the kernels each serving path must launch
+LLAMA_KERNELS = ("ragged_decode_attention", "fused_rmsnorm", "flash_attention")
+MAMBA_KERNELS = ("ssd_chunked", "fused_rmsnorm")
 
 
 class SmokeFailure(RuntimeError):
@@ -80,9 +103,11 @@ def smi_line() -> str:
 # timing and bounds
 # ---------------------------------------------------------------------------
 
-def cuda_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
+def cuda_ms(torch, fn, reps: int = 25, warmup: int = 3):
     """Median time of ``fn`` in ms over CUDA events, L2 flushed before each
-    call (the serving path meets its operands cold)."""
+    call (the serving path meets its operands cold); None without ``fn``."""
+    if fn is None:
+        return None
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -124,7 +149,9 @@ def traced_device_s(torch, fn):
 def device_ms(torch, fn, reps: int = 10):
     """Device time per call in ms from the profiler over ``reps`` calls
     (L2 warm); unlike :func:`cuda_ms` it excludes the host's launch gaps.
-    None when the profiler recorded nothing."""
+    None without ``fn`` or when the profiler recorded nothing."""
+    if fn is None:
+        return None
     fn()
     torch.cuda.synchronize()
     secs, _, _ = traced_device_s(torch, lambda: [fn() for _ in range(reps)])
@@ -138,19 +165,27 @@ def bound(nbytes: float, flops: float, dtype_name: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_launched(counts: dict, what: str):
-    for name, c in counts.items():
-        check(c > 0, f"{what}: kernel {name} was never launched on this "
-                     f"path (counts {counts})")
+def check_launched(counts: dict, what: str, kernels):
+    """Every kernel of the path (``kernels``) launched at least once."""
+    for name in kernels:
+        check(counts[name] > 0, f"{what}: kernel {name} was never launched "
+                                f"on this path (counts {counts})")
 
 
-def compare(torch, got, ref, dtype_name: str, what: str) -> float:
-    err = (got.float() - ref.float()).abs().max().item()
-    tol = TOL[dtype_name]
-    ok = torch.allclose(got.float(), ref.float(), rtol=tol, atol=tol)
-    check(bool(ok), f"{what}: kernel disagrees with its plain version "
-                    f"(max |err| {err:.3e}, tolerance {tol})")
-    return err
+def compare(torch, got, ref, dtype_name: str, what: str, tols=None) -> float:
+    """Max |err| of the kernel's outputs ``got`` against the plain
+    version's ``ref`` (one tensor each, or tuples with one tolerance per
+    output in ``tols``); fails outside the tolerance."""
+    if not isinstance(got, tuple):
+        got, ref, tols = (got,), (ref,), (TOL[dtype_name],)
+    worst = 0.0
+    for g, r, tol in zip(got, ref, tols):
+        err = (g.float() - r.float()).abs().max().item()
+        ok = torch.allclose(g.float(), r.float(), rtol=tol, atol=tol)
+        check(bool(ok), f"{what}: kernel disagrees with its plain version "
+                        f"(max |err| {err:.3e}, tolerance {tol})")
+        worst = max(worst, err)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +281,57 @@ def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64):
             "flops": 4 * B * H * D * S * (S + 1) // 2}
 
 
+def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
+    """The SSD scan at mamba2-2.7b's prefill shapes, with the model's own
+    input distribution at init: dt = softplus(noise + dt_bias) with dt_bias
+    the inverse softplus of a log-uniform [1e-3, 1e-1] draw, A = -(1..nh).
+    Checks y and the final state against the plain version; since |y| is
+    small on the heads with a large |A| and a small dt, each head's
+    ||y - y_ref|| / ||y_ref|| must also stay below SSD_HEAD_REL_TOL."""
+    import math
+    g = torch.Generator(device="cuda").manual_seed(4)
+    F = torch.nn.functional
+    x = torch.randn((1, S, nh, hd), generator=g, device="cuda").to(dtype)
+    Bm = torch.randn((1, S, N), generator=g, device="cuda").to(dtype)
+    Cm = torch.randn((1, S, N), generator=g, device="cuda").to(dtype)
+    u = torch.rand((nh,), generator=g, device="cuda")
+    dt0 = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    dt = F.softplus(torch.randn((1, S, nh), generator=g, device="cuda")
+                    + torch.log(torch.expm1(dt0)))
+    A = -torch.arange(1, nh + 1, dtype=torch.float32, device="cuda")
+    y, st = K.ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    y_ref, st_ref = K.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    yf, rf = y.float(), y_ref.float()
+    head_rel = ((yf - rf).square().sum(dim=(0, 1, 3)).sqrt()
+                / rf.square().sum(dim=(0, 1, 3)).sqrt())
+    rel = head_rel.max().item()
+    shape = f"x{tuple(x.shape)} N {N} chunk {chunk}"
+    check(rel < SSD_HEAD_REL_TOL,
+          f"ssd_chunked {shape}: a head's ||y - y_ref|| / ||y_ref|| is "
+          f"{rel:.3e} (tolerance {SSD_HEAD_REL_TOL})")
+    ytol = SSD_TOL[str(dtype).replace("torch.", "")]
+    nc = S // chunk
+    tri = chunk * (chunk + 1) // 2
+    elt = x.element_size()
+    return {"shape": shape, "out": (y, st), "ref": (y_ref, st_ref),
+            "tols": (ytol, 1e-4),
+            "note": f"median |y_ref| {rf.abs().median().item():.3e}, worst "
+                    f"head ||y - y_ref|| / ||y_ref|| {rel:.3e}",
+            "fns": (lambda: K.ssd_chunked(x, dt, A, Bm, Cm, chunk),
+                    lambda: K.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk),
+                    None),
+            # read x, dt, A, B, C once; write y and the final state once
+            "bytes": (2 * x.numel() + 2 * S * N) * elt + 4 * (S * nh + nh)
+            + 4 * nh * hd * N,
+            # C.B^T once for all heads over the causal half, W.x and the
+            # chunk states per head, the state pass, and y_inter for the
+            # chunks after the first (the first enters with a zero state)
+            "flops": 2 * nc * tri * N + 2 * nc * nh * tri * hd
+            + 2 * S * nh * hd * N + 2 * nc * nh * hd * N
+            + 2 * (nc - 1) * chunk * nh * hd * N}
+
+
 def phase_kernels(torch):
     """Each kernel against its plain version at the main path's shapes;
     returns the bf16 main-shape row per kernel for the JSON line."""
@@ -254,32 +340,43 @@ def phase_kernels(torch):
     for dt in (torch.float32, torch.bfloat16):
         cases.append(("ragged_decode_attention", dt,
                       lambda dt=dt: kernel_decode(torch, K, dt)))
-        for shape in ((8, 2048), (4, 256, 2048)):
+        # llama's width, then mamba's (ln1 and the final norm at d_model,
+        # the gated norm at d_inner, decode rows and a prefill)
+        for shape in ((8, 2048), (4, 256, 2048), (8, 2560), (8, 5120),
+                      (1, 384, 5120)):
             cases.append(("fused_rmsnorm", dt,
                           lambda dt=dt, s=shape: kernel_rmsnorm(torch, K, dt,
                                                                 s)))
         for S in (64, 512):
             cases.append(("flash_attention", dt,
                           lambda dt=dt, S=S: kernel_flash(torch, K, dt, S)))
+        for S, chunk in ((256, 256), (384, 128), (383, 1)):
+            cases.append(("ssd_chunked", dt,
+                          lambda dt=dt, S=S, c=chunk: kernel_ssd(torch, K, dt,
+                                                                 S, c)))
     rows = {}
     for name, dt, make in cases:
         dname = str(dt).replace("torch.", "")
         r = make()
-        err = compare(torch, r["out"], r["ref"], dname, f"{name} {r['shape']}")
+        err = compare(torch, r["out"], r["ref"], dname, f"{name} {r['shape']}",
+                      r.get("tols"))
         ms, plain_ms, lib_ms = (cuda_ms(torch, f) for f in r["fns"])
         dev_ms, dev_plain, dev_lib = (device_ms(torch, f) for f in r["fns"])
         b_ms, b_by = bound(r["bytes"], r["flops"], dname)
         fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"
+        lib = fmt if r["fns"][2] is not None else (lambda t: "none")
+        note = f" | {r['note']}" if "note" in r else ""
         print(f"[kernels] {name} {dname} {r['shape']}: max|err| {err:.3e} | "
               f"events (L2 cold, launch included) kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms | device time "
+              f"{plain_ms:.4f} ms, library {lib(lib_ms)} | device time "
               f"(profiler, L2 warm) kernel {fmt(dev_ms)}, plain "
-              f"{fmt(dev_plain)}, library {fmt(dev_lib)} | bound "
-              f"{b_ms * 1e3:.2f} us ({b_by})")
+              f"{fmt(dev_plain)}, library {lib(dev_lib)} | bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}){note}")
         # the JSON row: bfloat16 at the decode / full-width prefill shape
         main = (dname == "bfloat16"
                 and (name != "fused_rmsnorm" or "(8, 2048)" in r["shape"])
-                and (name != "flash_attention" or ", 512," in r["shape"]))
+                and (name != "flash_attention" or ", 512," in r["shape"])
+                and (name != "ssd_chunked" or "chunk 256" in r["shape"]))
         if main:
             route, source = SOURCES[name]
             rows[name] = {"name": name, "route": route, "source": source,
@@ -295,7 +392,11 @@ def phase_kernels(torch):
 
 
 def _serve(torch, engine, cfg, *, n, rate, seed, prompts, decodes,
-           max_batch, sla):
+           max_batch, sla, fixed=None):
+    """Serve ``n`` requests arriving at ``rate``/s (all at once for 0)
+    through ServingSession + LazyBatching; lengths are drawn from
+    ``prompts`` x ``decodes``, or taken in order from ``fixed``
+    [(prompt, decode), ...]."""
     from repro_torch.core.policies import LazyBatching
     from repro_torch.core.slack import SlackPredictor
     from repro_torch.serving import (H100_SXM, LengthDist, NPUPerfModel,
@@ -314,9 +415,13 @@ def _serve(torch, engine, cfg, *, n, rate, seed, prompts, decodes,
 
     rng = np.random.default_rng(seed)
     handles, t = [], 0.0
-    for _ in range(n):
+    for i in range(n):
         t += rng.exponential(1.0 / rate) if rate else 0.0
         r = wl.sample_request(rng, t)
+        if fixed is not None:
+            r.prompt_len, r.decode_len = fixed[i]
+            r.sequence, r.prefix_len, r.cycle_len = wl.build_sequence(
+                *fixed[i])
         handles.append(session.submit(r, on_token=on_token))
     session.duration = t
     t0 = time.perf_counter()
@@ -326,96 +431,110 @@ def _serve(torch, engine, cfg, *, n, rate, seed, prompts, decodes,
     return wl, session, handles, streamed, stats, wall
 
 
-def phase_serve(torch):
+def phase_serve(torch, arch, tag, kernels, prompts):
+    """Full-width ``arch`` in bf16: warm up over every prompt length, then
+    serve 24 Poisson requests and check them; returns the launch counts
+    of the measured serve."""
     import numpy as np
     import repro_torch.kernels as K
     from repro_torch.configs import get_config
     from repro_torch.serving import HandleState, TorchEngine
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     engine = TorchEngine(cfg, max_len=1024, dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
-    print(f"[serve] {cfg.name} full width ({cfg.num_layers} layers, d_model "
+    print(f"[{tag}] {cfg.name} full width ({cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params) bf16 "
           f"init in {time.perf_counter() - t0:.2f} s")
-    kw = dict(rate=20.0, prompts=(64, 128, 256, 384), decodes=(16, 32, 64),
-              max_batch=8, sla=10.0)
-    # warmup: first launches build the Triton kernel and load the libraries
+    kw = dict(rate=20.0, prompts=prompts, decodes=(16, 32, 64), max_batch=8,
+              sla=10.0)
+    # warmup: first launches build the Triton kernel and load the
+    # libraries; every prompt length once, then a burst of max_batch
+    # requests (every batch bucket as they finish, the longest context),
+    # then a few Poisson arrivals
+    _serve(torch, engine, cfg, n=len(prompts), seed=98,
+           fixed=[(p, 4) for p in prompts], **kw)
+    burst = [(p, d) for d in (16, max(kw["decodes"])) for p in prompts]
+    _serve(torch, engine, cfg, n=len(burst), seed=97, fixed=burst,
+           **{**kw, "rate": 0.0})
     _serve(torch, engine, cfg, n=3, seed=99, **kw)
     K.reset_launch_counts()
     runs0 = engine.runs_executed
     san0 = engine.sanitizer_stats()
+    keys0 = engine.shape_keys()
     wl, session, handles, streamed, stats, wall = _serve(
         torch, engine, cfg, n=24, seed=0, **kw)
     counts = K.launch_counts()
     states = [h.state for h in handles]
     check(all(s is HandleState.DONE for s in states),
-          f"serve: not every request finished: {states}")
+          f"{tag}: not every request finished: {states}")
     n_tok = 0
     for h in handles:
         rid = h.request.rid
         got = engine.states[rid].generated[:h.request.decode_len]
         check(streamed.get(rid, [])[:len(got)] == got == h.tokens[:len(got)],
-              f"serve: rid {rid} streamed tokens diverge from tokens()")
+              f"{tag}: rid {rid} streamed tokens diverge from tokens()")
         check(len(got) == h.request.decode_len,
-              f"serve: rid {rid} generated {len(got)} tokens, wanted "
+              f"{tag}: rid {rid} generated {len(got)} tokens, wanted "
               f"{h.request.decode_len}")
         n_tok += len(got)
-    check_launched(counts, "serve")
+    check_launched(counts, tag, kernels)
     san = engine.sanitizer_stats()
     s = stats.summary(sla=kw["sla"])
     lat = [h.latency for h in handles]
     ttft = [h.ttft for h in handles]
     runs = engine.runs_executed - runs0
-    print(f"[serve] 24 requests, {n_tok} tokens in {wall:.3f} s wall: "
+    print(f"[{tag}] 24 requests, {n_tok} tokens in {wall:.3f} s wall: "
           f"{n_tok / wall:.1f} tokens/s, {runs} runs, "
           f"{runs and n_tok / runs:.2f} tokens/run")
-    print(f"[serve] latency p50 {np.percentile(lat, 50) * 1e3:.1f} ms p99 "
+    print(f"[{tag}] latency p50 {np.percentile(lat, 50) * 1e3:.1f} ms p99 "
           f"{np.percentile(lat, 99) * 1e3:.1f} ms; TTFT p50 "
           f"{np.percentile(ttft, 50) * 1e3:.1f} ms p99 "
           f"{np.percentile(ttft, 99) * 1e3:.1f} ms (session clock); "
           f"SLA {kw['sla']} s violation rate "
           f"{s.get('sla_violation_rate', float('nan')):.3f}; preemptions "
           f"{session.policy.n_preemptions}")
-    print(f"[serve] sanitizer: syncs {san.host_syncs - san0.host_syncs} for "
+    print(f"[{tag}] sanitizer: syncs {san.host_syncs - san0.host_syncs} for "
           f"{san.runs - san0.runs} runs, max/run {san.max_syncs_per_run}, "
-          f"new shape keys {san.retraces - san0.retraces}")
-    print(f"[serve] memory_stats {engine.memory_stats()}")
-    print(f"[serve] kernel launches on the main path: {counts}")
-    check(san.max_syncs_per_run <= 1, "serve: more than one sync in a run")
-    profile_window(torch, engine, cfg, kw)
+          f"new shape keys {san.retraces - san0.retraces}: "
+          f"{sorted(engine.shape_keys() - keys0, key=str)}")
+    print(f"[{tag}] memory_stats {engine.memory_stats()}")
+    print(f"[{tag}] kernel launches on the main path: {counts}")
+    check(san.max_syncs_per_run <= 1, f"{tag}: more than one sync in a run")
+    profile_window(torch, engine, cfg, kw, tag)
     del engine, session
     torch.cuda.empty_cache()
     return counts
 
 
-def profile_window(torch, engine, cfg, kw, n=8):
+def profile_window(torch, engine, cfg, kw, tag, n=8):
     """Where the serve phase's time goes: a separate traced serve of ``n``
     requests (after the measured one, so tracing perturbs none of its
     numbers). Device busy = the sum of every CUDA kernel's and copy's self
     time; its share of the traced wall time is a lower bound on the
     untraced one, since tracing slows the host."""
+    steps0 = engine.decode_layer_steps
     busy, dev, res = traced_device_s(
         torch, lambda: _serve(torch, engine, cfg, n=n, seed=5, **kw))
     wall = res[-1]
     if busy is None:
-        print("[profile] the profiler recorded no device time: busy share "
-              "not measured")
+        print(f"[{tag} profile] the profiler recorded no device time: busy "
+              f"share not measured")
         return
-    print(f"[profile] traced serve of {n} requests: wall {wall:.3f} s, "
+    print(f"[{tag} profile] traced serve of {n} requests: wall {wall:.3f} s, "
           f"device busy {busy:.3f} s ({100 * busy / wall:.1f}%), idle "
           f"{100 * (1 - busy / wall):.1f}%")
-    # one ragged decode launch per layer per decode step: the device ops
-    # issued per decode layer-step (prefill's few included) say how much
-    # launch work the host does for each
+    # the engine counts one decode layer-step per layer per batched decode
+    # step: the device ops issued per decode layer-step (prefill's few
+    # included) say how much launch work the host does for each
     n_ops = sum(e.count for e in dev)
-    n_dec = sum(e.count for e in dev if "ragged_decode" in e.key)
-    print(f"[profile] {n_ops} device ops (kernels and copies) for {n_dec} "
-          f"decode layer-steps: {n_dec and n_ops / n_dec:.1f} ops per "
+    n_dec = engine.decode_layer_steps - steps0
+    print(f"[{tag} profile] {n_ops} device ops (kernels and copies) for "
+          f"{n_dec} decode layer-steps: {n_dec and n_ops / n_dec:.1f} ops per "
           f"decode layer-step")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
         t = e.self_device_time_total / 1e6
-        print(f"[profile]   {100 * t / busy:5.1f}% {t * 1e3:9.3f} ms "
+        print(f"[{tag} profile]   {100 * t / busy:5.1f}% {t * 1e3:9.3f} ms "
               f"x{e.count:<6d} {e.key[:90]}")
 
 
@@ -436,24 +555,29 @@ def _isolated(engine, wl, prompt, n_tokens):
     return engine.states[req.rid].generated[:n_tokens]
 
 
-def phase_exact(torch):
+def phase_exact(torch, arch, tag, kernels, prompts):
+    """Full-width ``arch`` in f32, TF32 off: one request per prompt length
+    batched (fused runs), then each alone node by node; tokens equal or a
+    printed near-tie."""
     import repro_torch.kernels as K
     from repro_torch.configs import get_config
     from repro_torch.serving import HandleState, TorchEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(arch)
     engine = TorchEngine(cfg, max_len=512, dtype=torch.float32, seed=0)
     K.reset_launch_counts()
     wl, session, handles, _, _, wall = _serve(
-        torch, engine, cfg, n=4, seed=7, rate=0.0, prompts=(64, 128, 256, 384),
-        decodes=(16,), max_batch=4, sla=10.0)
+        torch, engine, cfg, n=len(prompts), seed=7, rate=0.0, prompts=prompts,
+        decodes=(16,), max_batch=4, sla=10.0,
+        fixed=[(p, 16) for p in prompts])
     batched_counts = K.launch_counts()
     check(all(h.state is HandleState.DONE for h in handles),
-          "exact: not every request finished")
-    check_launched(batched_counts, "exact (batched, fused runs)")
-    print(f"[exact] 4 requests batched (f32, TF32 off) in {wall:.3f} s, "
-          f"{engine.runs_executed} runs; kernel launches {batched_counts}")
+          f"{tag}: not every request finished")
+    check_launched(batched_counts, f"{tag} (batched, fused runs)", kernels)
+    print(f"[{tag}] {len(handles)} requests batched (f32, TF32 off, prompts "
+          f"{list(prompts)}) in {wall:.3f} s, {engine.runs_executed} runs; "
+          f"kernel launches {batched_counts}")
     K.reset_launch_counts()
     refs = {}
     for h in handles:
@@ -461,8 +585,9 @@ def phase_exact(torch):
         refs[r.rid] = _isolated(engine, wl, engine.states[r.rid].prompt_np,
                                 r.decode_len)
     isolated_counts = K.launch_counts()
-    check_launched(isolated_counts, "exact (isolated, node by node)")
-    print(f"[exact] isolated references (node by node): kernel launches "
+    check_launched(isolated_counts, f"{tag} (isolated, node by node)",
+                   kernels)
+    print(f"[{tag}] isolated references (node by node): kernel launches "
           f"{isolated_counts}")
     n_equal, n_ties = 0, 0
     for h in handles:
@@ -480,14 +605,14 @@ def phase_exact(torch):
                 engine.params, torch.tensor([seq], device="cuda"))
         top2 = torch.topk(logits[0].float(), 2).values
         gap = float(top2[0] - top2[1])
-        check(gap < 1e-3, f"exact: rid {r.rid} diverges at token {j} "
+        check(gap < 1e-3, f"{tag}: rid {r.rid} diverges at token {j} "
                           f"({got[j]} vs isolated {ref[j]}), top-2 gap "
                           f"{gap:.3e} is no near-tie")
         n_ties += 1
-        print(f"[exact] rid {r.rid}: near-tie at token {j} (top-2 gap "
+        print(f"[{tag}] rid {r.rid}: near-tie at token {j} (top-2 gap "
               f"{gap:.3e}); batched {got[j]} vs isolated {ref[j]}")
-    print(f"[exact] {n_equal}/4 batched generations equal the isolated "
-          f"ones token for token, {n_ties} near-ties")
+    print(f"[{tag}] {n_equal}/{len(handles)} batched generations equal the "
+          f"isolated ones token for token, {n_ties} near-ties")
     del engine
     torch.cuda.empty_cache()
 
@@ -508,10 +633,19 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_build()
     rows = phase_kernels(torch)
-    counts = phase_serve(torch)                   # the main path's launches
-    phase_exact(torch)
-    print(f"[done] build, kernels, serve, exact in "
-          f"{time.perf_counter() - t_all:.1f} s")
+    # each serving path's own launches: llama's for its three kernels,
+    # mamba's for the SSD scan
+    counts = phase_serve(torch, "llama3.2-1b", "serve", LLAMA_KERNELS,
+                         (64, 128, 256, 384))
+    phase_exact(torch, "llama3.2-1b", "exact", LLAMA_KERNELS,
+                (64, 128, 256, 384))
+    m_counts = phase_serve(torch, "mamba2-2.7b", "mamba serve",
+                           MAMBA_KERNELS, (65, 129, 257, 385))
+    phase_exact(torch, "mamba2-2.7b", "mamba exact", MAMBA_KERNELS,
+                (34, 97, 257, 385))
+    print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact "
+          f"in {time.perf_counter() - t_all:.1f} s")
+    counts["ssd_chunked"] = m_counts["ssd_chunked"]
     for name, row in rows.items():
         row["launches"] = counts[name]
     print(smi)

@@ -1,19 +1,20 @@
 """Architecture registry of the PyTorch port.
 
 A copy of ``repro.configs`` restricted to the architectures the port can
-serve so far: only the dense ``llama3.2-1b``.
+serve so far: the dense ``llama3.2-1b`` and the SSM ``mamba2-2.7b``.
 """
 from __future__ import annotations
 
 from .base import (InputShape, INPUT_SHAPES, MLAConfig, MoEConfig, ModelConfig,
                    SSMConfig, HybridConfig)
 
-from . import llama3_2_1b
+from . import llama3_2_1b, mamba2_2_7b
 
 ARCHITECTURES: dict[str, ModelConfig] = {
     c.name: c
     for c in [
         llama3_2_1b.CONFIG,
+        mamba2_2_7b.CONFIG,
     ]
 }
 

@@ -8,8 +8,11 @@ from .flash_attn import flash_attention, flash_attention_plain
 from .ragged_decode_attn import (ragged_decode_attention,
                                  ragged_decode_attention_plain)
 from .rmsnorm import fused_rmsnorm, fused_rmsnorm_plain
+from .ssd_chunk import ssd_chunk_intra_plain, ssd_chunked, ssd_chunked_plain
 
-KERNELS = (ragged_decode_attention, fused_rmsnorm, flash_attention)
+# the wrappers the serving paths launch
+KERNELS = (ragged_decode_attention, fused_rmsnorm, flash_attention,
+           ssd_chunked)
 
 
 def launch_counts() -> dict:
@@ -24,5 +27,7 @@ def reset_launch_counts() -> None:
 __all__ = [
     "flash_attention", "flash_attention_plain", "ragged_decode_attention",
     "ragged_decode_attention_plain", "fused_rmsnorm", "fused_rmsnorm_plain",
+    "ssd_chunk_intra_plain", "ssd_chunked",
+    "ssd_chunked_plain",
     "KERNELS", "launch_counts", "reset_launch_counts",
 ]

@@ -37,6 +37,11 @@ SIGNATURES = {
         "repro_flash_attention",
         # q, k, v, o, B, S, T, H, KV, D, q_offset, window, dtype, stream
         [_VP] * 4 + [_I] * 9 + [_VP]),
+    "ssd_chunk": (
+        "repro_ssd_chunk",
+        # x, dt, A, B, C, y, states, cum_exp, decay, final, B, S, nh, hd, N,
+        # chunk, dtype, stream
+        [_VP] * 10 + [_I] * 7 + [_VP]),
 }
 
 _LOADED: Dict[str, object] = {}

@@ -1,0 +1,174 @@
+"""Mamba-2 SSD chunked scan: the CUDA kernels' wrapper and plain versions.
+
+Replaces the TPU kernel ``src/repro/kernels/ssd_chunk.py``
+(``ssd_chunk_intra`` and its wrapper ``ssd_chunked_pallas``): per
+(batch, chunk, head) the within-chunk decay cumsum, the causal decay
+matrix, ``C·Bᵀ``, ``y_intra``, the chunk state, ``exp(cum)`` and
+``exp(total)``; then the inter-chunk state recurrence and ``y_inter``.
+The SSM prefill of every layer runs it. Source, bound and design notes:
+``csrc/ssd_chunk.cu``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_CHUNK = 256
+MAX_STATE = 256
+
+
+def _chunked(x, dt, B_ssm, C_ssm, chunk: int):
+    Bb, S, nh, hd = x.shape
+    N = B_ssm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"ssd: sequence length S={S} must be a multiple of "
+                         f"chunk={chunk}")
+    nc = S // chunk
+    return (x.reshape(Bb, nc, chunk, nh, hd), dt.reshape(Bb, nc, chunk, nh),
+            B_ssm.reshape(Bb, nc, chunk, N), C_ssm.reshape(Bb, nc, chunk, N))
+
+
+def _decay_terms(dtc, A, chunk: int):
+    """cum (B, nc, cs, nh), total (B, nc, nh) and the causal decay matrix
+    L (B, nc, i, j, nh) = exp(cum_i - cum_j) where j <= i, else 0."""
+    cum = torch.cumsum(dtc * A[None, None, None, :], dim=2)
+    total = cum[:, :, -1]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=dtc.device))
+    L = torch.where(mask[None, None, :, :, None], torch.exp(diff),
+                    torch.zeros((), dtype=diff.dtype, device=diff.device))
+    return cum, total, L
+
+
+def ssd_chunk_intra_plain(x, dt, A, B_ssm, C_ssm, chunk: int):
+    """The Pallas kernel ``ssd_chunk_intra`` in plain PyTorch, term for
+    term: every cell in float32, ``y_intra`` cast to x.dtype. In float32
+    these are the terms the CUDA intra-chunk kernel computes; in bfloat16
+    that kernel rounds as :func:`ssd_chunked_plain` does.
+
+    x: (B, S, nh, hd); dt: (B, S, nh) post-softplus; A: (nh,) negative;
+    B_ssm, C_ssm: (B, S, N). Returns (y_intra (B, S, nh, hd),
+    states (B, nc, nh, hd, N), cum_exp (B, S, nh), decay (B, nc, nh))."""
+    Bb, S, nh, hd = x.shape
+    xc, dtc, Bc, Cc = _chunked(x, dt, B_ssm, C_ssm, chunk)
+    xc, dtc = xc.to(torch.float32), dtc.to(torch.float32)
+    Bc, Cc = Bc.to(torch.float32), Cc.to(torch.float32)
+    cum, total, L = _decay_terms(dtc, A.to(torch.float32), chunk)
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    w = scores[..., None] * L * dtc[:, :, None, :, :]
+    y = torch.einsum("bcijh,bcjhp->bcihp", w, xc)
+    xw = xc * (torch.exp(total[:, :, None, :] - cum) * dtc)[..., None]
+    states = torch.einsum("bcjhp,bcjn->bchpn", xw, Bc)
+    return (y.reshape(Bb, S, nh, hd).to(x.dtype), states,
+            torch.exp(cum).reshape(Bb, S, nh), torch.exp(total))
+
+
+def _y_inter(C_ssm, cum_exp, h_prev, chunk: int, dtype):
+    """(C_i · exp(cum_i)) · h_prevᵀ per chunk: the contribution of the
+    state entering each chunk, (B, S, nh, hd) in ``dtype``."""
+    Bb, S, nh = cum_exp.shape
+    nc = S // chunk
+    Cc = C_ssm.reshape(Bb, nc, chunk, -1)
+    Ci = Cc[:, :, :, None, :] * cum_exp.reshape(Bb, nc, chunk, nh)[..., None]
+    y = torch.einsum("bcihn,bchpn->bcihp", Ci.to(torch.float32), h_prev)
+    return y.to(dtype).reshape(Bb, S, nh, -1)
+
+
+def ssd_chunked_plain(x, dt, A, B_ssm, C_ssm, chunk: int):
+    """The JAX model's ``ssd_chunked`` (``src/repro/models/ssm.py``) in
+    plain PyTorch, term for term; its associative scan over chunks is a
+    sequential loop here. Returns (y (B, S, nh, hd), final state
+    (B, nh, hd, N) float32)."""
+    Bb, S, nh, hd = x.shape
+    xc, dtc, Bc, Cc = _chunked(x, dt, B_ssm, C_ssm, chunk)
+    cum, total, L = _decay_terms(dtc, A, chunk)
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    w = scores[..., None] * L * dtc[:, :, None, :, :]
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w.to(x.dtype), xc)
+    xw = xc * (torch.exp(total[:, :, None, :] - cum) * dtc)[..., None]
+    states = torch.einsum("bcjhp,bcjn->bchpn", xw, Bc.to(xw.dtype))
+    decay = torch.exp(total).to(torch.float32)
+    states = states.to(torch.float32)
+    run = states[:, 0]
+    scanned = [run]
+    for c in range(1, states.shape[1]):
+        run = run * decay[:, c, :, None, None] + states[:, c]
+        scanned.append(run)
+    st_s = torch.stack(scanned, dim=1)
+    h_prev = torch.cat([torch.zeros_like(st_s[:, :1]), st_s[:, :-1]], dim=1)
+    y = y_intra.reshape(Bb, S, nh, hd) + _y_inter(
+        C_ssm, torch.exp(cum).reshape(Bb, S, nh), h_prev, chunk, x.dtype)
+    return y, st_s[:, -1]
+
+
+def _check_inputs(x, dt, A, B_ssm, C_ssm, chunk: int):
+    if x.dim() != 4:
+        raise ValueError(f"ssd: x must be (B, S, nh, hd), got {tuple(x.shape)}")
+    Bb, S, nh, hd = x.shape
+    N = B_ssm.shape[-1]
+    if B_ssm.shape != (Bb, S, N) or C_ssm.shape != (Bb, S, N):
+        raise ValueError(f"ssd: B {tuple(B_ssm.shape)} / C "
+                         f"{tuple(C_ssm.shape)} do not fit x {tuple(x.shape)}")
+    if dt.shape != (Bb, S, nh) or A.shape != (nh,):
+        raise ValueError(f"ssd: dt {tuple(dt.shape)} / A {tuple(A.shape)} do "
+                         f"not fit x {tuple(x.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"ssd: head_dim {hd} not in {HEAD_DIMS}")
+    if not 1 <= N <= MAX_STATE:
+        raise ValueError(f"ssd: state size N={N} not in 1..{MAX_STATE}")
+    if not 1 <= chunk <= MAX_CHUNK or S % chunk:
+        raise ValueError(f"ssd: chunk {chunk} must be in 1..{MAX_CHUNK} and "
+                         f"divide S={S}")
+    if any(t.device != x.device for t in (dt, A, B_ssm, C_ssm)):
+        raise ValueError("ssd: inputs on different devices")
+    if B_ssm.dtype != x.dtype or C_ssm.dtype != x.dtype:
+        raise TypeError("ssd: x, B and C dtypes differ")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError("ssd: dt and A must be float32")
+    if not all(t.is_contiguous() for t in (x, dt, A, B_ssm, C_ssm)):
+        raise ValueError("ssd: inputs must be contiguous")
+
+
+def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
+    """SSD over a full sequence. x: (B, S, nh, hd) float32 or bfloat16;
+    dt: (B, S, nh) float32 post-softplus; A: (nh,) float32 negative;
+    B_ssm, C_ssm: (B, S, N) in x's dtype; ``chunk`` divides S. Returns
+    (y (B, S, nh, hd) in x.dtype, final state (B, nh, hd, N) float32).
+
+    A CPU tensor takes :func:`ssd_chunked_plain`; a CUDA tensor launches
+    ``csrc/ssd_chunk.cu`` on the current stream or raises: the intra-chunk
+    kernel (with the JAX model's roundings of C·Bᵀ and the weights), then
+    the state pass, which turns the chunk states into the state entering
+    each chunk in place and writes the final state. ``y_inter`` is added
+    with one batched product."""
+    if x.device.type == "cpu":
+        return ssd_chunked_plain(x, dt, A, B_ssm, C_ssm, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunked: unsupported device {x.device}")
+    _check_inputs(x, dt, A, B_ssm, C_ssm, chunk)
+    Bb, S, nh, hd = x.shape
+    N = B_ssm.shape[-1]
+    nc = S // chunk
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y_intra = torch.empty_like(x)
+    h_prev = torch.empty((Bb, nc, nh, hd, N), **f32)
+    cum_exp = torch.empty((Bb, S, nh), **f32)
+    decay = torch.empty((Bb, nc, nh), **f32)
+    final = torch.empty((Bb, nh, hd, N), **f32)
+    err = _build.function("ssd_chunk")(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_ssm.data_ptr(),
+        C_ssm.data_ptr(), y_intra.data_ptr(), h_prev.data_ptr(),
+        cum_exp.data_ptr(), decay.data_ptr(), final.data_ptr(),
+        Bb, S, nh, hd, N, chunk, _build.dtype_code(x.dtype),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd: CUDA error {err} at launch (B={Bb}, S={S}, "
+                           f"nh={nh}, hd={hd}, N={N}, chunk={chunk})")
+    ssd_chunked.launches += 1
+    return y_intra + _y_inter(C_ssm, cum_exp, h_prev, chunk, x.dtype), final
+
+
+ssd_chunked.launches = 0

@@ -1,4 +1,5 @@
-"""Dense decoder model of the port (the dense slice of ``repro.models.model``).
+"""Decoder model of the port: the dense and SSM slices of
+``repro.models.model``.
 
 ``Model`` consumes a ``ModelConfig`` and provides:
 
@@ -12,10 +13,12 @@
   * ``init_cache(batch, max_len)``,
   * per-block and per-span application for the LazyBatching engine.
 
-The JAX package scans homogeneous layer stacks with ``lax.scan``; here a
-span is a Python loop over per-layer parameter views, and the flat slot
-arena is updated in place. Other families (MoE, MLA, SSM, hybrid) and the
-``RuntimeFlags`` variants of the JAX model are not ported yet.
+Block kinds: ``"dense"`` (GQA attention + SwiGLU MLP) and ``"ssm"``
+(Mamba-2 mixer, ``models/ssm.py``). The JAX package scans homogeneous
+layer stacks with ``lax.scan``; here a span is a Python loop over
+per-layer parameter views, and the flat slot arena is updated in place.
+Other families (MoE, MLA, hybrid) and the ``RuntimeFlags`` variants of the
+JAX model are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from . import ssm as SSM
 
 
 @dataclass(frozen=True)
@@ -75,21 +79,28 @@ def _scatter_rows(arena, rows, slots, live: Optional[int] = None):
 
 class Model:
     def __init__(self, cfg: ModelConfig, flags: RuntimeFlags = RuntimeFlags()):
-        if (cfg.family == "ssm" or cfg.hybrid is not None
-                or cfg.moe is not None or cfg.attention != "gqa"):
+        if (cfg.hybrid is not None or cfg.moe is not None
+                or (cfg.family != "ssm" and cfg.attention != "gqa")):
             raise NotImplementedError(
-                f"{cfg.name}: the PyTorch port serves dense GQA models only "
-                f"so far (MoE, MLA, SSM and hybrid stacks come in later "
-                f"slices)")
+                f"{cfg.name}: the PyTorch port serves dense GQA and SSM "
+                f"models only so far (MoE, MLA and hybrid stacks come in "
+                f"later slices)")
         self.cfg = cfg
         self.flags = flags
+
+    @property
+    def block_kind(self) -> str:
+        return "ssm" if self.cfg.family == "ssm" else "dense"
 
     # ------------------------------------------------------------------
     # Parameters
     # ------------------------------------------------------------------
-    def _init_block(self, gen: torch.Generator) -> dict:
+    def _init_block(self, gen: torch.Generator, kind: str) -> dict:
         cfg, dtype, dev = self.cfg, self.flags.dtype, gen.device
         d = cfg.d_model
+        if kind == "ssm":
+            return {"ln1": L.init_rmsnorm(d, dev),
+                    "ssm": SSM.init_ssm(gen, cfg, dtype, dev)}
         return {"ln1": L.init_rmsnorm(d, dev),
                 "attn": L.init_attention(gen, cfg, dtype, dev),
                 "ln2": L.init_rmsnorm(d, dev),
@@ -112,7 +123,7 @@ class Model:
             params["unembed"] = L._normal(gen, (d, cfg.vocab_size),
                                           1.0 / math.sqrt(d), dtype,
                                           gen.device)
-        params["blocks"] = _stack([self._init_block(gen)
+        params["blocks"] = _stack([self._init_block(gen, self.block_kind)
                                    for _ in range(cfg.num_layers)])
         return params
 
@@ -128,11 +139,16 @@ class Model:
         return L.rope_tables(positions, self.cfg.head_dim,
                              self.cfg.rope_theta)
 
-    def apply_block_dense(self, bp: dict, x, *, return_cache: bool,
-                          rope=None):
-        """One prefill block; ``rope``: the ``layers.rope_tables`` of the
-        positions, by default those of 0..S-1."""
+    def apply_block_dense(self, bp: dict, x, *, kind: str,
+                          return_cache: bool, rope=None):
+        """One prefill block of ``kind``; ``rope``: the
+        ``layers.rope_tables`` of the positions, by default those of
+        0..S-1 (attention blocks only)."""
         cfg = self.cfg
+        if kind == "ssm":
+            h, cache = SSM.apply_ssm_dense(
+                bp["ssm"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg)
+            return x + h, (cache if return_cache else None)
         h, kv = L.apply_attention_dense(
             bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg,
             rope=rope)
@@ -140,14 +156,26 @@ class Model:
         x = x + L.apply_mlp(bp["mlp"], L.rms_norm(x, bp["ln2"], cfg.norm_eps))
         return x, ({"k": kv[0], "v": kv[1]} if return_cache else None)
 
-    def apply_block_decode(self, bp: dict, x, cache, pos, *, slots=None,
-                           ctx=None, live=None, rope=None, lengths=None):
-        """One decode step for one block; the cache (a slot arena with
-        ``slots``) is updated in place. ``ctx`` bounds plain-version reads
-        to a context bucket, ``live`` counts the real (non-padding) rows,
-        and ``rope``/``lengths`` carry the step's per-position tensors — see
-        ``layers.apply_attention_decode``."""
+    def apply_block_decode(self, bp: dict, x, cache, pos, *, kind: str,
+                           slots=None, ctx=None, live=None, rope=None,
+                           lengths=None):
+        """One decode step for one block of ``kind``; the cache (a slot arena with ``slots``) is updated in
+        place. ``live`` counts the real (non-padding) rows; for attention,
+        ``ctx`` bounds plain-version reads to a context bucket and
+        ``rope``/``lengths`` carry the step's per-position tensors — see
+        ``layers.apply_attention_decode``. An SSM block gathers its rows,
+        steps the recurrence and writes the live rows back."""
         cfg = self.cfg
+        if kind == "ssm":
+            h, rows = SSM.apply_ssm_decode(
+                bp["ssm"], L.rms_norm(x, bp["ln1"], cfg.norm_eps),
+                _gather_rows(cache, slots), cfg)
+            if slots is None:
+                for k, leaf in cache.items():
+                    leaf.copy_(rows[k])
+            else:
+                _scatter_rows(cache, rows, slots, live)
+            return x + h, cache
         h, cache = L.apply_attention_decode(
             bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cache, pos,
             cfg, slots=slots, ctx=ctx, live=live, rope=rope, lengths=lengths)
@@ -158,33 +186,44 @@ class Model:
     # ------------------------------------------------------------------
     # Span application (run-fused serving dispatch)
     # ------------------------------------------------------------------
+    def _step_tables(self, kind: str, pos):
+        """The RoPE tables and int32 lengths of a decode step, computed
+        once per span; attention-free spans need neither."""
+        if kind == "ssm":
+            return None, None
+        return self._rope(pos), (pos + 1).to(torch.int32)
+
     def apply_span_decode(self, layer_bps: Sequence[dict], x, flat_arena,
-                          pos, *, offs: Sequence[int], slots, ctx=None,
-                          live=None):
-        """One decode step through a span of layers. ``flat_arena`` folds
-        the layer axis into the slot axis — leaves are
-        ``(span_len * n_slots, ...)`` and layer k's rows live at
-        ``slots + offs[k]`` ((B,) int32) — and is updated in place. The
-        step's RoPE tables and lengths are computed once for the span."""
-        rope = self._rope(pos)
-        lengths = (pos + 1).to(torch.int32)
+                          pos, *, kind: str, offs: Sequence[int], slots,
+                          ctx=None, live=None):
+        """One decode step through a span of ``kind`` layers.
+        ``flat_arena`` folds the layer axis into the slot
+        axis — leaves are ``(span_len * n_slots, ...)`` and layer k's rows
+        live at ``slots + offs[k]`` ((B,) int32) — and is updated in
+        place."""
+        rope, lengths = self._step_tables(kind, pos)
         for bp, off in zip(layer_bps, offs):
             x, _ = self.apply_block_decode(bp, x, flat_arena, pos,
                                            slots=slots + off, ctx=ctx,
                                            live=live, rope=rope,
-                                           lengths=lengths)
+                                           lengths=lengths, kind=kind)
         return x, flat_arena
 
+    def _prefill_rope(self, kind: str, x):
+        if kind == "ssm":
+            return None
+        return self._rope(torch.arange(x.shape[1], device=x.device)[None, :])
+
     def apply_span_prefill(self, layer_bps: Sequence[dict], flat_arena, x, *,
-                           offs: Sequence[int], write=None):
-        """Full-prompt prefill (positions 0..S-1) through a span of layers
-        (flat arena layout as in :meth:`apply_span_decode`).
-        ``write(flat_arena, cache, off)`` stores each layer's prefill cache
-        into its members' arena rows."""
-        rope = self._rope(torch.arange(x.shape[1], device=x.device)[None, :])
+                           kind: str, offs: Sequence[int], write=None):
+        """Full-prompt prefill (positions 0..S-1) through a span of
+        ``kind`` layers (flat arena layout as in
+        :meth:`apply_span_decode`). ``write(flat_arena, cache, off)``
+        stores each layer's prefill cache into its members' arena rows."""
+        rope = self._prefill_rope(kind, x)
         for bp, off in zip(layer_bps, offs):
             x, cache = self.apply_block_dense(bp, x, return_cache=True,
-                                              rope=rope)
+                                              rope=rope, kind=kind)
             if write is not None:
                 write(flat_arena, cache, off)
         return x, flat_arena
@@ -206,19 +245,21 @@ class Model:
     # ------------------------------------------------------------------
     def prefill(self, params, tokens):
         """Returns (last-token logits (B, V), cache) with the cache in the
-        JAX layout ``({"k": (L, B, S, KV, hd), "v": ...}, [])``."""
+        JAX layout: ``({"k": (L, B, S, KV, hd), "v": ...}, [])`` for dense
+        stacks, ``({"state": (L, B, nh, hd, N), "conv": (L, B, W-1, C)},
+        [])`` for SSM stacks."""
         cfg = self.cfg
         x = self.embed(params, tokens)
-        rope = self._rope(torch.arange(x.shape[1], device=x.device)[None, :])
-        ks, vs = [], []
+        kind = self.block_kind
+        rope = self._prefill_rope(kind, x)
+        caches = []
         for bp in self.layer_params(params):
-            x, c = self.apply_block_dense(bp, x, return_cache=True,
+            x, c = self.apply_block_dense(bp, x, kind=kind, return_cache=True,
                                           rope=rope)
-            ks.append(c["k"])
-            vs.append(c["v"])
+            caches.append(c)
         x = L.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
-        return self.unembed(params, x), ({"k": torch.stack(ks),
-                                          "v": torch.stack(vs)}, [])
+        return self.unembed(params, x), (
+            {k: torch.stack([c[k] for c in caches]) for k in caches[0]}, [])
 
     def decode_step(self, params, cache, token, pos):
         """token: (B,) int; pos: (B,) int ragged positions. Returns
@@ -226,23 +267,28 @@ class Model:
         cfg = self.cfg
         x = self.embed(params, token)
         group, _tail = cache
-        rope = self._rope(pos)
-        lengths = (pos + 1).to(torch.int32)
+        kind = self.block_kind
+        rope, lengths = self._step_tables(kind, pos)
         for i, bp in enumerate(self.layer_params(params)):
             x, _ = self.apply_block_decode(bp, x, _index(group, i), pos,
-                                           rope=rope, lengths=lengths)
+                                           kind=kind, rope=rope,
+                                           lengths=lengths)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self.unembed(params, x), cache
 
     # ------------------------------------------------------------------
     # Cache construction
     # ------------------------------------------------------------------
-    def _init_layer_cache(self, batch: int, max_len: int, device=None):
+    def _init_layer_cache(self, kind: str, batch: int, max_len: int,
+                          device=None):
+        if kind == "ssm":
+            return SSM.init_ssm_cache(self.cfg, batch, self.flags.dtype,
+                                      device=device)
         return L.init_attention_cache(self.cfg, batch, max_len,
                                       self.flags.dtype, device=device)
 
     def init_cache(self, batch: int, max_len: int, device=None):
-        one = self._init_layer_cache(batch, max_len, device)
+        one = self._init_layer_cache(self.block_kind, batch, max_len, device)
         n = self.cfg.num_layers
         return ({k: torch.zeros((n,) + v.shape, dtype=v.dtype,
                                 device=v.device) for k, v in one.items()}, [])

@@ -10,28 +10,33 @@ host synchronisation at the run boundary.
 Node ids come from ``workload.from_model_config``:
 
   * ``emb``   — embed the prompt,
-  * ``P<i>``  — prefill layer i over the prompt (writes the KV cache
-               directly into the request's arena slot),
+  * ``P<i>``  — prefill layer i over the prompt (writes the layer's cache —
+               K/V, or the SSM state and conv tail — directly into the
+               request's arena slot),
   * ``D<i>``  — decode layer i for ONE token, batched with ragged per-row
                positions across the merged sub-batch,
   * ``head``  — final norm + unembed + greedy sample.
 
-Cache arena: per-request K/V live in a preallocated device arena; a request
-owns a lazily assigned slot for its lifetime, and the arena doubles on
-demand up to ``max_slots`` and shrinks back as occupancy drops (live slots
-are compacted below the watermark). Storage is per span of same-kind
-layers in FLAT layout: leaves are ``(span_len * n_slots, max_len, KV, hd)``
-and layer k's batch rows sit at ``slots + k * n_slots``.
+Cache arena: per-request caches live in a preallocated device arena; a
+request owns a lazily assigned slot for its lifetime, and the arena doubles
+on demand up to ``max_slots`` and shrinks back as occupancy drops (live
+slots are compacted below the watermark). Storage is per span of same-kind
+layers in FLAT layout: leaves are ``(span_len * n_slots, ...)`` —
+``(…, max_len, KV, hd)`` K/V for attention, ``(…, nh, hd, N)`` state and
+``(…, W - 1, C)`` conv tail for SSM — and layer k's batch rows sit at
+``slots + k * n_slots``.
 
 Fused runs: a decode chunk ``D_i..D_j[+head]`` runs as one Python loop
 over the span's layers with the head folded in; a multi-cycle run keeps
 each cycle's sampled tokens on the device and feeds them to the next
-cycle's embedding. Emb + prefill chunks prefill all members together,
-right-padded to power-of-two length buckets (causal attention never lets a
-valid row read a padded one). Decode batches are padded to a power of two;
-padding rows carry an out-of-range slot, their cache writes are skipped
-(JAX drops them; torch's ``index_put_`` would raise, or assert on the
-device) and their reads are clamped. Positions and last tokens of a stable
+cycle's embedding. Emb + prefill chunks of attention stacks prefill all
+members together, right-padded to power-of-two length buckets (causal
+attention never lets a valid row read a padded one); SSM stacks prefill
+each request at its exact length, since a padded tail would run through
+the recurrence and change the state. Decode batches are padded to a power
+of two; padding rows carry an out-of-range slot, their cache writes are
+skipped (JAX drops them; torch's ``index_put_`` would raise, or assert on
+the device) and their reads are clamped. Positions and last tokens of a stable
 membership stay on the device across runs.
 
 There is no compile step: ``sanitizer_stats().retraces`` counts the first
@@ -39,14 +44,15 @@ sight of each dispatch shape key — (chunk kind, lo, hi, with_head, padded
 batch, ctx or length bucket) — so the JAX contract carries over: after
 warmup, no new keys, and at most one host sync per run.
 
-On a CUDA device decode attention, prefill attention and every RMSNorm go
-through the hand-written kernels of ``repro_torch.kernels``; on the CPU
-(``device="cpu"``, as the tests run it) they take their plain versions.
+On a CUDA device decode attention, prefill attention, the SSM prefill scan
+and every RMSNorm go through the hand-written kernels of
+``repro_torch.kernels``; on the CPU (``device="cpu"``, as the tests run it)
+they take their plain versions.
 
 Token semantics are exact: prefill covers ``prompt[:-1]`` and the prompt's
 last token is the first decode input, so every token is processed once.
-Not ported yet: ``cache_mode="legacy"``, the non-dense families and the
-``RuntimeFlags`` variants.
+Not ported yet: ``cache_mode="legacy"``, the MoE, MLA and hybrid families
+and the ``RuntimeFlags`` variants.
 """
 from __future__ import annotations
 
@@ -63,6 +69,9 @@ from ..models import layers as L
 from ..models.cost import _layer_kinds
 from ..models.model import Model, RuntimeFlags
 from .backend import Backend, BackendOOMError, MemoryStats, SanitizerStats
+
+# cache leaves whose leading (post-slot) axis is the KV time axis
+_TIME_AXIS_KEYS = ("k", "v", "ckv", "krope")
 
 # slot sentinel for batch-bucket padding rows: far out of range for any
 # arena size; must never be reachable by arena growth
@@ -161,6 +170,9 @@ class TorchEngine(Backend):
         self.states: Dict[int, EngineState] = {}
         self.nodes_executed = 0
         self.runs_executed = 0
+        # layers stepped by batched decode, one per layer per decode step
+        # (fused or not): the unit a profile's op count is read against
+        self.decode_layer_steps = 0
         self._seen_keys: set = set()
         self._san_retraces = 0
         self._san_host_syncs = 0
@@ -188,8 +200,9 @@ class TorchEngine(Backend):
                            for si, (_, lo, hi) in enumerate(spans)
                            for i in range(lo, hi + 1)}
         self.arenas: List[dict] = []
-        for (_, lo, hi) in spans:
-            one = self.model._init_layer_cache(n_slots, max_len, self.device)
+        for (kind, lo, hi) in spans:
+            one = self.model._init_layer_cache(kind, n_slots, max_len,
+                                               self.device)
             span_len = hi - lo + 1
             self.arenas.append({
                 k: torch.zeros((span_len * l.shape[0],) + tuple(l.shape[1:]),
@@ -371,6 +384,10 @@ class TorchEngine(Backend):
             retraces=self._san_retraces,
             max_syncs_per_run=self._san_max_syncs_per_run)
 
+    def shape_keys(self) -> frozenset:
+        """Every dispatch shape key seen so far (see sanitizer_stats)."""
+        return frozenset(self._seen_keys)
+
     def _note_key(self, key: tuple):
         if key not in self._seen_keys:
             self._seen_keys.add(key)
@@ -480,13 +497,13 @@ class TorchEngine(Backend):
     # Device work
     # ------------------------------------------------------------------
     def _span_parts(self, lo: int, hi: int):
-        """(span index, layer params, row offsets k * n_slots) of every
-        span overlapping layers [lo, hi]."""
+        """(span index, kind, layer params, row offsets k * n_slots) of
+        every span overlapping layers [lo, hi]."""
         parts = []
-        for si, (_, slo, shi) in enumerate(self._spans):
+        for si, (kind, slo, shi) in enumerate(self._spans):
             a, b = max(lo, slo), min(hi, shi)
             if a <= b:
-                parts.append((si, self._layers[a:b + 1],
+                parts.append((si, kind, self._layers[a:b + 1],
                               [(i - slo) * self.n_slots
                                for i in range(a, b + 1)]))
         return parts
@@ -505,22 +522,27 @@ class TorchEngine(Backend):
         self._note_key(("mega", lo, hi, with_head, int(slots.shape[0]), ctx))
         x = self.model.embed(self.params, entry) if lo == 0 else entry
         if lo >= 0:
-            for si, bps, offs in self._span_parts(lo, hi):
+            self.decode_layer_steps += hi - lo + 1
+            for si, kind, bps, offs in self._span_parts(lo, hi):
                 x, _ = self.model.apply_span_decode(
                     bps, x, self.arenas[si], pos, offs=offs, slots=slots,
-                    ctx=ctx, live=live)
+                    ctx=ctx, live=live, kind=kind)
         return self._head(x) if with_head else x
 
     def _write_prefill(self, arena: dict, cache: dict, rows, n: int):
-        """Store the first ``n`` members' prefill K/V in arena ``rows``,
-        zero-padded to ``max_len`` so an earlier occupant's stale K/V never
-        stays readable. One write of a device tensor: assigning a Python
-        scalar through a tensor index would copy it from the host and wait
-        for the stream."""
+        """Store the first ``n`` members' prefill cache in arena ``rows``.
+        Time-axis leaves (K/V) are zero-padded to ``max_len`` so an earlier
+        occupant's stale K/V never stays readable; state and conv leaves
+        have the arena's row shape and are written as they are. One write
+        of a device tensor per leaf: assigning a Python scalar through a
+        tensor index would copy it from the host and wait for the
+        stream."""
         for key, a in arena.items():
             c = cache[key][:n].to(a.dtype)
-            a[rows] = torch.nn.functional.pad(
-                c, (0, 0, 0, 0, 0, a.shape[1] - c.shape[1]))
+            if key in _TIME_AXIS_KEYS:
+                c = torch.nn.functional.pad(
+                    c, (0, 0) * (c.dim() - 2) + (0, a.shape[1] - c.shape[1]))
+            a[rows] = c
 
     def _prefill_run(self, lo: int, hi: int, embed: bool, entry,
                      live_slots: np.ndarray):
@@ -532,9 +554,9 @@ class TorchEngine(Backend):
         x = self.model.embed(self.params, entry) if embed else entry
         n = len(live_slots)
         slots = self._upload(np.asarray(live_slots, np.int64))
-        for si, bps, offs in self._span_parts(lo, hi):
+        for si, kind, bps, offs in self._span_parts(lo, hi):
             x, _ = self.model.apply_span_prefill(
-                bps, self.arenas[si], x, offs=offs,
+                bps, self.arenas[si], x, offs=offs, kind=kind,
                 write=lambda arena, cache, off: self._write_prefill(
                     arena, cache, slots + off, n))
         return x
@@ -581,13 +603,21 @@ class TorchEngine(Backend):
         return chunks
 
     def _prefill_groups(self, reqs, sts):
-        """Group members for batched prefill by power-of-two padded prompt
-        length (capped at ``max_len``)."""
-        groups: Dict[int, list] = {}
+        """Group members for batched prefill: ``[(members, length)]``.
+
+        Attention stacks (dense/MLA) bucket by power-of-two padded prompt
+        length (capped at ``max_len``). Other stacks prefill each request
+        at its exact length, keyed ``(prefill_len, rid)``: a padded tail
+        would run through the SSM recurrence and change the state."""
+        bucketable = set(self.kinds) <= {"dense", "mla"}
+        groups: Dict[tuple, list] = {}
         for r, st in zip(reqs, sts):
-            key = min(_pow2(st.prefill_len), self.max_len)
+            if bucketable:
+                key = (min(_pow2(st.prefill_len), self.max_len),)
+            else:
+                key = (st.prefill_len, r.rid)
             groups.setdefault(key, []).append((r, st))
-        return [(members, key) for key, members in groups.items()]
+        return [(members, key[0]) for key, members in groups.items()]
 
     def _run_prefill_chunk(self, reqs, sts, metas):
         has_emb = metas[0][0] == "emb"
@@ -650,10 +680,13 @@ class TorchEngine(Backend):
         chunks = self._chunk_run(wl, node_ids)
         # one context bucket covers every decode chunk of the run, from
         # host positions: the deepest read is pos0 + n_cycles - 1 when the
-        # run ends on a head, pos0 + n_cycles with a trailing headless chunk
+        # run ends on a head, pos0 + n_cycles with a trailing headless chunk.
+        # An SSM stack reads no context: it takes none, and its dispatch
+        # shape key does not change as the context grows.
         n_cycles = sum(1 for ch in chunks if ch[0] == "decode" and ch[3])
         ctx = None
-        if any(ch[0] == "decode" for ch in chunks):
+        if (any(ch[0] == "decode" for ch in chunks)
+                and any(k != "ssm" for k in self.kinds)):
             trailing = chunks[-1][0] == "decode" and not chunks[-1][3]
             deepest = (max(st.pos for st in sts) + n_cycles
                        + (1 if trailing else 0))
@@ -744,7 +777,8 @@ class TorchEngine(Backend):
                 S = st.x.shape[1]
                 self._note_key(("prefill_node", si, S))
                 st.x, cache = self.model.apply_block_dense(
-                    self._layers[i], st.x, return_cache=True)
+                    self._layers[i], st.x, return_cache=True,
+                    kind=self.kinds[i])
                 row = self._upload(np.asarray([slot + k * self.n_slots],
                                               np.int64))
                 self._write_prefill(self.arenas[si], cache, row, 1)
@@ -761,9 +795,10 @@ class TorchEngine(Backend):
             si, k = self._layer_loc[i]
             slots = self._batched_slots(reqs, rids)
             self._note_key(("decode_node", si, len(reqs)))
+            self.decode_layer_steps += 1
             x, _ = self.model.apply_block_decode(
                 self._layers[i], x, self.arenas[si], pos,
-                slots=slots + k * self.n_slots)
+                slots=slots + k * self.n_slots, kind=self.kinds[i])
             self._xbatch = (rids, x)
         elif phase == "head":
             sts = [self.state(r) for r in reqs]

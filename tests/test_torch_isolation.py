@@ -21,7 +21,8 @@ PORT = REPO / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 # modules kept as verbatim copies of the JAX package's pure-Python layer
-COPIES = ["configs/base.py", "configs/llama3_2_1b.py", "core/__init__.py",
+COPIES = ["configs/base.py", "configs/llama3_2_1b.py",
+          "configs/mamba2_2_7b.py", "core/__init__.py",
           "core/lifecycle.py", "core/request.py", "core/batch_table.py",
           "core/slack.py", "core/policies.py", "core/arbiter.py",
           "serving/backend.py", "serving/registry.py", "serving/metrics.py",

@@ -241,12 +241,16 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
                                                       dtype=torch.int32))
     K.flash_attention(torch.randn(1, 8, 4, 32), torch.randn(1, 8, 2, 32),
                       torch.randn(1, 8, 2, 32))
+    K.ssd_chunked(torch.randn(1, 8, 2, 16), torch.rand(1, 8, 2),
+                  -torch.rand(2), torch.randn(1, 8, 4), torch.randn(1, 8, 4), 4)
     assert K.launch_counts() == {"ragged_decode_attention": 0,
-                                 "fused_rmsnorm": 0, "flash_attention": 0}
+                                 "fused_rmsnorm": 0, "flash_attention": 0,
+                                 "ssd_chunked": 0}
 
 
 def test_build_sources_and_dtype_codes():
-    assert list(_build.sources()) == ["flash_attn", "ragged_decode_attn"]
+    assert list(_build.sources()) == ["flash_attn", "ragged_decode_attn",
+                                      "ssd_chunk"]
     assert set(_build.SIGNATURES) == set(_build.sources())
     for name in _build.sources():
         path = _build.library_path(name)

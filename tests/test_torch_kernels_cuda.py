@@ -9,7 +9,10 @@ it runs there as it stands:
 It sweeps the shapes of ``tests/test_kernels.py`` — MHA, GQA, MQA, head
 dims 32/64/128, ragged lengths, padding rows at an out-of-range slot,
 sliding windows, query offsets and tails that are no multiple of a tile —
-in float32 (tolerance 2e-5) and bfloat16 (2e-2).
+in float32 (tolerance 2e-5) and bfloat16 (2e-2); the SSD scan over its
+shapes, full width and chunks 1 … 256 in float32 (1e-4) and bfloat16
+(5e-2 on y, 1e-4 on the float32 states); and tiny llama and Mamba-2
+engines on the card against the CPU engine.
 """
 import pytest
 
@@ -33,6 +36,21 @@ FLASH_CASES = [
     (1, 128, 2, 32, None, 128),       # catch-up chunk: q_offset > 0, T > S
     (2, 128, 8, 128, 96, 64),         # window + offset
 ]
+
+
+SSD_CASES = [
+    (2, 128, 4, 32, 16, 32),
+    (1, 256, 2, 64, 32, 64),
+    (2, 64, 8, 16, 8, 16),
+    (1, 33, 4, 32, 16, 1),          # odd prefill length: chunk 1
+    (1, 96, 2, 128, 256, 32),       # largest head_dim and state
+    (2, 200, 3, 64, 100, 200),      # chunk and N no multiple of a tile
+    (1, 256, 80, 64, 128, 256),     # mamba2-2.7b prefill, chunk 256
+    (1, 384, 80, 64, 128, 128),     # mamba2-2.7b prefill, chunk 128
+]
+
+LLAMA_KERNELS = ("ragged_decode_attention", "fused_rmsnorm", "flash_attention")
+MAMBA_KERNELS = ("ssd_chunked", "fused_rmsnorm")
 
 
 @pytest.fixture
@@ -101,7 +119,9 @@ def test_flash_kernel_on_card(cuda, B, S, H, D, window, q_offset, KV_div,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 128), (2, 64, 256), (3, 5, 512),
-                                   (8, 2048), (7, 1000)])
+                                   (8, 2048), (7, 1000),
+                                   # mamba2-2.7b: d_model and d_inner
+                                   (8, 2560), (8, 5120), (1, 384, 5120)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_on_card(cuda, shape, dtype):
     g = torch.Generator(device=cuda).manual_seed(4)
@@ -114,10 +134,47 @@ def test_rmsnorm_kernel_on_card(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
-def test_engine_on_card_matches_cpu_engine(cuda):
-    """A tiny llama through TorchEngine on the card (all three kernels)
-    generates the CPU engine's tokens (the kernels' plain versions), in
-    float32 with TF32 off, under ServingSession + LazyBatching."""
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_on_card(cuda, B, S, nh, hd, N, chunk, dtype):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((B, S, nh, hd), generator=g, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, nh), generator=g, device=cuda))
+    A = -torch.exp(torch.randn((nh,), generator=g, device=cuda) * 0.3)
+    Bm = torch.randn((B, S, N), generator=g, device=cuda).to(dtype)
+    Cm = torch.randn((B, S, N), generator=g, device=cuda).to(dtype)
+    y_tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    n0 = K.ssd_chunked.launches
+    y, st = K.ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    y_ref, st_ref = K.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk)
+    assert K.ssd_chunked.launches == n0 + 1
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=y_tol,
+                               atol=y_tol)
+    torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-4)
+    # no head may be off as a whole, however small its values
+    yf, rf = y.float(), y_ref.float()
+    head_rel = ((yf - rf).square().sum(dim=(0, 1, 3)).sqrt()
+                / rf.square().sum(dim=(0, 1, 3)).sqrt())
+    assert head_rel.max().item() < 1e-2
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejects_unsupported_shapes(cuda):
+    x = torch.zeros((1, 8, 2, 48), device=cuda)
+    dt, A = torch.zeros((1, 8, 2), device=cuda), torch.zeros((2,), device=cuda)
+    bc = torch.zeros((1, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        K.ssd_chunked(x, dt, A, bc, bc, 4)
+    with pytest.raises(ValueError, match="chunk"):
+        K.ssd_chunked(x[..., :32].contiguous(), dt, A, bc, bc, 3)
+
+
+def _engine_on_card_vs_cpu(cuda, arch, prompts, kernels):
+    """A tiny ``arch`` through TorchEngine on the card generates the CPU
+    engine's tokens (the kernels' plain versions), in float32 with TF32
+    off, under ServingSession + LazyBatching; every kernel of ``kernels``
+    ran on the card."""
     import dataclasses
 
     import numpy as np
@@ -130,10 +187,11 @@ def test_engine_on_card_matches_cpu_engine(cuda):
                                      from_model_config)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+    cfg = dataclasses.replace(get_config(arch).reduced(),
                               d_model=64, d_ff=128, vocab_size=128)
-    wl = from_model_config(cfg, prompt_dist=LengthDist((5, 9, 20), (.4, .3, .3)),
-                           decode_dist=LengthDist((2, 4, 6), (.4, .3, .3)))
+    wl = from_model_config(
+        cfg, prompt_dist=LengthDist(prompts, (1 / len(prompts),) * len(prompts)),
+        decode_dist=LengthDist((2, 4, 6), (.4, .3, .3)))
     params = None
     tokens = {}
     K.reset_launch_counts()
@@ -152,11 +210,25 @@ def test_engine_on_card_matches_cpu_engine(cuda):
         tokens[str(device)] = [engine.states[h.request.rid].generated
                                for h in handles]
     assert tokens["cpu"] == tokens["cuda"]
-    assert all(n > 0 for n in K.launch_counts().values())
+    counts = K.launch_counts()
+    assert all(counts[n] > 0 for n in kernels), counts
 
 
 @pytest.mark.cuda
-def test_fused_runs_make_no_hidden_host_sync(cuda):
+def test_engine_on_card_matches_cpu_engine(cuda):
+    """The tiny llama: ragged decode, RMSNorm and flash prefill."""
+    _engine_on_card_vs_cpu(cuda, "llama3.2-1b", (5, 9, 20), LLAMA_KERNELS)
+
+
+@pytest.mark.cuda
+def test_mamba_engine_on_card_matches_cpu_engine(cuda):
+    """The tiny Mamba-2 at prefill lengths 4, 8, 32 and 33 (SSD chunks 4,
+    8, 32 and 1): the SSD scan and RMSNorm."""
+    _engine_on_card_vs_cpu(cuda, "mamba2-2.7b", (5, 9, 33, 34),
+                           MAMBA_KERNELS)
+
+
+def _no_hidden_sync(cuda, arch):
     """Inside a committed run nothing waits for the card: with torch's sync
     debug mode set to raise, warm fused runs (prefill + decode cycles,
     padded batch) complete; only the run boundary's explicit device
@@ -168,7 +240,7 @@ def test_fused_runs_make_no_hidden_host_sync(cuda):
     from repro_torch.configs import get_config
     from repro_torch.core.request import SubBatch
     from repro_torch.serving import LengthDist, TorchEngine, from_model_config
-    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+    cfg = dataclasses.replace(get_config(arch).reduced(),
                               d_model=64, d_ff=128, vocab_size=128)
     wl = from_model_config(cfg, prompt_dist=LengthDist((9,), (1.0,)),
                            decode_dist=LengthDist((4,), (1.0,)))
@@ -196,3 +268,13 @@ def test_fused_runs_make_no_hidden_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(len(g) == 4 for g in got)
+
+
+@pytest.mark.cuda
+def test_fused_runs_make_no_hidden_host_sync(cuda):
+    _no_hidden_sync(cuda, "llama3.2-1b")
+
+
+@pytest.mark.cuda
+def test_fused_ssm_runs_make_no_hidden_host_sync(cuda):
+    _no_hidden_sync(cuda, "mamba2-2.7b")

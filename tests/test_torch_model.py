@@ -141,7 +141,7 @@ def test_span_decode_over_slot_arena_matches_jax(models, ctx):
         tx, tarena = port.apply_span_decode(
             layer_bps, torch.from_numpy(x), tarena,
             torch.from_numpy(pos + step), offs=offs,
-            slots=torch.from_numpy(slots), ctx=ctx, live=2)
+            slots=torch.from_numpy(slots), ctx=ctx, live=2, kind="dense")
         np.testing.assert_allclose(_np(tx)[:2], _np(jx)[:2], **TOL)
     for key in ("k", "v"):
         np.testing.assert_allclose(_np(tarena[key]), _np(jarena[key]), **TOL)
