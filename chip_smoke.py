@@ -78,6 +78,11 @@ SOURCES = {
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attn.cu"),
     "ssd_chunked": ("cuda", "src/repro_torch/csrc/ssd_chunk.cu"),
 }
+# a substring of each hand-written kernel's symbol, for the profile windows
+SYMBOLS = {"ragged decode": "ragged_decode_split_kernel",
+           "flash prefill (bf16, tensor cores)": "flash_tc_kernel",
+           "flash prefill (f32, CUDA cores)": "flash_fwd_kernel",
+           "SSD scan": "ssd_", "RMSNorm": "rmsnorm"}
 # the kernels each serving path must launch
 LLAMA_KERNELS = ("ragged_decode_attention", "fused_rmsnorm", "flash_attention")
 MAMBA_KERNELS = ("ssd_chunked", "fused_rmsnorm")
@@ -193,6 +198,7 @@ def compare(torch, got, ref, dtype_name: str, what: str, tols=None) -> float:
 # ---------------------------------------------------------------------------
 
 def phase_build():
+    import shutil
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -203,36 +209,62 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    # the bf16 flash kernel runs on the tensor cores: its SASS holds HGMMA
+    # (wgmma) instructions
+    tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent
+                                            / "cuobjdump")
+    sass = subprocess.run([tool, "-sass",
+                           str(_build.library_path("flash_attn"))],
+                          capture_output=True, text=True, check=True).stdout
+    n_hgmma = sum(1 for line in sass.splitlines() if "HGMMA" in line)
+    print(f"[build] flash_attn: {n_hgmma} HGMMA (wgmma) instructions in "
+          f"its SASS (cuobjdump -sass)")
+    check(n_hgmma > 0, "flash_attn: no tensor-core (HGMMA) instruction in "
+                       "the built kernel")
 
 
-def kernel_decode(torch, K, dtype, n_slots=32, layer=5):
-    B, H, KV, D, T, L = 8, 32, 8, 64, 1024, 16
+# ragged decode shapes: (lengths, slots, ctx); the last slot is a padding
+# row. The first is llama's decode step at the arena's full context; one
+# long row and a short context bucket check that the split slows neither.
+DECODE_CASES = (
+    ((1, 1024, 77, 300, 512, 640, 999, 1), (3, 17, 0, 31, 8, 22, 11, 2 ** 30),
+     None),
+    ((1024,), (9,), None),
+    ((1, 64, 17, 33, 50, 64, 9, 1), (3, 17, 0, 31, 8, 22, 11, 2 ** 30), 64),
+)
+
+
+def kernel_decode(torch, K, dtype, lens, slots, ctx, n_slots=32, layer=5):
+    B, H, KV, D, T, L = len(lens), 32, 8, 64, 1024, 16
     g = torch.Generator(device="cuda").manual_seed(1)
     N = L * n_slots
     q = torch.randn((B, H, D), generator=g, device="cuda").to(dtype)
     k = torch.randn((N, T, KV, D), generator=g, device="cuda").to(dtype)
     v = torch.randn((N, T, KV, D), generator=g, device="cuda").to(dtype)
-    lens = [1, 1024, 77, 300, 512, 640, 999, 1]
-    slots = [3, 17, 0, 31, 8, 22, 11, 2 ** 30]    # last row: padding
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     rows = torch.tensor(slots, dtype=torch.int32, device="cuda") \
         + layer * n_slots
-    out = K.ragged_decode_attention(q, k, v, lengths, slots=rows)
-    ref = K.ragged_decode_attention_plain(q, k, v, lengths, slots=rows)
+    out = K.ragged_decode_attention(q, k, v, lengths, slots=rows, ctx=ctx)
+    ref = K.ragged_decode_attention_plain(q, k, v, lengths, slots=rows,
+                                          ctx=ctx)
     torch.cuda.synchronize()
     res = {"shape": f"q{tuple(q.shape)} arena{tuple(k.shape)} "
-                    f"lengths{lens}", "out": out, "ref": ref}
+                    f"lengths{list(lens)} ctx {ctx}", "out": out, "ref": ref,
+           "main": B == 8 and ctx is None}
     # library yardstick: SDPA over the gathered, head-repeated rows
+    span = T if ctx is None else ctx
     grow = torch.clamp(rows.long(), max=N - 1)
-    kg = k[grow].transpose(1, 2).repeat_interleave(H // KV, dim=1)
-    vg = v[grow].transpose(1, 2).repeat_interleave(H // KV, dim=1)
-    mask = (torch.arange(T, device="cuda")[None, :]
+    kg = k[grow, :span].transpose(1, 2).repeat_interleave(H // KV, dim=1)
+    vg = v[grow, :span].transpose(1, 2).repeat_interleave(H // KV, dim=1)
+    mask = (torch.arange(span, device="cuda")[None, :]
             < lengths[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
     F = torch.nn.functional
     res["fns"] = (
-        lambda: K.ragged_decode_attention(q, k, v, lengths, slots=rows),
-        lambda: K.ragged_decode_attention_plain(q, k, v, lengths, slots=rows),
+        lambda: K.ragged_decode_attention(q, k, v, lengths, slots=rows,
+                                          ctx=ctx),
+        lambda: K.ragged_decode_attention_plain(q, k, v, lengths, slots=rows,
+                                                ctx=ctx),
         lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask))
     elt = q.element_size()
     tot = sum(lens)
@@ -251,6 +283,7 @@ def kernel_rmsnorm(torch, K, dtype, shape):
     w = scale.to(dtype)
     F = torch.nn.functional
     return {"shape": f"x{tuple(shape)}", "out": out, "ref": ref,
+            "main": tuple(shape) == (8, 2048),
             "fns": (lambda: K.fused_rmsnorm(x, scale),
                     lambda: K.fused_rmsnorm_plain(x, scale),
                     lambda: F.rms_norm(x, (shape[-1],), w, 1e-5)),
@@ -272,7 +305,7 @@ def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64):
     F = torch.nn.functional
     elt = q.element_size()
     return {"shape": f"q{tuple(q.shape)} kv{tuple(k.shape)} causal",
-            "out": out, "ref": ref,
+            "out": out, "ref": ref, "main": S == 512,
             "fns": (lambda: K.flash_attention(q, k, v),
                     lambda: K.flash_attention_plain(q, k, v),
                     lambda: F.scaled_dot_product_attention(qt, kt, vt,
@@ -315,7 +348,7 @@ def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
     tri = chunk * (chunk + 1) // 2
     elt = x.element_size()
     return {"shape": shape, "out": (y, st), "ref": (y_ref, st_ref),
-            "tols": (ytol, 1e-4),
+            "tols": (ytol, 1e-4), "main": chunk == 256,
             "note": f"median |y_ref| {rf.abs().median().item():.3e}, worst "
                     f"head ||y - y_ref|| / ||y_ref|| {rel:.3e}",
             "fns": (lambda: K.ssd_chunked(x, dt, A, Bm, Cm, chunk),
@@ -338,8 +371,10 @@ def phase_kernels(torch):
     import repro_torch.kernels as K
     cases = []
     for dt in (torch.float32, torch.bfloat16):
-        cases.append(("ragged_decode_attention", dt,
-                      lambda dt=dt: kernel_decode(torch, K, dt)))
+        for lens, slots, ctx in DECODE_CASES:
+            cases.append(("ragged_decode_attention", dt,
+                          lambda dt=dt, a=lens, s=slots, c=ctx:
+                          kernel_decode(torch, K, dt, a, s, c)))
         # llama's width, then mamba's (ln1 and the final norm at d_model,
         # the gated norm at d_inner, decode rows and a prefill)
         for shape in ((8, 2048), (4, 256, 2048), (8, 2560), (8, 5120),
@@ -347,7 +382,7 @@ def phase_kernels(torch):
             cases.append(("fused_rmsnorm", dt,
                           lambda dt=dt, s=shape: kernel_rmsnorm(torch, K, dt,
                                                                 s)))
-        for S in (64, 512):
+        for S in (64, 128, 256, 512):      # every llama prefill bucket
             cases.append(("flash_attention", dt,
                           lambda dt=dt, S=S: kernel_flash(torch, K, dt, S)))
         for S, chunk in ((256, 256), (384, 128), (383, 1)):
@@ -365,19 +400,23 @@ def phase_kernels(torch):
         b_ms, b_by = bound(r["bytes"], r["flops"], dname)
         fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"
         lib = fmt if r["fns"][2] is not None else (lambda t: "none")
+        ratio = lambda a, b: ("not measured" if a is None or b is None
+                              else f"{a / b:.2f}x")
         note = f" | {r['note']}" if "note" in r else ""
+        vs_lib = (f" | kernel / library: device {ratio(dev_ms, dev_lib)}, "
+                  f"events {ratio(ms, lib_ms)}"
+                  if r["fns"][2] is not None else "")
+        share = ("not measured" if dev_ms is None
+                 else f"{100 * b_ms / dev_ms:.1f}%")
         print(f"[kernels] {name} {dname} {r['shape']}: max|err| {err:.3e} | "
               f"events (L2 cold, launch included) kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {lib(lib_ms)} | device time "
               f"(profiler, L2 warm) kernel {fmt(dev_ms)}, plain "
               f"{fmt(dev_plain)}, library {lib(dev_lib)} | bound "
-              f"{b_ms * 1e3:.2f} us ({b_by}){note}")
+              f"{b_ms * 1e3:.2f} us ({b_by}), kernel device at {share} of "
+              f"it{vs_lib}{note}")
         # the JSON row: bfloat16 at the decode / full-width prefill shape
-        main = (dname == "bfloat16"
-                and (name != "fused_rmsnorm" or "(8, 2048)" in r["shape"])
-                and (name != "flash_attention" or ", 512," in r["shape"])
-                and (name != "ssd_chunked" or "chunk 256" in r["shape"]))
-        if main:
+        if dname == "bfloat16" and r["main"]:
             route, source = SOURCES[name]
             rows[name] = {"name": name, "route": route, "source": source,
                           "replaces": REPLACES[name], "max_abs_err": err,
@@ -536,6 +575,16 @@ def profile_window(torch, engine, cfg, kw, tag, n=8):
         t = e.self_device_time_total / 1e6
         print(f"[{tag} profile]   {100 * t / busy:5.1f}% {t * 1e3:9.3f} ms "
               f"x{e.count:<6d} {e.key[:90]}")
+    # the hand-written kernels' shares, by their symbols' names
+    for label, part in SYMBOLS.items():
+        hits = [e for e in dev if part in e.key]
+        if not hits:
+            continue
+        t = sum(e.self_device_time_total for e in hits) / 1e6
+        n = sum(e.count for e in hits)
+        print(f"[{tag} profile] {label}: {100 * t / busy:.2f}% of device "
+              f"time, {t * 1e3:.3f} ms over {n} launches "
+              f"({t * 1e6 / max(n, 1):.2f} us each)")
 
 
 def _isolated(engine, wl, prompt, n_tokens):

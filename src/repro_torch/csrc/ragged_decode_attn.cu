@@ -1,4 +1,5 @@
-// Ragged decode attention over the serving engine's slot arena.
+// Ragged decode attention over the serving engine's slot arena, split over
+// the context (flash-decoding).
 //
 // Replaces the TPU kernel src/repro/kernels/ragged_decode_attn.py
 // (ragged_decode_attention, body _kernel). Row b of a merged decode batch
@@ -10,15 +11,32 @@
 // Bound on the H100: the bytes of K/V read. One decode step touches every
 // live row's sum(lengths) * KV * D * 2 elements once and does 4 flops per
 // element pair, far below the ~295 flop/byte ridge, so the floor is
-// bytes / 3.35 TB/s.
+// bytes / 3.35 TB/s. The kernel stays on the CUDA cores; what it has to get
+// right is parallelism and how the bytes move.
 //
-// Design: one CTA per (b, kv_head), so the G = H / KV query heads of a
-// group share every K/V tile the CTA loads into shared memory. The tile
-// loop stops at lengths[b]: a short row reads only its own context, never
-// the arena's capacity. Scores, probabilities and the accumulator stay in
-// float32 shared memory. This first version has no split over T, so a
-// batch of B rows fills only B * KV of the 132 SMs; a flash-decoding split
-// is the next step when the decode step is the bottleneck.
+// Design: grid (n_split, KV, B). CTA (s, kv, b) owns positions
+// [s * split_t, (s + 1) * split_t) of row b's context for the G = H / KV
+// query heads of group kv; n_split (at most kMaxSplits) and split_t are
+// planned on the host from the static context bound
+// (kernels/ragged_decode_attn.py: split_plan), so a batch of 8 rows at a
+// context of 1024 runs 512 CTAs on the 132 SMs. A CTA whose span starts at
+// or past lengths[b] exits at once. Each warp reads K and V rows straight
+// from the arena with 16-byte vector loads, D / 8 (bf16) or D / 4 (f32)
+// neighbouring lanes per row, so one load instruction covers 32 / LPR
+// rows, and keeps 8 such rows of K and V in flight per lane as raw
+// registers, widened to float only where they are used; q for the heads
+// lives in registers, each dot product is reduced with shuffles over the
+// row's lanes, and every lane group keeps its own online softmax. The
+// groups of a warp merge by shuffles, the warps of a CTA once through
+// shared memory. A row with one live span writes its output directly.
+// Otherwise each span writes a float32 partial (m, l, acc) to scratch, and
+// the last CTA of the (b, kv) group to arrive — it learns so from a
+// per-group counter, after __threadfence — merges the partials (one warp
+// per head weighs the spans, then every thread sums its outputs over them
+// with independent loads), writes the output and resets the counter for
+// the next launch. So the split adds no launch. Heads are processed GC at
+// a time (a compile-time chunk of at most 8) to bound the registers at
+// G = 16, D = 128.
 #include <math.h>
 #include <stdint.h>
 
@@ -26,157 +44,334 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
-template <typename E, int D>
+constexpr int kMaxSplits = 64;  // spans per row (split_plan caps it)
+
+// 16 bytes of E: loaded raw, widened to float where they are used
+template <typename E>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int n = 4;
+  static __device__ __forceinline__ void widen(uint4 x, float* out) {
+    out[0] = __uint_as_float(x.x); out[1] = __uint_as_float(x.y);
+    out[2] = __uint_as_float(x.z); out[3] = __uint_as_float(x.w);
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int n = 8;
+  static __device__ __forceinline__ void widen(uint4 x, float* out) {
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+template <typename E>
+__device__ __forceinline__ uint4 load16(const E* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// merge (m2, l2, a2) into (m, l, a)
+__device__ __forceinline__ void merge(float& m, float& l, float m2, float l2,
+                                      float& ca, float& cb) {
+  const float mn = fmaxf(m, m2);
+  ca = expf(m - mn);
+  cb = expf(m2 - mn);
+  l = l * ca + l2 * cb;
+  m = mn;
+}
+
+template <typename E, int D, int GC>
 __global__ void __launch_bounds__(kThreads)
-ragged_decode_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                     const E* __restrict__ v, const int* __restrict__ lengths,
-                     const int* __restrict__ slots, E* __restrict__ out,
-                     int H, int KV, int N, int T, int block_t, float scale) {
-  const int b = blockIdx.x;
+ragged_decode_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                           const E* __restrict__ v,
+                           const int* __restrict__ lengths,
+                           const int* __restrict__ slots, E* __restrict__ out,
+                           float* __restrict__ part_acc,
+                           float* __restrict__ part_ml,
+                           int* __restrict__ counters, int H, int KV, int N,
+                           int T, int n_split, int split_t, float scale) {
+  constexpr int EPL = Vec<E>::n;   // elements per lane
+  constexpr int LPR = D / EPL;     // lanes per row
+  constexpr int RPW = 32 / LPR;    // rows per warp load
+  // rows in flight per lane, 32 bytes each (fewer at GC = 8, which holds
+  // 2 * 8 * EPL floats of q and acc)
+  constexpr int kUnroll = GC >= 8 ? 4 : 8;
+  const int split = blockIdx.x;
   const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
   const int G = H / KV;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int c = lane % LPR;        // 16-byte chunk of the row
+  const int r = lane / LPR;        // row within the warp's load
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                        // G * D
-  float* k_s = q_s + G * D;                 // block_t * (D + 1), padded
-  float* v_s = k_s + block_t * (D + 1);     // block_t * D
-  float* p_s = v_s + block_t * D;           // G * block_t
-  float* acc_s = p_s + G * block_t;         // G * D
-  float* m_s = acc_s + G * D;               // G
-  float* l_s = m_s + G;                     // G
-  float* c_s = l_s + G;                     // G
-
+  // a length past the planned spans (above ctx) is cut there, as the plain
+  // version reads only ctx rows; every CTA it counts on then exists
+  const int len = max(0, min(min(lengths[b], T), n_split * split_t));
+  const int n_active = max(1, (len + split_t - 1) / split_t);
+  if (split >= n_active) return;
+  const int t_begin = split * split_t;
+  const int t_end = min(t_begin + split_t, len);
   int slot = slots[b];
   slot = slot < 0 ? 0 : (slot > N - 1 ? N - 1 : slot);
-  const int len = min(lengths[b], T);
 
-  const E* qrow = q + ((size_t)b * H + (size_t)kvh * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) {
-    q_s[i] = repro::to_float(qrow[i]);
-    acc_s[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = -1e30f;
-    l_s[g] = 0.f;
-  }
-  __syncthreads();
+  __shared__ float s_acc[kWarps][GC][D];
+  __shared__ float s_m[kWarps][GC];
+  __shared__ float s_l[kWarps][GC];
+  __shared__ int s_last;
 
   const size_t t_stride = (size_t)KV * D;
-  const size_t base = (size_t)slot * T * t_stride + (size_t)kvh * D;
+  const size_t base = (size_t)slot * T * t_stride + (size_t)kvh * D + c * EPL;
   const E* kb = k + base;
   const E* vb = v + base;
+  const size_t group = (size_t)b * KV + kvh;
 
-  for (int t0 = 0; t0 < len; t0 += block_t) {
-    const int nt = min(block_t, len - t0);
-    for (int i = tid; i < block_t * D; i += kThreads) {
-      const int t = i / D, d = i % D;
-      float kx = 0.f, vx = 0.f;
-      if (t < nt) {
-        const size_t off = (size_t)(t0 + t) * t_stride + d;
-        kx = repro::to_float(kb[off]);
-        vx = repro::to_float(vb[off]);
-      }
-      k_s[t * (D + 1) + d] = kx;
-      v_s[t * D + d] = vx;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * block_t; i += kThreads) {
-      const int g = i / block_t, t = i % block_t;
-      float s = -1e30f;
-      if (t < nt) {
-        const float* qg = q_s + g * D;
-        const float* kt = k_s + t * (D + 1);
-        float a = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) a += qg[d] * kt[d];
-        s = a * scale;
-      }
-      p_s[i] = s;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += kWarps) {
-      float* pg = p_s + g * block_t;
-      float mx = -1e30f;
-      for (int t = lane; t < block_t; t += 32) mx = fmaxf(mx, pg[t]);
-      mx = repro::warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < block_t; t += 32) {
-        const float p = t < nt ? expf(pg[t] - m_new) : 0.f;
-        pg[t] = p;
-        sum += p;
-      }
-      sum = repro::warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        c_s[g] = corr;
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
+  for (int g0 = 0; g0 < G; g0 += GC) {
+    float qr[GC][EPL], acc[GC][EPL], m[GC], l[GC];
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      m[g] = -1e30f;
+      l[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+      if (g0 + g < G) {
+        Vec<E>::widen(load16(q + ((size_t)b * H + (size_t)kvh * G + g0 + g) *
+                                     D + c * EPL), qr[g]);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) qr[g][e] *= scale;
+      } else {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) qr[g][e] = 0.f;
       }
     }
-    __syncthreads();
 
-    for (int i = tid; i < G * D; i += kThreads) {
+    // this lane's rows: t_begin + (it * kWarps + warp) * RPW + r
+    for (int t0 = t_begin + warp * RPW; t0 < t_end;
+         t0 += kWarps * RPW * kUnroll) {
+      uint4 kraw[kUnroll], vraw[kUnroll];
+      bool ok[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int t = t0 + u * kWarps * RPW + r;
+        ok[u] = t < t_end;
+        kraw[u] = vraw[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (ok[u]) {
+          kraw[u] = load16(kb + (size_t)t * t_stride);
+          vraw[u] = load16(vb + (size_t)t * t_stride);
+        }
+      }
+      float s[GC][kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        float kx[EPL];
+        Vec<E>::widen(kraw[u], kx);
+#pragma unroll
+        for (int g = 0; g < GC; ++g) {
+          float a = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) a = fmaf(qr[g][e], kx[e], a);
+#pragma unroll
+          for (int off = LPR / 2; off > 0; off >>= 1)
+            a += __shfl_xor_sync(0xffffffffu, a, off);
+          s[g][u] = ok[u] ? a : -1e30f;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+        float mx = m[g];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) mx = fmaxf(mx, s[g][u]);
+        const float corr = expf(m[g] - mx);
+        m[g] = mx;
+        l[g] *= corr;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] *= corr;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          s[g][u] = ok[u] ? expf(s[g][u] - mx) : 0.f;
+          l[g] += s[g][u];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        float vx[EPL];
+        Vec<E>::widen(vraw[u], vx);
+#pragma unroll
+        for (int g = 0; g < GC; ++g)
+#pragma unroll
+          for (int e = 0; e < EPL; ++e)
+            acc[g][e] = fmaf(s[g][u], vx[e], acc[g][e]);
+      }
+    }
+
+    // merge the row groups of the warp (lanes with the same chunk c)
+#pragma unroll
+    for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+        const float m2 = __shfl_xor_sync(0xffffffffu, m[g], off);
+        const float l2 = __shfl_xor_sync(0xffffffffu, l[g], off);
+        float ca, cb;
+        merge(m[g], l[g], m2, l2, ca, cb);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) {
+          const float a2 = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+          acc[g][e] = acc[g][e] * ca + a2 * cb;
+        }
+      }
+    }
+    if (r == 0) {
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) s_acc[warp][g][c * EPL + e] = acc[g][e];
+        if (c == 0) {
+          s_m[warp][g] = m[g];
+          s_l[warp][g] = l[g];
+        }
+      }
+    }
+    __syncthreads();
+    // merge the warps; then write the output or this span's partial
+    for (int i = tid; i < GC * D; i += kThreads) {
       const int g = i / D, d = i % D;
-      const float* pg = p_s + g * block_t;
-      float a = acc_s[i] * c_s[g];
-      for (int t = 0; t < nt; ++t) a += pg[t] * v_s[t * D + d];
-      acc_s[i] = a;
+      if (g0 + g >= G) continue;
+      float mm = s_m[0][g], ll = s_l[0][g], aa = s_acc[0][g][d];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) {
+        float ca, cb;
+        merge(mm, ll, s_m[w][g], s_l[w][g], ca, cb);
+        aa = aa * ca + s_acc[w][g][d] * cb;
+      }
+      const int h = g0 + g;
+      if (n_active == 1) {
+        out[((size_t)b * H + (size_t)kvh * G + h) * D + d] =
+            repro::from_float<E>(aa / fmaxf(ll, 1e-30f));
+      } else {
+        const size_t p = (group * n_split + split) * G + h;
+        part_acc[p * D + d] = aa;
+        if (d == 0) {
+          part_ml[2 * p] = mm;
+          part_ml[2 * p + 1] = ll;
+        }
+      }
     }
     __syncthreads();
   }
+  if (n_active == 1) return;
 
-  E* orow = out + ((size_t)b * H + (size_t)kvh * G) * D;
-  for (int i = tid; i < G * D; i += kThreads)
-    orow[i] = repro::from_float<E>(acc_s[i] / fmaxf(l_s[i / D], 1e-30f));
+  // the last span of the group to arrive merges the partials
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int prev = atomicAdd(counters + group, 1);
+    s_last = prev == n_active - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  __shared__ float s_w[kMaxSplits][GC];  // exp(m_s - M) per span and head
+  __shared__ float s_inv[GC];            // 1 / sum_s l_s exp(m_s - M)
+  for (int g0 = 0; g0 < G; g0 += GC) {
+    const int ng = min(GC, G - g0);
+    // one warp per head: the spans' maxima and weights, lanes over spans
+    for (int g = warp; g < ng; g += kWarps) {
+      const size_t p0 = group * n_split * G + g0 + g;
+      float mm = -1e30f;
+      for (int s = lane; s < n_active; s += 32)
+        mm = fmaxf(mm, __ldcg(part_ml + 2 * (p0 + (size_t)s * G)));
+      mm = repro::warp_max(mm);
+      float ll = 0.f;
+      for (int s = lane; s < n_active; s += 32) {
+        const size_t p = p0 + (size_t)s * G;
+        const float w = expf(__ldcg(part_ml + 2 * p) - mm);
+        s_w[s][g] = w;
+        ll += __ldcg(part_ml + 2 * p + 1) * w;
+      }
+      ll = repro::warp_sum(ll);
+      if (lane == 0) s_inv[g] = 1.f / fmaxf(ll, 1e-30f);
+    }
+    __syncthreads();
+    for (int i = tid; i < ng * D; i += kThreads) {
+      const int g = i / D, d = i % D;
+      const float* pa = part_acc + (group * n_split * G + g0 + g) * D + d;
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      int s = 0;
+      for (; s + 4 <= n_active; s += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          a[u] += __ldcg(pa + (size_t)(s + u) * G * D) * s_w[s + u][g];
+      }
+      for (; s < n_active; ++s)
+        a[0] += __ldcg(pa + (size_t)s * G * D) * s_w[s][g];
+      out[((size_t)b * H + (size_t)kvh * G + g0 + g) * D + d] =
+          repro::from_float<E>((a[0] + a[1] + (a[2] + a[3])) * s_inv[g]);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) counters[group] = 0;
 }
 
-template <typename E, int D>
+template <typename E, int D, int GC>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           const void* slots, void* out, int B, int H, int KV, int N, int T,
-           int block_t, cudaStream_t stream) {
-  static int granted = 48 * 1024;
-  const int G = H / KV;
-  const size_t smem = sizeof(float) *
-      ((size_t)2 * G * D + (size_t)block_t * (D + 1) + (size_t)block_t * D +
-       (size_t)G * block_t + 3 * (size_t)G);
-  cudaError_t err = repro::allow_smem(ragged_decode_kernel<E, D>, smem,
-                                      &granted);
-  if (err != cudaSuccess) return (int)err;
+           const void* slots, void* out, void* part_acc, void* part_ml,
+           void* counters, int B, int H, int KV, int N, int T, int n_split,
+           int split_t, cudaStream_t stream) {
   const float scale = (float)(1.0 / sqrt((double)D));
-  dim3 grid(B, KV);
-  ragged_decode_kernel<E, D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid(n_split, KV, B);
+  ragged_decode_split_kernel<E, D, GC><<<grid, kThreads, 0, stream>>>(
       static_cast<const E*>(q), static_cast<const E*>(k),
       static_cast<const E*>(v), static_cast<const int*>(lengths),
-      static_cast<const int*>(slots), static_cast<E*>(out), H, KV, N, T,
-      block_t, scale);
+      static_cast<const int*>(slots), static_cast<E*>(out),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+      static_cast<int*>(counters), H, KV, N, T, n_split, split_t, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename E>
-int dispatch_d(const void* q, const void* k, const void* v,
-               const void* lengths, const void* slots, void* out, int B,
-               int H, int KV, int D, int N, int T, int block_t,
+template <typename E, int D>
+int dispatch_g(int G, const void* q, const void* k, const void* v,
+               const void* lengths, const void* slots, void* out,
+               void* part_acc, void* part_ml, void* counters, int B, int H,
+               int KV, int N, int T, int n_split, int split_t,
                cudaStream_t stream) {
+#define REPRO_LAUNCH(GC)                                                   \
+  return launch<E, D, GC>(q, k, v, lengths, slots, out, part_acc, part_ml, \
+                          counters, B, H, KV, N, T, n_split, split_t, stream)
+  if (G == 1) REPRO_LAUNCH(1);
+  if (G == 2) REPRO_LAUNCH(2);
+  if (G <= 4) REPRO_LAUNCH(4);
+  REPRO_LAUNCH(8);
+#undef REPRO_LAUNCH
+}
+
+template <typename E>
+int dispatch_d(int D, const void* q, const void* k, const void* v,
+               const void* lengths, const void* slots, void* out,
+               void* part_acc, void* part_ml, void* counters, int B, int H,
+               int KV, int N, int T, int n_split, int split_t,
+               cudaStream_t stream) {
+  const int G = H / KV;
   switch (D) {
     case 32:
-      return launch<E, 32>(q, k, v, lengths, slots, out, B, H, KV, N, T,
-                           block_t, stream);
+      return dispatch_g<E, 32>(G, q, k, v, lengths, slots, out, part_acc,
+                               part_ml, counters, B, H, KV, N, T, n_split,
+                               split_t, stream);
     case 64:
-      return launch<E, 64>(q, k, v, lengths, slots, out, B, H, KV, N, T,
-                           block_t, stream);
+      return dispatch_g<E, 64>(G, q, k, v, lengths, slots, out, part_acc,
+                               part_ml, counters, B, H, KV, N, T, n_split,
+                               split_t, stream);
     case 128:
-      return launch<E, 128>(q, k, v, lengths, slots, out, B, H, KV, N, T,
-                            block_t, stream);
+      return dispatch_g<E, 128>(G, q, k, v, lengths, slots, out, part_acc,
+                                part_ml, counters, B, H, KV, N, T, n_split,
+                                split_t, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -184,18 +379,25 @@ int dispatch_d(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// part_acc: (B * KV, n_split, G, D) float32 and part_ml: (B * KV, n_split,
+// G, 2) float32 scratch, unused when n_split == 1; counters: B * KV int32,
+// zero before the launch and zero again after it.
 extern "C" int repro_ragged_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    const void* slots, void* out, int B, int H, int KV, int D, int N, int T,
-    int block_t, int dtype, void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV != 0 || block_t <= 0)
+    const void* slots, void* out, void* part_acc, void* part_ml,
+    void* counters, int B, int H, int KV, int D, int N, int T, int n_split,
+    int split_t, int dtype, void* stream) {
+  if (B <= 0 || KV <= 0 || H % KV != 0 || n_split <= 0 || split_t <= 0 ||
+      n_split > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return dispatch_d<float>(q, k, v, lengths, slots, out, B, H, KV, D, N, T,
-                             block_t, s);
+    return dispatch_d<float>(D, q, k, v, lengths, slots, out, part_acc,
+                             part_ml, counters, B, H, KV, N, T, n_split,
+                             split_t, s);
   if (dtype == repro::kBFloat16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, lengths, slots, out, B, H, KV,
-                                     D, N, T, block_t, s);
+    return dispatch_d<__nv_bfloat16>(D, q, k, v, lengths, slots, out,
+                                     part_acc, part_ml, counters, B, H, KV, N,
+                                     T, n_split, split_t, s);
   return (int)cudaErrorInvalidValue;
 }

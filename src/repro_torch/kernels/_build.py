@@ -30,9 +30,9 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "ragged_decode_attn": (
         "repro_ragged_decode_attention",
-        # q, k, v, lengths, slots, out, B, H, KV, D, N, T, block_t, dtype,
-        # stream
-        [_VP] * 6 + [_I] * 8 + [_VP]),
+        # q, k, v, lengths, slots, out, part_acc, part_ml, counters, B, H,
+        # KV, D, N, T, n_split, split_t, dtype, stream
+        [_VP] * 9 + [_I] * 9 + [_VP]),
     "flash_attn": (
         "repro_flash_attention",
         # q, k, v, o, B, S, T, H, KV, D, q_offset, window, dtype, stream

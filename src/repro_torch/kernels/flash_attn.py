@@ -65,7 +65,8 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
     ``window``. Returns (B, S, H, D) in q.dtype.
 
     A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor
-    launches the kernel on the current stream or raises."""
+    launches the kernel on the current stream or raises: bfloat16 on the
+    tensor cores (wgmma, TMA), float32 on the CUDA cores."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window,
                                      q_offset=q_offset)
@@ -84,6 +85,9 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
         raise TypeError("flash_attention: q, k, v dtypes differ")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
+                         "(TMA tensor maps)")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be > 0, got {window}")
     T, KV = k.shape[1], k.shape[2]

@@ -77,21 +77,76 @@ def _check(q, k, v, lengths, slots):
         if not t.is_contiguous():
             raise ValueError(f"ragged_decode_attention: {name} must be "
                              f"contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"ragged_decode_attention: {name} must be "
+                             f"16-byte aligned (vector loads)")
+
+
+H100_SMS = 132              # the grid is planned for the card's SM count
+# split spans are multiples of this many rows: one round of a CTA's loads
+# at D = 64 in bf16 (4 warps x 4 rows x 8 loads in flight)
+SPLIT_GRANULE = 128
+MAX_SPLITS = 64             # spans per row (csrc: kMaxSplits)
+
+
+def split_plan(B: int, KV: int, span: int, split_t: Optional[int] = None):
+    """``(n_split, split_t)`` of the context split, from static sizes only.
+
+    ``span`` is the static context bound (the engine's ``ctx`` bucket, or
+    the arena's T): the kernel's grid is (n_split, KV, B) and CTA s reads
+    positions [s * split_t, (s + 1) * split_t) of its row, up to the row's
+    length. Without ``split_t`` the span is cut so that the grid covers
+    the H100's 132 SMs at least twice, in multiples of ``SPLIT_GRANULE`` rows
+    (rounded down, so n_split never falls short of the target), and into
+    at most ``MAX_SPLITS`` spans. Nothing here reads ``lengths``: planning
+    costs no host sync."""
+    span = max(1, int(span))
+    if split_t is None:
+        want = -(-2 * H100_SMS // max(1, B * KV))   # splits for two waves
+        per = -(-span // want)
+        split_t = max(SPLIT_GRANULE, per // SPLIT_GRANULE * SPLIT_GRANULE)
+        if -(-span // split_t) > MAX_SPLITS:
+            split_t = -(-span // (MAX_SPLITS * SPLIT_GRANULE)) \
+                * SPLIT_GRANULE
+    if split_t <= 0:
+        raise ValueError(f"split_plan: split_t must be > 0, got {split_t}")
+    n_split = -(-span // split_t)
+    if n_split > MAX_SPLITS:
+        raise ValueError(f"split_plan: {n_split} spans of {split_t} rows "
+                         f"exceed {MAX_SPLITS}")
+    return n_split, split_t
+
+
+_COUNTERS = {}              # device -> int32 zeros, one per (b, kv) group
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """The per-(b, kv) arrival counters of ``device``: zeroed once, grown
+    when B * KV grows; every launch leaves the counters it used at 0."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
 
 
 def ragged_decode_attention(q, k, v, lengths, *,
                             slots: Optional[torch.Tensor] = None,
                             ctx: Optional[int] = None,
-                            block_t: int = 64):
+                            split_t: Optional[int] = None):
     """q: (B, H, D); k, v: (N, T, KV, D); lengths: (B,) int32 — row i
     attends to ``k[slots[i], :lengths[i]]`` (``k[i]`` without ``slots``).
-    Returns (B, H, D) in q.dtype.
+    ``ctx`` is a static bound with max(lengths) <= ctx. Returns (B, H, D)
+    in q.dtype.
 
     A CPU tensor takes :func:`ragged_decode_attention_plain`, which reads
-    only the first ``ctx`` time rows when that static bound is given; a
-    CUDA tensor launches the kernel on the current stream or raises. The
-    kernel needs no ``ctx``: it stops at each row's length, in tiles of
-    ``block_t`` positions."""
+    only the first ``ctx`` time rows when that bound is given; a CUDA
+    tensor launches the kernel on the current stream or raises. The kernel
+    splits ``ctx`` (T without it) into spans of ``split_t`` rows
+    (:func:`split_plan` picks it when not given) and stops at each row's
+    length; a bound below a row's length would drop its tail, as in the
+    plain version."""
     if q.device.type == "cpu":
         return ragged_decode_attention_plain(q, k, v, lengths, slots=slots,
                                              ctx=ctx)
@@ -103,16 +158,26 @@ def ragged_decode_attention(q, k, v, lengths, *,
         slots = torch.arange(B, dtype=torch.int32, device=q.device)
     _check(q, k, v, lengths, slots)
     N, T, KV = k.shape[0], k.shape[1], k.shape[2]
+    G = H // KV
+    span = T if ctx is None else min(ctx, T)
+    n_split, split_t = split_plan(B, KV, span, split_t)
     out = torch.empty_like(q)
+    n_part = B * KV * n_split * G if n_split > 1 else 0
+    part_acc = torch.empty((n_part * D,), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((n_part * 2,), dtype=torch.float32,
+                          device=q.device)
+    counters = _counters(q.device, B * KV)
     fn = _build.function("ragged_decode_attn")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             slots.data_ptr(), out.data_ptr(), B, H, KV, D, N, T, block_t,
-             _build.dtype_code(q.dtype),
+             slots.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+             part_ml.data_ptr(), counters.data_ptr(), B, H, KV, D, N, T,
+             n_split, split_t, _build.dtype_code(q.dtype),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"ragged_decode_attention: CUDA error {err} at "
                            f"launch (B={B}, H={H}, KV={KV}, D={D}, N={N}, "
-                           f"T={T}, block_t={block_t})")
+                           f"T={T}, n_split={n_split}, split_t={split_t})")
     ragged_decode_attention.launches += 1
     return out
 

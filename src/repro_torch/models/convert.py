@@ -14,13 +14,14 @@ import torch
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def params_from_jax(tree, device=None):
+def params_from_jax(tree, *, device):
     """Convert a JAX parameter tree (dicts/lists of numpy leaves) to the
-    port's parameter dict on ``device``, each leaf in its JAX dtype."""
+    port's parameter dict on ``device``, each leaf in its JAX dtype.
+    ``device`` is required: nothing lands on the CPU unless asked."""
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
+        return {k: params_from_jax(v, device=device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_jax(v, device) for v in tree)
+        return type(tree)(params_from_jax(v, device=device) for v in tree)
     a = np.asarray(tree)
     if a.dtype.name not in _DTYPES:
         raise TypeError(f"params_from_jax: unsupported leaf dtype {a.dtype}")

@@ -10,7 +10,7 @@
                              (last-token logits, decode cache),
   * ``decode_step(params, cache, token, pos)`` — ONE token with ragged
                              per-row positions (lazily merged batches),
-  * ``init_cache(batch, max_len)``,
+  * ``init_cache(batch, max_len, device=...)``,
   * per-block and per-span application for the LazyBatching engine.
 
 Block kinds: ``"dense"`` (GQA attention + SwiGLU MLP) and ``"ssm"``
@@ -279,16 +279,19 @@ class Model:
     # ------------------------------------------------------------------
     # Cache construction
     # ------------------------------------------------------------------
-    def _init_layer_cache(self, kind: str, batch: int, max_len: int,
-                          device=None):
+    def _init_layer_cache(self, kind: str, batch: int, max_len: int, *,
+                          device):
         if kind == "ssm":
             return SSM.init_ssm_cache(self.cfg, batch, self.flags.dtype,
                                       device=device)
         return L.init_attention_cache(self.cfg, batch, max_len,
                                       self.flags.dtype, device=device)
 
-    def init_cache(self, batch: int, max_len: int, device=None):
-        one = self._init_layer_cache(self.block_kind, batch, max_len, device)
+    def init_cache(self, batch: int, max_len: int, *, device):
+        """Zeroed decode caches of every layer on ``device`` (required:
+        nothing lands on the CPU unless asked)."""
+        one = self._init_layer_cache(self.block_kind, batch, max_len,
+                                     device=device)
         n = self.cfg.num_layers
         return ({k: torch.zeros((n,) + v.shape, dtype=v.dtype,
                                 device=v.device) for k, v in one.items()}, [])

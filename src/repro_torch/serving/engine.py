@@ -202,7 +202,7 @@ class TorchEngine(Backend):
         self.arenas: List[dict] = []
         for (kind, lo, hi) in spans:
             one = self.model._init_layer_cache(kind, n_slots, max_len,
-                                               self.device)
+                                               device=self.device)
             span_len = hi - lo + 1
             self.arenas.append({
                 k: torch.zeros((span_len * l.shape[0],) + tuple(l.shape[1:]),

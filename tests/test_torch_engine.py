@@ -83,7 +83,8 @@ def jax_run():
         npu=JaxNPU, hw=TPU_V5E, session_cls=JaxSession, fmc=jax_workload,
         ld=JaxLengthDist)
     tokens = [engine.states[h.request.rid].generated for h in handles]
-    return tokens, params_from_jax(jax.tree.map(np.asarray, engine.params))
+    return tokens, params_from_jax(jax.tree.map(np.asarray, engine.params),
+                                   device="cpu")
 
 
 def _torch_serve(params, **engine_kw):

@@ -95,7 +95,8 @@ def jax_run():
 
 @pytest.fixture(scope="module")
 def params(jax_run):
-    return params_from_jax(jax.tree.map(np.asarray, jax_run[3]))
+    return params_from_jax(jax.tree.map(np.asarray, jax_run[3]),
+                           device="cpu")
 
 
 def _torch_serve(params, **engine_kw):

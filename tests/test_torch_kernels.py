@@ -94,6 +94,48 @@ def test_ragged_decode_ctx_bound_invariance():
         np.testing.assert_array_equal(_np(outs[0]), _np(o))
 
 
+@pytest.mark.parametrize("B,KV,span", [
+    (8, 8, 1024),        # llama3.2-1b decode at the arena's full context
+    (1, 8, 1024),        # one long row
+    (8, 8, 64),          # short context bucket
+    (2, 1, 512),         # MQA
+    (3, 3, 100),         # odd sizes
+])
+def test_ragged_decode_split_plan(B, KV, span):
+    """The context split is planned from static sizes: its spans cover the
+    context exactly once, are whole granules, and fill the card's SMs twice
+    where the context has enough granules for it."""
+    from repro_torch.kernels.ragged_decode_attn import (H100_SMS,
+                                                        SPLIT_GRANULE,
+                                                        split_plan)
+    n, st = split_plan(B, KV, span)
+    assert (n - 1) * st < span <= n * st
+    assert st % SPLIT_GRANULE == 0
+    most = -(-span // SPLIT_GRANULE)              # one granule per CTA
+    assert n * B * KV >= min(2 * H100_SMS, most * B * KV)
+    # a context inside one span is not split
+    assert split_plan(B, KV, span, split_t=span) == (1, span)
+    assert split_plan(B, KV, span, split_t=2 * span)[0] == 1
+
+
+def test_ragged_decode_split_plan_reads_no_lengths():
+    """The plan takes sizes only, so the wrapper never reads ``lengths``
+    on the host (no sync): at the main shape it is (8, 128), 512 CTAs."""
+    import inspect
+    from repro_torch.kernels.ragged_decode_attn import split_plan
+    assert list(inspect.signature(split_plan).parameters) == [
+        "B", "KV", "span", "split_t"]
+    assert split_plan(8, 8, 1024) == (8, 128)
+    assert split_plan(8, 8, 64) == (1, 128)
+    assert split_plan(1, 8, 4096) == (32, 128)
+    with pytest.raises(ValueError):
+        split_plan(8, 8, 64, split_t=0)
+    # a long context with few groups stops at MAX_SPLITS spans
+    assert split_plan(1, 1, 65536) == (64, 1024)
+    with pytest.raises(ValueError):
+        split_plan(1, 1, 65536, split_t=32)
+
+
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_ragged_decode_slot_indexed_arena_read(dtype):
     """Row i reads arena row slots[i]; a padding row at _PAD_SLOT reads the

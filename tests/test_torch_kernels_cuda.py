@@ -82,39 +82,102 @@ def test_ragged_decode_kernel_on_card(cuda, B, H, KV, D, T, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.cuda
-def test_ragged_decode_kernel_blocksize_invariance(cuda):
-    """The kernel's T tile changes the order of its online softmax, not
-    its result."""
-    g = torch.Generator(device=cuda).manual_seed(1)
-    B, H, KV, D, T = 2, 4, 2, 64, 256
-    q = torch.randn((B, H, D), generator=g, device=cuda)
-    k = torch.randn((B, T, KV, D), generator=g, device=cuda)
-    v = torch.randn((B, T, KV, D), generator=g, device=cuda)
-    lengths = torch.tensor([100, 256], dtype=torch.int32, device=cuda)
-    outs = [K.ragged_decode_attention(q, k, v, lengths, block_t=bt)
-            for bt in (32, 64, 128, 256)]
-    for o in outs[1:]:
-        torch.testing.assert_close(o, outs[0], rtol=1e-5, atol=1e-5)
+def _decode_case(cuda, B, H, KV, D, T, dtype, seed):
+    """Rows of length 1, T and in between; the last row is padding at an
+    out-of-range slot."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    N = B + 2
+    q = torch.randn((B, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((N, T, KV, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((N, T, KV, D), generator=g, device=cuda).to(dtype)
+    lens = ([1, T, T // 2 + 7, 33, T - 1] * B)[:B]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    slots = torch.tensor(list(range(1, B)) + [_PAD_SLOT], dtype=torch.int32,
+                         device=cuda)
+    return q, k, v, lengths, slots
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,D,window,q_offset", FLASH_CASES)
-@pytest.mark.parametrize("KV_div", [1, 2])
+@pytest.mark.parametrize("split_t", [32, 64, 96, 160, 256, 1024])
+def test_ragged_decode_kernel_blocksize_invariance(cuda, split_t):
+    """The context split changes the order of the online softmax and of the
+    merge, not the result: every span size agrees with one unsplit span
+    (and with the plain version) in float32."""
+    B, H, KV, D, T = 5, 8, 2, 64, 1024
+    q, k, v, lengths, slots = _decode_case(cuda, B, H, KV, D, T,
+                                           torch.float32, seed=1)
+    whole = K.ragged_decode_attention(q, k, v, lengths, slots=slots,
+                                      split_t=T)
+    got = K.ragged_decode_attention(q, k, v, lengths, slots=slots,
+                                    split_t=split_t)
+    want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
+    torch.testing.assert_close(got, whole, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_on_card(cuda, B, S, H, D, window, q_offset, KV_div,
-                              dtype):
+def test_ragged_decode_kernel_repeat_calls_agree(cuda, dtype):
+    """Launches in a row on one stream give identical outputs: the last
+    span of each group leaves its arrival counter at 0 for the next one.
+    The llama3.2-1b decode shape, split six ways."""
+    q, k, v, lengths, slots = _decode_case(cuda, 8, 32, 8, 64, 1024, dtype,
+                                           seed=3)
+    outs = [K.ragged_decode_attention(q, k, v, lengths, slots=slots)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(outs[0].float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def _flash_case(cuda, B, S, T, H, KV, D, dtype, window, q_offset):
     g = torch.Generator(device=cuda).manual_seed(2)
-    T = q_offset + S - 3                  # ragged tails on both axes
-    S = S - 5
-    KV = H // KV_div
     q = torch.randn((B, S, H, D), generator=g, device=cuda).to(dtype)
     k = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
     v = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
+    n0 = K.flash_attention.launches
     got = K.flash_attention(q, k, v, window=window, q_offset=q_offset)
     want = K.flash_attention_plain(q, k, v, window=window, q_offset=q_offset)
+    assert K.flash_attention.launches == n0 + 1
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D,window,q_offset,KV_div", [
+    c + (kv_div,) for c in FLASH_CASES for kv_div in (1, 2, 4)
+    if c[2] % kv_div == 0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_on_card(cuda, B, S, H, D, window, q_offset, KV_div,
+                              dtype):
+    """MHA, GQA and llama's G = 4; T = q_offset + S - 3 and S - 5 leave
+    tails of no multiple of 64 on both axes."""
+    T = q_offset + S - 3
+    _flash_case(cuda, B, S - 5, T, H, H // KV_div, D, dtype, window,
+                q_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", [(8, 1, 64), (6, 2, 64), (16, 1, 128),
+                                    (6, 1, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_head_passes(cuda, H, KV, D, dtype):
+    """Groups wider than one CTA's consumer warpgroups (G 8, 16 and 6) and
+    groups that leave one idle in the last pass (G 3)."""
+    _flash_case(cuda, 2, 150, 150, H, KV, D, dtype, None, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [64, 128, 256, 512])
+@pytest.mark.parametrize("B", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_serve_buckets(cuda, B, S, dtype):
+    """llama3.2-1b's prefill buckets: H 32, KV 8, D 64, T == S."""
+    _flash_case(cuda, B, S, S, 32, 8, 64, dtype, None, 0)
 
 
 @pytest.mark.cuda

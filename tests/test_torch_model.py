@@ -43,7 +43,7 @@ def models():
     jcfg, tcfg = _tiny_pair()
     jm = JaxModel(jcfg, JaxFlags(dtype=jnp.float32, attn_chunk=8))
     jp = jm.init(jax.random.key(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     port = Model(tcfg, RuntimeFlags(dtype=torch.float32))
     return jm, jp, port, tp
 
@@ -100,7 +100,7 @@ def test_ragged_decode_steps_match_jax(models):
     jm, jp, port, tp = models
     B, max_len = 2, 32
     jcache = jm.init_cache(B, max_len)
-    tcache = port.init_cache(B, max_len)
+    tcache = port.init_cache(B, max_len, device="cpu")
     pos = np.array([0, 5], np.int32)
     rng = np.random.default_rng(1)
     for step in range(3):
@@ -193,3 +193,15 @@ def test_unported_families_raise():
     moe = ModelConfig(family="moe", moe=MoEConfig(4, 2), **base)
     with pytest.raises(NotImplementedError, match="dense GQA"):
         Model(moe)
+
+
+@pytest.mark.parametrize("entry", ["params_from_jax", "init_cache"])
+def test_entry_points_need_an_explicit_device(models, entry):
+    """Nothing lands on the CPU unless the caller says so: both entry
+    points take ``device`` as a required keyword."""
+    jm, jp, port, _ = models
+    with pytest.raises(TypeError, match="device"):
+        if entry == "params_from_jax":
+            params_from_jax(jax.tree.map(np.asarray, jp))
+        else:
+            port.init_cache(2, 16)

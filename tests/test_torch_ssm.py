@@ -147,7 +147,7 @@ def models():
     jcfg, tcfg = _tiny_pair()
     jm = JaxModel(jcfg, JaxFlags(dtype=jnp.float32))
     jp = jm.init(jax.random.key(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     port = Model(tcfg, RuntimeFlags(dtype=torch.float32))
     return jm, jp, port, tp
 
@@ -166,7 +166,7 @@ def test_weight_bridge_keeps_the_ssm_tree():
     exact."""
     jcfg, _ = _tiny_pair()
     jp = JaxModel(jcfg, JaxFlags()).init(jax.random.key(1))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     seen = set()
     for path, leaf, t in _leaves(jp, tp):
         assert tuple(t.shape) == leaf.shape, path
