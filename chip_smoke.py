@@ -10,7 +10,10 @@ Phases, always all of them, in order:
            and what ptxas reports per kernel.
   kernels  run each hand-written kernel against its plain PyTorch version on
            the card at the serving paths' shapes (RMSNorm at llama's width
-           2048 and mamba's 2560 and 5120), in float32 (tolerance 2e-5;
+           2048 and mamba's 2560 and 5120; the SSD scan at chunks 256, 128
+           and 64, which take its tensor-core route in bfloat16, and at 1
+           and 32, which take the CUDA cores; the route of each case is
+           printed and checked), in float32 (tolerance 2e-5;
            the SSD scan 1e-4) and bfloat16 (2e-2; the SSD scan 5e-2 on y,
            1e-4 on its float32 final state, and in both types every head's
            ||y - y_ref|| / ||y_ref|| below 1e-2); time kernel, plain version
@@ -38,8 +41,8 @@ Phases, always all of them, in order:
            heads of 64, state 128) in bfloat16, as the serve phase: 24
            requests at 20/s with prompts of 65, 129, 257 and 385 tokens
            (prefill lengths 64 … 384, SSD chunks 64, 128, 256, 128), after
-           a warmup over every prompt length; the SSD scan and RMSNorm must
-           launch.
+           a warmup over every prompt length; RMSNorm and the SSD scan, on
+           its tensor-core route, must launch.
   mamba exact  as exact, on full-width mamba2-2.7b in float32, with prompts
            of 34, 97, 257 and 385 tokens: SSD chunks 1, 32, 256 and 128.
 
@@ -83,9 +86,12 @@ SYMBOLS = {"ragged decode": "ragged_decode_split_kernel",
            "flash prefill (bf16, tensor cores)": "flash_tc_kernel",
            "flash prefill (f32, CUDA cores)": "flash_fwd_kernel",
            "SSD scan": "ssd_", "RMSNorm": "rmsnorm"}
-# the kernels each serving path must launch
+# the kernels each serving path must launch; the bf16 mamba serve runs the
+# SSD scan's tensor-core route (ssd_chunked_tc counts it), its float32
+# exact check the CUDA-core route
 LLAMA_KERNELS = ("ragged_decode_attention", "fused_rmsnorm", "flash_attention")
-MAMBA_KERNELS = ("ssd_chunked", "fused_rmsnorm")
+MAMBA_KERNELS = ("ssd_chunked", "ssd_chunked_tc", "fused_rmsnorm")
+MAMBA_EXACT_KERNELS = ("ssd_chunked", "fused_rmsnorm")
 
 
 class SmokeFailure(RuntimeError):
@@ -170,6 +176,10 @@ def bound(nbytes: float, flops: float, dtype_name: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def short_name(key: str) -> str:
+    return key.replace("void ", "").replace("(anonymous namespace)::", "")[:44]
+
+
 def check_launched(counts: dict, what: str, kernels):
     """Every kernel of the path (``kernels``) launched at least once."""
     for name in kernels:
@@ -206,21 +216,25 @@ def phase_build():
     print(f"[build] {len(logs)} CUDA sources built in {secs:.2f} s "
           f"(parallel nvcc, sm_90a)")
     for name, log in logs.items():
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
-    # the bf16 flash kernel runs on the tensor cores: its SASS holds HGMMA
-    # (wgmma) instructions
+            if "Function properties for" in line:
+                kernel = line.split(" for ", 1)[1].strip()
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name} {kernel}: {line.strip()}")
+    # the bf16 flash kernel and the SSD scan's tensor-core route run on the
+    # tensor cores: their SASS holds HGMMA (wgmma) instructions
     tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent
                                             / "cuobjdump")
-    sass = subprocess.run([tool, "-sass",
-                           str(_build.library_path("flash_attn"))],
-                          capture_output=True, text=True, check=True).stdout
-    n_hgmma = sum(1 for line in sass.splitlines() if "HGMMA" in line)
-    print(f"[build] flash_attn: {n_hgmma} HGMMA (wgmma) instructions in "
-          f"its SASS (cuobjdump -sass)")
-    check(n_hgmma > 0, "flash_attn: no tensor-core (HGMMA) instruction in "
-                       "the built kernel")
+    for name in ("flash_attn", "ssd_chunk"):
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        n_hgmma = sum(1 for line in sass.splitlines() if "HGMMA" in line)
+        print(f"[build] {name}: {n_hgmma} HGMMA (wgmma) instructions in its "
+              f"SASS (cuobjdump -sass)")
+        check(n_hgmma > 0, f"{name}: no tensor-core (HGMMA) instruction in "
+                           f"the built kernels")
 
 
 # ragged decode shapes: (lengths, slots, ctx); the last slot is a padding
@@ -332,14 +346,19 @@ def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
     dt = F.softplus(torch.randn((1, S, nh), generator=g, device="cuda")
                     + torch.log(torch.expm1(dt0)))
     A = -torch.arange(1, nh + 1, dtype=torch.float32, device="cuda")
+    route = K.ssd_route(dtype, chunk, hd, N)
+    tc0 = K.ssd_chunked.tc_launches
     y, st = K.ssd_chunked(x, dt, A, Bm, Cm, chunk)
     y_ref, st_ref = K.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk)
     torch.cuda.synchronize()
+    check(K.ssd_chunked.tc_launches == tc0 + (route == "tc"),
+          f"ssd_chunked chunk {chunk}: the {route} route was not the one "
+          f"launched")
     yf, rf = y.float(), y_ref.float()
     head_rel = ((yf - rf).square().sum(dim=(0, 1, 3)).sqrt()
                 / rf.square().sum(dim=(0, 1, 3)).sqrt())
     rel = head_rel.max().item()
-    shape = f"x{tuple(x.shape)} N {N} chunk {chunk}"
+    shape = f"x{tuple(x.shape)} N {N} chunk {chunk} ({route} route)"
     check(rel < SSD_HEAD_REL_TOL,
           f"ssd_chunked {shape}: a head's ||y - y_ref|| / ||y_ref|| is "
           f"{rel:.3e} (tolerance {SSD_HEAD_REL_TOL})")
@@ -348,7 +367,7 @@ def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
     tri = chunk * (chunk + 1) // 2
     elt = x.element_size()
     return {"shape": shape, "out": (y, st), "ref": (y_ref, st_ref),
-            "tols": (ytol, 1e-4), "main": chunk == 256,
+            "tols": (ytol, 1e-4), "main": chunk == 256, "by_kernel": True,
             "note": f"median |y_ref| {rf.abs().median().item():.3e}, worst "
                     f"head ||y - y_ref|| / ||y_ref|| {rel:.3e}",
             "fns": (lambda: K.ssd_chunked(x, dt, A, Bm, Cm, chunk),
@@ -385,7 +404,10 @@ def phase_kernels(torch):
         for S in (64, 128, 256, 512):      # every llama prefill bucket
             cases.append(("flash_attention", dt,
                           lambda dt=dt, S=S: kernel_flash(torch, K, dt, S)))
-        for S, chunk in ((256, 256), (384, 128), (383, 1)):
+        # the serve's chunks 256, 128 and 64 (the tensor-core route in
+        # bf16), chunk 1 at an odd prefill length and 32 (the CUDA cores)
+        for S, chunk in ((256, 256), (384, 128), (64, 64), (383, 1),
+                         (384, 32)):
             cases.append(("ssd_chunked", dt,
                           lambda dt=dt, S=S, c=chunk: kernel_ssd(torch, K, dt,
                                                                  S, c)))
@@ -403,6 +425,12 @@ def phase_kernels(torch):
         ratio = lambda a, b: ("not measured" if a is None or b is None
                               else f"{a / b:.2f}x")
         note = f" | {r['note']}" if "note" in r else ""
+        if r.get("by_kernel"):   # the call's kernels and PyTorch ops, one call
+            _, dev, _ = traced_device_s(torch, r["fns"][0])
+            top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+            note += " | device time by kernel: " + ", ".join(
+                f"{short_name(e.key)} {e.self_device_time_total:.2f} us"
+                for e in top)
         vs_lib = (f" | kernel / library: device {ratio(dev_ms, dev_lib)}, "
                   f"events {ratio(ms, lib_ms)}"
                   if r["fns"][2] is not None else "")
@@ -690,7 +718,7 @@ def main() -> int:
                 (64, 128, 256, 384))
     m_counts = phase_serve(torch, "mamba2-2.7b", "mamba serve",
                            MAMBA_KERNELS, (65, 129, 257, 385))
-    phase_exact(torch, "mamba2-2.7b", "mamba exact", MAMBA_KERNELS,
+    phase_exact(torch, "mamba2-2.7b", "mamba exact", MAMBA_EXACT_KERNELS,
                 (34, 97, 257, 385))
     print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact "
           f"in {time.perf_counter() - t_all:.1f} s")

@@ -47,15 +47,14 @@
 // and a 4 x (D / 16) block of the accumulator; Q, K, V and P tiles live in
 // float32 shared memory. No bfloat16 input reaches it.
 //
-// The tensor-map encoder cuTensorMapEncodeTiled is a driver symbol; it is
-// looked up once through cudaGetDriverEntryPoint(ByVersion), so the library
-// links against the CUDA runtime only.
+// The tensor maps, tiles and barriers are tma.cuh's (shared with the SSD
+// scan's tensor-core kernel); the library links against the CUDA runtime
+// only.
 #include <math.h>
 #include <stdint.h>
 
-#include <cuda.h>
-
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -246,129 +245,34 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 namespace tc {
 
-constexpr int kRows = 64;    // q rows and keys per tile
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::pack_bf16;
+using repro::smem_addr;
+using repro::tensor_map;
+using repro::Tile;
+using repro::tma_tile;
 
-// A 64 x D bf16 tile in shared memory, as TMA writes it: one or two atoms
-// of 64 rows x kAtomCols columns, each row kRowBytes long and swizzled.
-template <int D>
-struct Tile {
-  static constexpr int kAtoms = D == 128 ? 2 : 1;
-  static constexpr int kAtomCols = D == 128 ? 64 : D;
-  static constexpr int kRowBytes = kAtomCols * 2;            // 128 or 64
-  static constexpr int kLayout = kRowBytes == 128 ? 1 : 2;   // B128 / B64
-  static constexpr int kAtomBytes = kRows * kRowBytes;
-  static constexpr int kBytes = kAtoms * kAtomBytes;
-  static constexpr int kGroupBytes = 8 * kRowBytes;          // 8-row group
-  // K/V ring depth: four 16 KB stages (K and V) at D <= 64, three 32 KB
-  // ones at D = 128
-  static constexpr int kStages = D == 128 ? 3 : 4;
-  // K-major operand (Q or K) for k slice kk (16 columns of D)
-  static __device__ __forceinline__ uint64_t kmajor(uint32_t base, int kk) {
-    const int col = kk * 16;
-    const uint32_t addr = base + (col / kAtomCols) * kAtomBytes +
-                          (col % kAtomCols) * 2;
-    return repro::wgmma_desc(addr, 16, kGroupBytes, kLayout);
-  }
-  // MN-major operand (V, D along N) for k slice kk (16 rows of keys)
-  static __device__ __forceinline__ uint64_t mnmajor(uint32_t base, int kk) {
-    return repro::wgmma_desc(base + kk * 16 * kRowBytes, kAtomBytes,
-                             kGroupBytes, kLayout);
-  }
-};
+constexpr int kRows = repro::kTileRows;   // q rows and keys per tile
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// A wait that outlasts ~10 s of clock traps: a lost arrival becomes a
-// launch error instead of a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    if (clock64() - t0 > (1ll << 34)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
-          "r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
+// K/V ring depth: four 16 KB stages (K and V) at D <= 64, three 32 KB ones
+// at D = 128
 template <int D>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row,
-                                         int b) {
-  using L = Tile<D>;
-#pragma unroll
-  for (int a = 0; a < L::kAtoms; ++a)
-    tma_load(dst + a * L::kAtomBytes, map, bar, col + a * L::kAtomCols, row,
-             b);
-}
+__host__ __device__ constexpr int stages() { return D == 128 ? 3 : 4; }
+
 __device__ __forceinline__ float ex2(float x) {   // 2^x; ex2(-inf) = 0
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<32>(float (&o)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  repro::wgmma_rs_n32(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  repro::wgmma_rs_n64(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  repro::wgmma_rs_n128(o, a, db);
-}
 
 template <int D, int NC>
 constexpr size_t smem_bytes() {
   // 1 KB of slack to align the tiles to the 1024-byte swizzle period
-  return 1024 + (size_t)(NC + 2 * Tile<D>::kStages) * Tile<D>::kBytes +
-         8 * (2 * Tile<D>::kStages + NC);
+  return 1024 + (size_t)(NC + 2 * stages<D>()) * Tile<D>::kBytes +
+         8 * (2 * stages<D>() + NC);
 }
 
 template <int D, int NC>
@@ -379,7 +283,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 __nv_bfloat16* __restrict__ o, int S, int T, int H, int KV,
                 int q_offset, int window, float scale_log2) {
   using L = Tile<D>;
-  constexpr int kStages = L::kStages;
+  constexpr int kStages = stages<D>();
   constexpr int kOut = D / 2;            // accumulator floats per thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -528,7 +432,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       repro::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<D>(acc, pa[kk], L::mnmajor(v_s + st * L::kBytes, kk));
+        repro::wgmma_rs<D>(acc, pa[kk],
+                              L::mnmajor(v_s + st * L::kBytes, kk));
       repro::wgmma_commit();
       repro::wgmma_wait_all();
       repro::fence_regs(acc);
@@ -555,54 +460,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
           v;
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &res);
-#endif
-    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (B, rows, heads * D) bf16 tensor seen through boxes of (1, 64,
-// kAtomCols); rows past `rows` of a batch row read as zeros.
-template <int D>
-bool tensor_map(CUtensorMap* map, const void* ptr, int B, int rows,
-                int heads) {
-  using L = Tile<D>;
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)heads * D, (cuuint64_t)rows,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)rows * heads * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)L::kAtomCols, (cuuint32_t)kRows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                          : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS;
 }
 
 template <int D, int NC>

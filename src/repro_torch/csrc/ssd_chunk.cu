@@ -25,21 +25,55 @@
 // writes y and the final state (~5.2 MB): ~2.4 us at 3.35 TB/s, against
 // ~0.7 GFLOP (~0.7 us on the bf16 tensor cores).
 //
-// Design: the TPU kernel holds a whole chunk in VMEM (B and C alone are
-// 128 KB each in float32 at chunk 256, N 128). Here one CTA of 256 threads
-// per (b, c, h) walks 64-row i-tiles; for each it loops over the j-tiles
-// at or below it, forms C_i . B_j^T over N in 32-wide shared-memory slices
-// (each thread owns a 4 x 4 block of scores), applies the decay weights
-// only where j <= i (the exponent is never taken above the diagonal, where
-// it would overflow), and accumulates W . x_j into a 4 x (hd / 16) register
-// block of y. The (hd, N) state is then accumulated over 64-column slices
-// of N. Both products run over the chunk's rows only, so a short chunk
-// (chunk 1 at an odd prefill length) does not pay for a whole tile. The
-// cumsum runs sequentially in one thread, in the order of
-// torch.cumsum, so its exponents agree with the plain version's bit for
-// bit (their differences cancel ~1e-4 of |cum| otherwise). Everything is
-// float32 on the CUDA cores; wgmma, TMA and sharing C . B^T across the
-// heads (it is head-independent) are the perf steps after this one.
+// Two C entry points, one per route; the wrapper picks the route by dtype
+// and shape alone (kernels/ssd_chunk.py, ssd_route). Both end with the
+// same state pass and write the same outputs.
+//
+// repro_ssd_chunk_tc, bfloat16 at chunks that are multiples of 64, hd 64,
+// N 32 / 64 / 128 (every chunk the mamba2-2.7b serve runs):
+// ssd_intra_tc_kernel, on the tensor cores. The intra-chunk term has the
+// structure of a causal flash forward pass: C_i . B_j^T takes the place of
+// Q . K^T, the decay weights exp(cum_i - cum_j) * dt_j that of the softmax,
+// W . x_j that of P . V. One CTA per (64-row i-tile, group of G heads,
+// batch row and chunk) runs one warpgroup per head (G is 1 or 2, picked by
+// the wrapper from the grid size). One thread TMA-loads C_i, the B_j tiles
+// once for the G heads and each head's x_j tiles (3-D maps over (B, S, N)
+// and (B, S, nh * hd)) into shared memory at once, each j-tile behind its
+// own mbarrier: the working set (152 KB at chunk 256, N 128, G 2) fits, so
+// no ring is refilled. Each warpgroup forms C_i . B_j^T with wgmma
+// m64n64k16 (both K-major, K = N), applies the decay weights to the
+// accumulator registers, rounds them to bf16 as A-operand registers and
+// adds W . x_j with a second wgmma (x_j MN-major). Below the diagonal tile
+// the decay exp(cum_i - cum_j) is the product of a row factor
+// exp(cum_i - cum_i0) and a column factor exp(cum_i0 - cum_j) (i0 the
+// i-tile's first row; both <= 1 since A < 0), taken once per row and
+// column, so an entry costs two products instead of an exponential (the
+// value agrees to a few float32 ulps, far inside W's bf16 rounding); on
+// the diagonal tile the exponent is taken per entry, only where j <= i.
+// The CTA of i-tile 0, which has the least y work, also forms the chunk
+// state sum_j (x_j u_j) (x) B_j as m64nN products over k = j, with
+// A = (x u)^T built in registers and split into bf16 hi + lo (one rounding
+// of x u to bf16 would cost ~2^-9 of each term, ~1e-2 on a state of ~10;
+// hi + lo keeps ~2^-17). No atomics: repeated launches are bit-equal. The
+// grid runs i-tile 0 first, then the others by most j-tiles.
+//
+// repro_ssd_chunk, float32, and bfloat16 at any other chunk (chunk 1 at
+// an odd prefill length, chunk 32, the tests' odd shapes):
+// ssd_intra_kernel on the CUDA cores. The TPU kernel holds a whole chunk
+// in VMEM (B and C alone are 128 KB each in float32 at chunk 256, N 128).
+// Here one CTA of 256 threads per (b, c, h) walks 64-row i-tiles; for each
+// it loops over the j-tiles at or below it, forms C_i . B_j^T over N in
+// 32-wide shared-memory slices (each thread owns a 4 x 4 block of scores),
+// applies the decay weights only where j <= i, and accumulates W . x_j
+// into a 4 x (hd / 16) register block of y. The (hd, N) state is then
+// accumulated over 64-column slices of N. Both products run over the
+// chunk's rows only, so a short chunk does not pay for a whole tile.
+// Everything is float32 on the CUDA cores.
+//
+// Both routes run the cumsum sequentially in one thread, in the order of
+// torch.cumsum, so cum agrees with the plain version's bit for bit (the
+// decay exponents are differences of cums, which cancel ~1e-4 of |cum|
+// otherwise).
 //
 // The state pass is one thread per (p, n) state entry, 256 entries per CTA,
 // walking the chunks in order; it overwrites the chunk states with h_prev
@@ -48,6 +82,8 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -265,6 +301,16 @@ ssd_state_pass_kernel(float* __restrict__ states,
   final_state[((size_t)b * nh + h) * P + e] = run;
 }
 
+// the state pass over the chunk states either intra-chunk kernel wrote
+int state_pass(void* states, const void* decay, void* final_state, int B,
+               int nc, int nh, int P, cudaStream_t stream) {
+  dim3 grid((P + kThreads - 1) / kThreads, nh, B);
+  ssd_state_pass_kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<float*>(states), static_cast<const float*>(decay),
+      static_cast<float*>(final_state), nc, nh, P);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 size_t smem_bytes() {
   return sizeof(float) * (3 * kMaxChunk + 2 * kT * (kNK + 1) +
@@ -291,12 +337,7 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
       static_cast<float*>(decay), S, nh, N, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int P = HD * N;
-  dim3 pgrid((P + kThreads - 1) / kThreads, nh, B);
-  ssd_state_pass_kernel<<<pgrid, kThreads, 0, stream>>>(
-      static_cast<float*>(states), static_cast<const float*>(decay),
-      static_cast<float*>(final_state), nc, nh, P);
-  return (int)cudaGetLastError();
+  return state_pass(states, decay, final_state, B, nc, nh, HD * N, stream);
 }
 
 template <typename E>
@@ -318,6 +359,358 @@ int dispatch_hd(const void* x, const void* dt, const void* A, const void* Bm,
   }
 #undef REPRO_SSD_CASE
 }
+
+// ---------------------------------------------------------------------------
+// bfloat16 at chunks that are multiples of 64: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::pack_bf16;
+using repro::smem_addr;
+using repro::tensor_map;
+using repro::Tile;
+using repro::tma_tile;
+
+constexpr int kRows = repro::kTileRows;    // rows of an i- or j-tile
+constexpr int kHD = 64;                    // the head dim it takes
+
+__device__ __forceinline__ void wg_sync(int wg) {   // one warpgroup's barrier
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Shared memory from a 1024-byte aligned base, for n_it = chunk / 64:
+// C_i, the chunk's B_j tiles (n_it), each head's x_j tiles (G * n_it),
+// then per head cum, dt, u (chunk floats each) and the i-tile's row
+// factors (64 floats), then n_it barriers.
+template <int N, int G>
+size_t smem_bytes(int chunk) {
+  const int n_it = chunk / kRows;
+  return 1024 + (size_t)(1 + n_it) * Tile<N>::kBytes +
+         (size_t)G * n_it * Tile<kHD>::kBytes +
+         (size_t)G * (3 * chunk + kRows) * 4 + 8 * n_it;
+}
+
+// One head's chunk state (hd x N, row stride N) at `out`: sum_j (x_j u_j)
+// (x) B_j over the chunk's j-tiles, as m64nN products over k = j. A =
+// (x u)^T from registers, rows p of the head dim; the float32 products
+// x_j u_j are split into bf16 hi + lo (B is exact in bf16), so the sum
+// keeps them to ~2^-17 as the plain version's float32 einsum. The j-th B
+// tile is at b0 + j * Tile<N>::kBytes, the j-th x tile at
+// x0 + j * Tile<64>::kBytes.
+template <int N>
+__device__ __forceinline__ void chunk_state(float* out, uint32_t b0,
+                                            const uint8_t* x0,
+                                            const float* u, int n_it,
+                                            uint32_t bars, int r_lo,
+                                            int lane) {
+  using LB = Tile<N>;
+  float st[N / 2];
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k) st[k] = 0.f;
+  for (int j = 0; j < n_it; ++j) {
+    mbar_wait(bars + 8 * j, 0);
+    const uint8_t* xt = x0 + j * Tile<kHD>::kBytes;
+    uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int p = r_lo + 8 * (r & 1);
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // x_j[p] in the 128-byte-swizzled tile: 16-byte unit p / 8 of
+          // row jl, xor'ed with jl % 8
+          const int jl = 16 * kk + 8 * (r >> 1) + 2 * (lane & 3) + e;
+          const __nv_bfloat16 xv = *reinterpret_cast<const __nv_bfloat16*>(
+              xt + jl * 128 + (((p >> 3) ^ (jl & 7)) << 4) + (p & 7) * 2);
+          v[e] = __bfloat162float(xv) * u[j * kRows + jl];
+        }
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[0], v[1]);
+        ahi[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
+        alo[kk][r] = pack_bf16(v[0] - __low2float(hi),
+                               v[1] - __high2float(hi));
+      }
+    repro::fence_regs(st);
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = LB::mnmajor(b0 + j * LB::kBytes, kk);
+      repro::wgmma_rs<N>(st, ahi[kk], db);
+      repro::wgmma_rs<N>(st, alo[kk], db);
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();
+    repro::fence_regs(st);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float* srow = out + (size_t)(r_lo + 8 * hh) * N;
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj)
+      *reinterpret_cast<float2*>(srow + 8 * jj + 2 * (lane & 3)) =
+          make_float2(st[4 * jj + 2 * hh], st[4 * jj + 2 * hh + 1]);
+  }
+}
+
+template <int N, int G>
+__global__ void __launch_bounds__(G * 128, 4 / G)
+ssd_intra_tc_kernel(const __grid_constant__ CUtensorMap tmx,
+                    const __grid_constant__ CUtensorMap tmb,
+                    const __grid_constant__ CUtensorMap tmc,
+                    const float* __restrict__ dt, const float* __restrict__ A,
+                    __nv_bfloat16* __restrict__ y, float* __restrict__ states,
+                    float* __restrict__ cum_exp, float* __restrict__ decay,
+                    int S, int nh, int chunk) {
+  using LB = Tile<N>;       // a 64-row tile of B or C
+  using LX = Tile<kHD>;     // a 64-row tile of one head's x
+  const int n_it = chunk / kRows;
+  const int nc = S / chunk;
+  // grid (head groups, B * nc, i-tiles): i-tile 0, which also forms the
+  // chunk state, first; then the others, most j-tiles first
+  const int it = blockIdx.z == 0 ? 0 : n_it - blockIdx.z;
+  const int hg = blockIdx.x;
+  const int b = blockIdx.y / nc;
+  const int c = blockIdx.y % nc;
+  const bool with_state = it == 0;
+  const int n_load = with_state ? n_it : it + 1;   // j-tiles it reads
+  const int rows = n_load * kRows;                 // rows whose cum it needs
+  const int i0 = it * kRows;
+  const int n_heads = min(G, nh - hg * G);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;                         // warpgroup = head slot
+  const int t = tid & 127;
+  const int wl = t >> 5;
+  const int lane = tid & 31;
+  const int h = hg * G + wg;
+  const int row0 = c * chunk;                      // in its batch row
+  const size_t t0 = (size_t)b * S + row0;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t c_s = base;
+  const uint32_t b_s = c_s + LB::kBytes;
+  const uint32_t x_s = b_s + n_it * LB::kBytes;
+  const uint32_t scal = x_s + G * n_it * LX::kBytes;
+  const uint32_t bars = scal + G * (3 * chunk + kRows) * 4;
+  uint8_t* const sbase = smem_raw + (base - raw);
+  float* const cum = reinterpret_cast<float*>(sbase + (scal - base)) +
+                     wg * (3 * chunk + kRows);
+  float* const dts = cum + chunk;
+  // i-tile 0: exp(total - cum_j) * dt_j, for the state; the others:
+  // exp(cum_i0 - cum_j) * dt_j for j < i0, the column factors of W
+  float* const u = dts + chunk;
+  float* const rowf = u + chunk;    // exp(cum_i - cum_i0), i in the i-tile
+  auto bar = [&](int j) { return bars + 8 * j; };
+  auto b_tile = [&](int j) { return b_s + j * LB::kBytes; };
+  auto x_tile = [&](int g, int j) {
+    return x_s + (g * n_it + j) * LX::kBytes;
+  };
+
+  if (tid == 0) {
+    for (int j = 0; j < n_load; ++j) mbar_init(bar(j), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // every tile the CTA reads, at once: the whole working set fits in
+  // shared memory, so there is no ring to refill and no producer warp
+  if (tid == 0) {
+    for (int j = 0; j < n_load; ++j) {
+      mbar_expect_tx(bar(j), (j == 0 ? LB::kBytes : 0) + LB::kBytes +
+                                 n_heads * LX::kBytes);
+      if (j == 0) tma_tile<N>(c_s, &tmc, bar(0), 0, row0 + i0, b);
+      tma_tile<N>(b_tile(j), &tmb, bar(j), 0, row0 + j * kRows, b);
+      for (int g = 0; g < n_heads; ++g)
+        tma_tile<kHD>(x_tile(g, j), &tmx, bar(j), (hg * G + g) * kHD,
+                      row0 + j * kRows, b);
+    }
+  }
+  if (wg >= n_heads) return;
+
+  // ---- decay terms: a sequential cumsum in torch's order -----------------
+  const float a = A[h];
+  for (int i = t; i < rows; i += 128) {
+    const float d = dt[(t0 + i) * nh + h];
+    dts[i] = d;
+    cum[i] = d * a;
+  }
+  wg_sync(wg);
+  if (t == 0) {   // 32 rows at a time: 16-byte loads, then the add chain
+    float s = 0.f;
+    float4* const c4 = reinterpret_cast<float4*>(cum);
+    for (int k0 = 0; k0 < rows / 4; k0 += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = c4[k0 + e];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s += v[e].x;
+        v[e].x = s;
+        s += v[e].y;
+        v[e].y = s;
+        s += v[e].z;
+        v[e].z = s;
+        s += v[e].w;
+        v[e].w = s;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) c4[k0 + e] = v[e];
+    }
+  }
+  wg_sync(wg);
+  if (with_state) {
+    const float total = cum[chunk - 1];
+    for (int i = t; i < chunk; i += 128) {
+      u[i] = expf(total - cum[i]) * dts[i];
+      cum_exp[(t0 + i) * nh + h] = expf(cum[i]);
+    }
+    if (t == 0) decay[((size_t)b * nc + c) * nh + h] = expf(total);
+  } else {
+    const float ci0 = cum[i0];
+    for (int j = t; j < i0; j += 128) u[j] = expf(ci0 - cum[j]) * dts[j];
+    if (t < kRows) rowf[t] = expf(cum[i0 + t] - ci0);
+  }
+  wg_sync(wg);
+
+  // ---- y_intra of i-tile it: sum over j-tiles <= it of W . x_j ----------
+  // W = bf16(bf16(C_i . B_j) * exp(cum_i - cum_j) * dt_j) where j <= i.
+  // Below the diagonal tile (j < i0 <= i) the decay factors into
+  // exp(cum_i - cum_i0) * exp(cum_i0 - cum_j), both <= 1 (A < 0), so an
+  // entry costs two products; on the diagonal tile the exponent is taken
+  // per entry, and only where j <= i (above, it would overflow).
+  const int r_lo = 16 * wl + (lane >> 2);   // tile rows r_lo, r_lo + 8
+  float rf[2] = {0.f, 0.f};
+  if (!with_state) {
+    rf[0] = rowf[r_lo];
+    rf[1] = rowf[r_lo + 8];
+  }
+  float acc[kHD / 2];
+#pragma unroll
+  for (int k = 0; k < kHD / 2; ++k) acc[k] = 0.f;
+  for (int j = 0; j <= it; ++j) {
+    mbar_wait(bar(j), 0);
+    float s[32];
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      repro::wgmma_ss_n64(s, LB::kmajor(c_s, kk), LB::kmajor(b_tile(j), kk),
+                          kk > 0);
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();
+    repro::fence_regs(s);
+    if (j < it) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float cf = u[j * kRows + 8 * jj + 2 * (lane & 3) + e];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float& v = s[4 * jj + 2 * hh + e];
+            v = round_bf16(v) * rf[hh] * cf;
+          }
+        }
+    } else {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int il = i0 + r_lo + 8 * hh;
+        const float ci = cum[il];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int jl = i0 + 8 * jj + 2 * (lane & 3) + e;
+            float& v = s[4 * jj + 2 * hh + e];
+            v = jl <= il ? round_bf16(v) * expf(ci - cum[jl]) * dts[jl]
+                         : 0.f;
+          }
+      }
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    repro::fence_regs(acc);
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      repro::wgmma_rs<kHD>(acc, pa[kk], LX::mnmajor(x_tile(wg, j), kk));
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();
+    repro::fence_regs(acc);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    __nv_bfloat16* yrow = y + ((t0 + i0 + r_lo + 8 * hh) * nh + h) * kHD;
+#pragma unroll
+    for (int jj = 0; jj < kHD / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(yrow + 8 * jj + 2 * (lane & 3)) =
+          __floats2bfloat162_rn(acc[4 * jj + 2 * hh],
+                                acc[4 * jj + 2 * hh + 1]);
+  }
+  if (!with_state) return;
+
+  // ---- chunk state: sum_j (x_j u_j) (x) B_j, (hd x N) --------------------
+  chunk_state<N>(states + (((size_t)b * nc + c) * nh + h) * kHD * N, b_s,
+                 sbase + (x_tile(wg, 0) - base), u, n_it, bars, r_lo, lane);
+}
+
+template <int N, int G>
+int launch(const void* x, const void* dt, const void* A, const void* Bm,
+           const void* Cm, void* y, void* states, void* cum_exp, void* decay,
+           void* final_state, int B, int S, int nh, int chunk,
+           cudaStream_t stream) {
+  static int granted = 48 * 1024;
+  CUtensorMap mx, mb, mc;
+  if (!tensor_map<kHD>(&mx, x, B, S, nh) || !tensor_map<N>(&mb, Bm, B, S, 1) ||
+      !tensor_map<N>(&mc, Cm, B, S, 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<N, G>(chunk);
+  cudaError_t err =
+      repro::allow_smem(ssd_intra_tc_kernel<N, G>, smem, &granted);
+  if (err != cudaSuccess) return (int)err;
+  const int nc = S / chunk;
+  dim3 grid((nh + G - 1) / G, B * nc, chunk / kRows);
+  ssd_intra_tc_kernel<N, G><<<grid, G * 128, smem, stream>>>(
+      mx, mb, mc, static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<__nv_bfloat16*>(y),
+      static_cast<float*>(states), static_cast<float*>(cum_exp),
+      static_cast<float*>(decay), S, nh, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return state_pass(states, decay, final_state, B, nc, nh, kHD * N, stream);
+}
+
+template <int N>
+int dispatch_group(const void* x, const void* dt, const void* A,
+                   const void* Bm, const void* Cm, void* y, void* states,
+                   void* cum_exp, void* decay, void* final_state, int B,
+                   int S, int nh, int chunk, int group,
+                   cudaStream_t stream) {
+#define REPRO_SSD_TC_CASE(G)                                                 \
+  case G:                                                                    \
+    return launch<N, G>(x, dt, A, Bm, Cm, y, states, cum_exp, decay,         \
+                        final_state, B, S, nh, chunk, stream);
+  switch (group) {
+    REPRO_SSD_TC_CASE(1)
+    REPRO_SSD_TC_CASE(2)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_SSD_TC_CASE
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -341,4 +734,37 @@ extern "C" int repro_ssd_chunk(const void* x, const void* dt, const void* A,
                                       decay, final_state, B, S, nh, hd, N,
                                       chunk, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core route: bfloat16 x, B and C with hd 64, N 32, 64 or 128 and
+// a chunk that is a multiple of 64; `group` heads per CTA (1 or 2). The
+// same outputs as repro_ssd_chunk.
+extern "C" int repro_ssd_chunk_tc(const void* x, const void* dt,
+                                  const void* A, const void* Bm,
+                                  const void* Cm, void* y, void* states,
+                                  void* cum_exp, void* decay,
+                                  void* final_state, int B, int S, int nh,
+                                  int hd, int N, int chunk, int group,
+                                  void* stream) {
+  if (B <= 0 || S <= 0 || nh <= 0 || hd != tc::kHD || chunk <= 0 ||
+      chunk % tc::kRows != 0 || chunk > kMaxChunk || S % chunk != 0 ||
+      !final_state)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (N) {
+    case 32:
+      return tc::dispatch_group<32>(x, dt, A, Bm, Cm, y, states, cum_exp,
+                                    decay, final_state, B, S, nh, chunk,
+                                    group, s);
+    case 64:
+      return tc::dispatch_group<64>(x, dt, A, Bm, Cm, y, states, cum_exp,
+                                    decay, final_state, B, S, nh, chunk,
+                                    group, s);
+    case 128:
+      return tc::dispatch_group<128>(x, dt, A, Bm, Cm, y, states, cum_exp,
+                                     decay, final_state, B, S, nh, chunk,
+                                     group, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,0 +1,159 @@
+// Hopper TMA (cp.async.bulk.tensor), mbarrier and shared-memory tile helpers
+// shared by the tensor-core kernels (sm_90a only).
+//
+// A Tile<D> is a 64 x D bf16 tile as TMA writes it into shared memory: one
+// or two atoms of 64 rows x kAtomCols columns, each row kRowBytes long and
+// swizzled (128-byte swizzle for 64-column atoms, 64-byte for D = 32). The
+// same swizzle goes into the tensor map and into the wgmma descriptors.
+//
+// The tensor-map encoder cuTensorMapEncodeTiled is a driver symbol; it is
+// looked up once through cudaGetDriverEntryPoint(ByVersion), so a library
+// that uses it links against the CUDA runtime only.
+#pragma once
+
+#include <stdint.h>
+
+#include <cuda.h>
+
+#include "common.cuh"
+#include "wgmma.cuh"
+
+namespace repro {
+
+constexpr int kTileRows = 64;
+
+template <int D>
+struct Tile {
+  static constexpr int kAtoms = D == 128 ? 2 : 1;
+  static constexpr int kAtomCols = D == 128 ? 64 : D;
+  static constexpr int kRowBytes = kAtomCols * 2;            // 128 or 64
+  static constexpr int kLayout = kRowBytes == 128 ? 1 : 2;   // B128 / B64
+  static constexpr int kAtomBytes = kTileRows * kRowBytes;
+  static constexpr int kBytes = kAtoms * kAtomBytes;
+  static constexpr int kGroupBytes = 8 * kRowBytes;          // 8-row group
+  // K-major operand (rows along M or N, D along K) for k slice kk (16
+  // columns of D)
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t base, int kk) {
+    const int col = kk * 16;
+    const uint32_t addr = base + (col / kAtomCols) * kAtomBytes +
+                          (col % kAtomCols) * 2;
+    return wgmma_desc(addr, 16, kGroupBytes, kLayout);
+  }
+  // MN-major B operand (rows along K, D along N) for k slice kk (16 rows)
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t base, int kk) {
+    return wgmma_desc(base + kk * 16 * kRowBytes, kAtomBytes, kGroupBytes,
+                      kLayout);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// A wait that outlasts ~10 s of clock traps: a lost arrival becomes a
+// launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > (1ll << 34)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+// the 64 x D tile at (column col, row row, batch row b), all its atoms
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int b) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int a = 0; a < L::kAtoms; ++a)
+    tma_load(dst + a * L::kAtomBytes, map, bar, col + a * L::kAtomCols, row,
+             b);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (B, rows, heads * D) bf16 tensor seen through boxes of (1, 64,
+// kAtomCols); rows past `rows` of a batch row read as zeros.
+template <int D>
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int rows,
+                int heads) {
+  using L = Tile<D>;
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)heads * D, (cuuint64_t)rows,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)rows * heads * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)L::kAtomCols, (cuuint32_t)kTileRows,
+                             1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
+}
+
+}  // namespace repro

@@ -131,4 +131,18 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x N, f32) += A (64 x 16, registers) * B (16 x N, smem, MN-major)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_rs: N 32, 64, 128");
+  if constexpr (N == 32)
+    wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n128(d, a, db);
+}
+
 }  // namespace repro

@@ -25,23 +25,22 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C signatures of the exported launchers: (symbol, argtypes)
+# C signatures of the exported launchers, per source: {symbol: argtypes}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "ragged_decode_attn": (
-        "repro_ragged_decode_attention",
+    "ragged_decode_attn": {
         # q, k, v, lengths, slots, out, part_acc, part_ml, counters, B, H,
         # KV, D, N, T, n_split, split_t, dtype, stream
-        [_VP] * 9 + [_I] * 9 + [_VP]),
-    "flash_attn": (
-        "repro_flash_attention",
+        "repro_ragged_decode_attention": [_VP] * 9 + [_I] * 9 + [_VP]},
+    "flash_attn": {
         # q, k, v, o, B, S, T, H, KV, D, q_offset, window, dtype, stream
-        [_VP] * 4 + [_I] * 9 + [_VP]),
-    "ssd_chunk": (
-        "repro_ssd_chunk",
-        # x, dt, A, B, C, y, states, cum_exp, decay, final, B, S, nh, hd, N,
-        # chunk, dtype, stream
-        [_VP] * 10 + [_I] * 7 + [_VP]),
+        "repro_flash_attention": [_VP] * 4 + [_I] * 9 + [_VP]},
+    "ssd_chunk": {
+        # one entry per route. x, dt, A, B, C, y, states, cum_exp, decay,
+        # final, B, S, nh, hd, N, chunk, then dtype (CUDA cores) or heads
+        # per CTA (tensor cores), stream
+        "repro_ssd_chunk": [_VP] * 10 + [_I] * 7 + [_VP],
+        "repro_ssd_chunk_tc": [_VP] * 10 + [_I] * 7 + [_VP]},
 }
 
 _LOADED: Dict[str, object] = {}
@@ -106,19 +105,18 @@ def build_all(names: Sequence[str] = ()) -> Dict[str, str]:
     return logs
 
 
-def function(name: str):
-    """The bound C launcher of ``csrc/<name>.cu``, building it first when
-    its library is missing or stale."""
-    fn = _LOADED.get(name)
+def function(name: str, symbol: str):
+    """The bound C launcher ``symbol`` of ``csrc/<name>.cu``, building the
+    source first when its library is missing or stale."""
+    fn = _LOADED.get(symbol)
     if fn is None:
+        argtypes = SIGNATURES[name][symbol]
         if _stale(name):
             build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(lib, symbol)
+        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LOADED[name] = fn
+        _LOADED[symbol] = fn
     return fn
 
 

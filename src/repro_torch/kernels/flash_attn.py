@@ -92,7 +92,7 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
         raise ValueError(f"flash_attention: window must be > 0, got {window}")
     T, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    fn = _build.function("flash_attn")
+    fn = _build.function("flash_attn", "repro_flash_attention")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, S, T, H, KV, D, q_offset, -1 if window is None else window,
              _build.dtype_code(q.dtype),

@@ -168,7 +168,8 @@ def ragged_decode_attention(q, k, v, lengths, *,
     part_ml = torch.empty((n_part * 2,), dtype=torch.float32,
                           device=q.device)
     counters = _counters(q.device, B * KV)
-    fn = _build.function("ragged_decode_attn")
+    fn = _build.function("ragged_decode_attn",
+                         "repro_ragged_decode_attention")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
              slots.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
              part_ml.data_ptr(), counters.data_ptr(), B, H, KV, D, N, T,

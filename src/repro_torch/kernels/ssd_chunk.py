@@ -5,8 +5,10 @@ Replaces the TPU kernel ``src/repro/kernels/ssd_chunk.py``
 (batch, chunk, head) the within-chunk decay cumsum, the causal decay
 matrix, ``C·Bᵀ``, ``y_intra``, the chunk state, ``exp(cum)`` and
 ``exp(total)``; then the inter-chunk state recurrence and ``y_inter``.
-The SSM prefill of every layer runs it. Source, bound and design notes:
-``csrc/ssd_chunk.cu``.
+The SSM prefill of every layer runs it. Two routes, picked by dtype and
+shape alone (:func:`ssd_route`): bfloat16 at chunks of whole 64-row tiles
+on the tensor cores, everything else on the CUDA cores. Source, bound and
+design notes: ``csrc/ssd_chunk.cu``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,10 @@ from . import _build
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 256
 MAX_STATE = 256
+# the tensor-core route's shapes: chunks of whole 64-row tiles, hd 64
+TC_ROWS = 64
+TC_HEAD_DIM = 64
+TC_STATES = (32, 64, 128)
 
 
 def _chunked(x, dt, B_ssm, C_ssm, chunk: int):
@@ -132,6 +138,26 @@ def _check_inputs(x, dt, A, B_ssm, C_ssm, chunk: int):
         raise ValueError("ssd: inputs must be contiguous")
 
 
+def ssd_route(dtype, chunk: int, hd: int, N: int) -> str:
+    """The kernel a CUDA call takes, by dtype and shape alone: ``"tc"`` (the
+    tensor-core kernel) for bfloat16 at a chunk that is a multiple of 64,
+    head dim 64 and state size 32, 64 or 128 — every chunk the mamba2-2.7b
+    serve runs — else ``"cuda_cores"`` (float32, and the short or odd
+    chunks)."""
+    if (dtype == torch.bfloat16 and chunk % TC_ROWS == 0
+            and hd == TC_HEAD_DIM and N in TC_STATES):
+        return "tc"
+    return "cuda_cores"
+
+
+def ssd_tc_heads(Bb: int, S: int, nh: int, chunk: int, n_sm: int) -> int:
+    """Heads per CTA of the tensor-core kernel: 2 when a grid of two-head
+    CTAs still covers the card's ``n_sm`` SMs, else 1 — a small grid
+    finishes sooner spread one head per CTA (PERF.md §6)."""
+    ctas = -(-nh // 2) * Bb * (S // chunk) * (chunk // TC_ROWS)
+    return 2 if ctas >= n_sm else 1
+
+
 def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
     """SSD over a full sequence. x: (B, S, nh, hd) float32 or bfloat16;
     dt: (B, S, nh) float32 post-softplus; A: (nh,) float32 negative;
@@ -139,11 +165,12 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
     (y (B, S, nh, hd) in x.dtype, final state (B, nh, hd, N) float32).
 
     A CPU tensor takes :func:`ssd_chunked_plain`; a CUDA tensor launches
-    ``csrc/ssd_chunk.cu`` on the current stream or raises: the intra-chunk
-    kernel (with the JAX model's roundings of C·Bᵀ and the weights), then
-    the state pass, which turns the chunk states into the state entering
-    each chunk in place and writes the final state. ``y_inter`` is added
-    with one batched product."""
+    ``csrc/ssd_chunk.cu`` on the current stream, on the route
+    :func:`ssd_route` picks, or raises: the intra-chunk kernel (with the
+    JAX model's roundings of C·Bᵀ and the weights), then the state pass,
+    which turns the chunk states into the state entering each chunk in
+    place and writes the final state. ``y_inter`` is added with one
+    batched product when there is more than one chunk."""
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, A, B_ssm, C_ssm, chunk)
     if x.device.type != "cuda":
@@ -152,23 +179,36 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
     Bb, S, nh, hd = x.shape
     N = B_ssm.shape[-1]
     nc = S // chunk
+    route = ssd_route(x.dtype, chunk, hd, N)
     f32 = dict(dtype=torch.float32, device=x.device)
     y_intra = torch.empty_like(x)
     h_prev = torch.empty((Bb, nc, nh, hd, N), **f32)
     cum_exp = torch.empty((Bb, S, nh), **f32)
     decay = torch.empty((Bb, nc, nh), **f32)
     final = torch.empty((Bb, nh, hd, N), **f32)
-    err = _build.function("ssd_chunk")(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_ssm.data_ptr(),
-        C_ssm.data_ptr(), y_intra.data_ptr(), h_prev.data_ptr(),
-        cum_exp.data_ptr(), decay.data_ptr(), final.data_ptr(),
-        Bb, S, nh, hd, N, chunk, _build.dtype_code(x.dtype),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_ssm.data_ptr(),
+            C_ssm.data_ptr(), y_intra.data_ptr(), h_prev.data_ptr(),
+            cum_exp.data_ptr(), decay.data_ptr(), final.data_ptr(),
+            Bb, S, nh, hd, N, chunk)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "tc":
+        n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+        err = _build.function("ssd_chunk", "repro_ssd_chunk_tc")(
+            *args, ssd_tc_heads(Bb, S, nh, chunk, n_sm), stream)
+    else:
+        err = _build.function("ssd_chunk", "repro_ssd_chunk")(
+            *args, _build.dtype_code(x.dtype), stream)
     if err:
-        raise RuntimeError(f"ssd: CUDA error {err} at launch (B={Bb}, S={S}, "
-                           f"nh={nh}, hd={hd}, N={N}, chunk={chunk})")
+        raise RuntimeError(f"ssd: CUDA error {err} at launch ({route} route, "
+                           f"B={Bb}, S={S}, nh={nh}, hd={hd}, N={N}, "
+                           f"chunk={chunk})")
     ssd_chunked.launches += 1
+    if route == "tc":
+        ssd_chunked.tc_launches += 1
+    if nc == 1:          # the only chunk enters with a zero state
+        return y_intra, final
     return y_intra + _y_inter(C_ssm, cum_exp, h_prev, chunk, x.dtype), final
 
 
-ssd_chunked.launches = 0
+ssd_chunked.launches = 0        # every launch, either route
+ssd_chunked.tc_launches = 0     # the tensor-core route's

@@ -24,7 +24,7 @@ from ..kernels import flash_attention, fused_rmsnorm, ragged_decode_attention
 # ---------------------------------------------------------------------------
 
 
-def init_rmsnorm(d: int, device=None) -> dict:
+def init_rmsnorm(d: int, device) -> dict:
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
@@ -37,7 +37,7 @@ def rms_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
 # Rotary position embeddings (split-halves rotation, as the JAX package)
 # ---------------------------------------------------------------------------
 
-def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     return 1.0 / (theta ** exps)
@@ -193,7 +193,7 @@ def apply_attention_decode(p: dict, x: torch.Tensor, cache: dict,
 
 
 def init_attention_cache(cfg, batch: int, max_len: int, dtype,
-                         device=None) -> dict:
+                         device) -> dict:
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     return {
         "k": torch.zeros((batch, max_len, kv, hd), dtype=dtype, device=device),

@@ -155,7 +155,7 @@ def apply_ssm_decode(p: dict, x_in: torch.Tensor, cache: dict, cfg):
     return out, {"state": h, "conv": conv_in[:, 1:]}
 
 
-def init_ssm_cache(cfg, batch: int, dtype, device=None) -> dict:
+def init_ssm_cache(cfg, batch: int, dtype, device) -> dict:
     s = cfg.ssm
     d = cfg.d_model
     nh = s.n_heads(d)

@@ -20,6 +20,7 @@ from repro.models.layers import chunked_causal_attention as jax_chunked  # noqa:
 from repro.models.layers import rms_norm as jax_rms_norm  # noqa: E402
 import repro_torch.kernels as K  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ssd_tc_heads  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 
 _PAD_SLOT = 2 ** 30
@@ -287,13 +288,46 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
                   -torch.rand(2), torch.randn(1, 8, 4), torch.randn(1, 8, 4), 4)
     assert K.launch_counts() == {"ragged_decode_attention": 0,
                                  "fused_rmsnorm": 0, "flash_attention": 0,
-                                 "ssd_chunked": 0}
+                                 "ssd_chunked": 0, "ssd_chunked_tc": 0}
+
+
+@pytest.mark.parametrize("dtype,chunk,hd,N,route", [
+    (torch.bfloat16, 64, 64, 128, "tc"),
+    (torch.bfloat16, 128, 64, 128, "tc"),
+    (torch.bfloat16, 256, 64, 128, "tc"),       # the mamba2-2.7b serve's
+    (torch.bfloat16, 256, 64, 32, "tc"),
+    (torch.float32, 256, 64, 128, "cuda_cores"),
+    (torch.float32, 64, 64, 128, "cuda_cores"),
+    (torch.bfloat16, 1, 64, 128, "cuda_cores"),  # odd prefill length
+    (torch.bfloat16, 32, 64, 128, "cuda_cores"),
+    (torch.bfloat16, 200, 64, 128, "cuda_cores"),
+    (torch.bfloat16, 256, 32, 128, "cuda_cores"),
+    (torch.bfloat16, 256, 64, 256, "cuda_cores"),
+])
+def test_ssd_route_by_dtype_and_shape(dtype, chunk, hd, N, route):
+    """bf16 at chunks of whole 64-row tiles (hd 64, N up to 128) takes the
+    tensor-core kernel; float32 and every other shape the CUDA cores."""
+    assert K.ssd_route(dtype, chunk, hd, N) == route
+
+
+@pytest.mark.parametrize("Bb,S,nh,chunk,heads", [
+    (1, 256, 80, 256, 2),      # mamba2-2.7b prefills: 160 two-head CTAs
+    (1, 384, 80, 128, 2),      # 240
+    (1, 128, 80, 128, 1),      # 80 two-head CTAs would leave SMs idle
+    (1, 64, 80, 64, 1),        # 40
+    (2, 256, 5, 64, 1),
+])
+def test_ssd_tc_heads_per_cta(Bb, S, nh, chunk, heads):
+    """Two heads per CTA when that grid still covers the card's 132 SMs."""
+    assert ssd_tc_heads(Bb, S, nh, chunk, 132) == heads
 
 
 def test_build_sources_and_dtype_codes():
     assert list(_build.sources()) == ["flash_attn", "ragged_decode_attn",
                                       "ssd_chunk"]
     assert set(_build.SIGNATURES) == set(_build.sources())
+    assert set(_build.SIGNATURES["ssd_chunk"]) == {"repro_ssd_chunk",
+                                                   "repro_ssd_chunk_tc"}
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.name == f"lib{name}.so"

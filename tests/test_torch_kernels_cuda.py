@@ -11,8 +11,8 @@ dims 32/64/128, ragged lengths, padding rows at an out-of-range slot,
 sliding windows, query offsets and tails that are no multiple of a tile —
 in float32 (tolerance 2e-5) and bfloat16 (2e-2); the SSD scan over its
 shapes, full width and chunks 1 … 256 in float32 (1e-4) and bfloat16
-(5e-2 on y, 1e-4 on the float32 states); and tiny llama and Mamba-2
-engines on the card against the CPU engine.
+(5e-2 on y, 1e-4 on the float32 states), on both of its routes; and tiny
+llama and Mamba-2 engines on the card against the CPU engine.
 """
 import pytest
 
@@ -47,6 +47,18 @@ SSD_CASES = [
     (2, 200, 3, 64, 100, 200),      # chunk and N no multiple of a tile
     (1, 256, 80, 64, 128, 256),     # mamba2-2.7b prefill, chunk 256
     (1, 384, 80, 64, 128, 128),     # mamba2-2.7b prefill, chunk 128
+]
+
+# bf16 on the tensor-core route (chunks of whole 64-row tiles, hd 64)
+SSD_TC_CASES = [
+    (2, 256, 3, 64, 128, 64),       # B = 2, nh 3: an idle warpgroup
+    (2, 256, 5, 64, 128, 128),      # nh 5: a group of one head
+    (2, 512, 5, 64, 64, 256),
+    (1, 256, 3, 64, 32, 256),
+    (1, 64, 80, 64, 128, 64),       # mamba2-2.7b prefill, chunk 64
+    (1, 128, 80, 64, 128, 128),     # chunk 128, one chunk
+    (1, 256, 80, 64, 128, 256),     # chunk 256
+    (1, 384, 80, 64, 128, 128),     # chunk 128, three chunks
 ]
 
 LLAMA_KERNELS = ("ragged_decode_attention", "fused_rmsnorm", "flash_attention")
@@ -196,10 +208,7 @@ def test_rmsnorm_kernel_on_card(cuda, shape, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,nh,hd,N,chunk", SSD_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_kernel_on_card(cuda, B, S, nh, hd, N, chunk, dtype):
+def _ssd_inputs(cuda, B, S, nh, hd, N, dtype):
     g = torch.Generator(device=cuda).manual_seed(5)
     x = torch.randn((B, S, nh, hd), generator=g, device=cuda).to(dtype)
     dt = torch.nn.functional.softplus(
@@ -207,11 +216,11 @@ def test_ssd_kernel_on_card(cuda, B, S, nh, hd, N, chunk, dtype):
     A = -torch.exp(torch.randn((nh,), generator=g, device=cuda) * 0.3)
     Bm = torch.randn((B, S, N), generator=g, device=cuda).to(dtype)
     Cm = torch.randn((B, S, N), generator=g, device=cuda).to(dtype)
-    y_tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
-    n0 = K.ssd_chunked.launches
-    y, st = K.ssd_chunked(x, dt, A, Bm, Cm, chunk)
-    y_ref, st_ref = K.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk)
-    assert K.ssd_chunked.launches == n0 + 1
+    return x, dt, A, Bm, Cm
+
+
+def _check_ssd(y, st, y_ref, st_ref):
+    y_tol = 5e-2 if y.dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(y.float(), y_ref.float(), rtol=y_tol,
                                atol=y_tol)
     torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-4)
@@ -220,6 +229,38 @@ def test_ssd_kernel_on_card(cuda, B, S, nh, hd, N, chunk, dtype):
     head_rel = ((yf - rf).square().sum(dim=(0, 1, 3)).sqrt()
                 / rf.square().sum(dim=(0, 1, 3)).sqrt())
     assert head_rel.max().item() < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_on_card(cuda, B, S, nh, hd, N, chunk, dtype):
+    inputs = _ssd_inputs(cuda, B, S, nh, hd, N, dtype)
+    n0, tc0 = K.ssd_chunked.launches, K.ssd_chunked.tc_launches
+    y, st = K.ssd_chunked(*inputs, chunk)
+    y_ref, st_ref = K.ssd_chunked_plain(*inputs, chunk)
+    assert K.ssd_chunked.launches == n0 + 1
+    assert K.ssd_chunked.tc_launches == tc0 + (
+        K.ssd_route(dtype, chunk, hd, N) == "tc")
+    _check_ssd(y, st, y_ref, st_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", SSD_TC_CASES)
+def test_ssd_tc_route_on_card(cuda, B, S, nh, hd, N, chunk):
+    """The tensor-core route: every chunk it takes, B = 2, groups of heads
+    with idle warpgroups (nh 3 and 5), one and several chunks per
+    sequence; two launches on the same inputs are bit-equal."""
+    assert K.ssd_route(torch.bfloat16, chunk, hd, N) == "tc"
+    inputs = _ssd_inputs(cuda, B, S, nh, hd, N, torch.bfloat16)
+    n0, tc0 = K.ssd_chunked.launches, K.ssd_chunked.tc_launches
+    y, st = K.ssd_chunked(*inputs, chunk)
+    assert K.ssd_chunked.launches == n0 + 1
+    assert K.ssd_chunked.tc_launches == tc0 + 1
+    y2, st2 = K.ssd_chunked(*inputs, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    _check_ssd(y, st, *K.ssd_chunked_plain(*inputs, chunk))
 
 
 @pytest.mark.cuda

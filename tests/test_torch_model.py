@@ -24,6 +24,7 @@ from repro.models import Model as JaxModel, RuntimeFlags as JaxFlags  # noqa: E4
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: E402
 from repro_torch.models import Model, RuntimeFlags, params_from_jax  # noqa: E402
+from repro_torch.models import layers as TL, ssm as TSSM  # noqa: E402
 from repro_torch.models.model import _gather_rows, _scatter_rows  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -195,13 +196,25 @@ def test_unported_families_raise():
         Model(moe)
 
 
-@pytest.mark.parametrize("entry", ["params_from_jax", "init_cache"])
+@pytest.mark.parametrize("entry", ["params_from_jax", "init_cache",
+                                   "init_rmsnorm", "rope_frequencies",
+                                   "init_attention_cache", "init_ssm_cache"])
 def test_entry_points_need_an_explicit_device(models, entry):
-    """Nothing lands on the CPU unless the caller says so: both entry
-    points take ``device`` as a required keyword."""
+    """Nothing lands on the CPU unless the caller says so: the entry points
+    and the helpers that make tensors take ``device`` as a required
+    argument."""
     jm, jp, port, _ = models
+    cfg = port.cfg
+    calls = {
+        "params_from_jax": lambda: params_from_jax(
+            jax.tree.map(np.asarray, jp)),
+        "init_cache": lambda: port.init_cache(2, 16),
+        "init_rmsnorm": lambda: TL.init_rmsnorm(cfg.d_model),
+        "rope_frequencies": lambda: TL.rope_frequencies(cfg.head_dim, 1e4),
+        "init_attention_cache": lambda: TL.init_attention_cache(
+            cfg, 2, 16, torch.float32),
+        "init_ssm_cache": lambda: TSSM.init_ssm_cache(
+            get_config("mamba2-2.7b").reduced(), 2, torch.float32),
+    }
     with pytest.raises(TypeError, match="device"):
-        if entry == "params_from_jax":
-            params_from_jax(jax.tree.map(np.asarray, jp))
-        else:
-            port.init_cache(2, 16)
+        calls[entry]()
