@@ -11,9 +11,10 @@ Phases, always all of them, in order:
   kernels  run each hand-written kernel against its plain PyTorch version on
            the card at the serving paths' shapes (RMSNorm at llama's width
            2048 and mamba's 2560 and 5120; the SSD scan at chunks 256, 128
-           and 64, which take its tensor-core route in bfloat16, and at 1
-           and 32, which take the CUDA cores; the route of each case is
-           printed and checked), in float32 (tolerance 2e-5;
+           and 64, which take its tensor-core route in bfloat16 and the
+           CUDA cores in float32, and at 1, 2 and 32, which take the
+           recurrent route; the route of each case is printed and checked,
+           with its device time by kernel), in float32 (tolerance 2e-5;
            the SSD scan 1e-4) and bfloat16 (2e-2; the SSD scan 5e-2 on y,
            1e-4 on its float32 final state, and in both types every head's
            ||y - y_ref|| / ||y_ref|| below 1e-2); time kernel, plain version
@@ -21,7 +22,8 @@ Phases, always all of them, in order:
            function (the yardstick, never used by the port) as medians over
            CUDA events with the L2 flushed before each call, and compute
            each call's roofline bound at 3.35 TB/s and the card's peak rate
-           for the input type.
+           for the input type. A hand-written kernel whose device time
+           the profiler did not record fails the phase.
   serve    full-width llama3.2-1b (16 layers, d_model 2048, random weights
            from a seed) in bfloat16: TorchEngine + ServingSession +
            LazyBatching(max_batch=8) serve 24 Poisson-arriving requests
@@ -39,12 +41,15 @@ Phases, always all of them, in order:
            paths: every kernel of the path must have run on both.
   mamba serve  full-width mamba2-2.7b (64 layers, d_model 2560, 80 SSD
            heads of 64, state 128) in bfloat16, as the serve phase: 24
-           requests at 20/s with prompts of 65, 129, 257 and 385 tokens
-           (prefill lengths 64 … 384, SSD chunks 64, 128, 256, 128), after
-           a warmup over every prompt length; RMSNorm and the SSD scan, on
-           its tensor-core route, must launch.
+           requests at 20/s with prompts of 128, 257, 259 and 384 tokens
+           (prefill lengths 127, 256, 258 and 383: SSD chunks 1, 256, 2
+           and 1, as uniform prompt lengths give half chunk 1, a quarter
+           chunk 2), after a warmup over every prompt length; RMSNorm and
+           the SSD scan, on its tensor-core and recurrent routes, must
+           launch.
   mamba exact  as exact, on full-width mamba2-2.7b in float32, with prompts
-           of 34, 97, 257 and 385 tokens: SSD chunks 1, 32, 256 and 128.
+           of 34, 97, 257 and 385 tokens: SSD chunks 1 and 32 (the
+           recurrent route), 256 and 128 (the CUDA cores).
 
 Any failure exits non-zero. The last lines are the card's name and power
 limit, one JSON line of per-kernel numbers, and ``{"ok": true, ...}``.
@@ -52,7 +57,10 @@ Exits non-zero before printing any result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -87,11 +95,13 @@ SYMBOLS = {"ragged decode": "ragged_decode_split_kernel",
            "flash prefill (f32, CUDA cores)": "flash_fwd_kernel",
            "SSD scan": "ssd_", "RMSNorm": "rmsnorm"}
 # the kernels each serving path must launch; the bf16 mamba serve runs the
-# SSD scan's tensor-core route (ssd_chunked_tc counts it), its float32
-# exact check the CUDA-core route
+# SSD scan's tensor-core route (ssd_chunked_tc counts it) and its recurrent
+# route (ssd_chunked_recurrent), its float32 exact check the recurrent
+# route and the CUDA cores
 LLAMA_KERNELS = ("ragged_decode_attention", "fused_rmsnorm", "flash_attention")
-MAMBA_KERNELS = ("ssd_chunked", "ssd_chunked_tc", "fused_rmsnorm")
-MAMBA_EXACT_KERNELS = ("ssd_chunked", "fused_rmsnorm")
+MAMBA_KERNELS = ("ssd_chunked", "ssd_chunked_tc", "ssd_chunked_recurrent",
+                 "fused_rmsnorm")
+MAMBA_EXACT_KERNELS = ("ssd_chunked", "ssd_chunked_recurrent", "fused_rmsnorm")
 
 
 class SmokeFailure(RuntimeError):
@@ -136,28 +146,51 @@ def cuda_ms(torch, fn, reps: int = 25, warmup: int = 3):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def traced_device_s(torch, fn):
+TRACES = {"sessions": 0, "empty": 0}   # profiler sessions, and those empty
+
+
+@functools.lru_cache(maxsize=None)
+def _cupti():
+    """libcupti as torch loaded it (None where it is not loaded)."""
+    for name in ("libcupti.so.12", "libcupti.so.13", "libcupti.so"):
+        try:
+            return ctypes.CDLL(name, mode=os.RTLD_NOLOAD | os.RTLD_GLOBAL)
+        except OSError:
+            continue
+    return None
+
+
+def traced_device_s(torch, fn, what: str):
     """(device seconds, the profiler's averages of the CUDA events, fn's
     result) of one call of ``fn`` under torch.profiler; device seconds sum
-    every kernel's and copy's self time. A trace that recorded no device
-    event (it happens) is taken once more; a second empty one gives None
-    seconds."""
+    every kernel's and copy's self time. A session's kernel records reach
+    the profiler through CUPTI's activity buffers, and in some short
+    sessions none of them arrived (PERF.md §6), so the session makes
+    CUPTI flush its buffers before it stops. A trace that still recorded no
+    device event is printed, with ``what`` it traced, and taken once more;
+    a second empty one gives None seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    cupti = _cupti()
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             out = fn()
             torch.cuda.synchronize()
+            if cupti is not None:      # CUPTI_ACTIVITY_FLAG_FLUSH_FORCED
+                cupti.cuptiActivityFlushAll(ctypes.c_uint32(1))
         dev = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
         us = sum(e.self_device_time_total for e in dev)
+        TRACES["sessions"] += 1
         if us > 0:
             return us / 1e6, dev, out
+        TRACES["empty"] += 1
+        print(f"[profiler] the trace of {what} recorded no device time")
     return None, [], out
 
 
-def device_ms(torch, fn, reps: int = 10):
+def device_ms(torch, fn, what: str, reps: int = 10):
     """Device time per call in ms from the profiler over ``reps`` calls
     (L2 warm); unlike :func:`cuda_ms` it excludes the host's launch gaps.
     None without ``fn`` or when the profiler recorded nothing."""
@@ -165,7 +198,8 @@ def device_ms(torch, fn, reps: int = 10):
         return None
     fn()
     torch.cuda.synchronize()
-    secs, _, _ = traced_device_s(torch, lambda: [fn() for _ in range(reps)])
+    secs, _, _ = traced_device_s(torch, lambda: [fn() for _ in range(reps)],
+                                 what)
     return None if secs is None else secs * 1e3 / reps
 
 
@@ -348,10 +382,12 @@ def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
     A = -torch.arange(1, nh + 1, dtype=torch.float32, device="cuda")
     route = K.ssd_route(dtype, chunk, hd, N)
     tc0 = K.ssd_chunked.tc_launches
+    rc0 = K.ssd_chunked.recurrent_launches
     y, st = K.ssd_chunked(x, dt, A, Bm, Cm, chunk)
     y_ref, st_ref = K.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk)
     torch.cuda.synchronize()
-    check(K.ssd_chunked.tc_launches == tc0 + (route == "tc"),
+    check(K.ssd_chunked.tc_launches == tc0 + (route == "tc")
+          and K.ssd_chunked.recurrent_launches == rc0 + (route == "recurrent"),
           f"ssd_chunked chunk {chunk}: the {route} route was not the one "
           f"launched")
     yf, rf = y.float(), y_ref.float()
@@ -405,9 +441,10 @@ def phase_kernels(torch):
             cases.append(("flash_attention", dt,
                           lambda dt=dt, S=S: kernel_flash(torch, K, dt, S)))
         # the serve's chunks 256, 128 and 64 (the tensor-core route in
-        # bf16), chunk 1 at an odd prefill length and 32 (the CUDA cores)
+        # bf16), chunks 1 and 2 at odd prefill lengths and 32 (the
+        # recurrent route)
         for S, chunk in ((256, 256), (384, 128), (64, 64), (383, 1),
-                         (384, 32)):
+                         (258, 2), (384, 32)):
             cases.append(("ssd_chunked", dt,
                           lambda dt=dt, S=S, c=chunk: kernel_ssd(torch, K, dt,
                                                                  S, c)))
@@ -418,7 +455,12 @@ def phase_kernels(torch):
         err = compare(torch, r["out"], r["ref"], dname, f"{name} {r['shape']}",
                       r.get("tols"))
         ms, plain_ms, lib_ms = (cuda_ms(torch, f) for f in r["fns"])
-        dev_ms, dev_plain, dev_lib = (device_ms(torch, f) for f in r["fns"])
+        dev_ms, dev_plain, dev_lib = (
+            device_ms(torch, f, f"{part} of {name} {dname} {r['shape']}")
+            for f, part in zip(r["fns"], ("kernel", "plain", "library")))
+        check(dev_ms is not None, f"{name} {dname} {r['shape']}: the "
+                                  f"profiler recorded no device time for the "
+                                  f"hand-written kernel")
         b_ms, b_by = bound(r["bytes"], r["flops"], dname)
         fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"
         lib = fmt if r["fns"][2] is not None else (lambda t: "none")
@@ -426,7 +468,11 @@ def phase_kernels(torch):
                               else f"{a / b:.2f}x")
         note = f" | {r['note']}" if "note" in r else ""
         if r.get("by_kernel"):   # the call's kernels and PyTorch ops, one call
-            _, dev, _ = traced_device_s(torch, r["fns"][0])
+            secs, dev, _ = traced_device_s(
+                torch, r["fns"][0], f"{name} {dname} {r['shape']} by kernel")
+            check(secs is not None, f"{name} {dname} {r['shape']}: the "
+                                    f"profiler recorded no device time by "
+                                    f"kernel")
             top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
             note += " | device time by kernel: " + ", ".join(
                 f"{short_name(e.key)} {e.self_device_time_total:.2f} us"
@@ -455,6 +501,9 @@ def phase_kernels(torch):
                           "shape": f"{dname} {r['shape']}"}
         del r
         torch.cuda.empty_cache()
+    print(f"[kernels] profiler: {TRACES['empty']} of {TRACES['sessions']} "
+          f"sessions recorded no device time (each retried once; CUPTI "
+          f"flush forced: {_cupti() is not None})")
     return rows
 
 
@@ -582,7 +631,8 @@ def profile_window(torch, engine, cfg, kw, tag, n=8):
     untraced one, since tracing slows the host."""
     steps0 = engine.decode_layer_steps
     busy, dev, res = traced_device_s(
-        torch, lambda: _serve(torch, engine, cfg, n=n, seed=5, **kw))
+        torch, lambda: _serve(torch, engine, cfg, n=n, seed=5, **kw),
+        f"the {tag} window")
     wall = res[-1]
     if busy is None:
         print(f"[{tag} profile] the profiler recorded no device time: busy "
@@ -717,7 +767,7 @@ def main() -> int:
     phase_exact(torch, "llama3.2-1b", "exact", LLAMA_KERNELS,
                 (64, 128, 256, 384))
     m_counts = phase_serve(torch, "mamba2-2.7b", "mamba serve",
-                           MAMBA_KERNELS, (65, 129, 257, 385))
+                           MAMBA_KERNELS, (128, 257, 259, 384))
     phase_exact(torch, "mamba2-2.7b", "mamba exact", MAMBA_EXACT_KERNELS,
                 (34, 97, 257, 385))
     print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact "

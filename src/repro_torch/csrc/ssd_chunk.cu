@@ -12,8 +12,8 @@
 //   cum_exp  = exp(cum),  decay = exp(total),  total = cum_{chunk-1}
 //
 // and then, per (b, h), h_prev[c] = sum over the chunks before c of their
-// states decayed to chunk c: h_prev[0] = 0, run = run * decay[c] + state[c].
-// The wrapper adds y_inter = (C_i * exp(cum_i)) . h_prev[c]^T in PyTorch.
+// states decayed to chunk c: h_prev[0] = 0, run = run * decay[c] + state[c];
+// y_inter = (C_i * exp(cum_i)) . h_prev[c]^T.
 //
 // Numerics: the JAX model's ssd_chunked, whose einsums round C . B^T and
 // the weights W = (C . B^T) * L * dt to the input type before W . x (no-ops
@@ -25,9 +25,33 @@
 // writes y and the final state (~5.2 MB): ~2.4 us at 3.35 TB/s, against
 // ~0.7 GFLOP (~0.7 us on the bf16 tensor cores).
 //
-// Two C entry points, one per route; the wrapper picks the route by dtype
-// and shape alone (kernels/ssd_chunk.py, ssd_route). Both end with the
-// same state pass and write the same outputs.
+// Three C entry points, one per route; the wrapper picks the route by
+// dtype and shape alone (kernels/ssd_chunk.py, ssd_route):
+//
+//   chunk < 64 (any dtype, hd a multiple of 16, N <= 256): recurrent
+//   bf16, chunk a multiple of 64, hd 64, N 32 / 64 / 128: tensor cores
+//   everything else (f32 at 64 and up, long odd chunks): CUDA cores
+//
+// repro_ssd_chunk_recurrent, every chunk below 64 (63 of every 64 prefill
+// lengths under the reference's halving rule; chunk 1 at every odd one):
+// ssd_scores_kernel, then ssd_recurrent_kernel, writing y and the final
+// state only. The first forms the intra-chunk scores T(C_i . B_j), j <= i,
+// once for all heads (n_groups is 1), summed in float64 so that their
+// rounding to bf16 does not depend on an order of summation; the second
+// carries each head's f32 state h (hd x N) across the sequence in
+// registers, chunk by chunk, with the same roundings as the chunked form:
+// inside a chunk the pairs j <= i are the rounded W . x of the reference,
+// the state entering the chunk adds T((C_i exp(cum_i)) . h^T), and at the
+// chunk's end h = h * exp(total) + S_c (a multiply, then an add, as the
+// state pass). At chunk 1 that is h_t = h_{t-1} exp(dt_t A) + dt_t x_t
+// B_t^T. The work is rank-1 f32 updates (~1.5 GFLOP at chunk 1, S 383,
+// x 80 heads of 64, N 128): no matrix product for the tensor cores, so
+// its floor is the f32 CUDA-core rate (22.5 us there), not the bytes.
+// Per-CTA layout and schedule: see rec::ssd_recurrent_kernel.
+//
+// The other two routes end with the same state pass and write the
+// per-chunk states, cumsum exponentials and decays for the wrapper's
+// y_inter.
 //
 // repro_ssd_chunk_tc, bfloat16 at chunks that are multiples of 64, hd 64,
 // N 32 / 64 / 128 (every chunk the mamba2-2.7b serve runs):
@@ -57,8 +81,8 @@
 // hi + lo keeps ~2^-17). No atomics: repeated launches are bit-equal. The
 // grid runs i-tile 0 first, then the others by most j-tiles.
 //
-// repro_ssd_chunk, float32, and bfloat16 at any other chunk (chunk 1 at
-// an odd prefill length, chunk 32, the tests' odd shapes):
+// repro_ssd_chunk, float32 at chunks of 64 and up, and bfloat16 at long
+// chunks the tensor cores do not take (the tests' chunk 200):
 // ssd_intra_kernel on the CUDA cores. The TPU kernel holds a whole chunk
 // in VMEM (B and C alone are 128 KB each in float32 at chunk 256, N 128).
 // Here one CTA of 256 threads per (b, c, h) walks 64-row i-tiles; for each
@@ -70,14 +94,15 @@
 // chunk's rows only, so a short chunk does not pay for a whole tile.
 // Everything is float32 on the CUDA cores.
 //
-// Both routes run the cumsum sequentially in one thread, in the order of
+// Every route runs the cumsum sequentially in one thread, in the order of
 // torch.cumsum, so cum agrees with the plain version's bit for bit (the
 // decay exponents are differences of cums, which cancel ~1e-4 of |cum|
 // otherwise).
 //
 // The state pass is one thread per (p, n) state entry, 256 entries per CTA,
 // walking the chunks in order; it overwrites the chunk states with h_prev
-// in place (at chunk 1 they are S * nh * hd * N floats).
+// in place (S / chunk * nh * hd * N floats, so no chunk below 64 comes
+// here: the recurrent route keeps none).
 #include <math.h>
 #include <stdint.h>
 
@@ -712,6 +737,389 @@ int dispatch_group(const void* x, const void* dt, const void* A,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// chunks below 64: the recurrent kernel
+// ---------------------------------------------------------------------------
+
+namespace rec {
+
+constexpr int kLanes = 8;                  // lanes per row, a slice of N each
+constexpr int kRows = 16;                  // head-dim rows of a CTA
+constexpr int kThreads = kRows * kLanes;   // 128
+constexpr int kBlock = 48;                 // sequence rows staged at once
+constexpr int kMaxChunk = 63;
+constexpr int kScoreWarps = 8;             // warps per CTA of the scores
+
+// rows of one staged block: whole chunks, up to kBlock rows; a longer
+// chunk is a block of its own
+__host__ __device__ __forceinline__ int block_rows(int chunk) {
+  return chunk <= kBlock ? (kBlock / chunk) * chunk : chunk;
+}
+// staged rows, padded to whole groups of kLanes rows with rows that change
+// nothing (zero x, B and C, u 0, decay 1)
+__host__ __device__ __forceinline__ int padded(int rows) {
+  return (rows + kLanes - 1) / kLanes * kLanes;
+}
+
+// per staged row: dt, cum, exp(cum), u = exp(total - cum) dt, exp(total)
+constexpr int kScalars = 5;
+
+template <int KQ>
+size_t smem_bytes(int chunk) {
+  const int R = padded(block_rows(chunk));
+  return sizeof(float) * (size_t)R *
+         (2 * 4 * kLanes * KQ + 2 * kRows + (chunk | 1) + kScalars);
+}
+
+template <typename E>
+__device__ __forceinline__ float round_t(float v) {
+  return repro::to_float(repro::from_float<E>(v));
+}
+
+// 16 bytes of E, loaded as one vector, to float in shared memory (16-byte
+// aligned)
+template <typename E>
+__device__ __forceinline__ void store_vec(float* dst, const uint4& raw) {
+  constexpr int V = 16 / sizeof(E);
+  const E* v = reinterpret_cast<const E*>(&raw);
+#pragma unroll
+  for (int k = 0; k < V; k += 4)
+    *reinterpret_cast<float4*>(dst + k) =
+        make_float4(repro::to_float(v[k]), repro::to_float(v[k + 1]),
+                    repro::to_float(v[k + 2]), repro::to_float(v[k + 3]));
+}
+
+// scores[(b S + s) chunk + jl] = T(C_s . B_j), j = s - s % chunk + jl <= s:
+// the intra-chunk scores, one warp per pair. n_groups is 1, so they serve
+// every head; the products are summed in float64 and rounded to float32
+// (then to x's type), the exact float32 value of the reference's einsum,
+// so that no order of summation flips their rounding to bfloat16.
+template <typename E>
+__global__ void __launch_bounds__(kScoreWarps * 32)
+ssd_scores_kernel(const E* __restrict__ Bm, const E* __restrict__ Cm,
+                  float* __restrict__ scores, long long n_pairs, int N,
+                  int chunk) {
+  const int lane = threadIdx.x & 31;
+  const long long e =
+      (long long)blockIdx.x * kScoreWarps + (threadIdx.x >> 5);
+  if (e >= n_pairs) return;
+  const long long t = e / chunk;          // b S + s
+  const int jl = (int)(e % chunk), i = (int)(t % chunk);
+  if (jl > i) return;
+  const long long tj = t - i + jl;
+  double acc = 0.0;
+  for (int n = lane; n < N; n += 32)
+    acc += (double)repro::to_float(Cm[t * N + n]) *
+           (double)repro::to_float(Bm[tj * N + n]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) scores[e] = round_t<E>(__double2float_rn(acc));
+}
+
+// One CTA per (16 rows of one head's state, head, batch row): 320 CTAs of
+// 128 threads at mamba2-2.7b's shapes, about 2.4 per SM. Thread (row,
+// lane) holds h[p][n] and the chunk's state S[p][n] in registers for
+// n = 32 q + 4 lane + e (q < KQ, e < 4), so a row's 8 lanes read 128
+// contiguous bytes of a staged B or C row and the warp's 4 rows the same
+// ones (a broadcast). The sequence goes by blocks of up to 48 rows (whole
+// chunks, padded to groups of 8 rows that change nothing): the block's B,
+// C, x rows and dt are staged to shared memory as float (all loads of a
+// thread in flight at once), each chunk's cumsum is taken by one thread
+// in torch's order, the weights W_rj = T(score_rj exp(cum_r - cum_j) dt_j)
+// of the pairs inside one chunk are formed from ssd_scores_kernel's
+// scores, and T(sum_{j<=r} W_rj x_j) is summed ahead of the recurrence (T
+// the rounding to x's type). Then per row r, in order:
+//   y_inter partial  C_r . h over the lane's slice (h: entering r's chunk)
+//   S               += (x_r u_r) B_r
+//   at a chunk's end h = h * exp(total) + S (a multiply, then an add);
+//   at chunk 1 directly h = h * exp(dt_r A) + (x_r u_r) B_r,
+// in groups of 8 rows that the compiler schedules as one block at chunk 1.
+// After each group the partials are reduce-scattered over the 8 lanes (7
+// shuffles), and lane l finishes row r0 + l: y = T(y_intra) +
+// T(exp(cum_r) (C_r . h)), rounded once more.
+template <typename E, int KQ>
+__global__ void __launch_bounds__(kThreads)
+ssd_recurrent_kernel(const E* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ A, const E* __restrict__ Bm,
+                     const E* __restrict__ Cm,
+                     const float* __restrict__ scores, E* __restrict__ y,
+                     float* __restrict__ final_state, int S, int nh, int hd,
+                     int N, int chunk) {
+  constexpr int NP = 4 * kLanes * KQ;   // N padded to whole lane rows
+  constexpr int NQ = NP / 4;            // float4 per staged row
+  constexpr int NPL = 4 * KQ;           // state entries per thread and row
+  constexpr int V = 16 / sizeof(E);     // elements per 16-byte load
+  constexpr int kBatch = 8;             // vector loads in flight per thread
+  const int p0 = blockIdx.x * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int prow = tid / kLanes;
+  const int lane = tid % kLanes;
+  const int R = block_rows(chunk);
+  const int RP = padded(R);
+  const int wst = chunk | 1;      // W's row stride, odd: no bank conflict
+  // 16-byte loads of B and C where whole rows of vectors line up
+  const bool vec_n = N % V == 0 && (reinterpret_cast<uintptr_t>(Bm) |
+                                    reinterpret_cast<uintptr_t>(Cm)) % 16 == 0;
+
+  extern __shared__ float4 smem4[];
+  float* const Cs = reinterpret_cast<float*>(smem4);
+  float* const Bs = Cs + RP * NP;
+  float* const xs = Bs + RP * NP;  // (RP, kRows): the CTA's rows of x
+  float* const yi = xs + RP * kRows;   // (RP, kRows): T(y_intra)
+  float* const W = yi + RP * kRows;
+  float* const dts = W + RP * wst;
+  float* const cum = dts + RP;
+  float* const ecum = cum + RP;
+  float* const u = ecum + RP;
+  float* const dec = u + RP;
+  const float4* const Cs4 = reinterpret_cast<const float4*>(Cs);
+  const float4* const Bs4 = reinterpret_cast<const float4*>(Bs);
+
+  const float a = A[h];
+  const size_t row0 = (size_t)b * S;
+  float hs[NPL], st[NPL];
+#pragma unroll
+  for (int m = 0; m < NPL; ++m) hs[m] = st[m] = 0.f;
+
+  for (int s0 = 0; s0 < S; s0 += R) {
+    const int rows = min(R, S - s0);   // whole chunks, as S % chunk == 0
+    const int rows_p = padded(rows);
+    const size_t t0 = row0 + s0;
+    __syncthreads();                   // the last block's reads are done
+    // ---- stage x, dt, B and C (zero past N): every load of a batch is
+    // issued before the first store ------------------------------------------
+    {
+      uint4 rxv[2];                    // padded(63) * kRows <= 2 kThreads V
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int e = (tid + k * kThreads) * V;
+        rxv[k] = make_uint4(0, 0, 0, 0);
+        if (e < rows * kRows)
+          rxv[k] = *reinterpret_cast<const uint4*>(
+              x + ((t0 + e / kRows) * nh + h) * hd + p0 + e % kRows);
+      }
+      const float dv = tid < rows ? dt[(t0 + tid) * nh + h] : 0.f;
+      const int n_vec = rows_p * (NP / V);
+      for (int e0 = tid; e0 < n_vec; e0 += kBatch * kThreads) {
+        uint4 rb[kBatch], rc[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int e = e0 + k * kThreads;
+          const int r = e / (NP / V), n = e % (NP / V) * V;
+          rb[k] = rc[k] = make_uint4(0, 0, 0, 0);
+          if (e < n_vec && vec_n && n < N && r < rows) {
+            rb[k] = *reinterpret_cast<const uint4*>(Bm + (t0 + r) * N + n);
+            rc[k] = *reinterpret_cast<const uint4*>(Cm + (t0 + r) * N + n);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int e = e0 + k * kThreads;
+          if (e >= n_vec) break;
+          const int r = e / (NP / V), n = e % (NP / V) * V;
+          if (vec_n || n >= N || r >= rows) {
+            store_vec<E>(Bs + r * NP + n, rb[k]);
+            store_vec<E>(Cs + r * NP + n, rc[k]);
+          } else {                     // a row length of no whole vectors
+            for (int i = 0; i < V; ++i) {
+              const size_t g = (t0 + r) * N + n + i;
+              Bs[r * NP + n + i] = n + i < N ? repro::to_float(Bm[g]) : 0.f;
+              Cs[r * NP + n + i] = n + i < N ? repro::to_float(Cm[g]) : 0.f;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int e = (tid + k * kThreads) * V;
+        if (e < rows_p * kRows) store_vec<E>(xs + e, rxv[k]);
+      }
+      if (tid < rows) dts[tid] = dv;   // rows <= 63 < kThreads
+    }
+    __syncthreads();
+    // ---- decay terms: each chunk's cumsum in one thread, in torch's
+    // order, 8 rows loaded ahead of the add chain ----------------------------
+    for (int c0 = tid * chunk; c0 < rows; c0 += kThreads * chunk) {
+      float s = 0.f;
+      for (int k0 = 0; k0 < chunk; k0 += 8) {
+        float d[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          d[k] = k0 + k < chunk ? dts[c0 + k0 + k] : 0.f;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          if (k0 + k >= chunk) break;
+          s += d[k] * a;
+          cum[c0 + k0 + k] = s;
+        }
+      }
+    }
+    __syncthreads();
+    for (int r = tid; r < rows_p; r += kThreads) {
+      if (r >= rows) {                 // a padding row
+        ecum[r] = u[r] = 0.f;
+        dec[r] = 1.f;
+        continue;
+      }
+      const float total = cum[r - r % chunk + chunk - 1];
+      ecum[r] = expf(cum[r]);
+      u[r] = expf(total - cum[r]) * dts[r];
+      dec[r] = expf(total);
+    }
+    // ---- W of the pairs j <= r inside one chunk --------------------------
+    for (int e0 = tid; e0 < rows * chunk; e0 += kBatch * kThreads) {
+      float sc[kBatch];                // the scores' loads first
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int e = e0 + k * kThreads;
+        sc[k] = e < rows * chunk ? scores[t0 * chunk + e] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int e = e0 + k * kThreads;
+        const int r = e / chunk, jl = e % chunk;
+        const int j = r - r % chunk + jl;
+        if (e < rows * chunk && j <= r)
+          W[r * wst + jl] =
+              round_t<E>(sc[k] * expf(cum[r] - cum[j]) * dts[j]);
+      }
+    }
+    __syncthreads();
+    // ---- y_intra = T(sum_{j<=r} W_rj x_j) of the rows this thread
+    // finishes below (r = lane mod kLanes), ahead of the recurrence --------
+    const float* const xrow = xs + prow;
+#pragma unroll 2
+    for (int r = lane; r < rows; r += kLanes) {
+      const int c0 = r - r % chunk;
+      float acc = 0.f;
+      for (int j = c0; j <= r; ++j)
+        acc += W[r * wst + j - c0] * xrow[j * kRows];
+      yi[r * kRows + prow] = round_t<E>(acc);
+    }
+    // ---- the recurrence over the block's rows --------------------------
+    // one row: its y_inter partial, then the state. `one` (chunk 1: every
+    // row ends its chunk) is a constant in each of the two unrolled loops
+    // below, so at chunk 1 a group of kLanes rows has no branch
+    int cl = 0;                        // rows of the current chunk done
+    const auto row = [&](int r, bool one) {
+      const float xu = xrow[r * kRows] * u[r];
+      float bv[NPL];
+      float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int q = 0; q < KQ; ++q) {
+        const float4 cv = Cs4[r * NQ + kLanes * q + lane];
+        const float4 b4 = Bs4[r * NQ + kLanes * q + lane];
+        bv[4 * q] = b4.x;
+        bv[4 * q + 1] = b4.y;
+        bv[4 * q + 2] = b4.z;
+        bv[4 * q + 3] = b4.w;
+        d0 += cv.x * hs[4 * q] + cv.y * hs[4 * q + 1];
+        d1 += cv.z * hs[4 * q + 2] + cv.w * hs[4 * q + 3];
+      }
+      if (one) {
+        const float dc = dec[r];
+#pragma unroll
+        for (int m = 0; m < NPL; ++m)
+          hs[m] = __fadd_rn(__fmul_rn(hs[m], dc), xu * bv[m]);
+      } else {
+#pragma unroll
+        for (int m = 0; m < NPL; ++m) st[m] += xu * bv[m];
+        if (++cl == chunk) {           // the chunk ends
+          const float dc = dec[r];
+#pragma unroll
+          for (int m = 0; m < NPL; ++m) {
+            hs[m] = __fadd_rn(__fmul_rn(hs[m], dc), st[m]);
+            st[m] = 0.f;
+          }
+          cl = 0;
+        }
+      }
+      return d0 + d1;
+    };
+    for (int r0 = 0; r0 < rows_p; r0 += kLanes) {
+      float part[kLanes];
+      if (chunk == 1) {
+#pragma unroll
+        for (int k = 0; k < kLanes; ++k) part[k] = row(r0 + k, true);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kLanes; ++k) part[k] = row(r0 + k, false);
+      }
+      // reduce-scatter: lane l ends with the whole sum of row r0 + l
+#pragma unroll
+      for (int half = kLanes / 2; half >= 1; half /= 2) {
+        const bool up = lane & half;
+#pragma unroll
+        for (int k = 0; k < half; ++k)
+          part[k] = (up ? part[k + half] : part[k]) +
+                    __shfl_xor_sync(0xffffffffu, up ? part[k] : part[k + half],
+                                    half);
+      }
+      const int r = r0 + lane;
+      if (r < rows) {
+        const float yv = yi[r * kRows + prow] + round_t<E>(part[0] * ecum[r]);
+        y[((t0 + r) * nh + h) * hd + p0 + prow] = repro::from_float<E>(yv);
+      }
+    }
+  }
+  float* const out = final_state + (((size_t)b * nh + h) * hd + p0 + prow) * N;
+#pragma unroll
+  for (int q = 0; q < KQ; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = 4 * kLanes * q + 4 * lane + e;
+      if (n < N) out[n] = hs[4 * q + e];
+    }
+}
+
+template <typename E, int KQ>
+int launch(const void* x, const void* dt, const void* A, const void* Bm,
+           const void* Cm, void* scores, void* y, void* final_state, int B,
+           int S, int nh, int hd, int N, int chunk, cudaStream_t stream) {
+  static int granted = 48 * 1024;
+  const long long n_pairs = (long long)B * S * chunk;
+  ssd_scores_kernel<E><<<(unsigned)((n_pairs + kScoreWarps - 1) / kScoreWarps),
+                         kScoreWarps * 32, 0, stream>>>(
+      static_cast<const E*>(Bm), static_cast<const E*>(Cm),
+      static_cast<float*>(scores), n_pairs, N, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = smem_bytes<KQ>(chunk);
+  err = repro::allow_smem(ssd_recurrent_kernel<E, KQ>, smem, &granted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(hd / kRows, nh, B);
+  ssd_recurrent_kernel<E, KQ><<<grid, kThreads, smem, stream>>>(
+      static_cast<const E*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const E*>(Bm),
+      static_cast<const E*>(Cm), static_cast<const float*>(scores),
+      static_cast<E*>(y), static_cast<float*>(final_state), S, nh, hd, N,
+      chunk);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int dispatch_n(const void* x, const void* dt, const void* A, const void* Bm,
+               const void* Cm, void* scores, void* y, void* final_state,
+               int B, int S, int nh, int hd, int N, int chunk,
+               cudaStream_t stream) {
+  if (N <= 4 * kLanes)
+    return launch<E, 1>(x, dt, A, Bm, Cm, scores, y, final_state, B, S, nh,
+                        hd, N, chunk, stream);
+  if (N <= 8 * kLanes)
+    return launch<E, 2>(x, dt, A, Bm, Cm, scores, y, final_state, B, S, nh,
+                        hd, N, chunk, stream);
+  if (N <= 16 * kLanes)
+    return launch<E, 4>(x, dt, A, Bm, Cm, scores, y, final_state, B, S, nh,
+                        hd, N, chunk, stream);
+  return launch<E, 8>(x, dt, A, Bm, Cm, scores, y, final_state, B, S, nh, hd,
+                      N, chunk, stream);
+}
+
+}  // namespace rec
+
 }  // namespace
 
 // The intra-chunk kernel, then the state pass: `states` ends up holding
@@ -767,4 +1175,31 @@ extern "C" int repro_ssd_chunk_tc(const void* x, const void* dt,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The recurrent route: any chunk below 64, float32 or bfloat16, hd a
+// multiple of 16, N up to 256. Writes the intra-chunk scores (B, S, chunk)
+// to `scores`, then y and `final_state` (B, nh, hd, N): no per-chunk
+// states, cumsums or decays.
+extern "C" int repro_ssd_chunk_recurrent(const void* x, const void* dt,
+                                         const void* A, const void* Bm,
+                                         const void* Cm, void* scores,
+                                         void* y, void* final_state, int B,
+                                         int S, int nh, int hd, int N,
+                                         int chunk, int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || nh <= 0 || hd <= 0 || hd % rec::kRows != 0 ||
+      N <= 0 || N > kMaxN || chunk <= 0 || chunk > rec::kMaxChunk ||
+      S % chunk != 0 || !final_state || !scores)
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0)   // x rows: 16-byte loads
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kFloat32)
+    return rec::dispatch_n<float>(x, dt, A, Bm, Cm, scores, y, final_state, B,
+                                  S, nh, hd, N, chunk, s);
+  if (dtype == repro::kBFloat16)
+    return rec::dispatch_n<__nv_bfloat16>(x, dt, A, Bm, Cm, scores, y,
+                                          final_state, B, S, nh, hd, N, chunk,
+                                          s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -9,7 +9,7 @@ from .ragged_decode_attn import (ragged_decode_attention,
                                  ragged_decode_attention_plain)
 from .rmsnorm import fused_rmsnorm, fused_rmsnorm_plain
 from .ssd_chunk import (ssd_chunk_intra_plain, ssd_chunked, ssd_chunked_plain,
-                        ssd_route)
+                        ssd_chunked_recurrent_plain, ssd_route)
 
 # the wrappers the serving paths launch
 KERNELS = (ragged_decode_attention, fused_rmsnorm, flash_attention,
@@ -17,9 +17,11 @@ KERNELS = (ragged_decode_attention, fused_rmsnorm, flash_attention,
 
 
 def launch_counts() -> dict:
-    """Launches per wrapper, and of the SSD scan's tensor-core route."""
+    """Launches per wrapper, and of the SSD scan's tensor-core and
+    recurrent routes."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts["ssd_chunked_tc"] = ssd_chunked.tc_launches
+    counts["ssd_chunked_recurrent"] = ssd_chunked.recurrent_launches
     return counts
 
 
@@ -27,11 +29,13 @@ def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     ssd_chunked.tc_launches = 0
+    ssd_chunked.recurrent_launches = 0
 
 
 __all__ = [
     "flash_attention", "flash_attention_plain", "ragged_decode_attention",
     "ragged_decode_attention_plain", "fused_rmsnorm", "fused_rmsnorm_plain",
-    "ssd_chunk_intra_plain", "ssd_chunked", "ssd_chunked_plain", "ssd_route",
+    "ssd_chunk_intra_plain", "ssd_chunked", "ssd_chunked_plain",
+    "ssd_chunked_recurrent_plain", "ssd_route",
     "KERNELS", "launch_counts", "reset_launch_counts",
 ]

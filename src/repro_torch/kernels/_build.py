@@ -36,11 +36,14 @@ SIGNATURES = {
         # q, k, v, o, B, S, T, H, KV, D, q_offset, window, dtype, stream
         "repro_flash_attention": [_VP] * 4 + [_I] * 9 + [_VP]},
     "ssd_chunk": {
-        # one entry per route. x, dt, A, B, C, y, states, cum_exp, decay,
-        # final, B, S, nh, hd, N, chunk, then dtype (CUDA cores) or heads
-        # per CTA (tensor cores), stream
+        # one entry per route. CUDA and tensor cores: x, dt, A, B, C, y,
+        # states, cum_exp, decay, final, B, S, nh, hd, N, chunk, then dtype
+        # (CUDA cores) or heads per CTA (tensor cores), stream
         "repro_ssd_chunk": [_VP] * 10 + [_I] * 7 + [_VP],
-        "repro_ssd_chunk_tc": [_VP] * 10 + [_I] * 7 + [_VP]},
+        "repro_ssd_chunk_tc": [_VP] * 10 + [_I] * 7 + [_VP],
+        # x, dt, A, B, C, scores, y, final, B, S, nh, hd, N, chunk, dtype,
+        # stream
+        "repro_ssd_chunk_recurrent": [_VP] * 8 + [_I] * 7 + [_VP]},
 }
 
 _LOADED: Dict[str, object] = {}

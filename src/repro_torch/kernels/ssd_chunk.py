@@ -5,10 +5,11 @@ Replaces the TPU kernel ``src/repro/kernels/ssd_chunk.py``
 (batch, chunk, head) the within-chunk decay cumsum, the causal decay
 matrix, ``C·Bᵀ``, ``y_intra``, the chunk state, ``exp(cum)`` and
 ``exp(total)``; then the inter-chunk state recurrence and ``y_inter``.
-The SSM prefill of every layer runs it. Two routes, picked by dtype and
-shape alone (:func:`ssd_route`): bfloat16 at chunks of whole 64-row tiles
-on the tensor cores, everything else on the CUDA cores. Source, bound and
-design notes: ``csrc/ssd_chunk.cu``.
+The SSM prefill of every layer runs it. Three routes, picked by dtype and
+shape alone (:func:`ssd_route`): every chunk below 64 on the recurrent
+kernel, bfloat16 at chunks of whole 64-row tiles on the tensor cores, the
+rest (float32 at 64 and up, odd long chunks) on the CUDA cores. Source,
+bound and design notes: ``csrc/ssd_chunk.cu``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ MAX_STATE = 256
 TC_ROWS = 64
 TC_HEAD_DIM = 64
 TC_STATES = (32, 64, 128)
+# the recurrent route's chunks: every one below a tensor-core tile
+RECURRENT_BELOW = 64
 
 
 def _chunked(x, dt, B_ssm, C_ssm, chunk: int):
@@ -110,6 +113,40 @@ def ssd_chunked_plain(x, dt, A, B_ssm, C_ssm, chunk: int):
     return y, st_s[:, -1]
 
 
+def ssd_chunked_recurrent_plain(x, dt, A, B_ssm, C_ssm, chunk: int):
+    """The recurrent kernel's arithmetic in plain PyTorch: chunk by chunk,
+    the state h carried from one to the next and no per-chunk state kept.
+    Per chunk, the intra-chunk pairs are rounded as in
+    :func:`ssd_chunked_plain` (C·Bᵀ and the weights to x.dtype), then
+    y = y_intra + T((C_i·exp(cum_i))·hᵀ) in x.dtype and
+    h = h·exp(total) + S_c in float32. Same arguments and results as
+    :func:`ssd_chunked_plain`; the tests hold the two together."""
+    Bb, S, nh, hd = x.shape
+    N = B_ssm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"ssd: sequence length S={S} must be a multiple of "
+                         f"chunk={chunk}")
+    h = torch.zeros((Bb, nh, hd, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, S, chunk):
+        part = slice(c0, c0 + chunk)
+        xc, dtc, Bc, Cc = _chunked(x[:, part], dt[:, part], B_ssm[:, part],
+                                   C_ssm[:, part], chunk)
+        cum, total, L = _decay_terms(dtc, A, chunk)
+        scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+        w = scores[..., None] * L * dtc[:, :, None, :, :]
+        y_intra = torch.einsum("bcijh,bcjhp->bcihp", w.to(x.dtype), xc)[:, 0]
+        Ci = Cc[:, 0, :, None, :] * torch.exp(cum[:, 0])[..., None]
+        y_inter = torch.einsum("bihn,bhpn->bihp", Ci.to(torch.float32), h)
+        ys.append(y_intra + y_inter.to(x.dtype))
+        xw = xc[:, 0] * (torch.exp(total[:, 0, None, :] - cum[:, 0])
+                         * dtc[:, 0])[..., None]
+        state = torch.einsum("bjhp,bjn->bhpn", xw, Bc[:, 0].to(xw.dtype))
+        h = h * torch.exp(total[:, 0]).to(torch.float32)[..., None, None] \
+            + state.to(torch.float32)
+    return torch.cat(ys, dim=1), h
+
+
 def _check_inputs(x, dt, A, B_ssm, C_ssm, chunk: int):
     if x.dim() != 4:
         raise ValueError(f"ssd: x must be (B, S, nh, hd), got {tuple(x.shape)}")
@@ -139,11 +176,14 @@ def _check_inputs(x, dt, A, B_ssm, C_ssm, chunk: int):
 
 
 def ssd_route(dtype, chunk: int, hd: int, N: int) -> str:
-    """The kernel a CUDA call takes, by dtype and shape alone: ``"tc"`` (the
+    """The kernel a CUDA call takes, by dtype and shape alone:
+    ``"recurrent"`` for every chunk below 64 (the chunks 63 of every 64
+    prefill lengths take under the halving rule); ``"tc"`` (the
     tensor-core kernel) for bfloat16 at a chunk that is a multiple of 64,
-    head dim 64 and state size 32, 64 or 128 — every chunk the mamba2-2.7b
-    serve runs — else ``"cuda_cores"`` (float32, and the short or odd
-    chunks)."""
+    head dim 64 and state size 32, 64 or 128; else ``"cuda_cores"``
+    (float32 at chunks of 64 and up, and long chunks of other shapes)."""
+    if chunk < RECURRENT_BELOW:
+        return "recurrent"
     if (dtype == torch.bfloat16 and chunk % TC_ROWS == 0
             and hd == TC_HEAD_DIM and N in TC_STATES):
         return "tc"
@@ -158,6 +198,13 @@ def ssd_tc_heads(Bb: int, S: int, nh: int, chunk: int, n_sm: int) -> int:
     return 2 if ctas >= n_sm else 1
 
 
+def _raise_on(err: int, route: str, Bb, S, nh, hd, N, chunk) -> None:
+    if err:
+        raise RuntimeError(f"ssd: CUDA error {err} at launch ({route} route, "
+                           f"B={Bb}, S={S}, nh={nh}, hd={hd}, N={N}, "
+                           f"chunk={chunk})")
+
+
 def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
     """SSD over a full sequence. x: (B, S, nh, hd) float32 or bfloat16;
     dt: (B, S, nh) float32 post-softplus; A: (nh,) float32 negative;
@@ -166,11 +213,14 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
 
     A CPU tensor takes :func:`ssd_chunked_plain`; a CUDA tensor launches
     ``csrc/ssd_chunk.cu`` on the current stream, on the route
-    :func:`ssd_route` picks, or raises: the intra-chunk kernel (with the
-    JAX model's roundings of C·Bᵀ and the weights), then the state pass,
-    which turns the chunk states into the state entering each chunk in
-    place and writes the final state. ``y_inter`` is added with one
-    batched product when there is more than one chunk."""
+    :func:`ssd_route` picks, or raises. The recurrent route forms the
+    intra-chunk scores (B, S, chunk) once for all heads, then carries the
+    state across the sequence and writes y and the final state only. The
+    other two run the intra-chunk kernel (with the JAX model's roundings of
+    C·Bᵀ and the weights), then the state pass, which turns the chunk
+    states into the state entering each chunk in place and writes the
+    final state; ``y_inter`` is added with one batched product when there
+    is more than one chunk."""
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, A, B_ssm, C_ssm, chunk)
     if x.device.type != "cuda":
@@ -181,6 +231,20 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
     nc = S // chunk
     route = ssd_route(x.dtype, chunk, hd, N)
     f32 = dict(dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "recurrent":
+        y = torch.empty_like(x)
+        final = torch.empty((Bb, nh, hd, N), **f32)
+        scores = torch.empty((Bb, S, chunk), **f32)
+        err = _build.function("ssd_chunk", "repro_ssd_chunk_recurrent")(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_ssm.data_ptr(),
+            C_ssm.data_ptr(), scores.data_ptr(), y.data_ptr(),
+            final.data_ptr(), Bb, S, nh, hd, N, chunk,
+            _build.dtype_code(x.dtype), stream)
+        _raise_on(err, route, Bb, S, nh, hd, N, chunk)
+        ssd_chunked.launches += 1
+        ssd_chunked.recurrent_launches += 1
+        return y, final
     y_intra = torch.empty_like(x)
     h_prev = torch.empty((Bb, nc, nh, hd, N), **f32)
     cum_exp = torch.empty((Bb, S, nh), **f32)
@@ -190,7 +254,6 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
             C_ssm.data_ptr(), y_intra.data_ptr(), h_prev.data_ptr(),
             cum_exp.data_ptr(), decay.data_ptr(), final.data_ptr(),
             Bb, S, nh, hd, N, chunk)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     if route == "tc":
         n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
         err = _build.function("ssd_chunk", "repro_ssd_chunk_tc")(
@@ -198,10 +261,7 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
     else:
         err = _build.function("ssd_chunk", "repro_ssd_chunk")(
             *args, _build.dtype_code(x.dtype), stream)
-    if err:
-        raise RuntimeError(f"ssd: CUDA error {err} at launch ({route} route, "
-                           f"B={Bb}, S={S}, nh={nh}, hd={hd}, N={N}, "
-                           f"chunk={chunk})")
+    _raise_on(err, route, Bb, S, nh, hd, N, chunk)
     ssd_chunked.launches += 1
     if route == "tc":
         ssd_chunked.tc_launches += 1
@@ -210,5 +270,6 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
     return y_intra + _y_inter(C_ssm, cum_exp, h_prev, chunk, x.dtype), final
 
 
-ssd_chunked.launches = 0        # every launch, either route
-ssd_chunked.tc_launches = 0     # the tensor-core route's
+ssd_chunked.launches = 0            # every launch, any route
+ssd_chunked.tc_launches = 0         # the tensor-core route's
+ssd_chunked.recurrent_launches = 0  # the recurrent route's

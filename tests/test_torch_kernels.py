@@ -288,7 +288,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
                   -torch.rand(2), torch.randn(1, 8, 4), torch.randn(1, 8, 4), 4)
     assert K.launch_counts() == {"ragged_decode_attention": 0,
                                  "fused_rmsnorm": 0, "flash_attention": 0,
-                                 "ssd_chunked": 0, "ssd_chunked_tc": 0}
+                                 "ssd_chunked": 0, "ssd_chunked_tc": 0,
+                                 "ssd_chunked_recurrent": 0}
 
 
 @pytest.mark.parametrize("dtype,chunk,hd,N,route", [
@@ -298,14 +299,18 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     (torch.bfloat16, 256, 64, 32, "tc"),
     (torch.float32, 256, 64, 128, "cuda_cores"),
     (torch.float32, 64, 64, 128, "cuda_cores"),
-    (torch.bfloat16, 1, 64, 128, "cuda_cores"),  # odd prefill length
-    (torch.bfloat16, 32, 64, 128, "cuda_cores"),
+    (torch.bfloat16, 1, 64, 128, "recurrent"),   # odd prefill length
+    (torch.bfloat16, 32, 64, 128, "recurrent"),
+    (torch.float32, 1, 64, 128, "recurrent"),
+    (torch.bfloat16, 63, 64, 128, "recurrent"),
+    (torch.float32, 2, 128, 256, "recurrent"),
     (torch.bfloat16, 200, 64, 128, "cuda_cores"),
     (torch.bfloat16, 256, 32, 128, "cuda_cores"),
     (torch.bfloat16, 256, 64, 256, "cuda_cores"),
 ])
 def test_ssd_route_by_dtype_and_shape(dtype, chunk, hd, N, route):
-    """bf16 at chunks of whole 64-row tiles (hd 64, N up to 128) takes the
+    """Every chunk below 64 takes the recurrent kernel, in both dtypes;
+    bf16 at chunks of whole 64-row tiles (hd 64, N up to 128) the
     tensor-core kernel; float32 and every other shape the CUDA cores."""
     assert K.ssd_route(dtype, chunk, hd, N) == route
 
@@ -326,8 +331,8 @@ def test_build_sources_and_dtype_codes():
     assert list(_build.sources()) == ["flash_attn", "ragged_decode_attn",
                                       "ssd_chunk"]
     assert set(_build.SIGNATURES) == set(_build.sources())
-    assert set(_build.SIGNATURES["ssd_chunk"]) == {"repro_ssd_chunk",
-                                                   "repro_ssd_chunk_tc"}
+    assert set(_build.SIGNATURES["ssd_chunk"]) == {
+        "repro_ssd_chunk", "repro_ssd_chunk_tc", "repro_ssd_chunk_recurrent"}
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.name == f"lib{name}.so"

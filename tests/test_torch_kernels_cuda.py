@@ -11,8 +11,8 @@ dims 32/64/128, ragged lengths, padding rows at an out-of-range slot,
 sliding windows, query offsets and tails that are no multiple of a tile —
 in float32 (tolerance 2e-5) and bfloat16 (2e-2); the SSD scan over its
 shapes, full width and chunks 1 … 256 in float32 (1e-4) and bfloat16
-(5e-2 on y, 1e-4 on the float32 states), on both of its routes; and tiny
-llama and Mamba-2 engines on the card against the CPU engine.
+(5e-2 on y, 1e-4 on the float32 states), on each of its three routes;
+and tiny llama and Mamba-2 engines on the card against the CPU engine.
 """
 import pytest
 
@@ -59,6 +59,18 @@ SSD_TC_CASES = [
     (1, 128, 80, 64, 128, 128),     # chunk 128, one chunk
     (1, 256, 80, 64, 128, 256),     # chunk 256
     (1, 384, 80, 64, 128, 128),     # chunk 128, three chunks
+]
+
+# every chunk below 64 on the recurrent route: B = 2, nh 3 and 80, hd 16 …
+# 128, N 16 … 256 (100 and 24 no multiple of a vector), both dtypes
+SSD_RECURRENT_CASES = [
+    (2, 40, 3, 16, 16, 1),
+    (2, 66, 3, 64, 100, 2),
+    (2, 96, 3, 128, 256, 16),
+    (2, 128, 80, 64, 128, 32),
+    (2, 126, 3, 32, 24, 63),        # the longest chunk it takes, odd
+    (2, 258, 80, 64, 128, 2),       # mamba2-2.7b prefill 258: chunk 2
+    (2, 383, 80, 64, 128, 1),       # prefill 383: chunk 1
 ]
 
 LLAMA_KERNELS = ("ragged_decode_attention", "fused_rmsnorm", "flash_attention")
@@ -237,11 +249,13 @@ def _check_ssd(y, st, y_ref, st_ref):
 def test_ssd_kernel_on_card(cuda, B, S, nh, hd, N, chunk, dtype):
     inputs = _ssd_inputs(cuda, B, S, nh, hd, N, dtype)
     n0, tc0 = K.ssd_chunked.launches, K.ssd_chunked.tc_launches
+    rc0 = K.ssd_chunked.recurrent_launches
     y, st = K.ssd_chunked(*inputs, chunk)
     y_ref, st_ref = K.ssd_chunked_plain(*inputs, chunk)
+    route = K.ssd_route(dtype, chunk, hd, N)
     assert K.ssd_chunked.launches == n0 + 1
-    assert K.ssd_chunked.tc_launches == tc0 + (
-        K.ssd_route(dtype, chunk, hd, N) == "tc")
+    assert K.ssd_chunked.tc_launches == tc0 + (route == "tc")
+    assert K.ssd_chunked.recurrent_launches == rc0 + (route == "recurrent")
     _check_ssd(y, st, y_ref, st_ref)
 
 
@@ -261,6 +275,39 @@ def test_ssd_tc_route_on_card(cuda, B, S, nh, hd, N, chunk):
     torch.cuda.synchronize()
     assert torch.equal(y, y2) and torch.equal(st, st2)
     _check_ssd(y, st, *K.ssd_chunked_plain(*inputs, chunk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", SSD_RECURRENT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_recurrent_route_on_card(cuda, B, S, nh, hd, N, chunk, dtype):
+    """The recurrent route: its counter moves, two launches on the same
+    inputs are bit-equal, and y and the final state agree with the plain
+    version (per head too)."""
+    assert K.ssd_route(dtype, chunk, hd, N) == "recurrent"
+    inputs = _ssd_inputs(cuda, B, S, nh, hd, N, dtype)
+    n0, rc0 = K.ssd_chunked.launches, K.ssd_chunked.recurrent_launches
+    y, st = K.ssd_chunked(*inputs, chunk)
+    assert K.ssd_chunked.launches == n0 + 1
+    assert K.ssd_chunked.recurrent_launches == rc0 + 1
+    y2, st2 = K.ssd_chunked(*inputs, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    _check_ssd(y, st, *K.ssd_chunked_plain(*inputs, chunk))
+
+
+@pytest.mark.cuda
+def test_ssd_recurrent_route_keeps_no_chunk_states(cuda):
+    """mamba2-2.7b's chunk-1 prefill (S 383, bf16) allocates y and the
+    final state only, not a state per chunk (1.0 GB there)."""
+    inputs = _ssd_inputs(cuda, 1, 383, 80, 64, 128, torch.bfloat16)
+    K.ssd_chunked(*inputs, 1)                # load the library first
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y, st = K.ssd_chunked(*inputs, 1)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 64 << 20
 
 
 @pytest.mark.cuda

@@ -6,8 +6,11 @@ On the CPU ``repro_torch.kernels.ssd_chunked`` takes its plain version.
 ``ssd_chunked_plain`` against ``ref.ssd_chunked_ref`` (the JAX model's
 ``ssd_chunked``) and ``ssd_chunked_pallas``, over the shapes of
 ``tests/test_kernels.py`` plus chunk-1 cases, which is what an odd prefill
-length runs. Tolerances as there: float32 1e-4, bfloat16 5e-2 on y; the
-float32 states, cumsums and decays 1e-4 in both.
+length runs. ``ssd_chunked_recurrent_plain`` (the recurrent kernel's
+arithmetic) is held against the JAX model's ``ssd_chunked`` and
+``ssd_chunked_plain`` at chunks 1, 2, 4 and 32. Tolerances as there:
+float32 1e-4, bfloat16 5e-2 on y; the float32 states, cumsums and decays
+1e-4 in both.
 
 The tiny Mamba-2 (``_tiny("mamba2-2.7b")`` of tests/test_engine.py: 2
 layers, d_model 64, d_state 16, head_dim 32, chunk 32) runs on the JAX
@@ -29,6 +32,7 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.kernels import ops, ref  # noqa: E402
 from repro.kernels.ssd_chunk import ssd_chunk_intra as pallas_intra  # noqa: E402
 from repro.models import Model as JaxModel, RuntimeFlags as JaxFlags  # noqa: E402
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
 import repro_torch.kernels as K  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import Model, RuntimeFlags, params_from_jax  # noqa: E402
@@ -103,6 +107,35 @@ def test_ssd_chunked_plain_matches_ref_and_pallas(B, S, nh, hd, N, chunk,
     y_pal, st_pal = ops.ssd_chunked_pallas(xj, dj, aj, bj, cj, chunk,
                                            interpret=True)
     for yw, sw in ((y_ref, st_ref), (y_pal, st_pal)):
+        np.testing.assert_allclose(_np(y), _np(yw), **_y_tol(dtype))
+        np.testing.assert_allclose(_np(st), _np(sw), **TOL)
+
+
+# the recurrent kernel's chunks (below 64): 1, 2, 4 and 32
+SSD_RECURRENT_SHAPES = [
+    (2, 7, 2, 64, 24, 1),
+    (1, 33, 4, 32, 16, 1),
+    (2, 66, 3, 16, 100, 2),
+    (1, 64, 2, 32, 16, 4),
+    (2, 96, 2, 16, 8, 32),
+]
+
+
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", SSD_RECURRENT_SHAPES)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_ssd_chunked_recurrent_plain_matches_jax_and_plain(B, S, nh, hd, N,
+                                                           chunk, dtype):
+    """The recurrent kernel's arithmetic (h carried chunk by chunk, no
+    per-chunk states) against the JAX model's ``ssd_chunked`` and the
+    port's ``ssd_chunked_plain``."""
+    (xj, xt), (dj, dt_), (aj, at), (bj, bt), (cj, ct) = _ssd_inputs(
+        B, S, nh, hd, N, dtype)
+    y, st = K.ssd_chunked_recurrent_plain(xt, dt_, at, bt, ct, chunk)
+    assert y.dtype == xt.dtype and st.dtype == torch.float32
+    y_jax, st_jax = jax_ssd_chunked(xj, dj, aj, bj, cj, chunk)
+    y_pl, st_pl = K.ssd_chunked_plain(xt, dt_, at, bt, ct, chunk)
+    for yw, sw in ((y_jax, st_jax), (y_pl, st_pl)):
+        assert tuple(y.shape) == tuple(yw.shape)
         np.testing.assert_allclose(_np(y), _np(yw), **_y_tol(dtype))
         np.testing.assert_allclose(_np(st), _np(sw), **TOL)
 
