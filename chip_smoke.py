@@ -7,7 +7,8 @@ Phases, always all of them, in order:
 
   build    compile every CUDA source of ``src/repro_torch/csrc`` with nvcc
            (one process per source, all started together); print seconds
-           and what ptxas reports per kernel.
+           and what ptxas reports per kernel; fail when the RMSNorm kernel
+           spills.
   kernels  run each hand-written kernel against its plain PyTorch version on
            the card at the serving paths' shapes (RMSNorm at llama's width
            2048 and mamba's 2560 and 5120; the SSD scan at chunks 256, 128
@@ -20,10 +21,15 @@ Phases, always all of them, in order:
            ||y - y_ref|| / ||y_ref|| below 1e-2); time kernel, plain version
            and one PyTorch library call where one computes the same
            function (the yardstick, never used by the port) as medians over
-           CUDA events with the L2 flushed before each call, and compute
-           each call's roofline bound at 3.35 TB/s and the card's peak rate
-           for the input type. A hand-written kernel whose device time
-           the profiler did not record fails the phase.
+           CUDA events with the L2 flushed before each call, and as device
+           time from the profiler; time the host's cost per call as the
+           mean over 200 back-to-back calls with no synchronize inside;
+           take kernel and library call in turns (library, kernel, kernel,
+           library) for events and host time and report the mean of each
+           one's two turns; compute each call's roofline bound at 3.35 TB/s
+           and the card's peak rate for the input type. A hand-written
+           kernel whose device time the profiler did not record fails the
+           phase.
   serve    full-width llama3.2-1b (16 layers, d_model 2048, random weights
            from a seed) in bfloat16: TorchEngine + ServingSession +
            LazyBatching(max_batch=8) serve 24 Poisson-arriving requests
@@ -85,7 +91,7 @@ REPLACES = {
 SOURCES = {
     "ragged_decode_attention": ("cuda",
                                 "src/repro_torch/csrc/ragged_decode_attn.cu"),
-    "fused_rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py"),
+    "fused_rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attn.cu"),
     "ssd_chunked": ("cuda", "src/repro_torch/csrc/ssd_chunk.cu"),
 }
@@ -93,7 +99,7 @@ SOURCES = {
 SYMBOLS = {"ragged decode": "ragged_decode_split_kernel",
            "flash prefill (bf16, tensor cores)": "flash_tc_kernel",
            "flash prefill (f32, CUDA cores)": "flash_fwd_kernel",
-           "SSD scan": "ssd_", "RMSNorm": "rmsnorm"}
+           "SSD scan": "ssd_", "RMSNorm": "rmsnorm_kernel"}
 # the kernels each serving path must launch; the bf16 mamba serve runs the
 # SSD scan's tensor-core route (ssd_chunked_tc counts it) and its recurrent
 # route (ssd_chunked_recurrent), its float32 exact check the recurrent
@@ -190,6 +196,36 @@ def traced_device_s(torch, fn, what: str):
     return None, [], out
 
 
+HOST_CALLS = 200
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS):
+    """Mean host microseconds per call of ``fn`` over ``calls`` back-to-back
+    calls with no synchronize inside, after a warmup (what the launching
+    thread spends per call while the card's queue does not fill); None
+    without ``fn``."""
+    if fn is None:
+        return None
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs * 1e6 / calls
+
+
+def in_turns(measure, kernel_fn, lib_fn):
+    """``measure`` of the library call, the kernel, the kernel and the
+    library call, in that order: (the kernel's mean, the library's mean or
+    None without one, the four)."""
+    turns = [measure(f) for f in (lib_fn, kernel_fn, kernel_fn, lib_fn)]
+    lib = None if lib_fn is None else (turns[0] + turns[3]) / 2
+    return (turns[1] + turns[2]) / 2, lib, turns
+
+
 def device_ms(torch, fn, what: str, reps: int = 10):
     """Device time per call in ms from the profiler over ``reps`` calls
     (L2 warm); unlike :func:`cuda_ms` it excludes the host's launch gaps.
@@ -249,6 +285,7 @@ def phase_build():
     secs = time.perf_counter() - t0
     print(f"[build] {len(logs)} CUDA sources built in {secs:.2f} s "
           f"(parallel nvcc, sm_90a)")
+    import re
     for name, log in logs.items():
         kernel = "?"
         for line in log.splitlines():
@@ -256,6 +293,11 @@ def phase_build():
                 kernel = line.split(" for ", 1)[1].strip()
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name} {kernel}: {line.strip()}")
+                spilled = [int(b) for b in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", line)]
+                check(name != "rmsnorm" or not any(spilled),
+                      f"rmsnorm: ptxas reports spills in {kernel}: "
+                      f"{line.strip()}")
     # the bf16 flash kernel and the SSD scan's tensor-core route run on the
     # tensor cores: their SASS holds HGMMA (wgmma) instructions
     tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent
@@ -454,7 +496,12 @@ def phase_kernels(torch):
         r = make()
         err = compare(torch, r["out"], r["ref"], dname, f"{name} {r['shape']}",
                       r.get("tols"))
-        ms, plain_ms, lib_ms = (cuda_ms(torch, f) for f in r["fns"])
+        kernel_fn, plain_fn, lib_fn = r["fns"]
+        ms, lib_ms, ev_turns = in_turns(lambda f: cuda_ms(torch, f),
+                                        kernel_fn, lib_fn)
+        plain_ms = cuda_ms(torch, plain_fn)
+        host, lib_host, turns = in_turns(lambda f: host_us(torch, f),
+                                         kernel_fn, lib_fn)
         dev_ms, dev_plain, dev_lib = (
             device_ms(torch, f, f"{part} of {name} {dname} {r['shape']}")
             for f, part in zip(r["fns"], ("kernel", "plain", "library")))
@@ -482,6 +529,13 @@ def phase_kernels(torch):
                   if r["fns"][2] is not None else "")
         share = ("not measured" if dev_ms is None
                  else f"{100 * b_ms / dev_ms:.1f}%")
+        us = lambda t: "none" if t is None else f"{t:.2f} us"
+        host_line = (f"in turns (library, kernel, kernel, library): events "
+                     f"{', '.join(us(t and t * 1e3) for t in ev_turns)}; "
+                     f"host per call ({HOST_CALLS} calls, no sync inside) "
+                     f"{', '.join(us(t) for t in turns)}")
+        if lib_fn is not None:
+            host_line += f" | kernel / library: host {ratio(host, lib_host)}"
         print(f"[kernels] {name} {dname} {r['shape']}: max|err| {err:.3e} | "
               f"events (L2 cold, launch included) kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {lib(lib_ms)} | device time "
@@ -489,6 +543,7 @@ def phase_kernels(torch):
               f"{fmt(dev_plain)}, library {lib(dev_lib)} | bound "
               f"{b_ms * 1e3:.2f} us ({b_by}), kernel device at {share} of "
               f"it{vs_lib}{note}")
+        print(f"[kernels] {name} {dname} {r['shape']}: {host_line}")
         # the JSON row: bfloat16 at the decode / full-width prefill shape
         if dname == "bfloat16" and r["main"]:
             route, source = SOURCES[name]
@@ -497,7 +552,8 @@ def phase_kernels(torch):
                           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                           "bound_by": b_by, "library_ms": lib_ms,
                           "device_ms": dev_ms, "plain_device_ms": dev_plain,
-                          "library_device_ms": dev_lib,
+                          "library_device_ms": dev_lib, "host_us": host,
+                          "library_host_us": lib_host,
                           "shape": f"{dname} {r['shape']}"}
         del r
         torch.cuda.empty_cache()
@@ -564,8 +620,8 @@ def phase_serve(torch, arch, tag, kernels, prompts):
           f"init in {time.perf_counter() - t0:.2f} s")
     kw = dict(rate=20.0, prompts=prompts, decodes=(16, 32, 64), max_batch=8,
               sla=10.0)
-    # warmup: first launches build the Triton kernel and load the
-    # libraries; every prompt length once, then a burst of max_batch
+    # warmup: first launches load the kernels' libraries; every prompt
+    # length once, then a burst of max_batch
     # requests (every batch bucket as they finish, the longest context),
     # then a few Poisson arrivals
     _serve(torch, engine, cfg, n=len(prompts), seed=98,

@@ -25,8 +25,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C signatures of the exported launchers, per source: {symbol: argtypes}
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures of the exported launchers, per source: {symbol: argtypes};
+# a C pointer is c_void_p, an int c_int, a float c_float
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "ragged_decode_attn": {
         # q, k, v, lengths, slots, out, part_acc, part_ml, counters, B, H,
@@ -44,6 +45,10 @@ SIGNATURES = {
         # x, dt, A, B, C, scores, y, final, B, S, nh, hd, N, chunk, dtype,
         # stream
         "repro_ssd_chunk_recurrent": [_VP] * 8 + [_I] * 7 + [_VP]},
+    "rmsnorm": {
+        # x, scale, y, rows, D, stride, flags (16-byte slots, x and scale
+        # dtypes), eps, device, stream
+        "repro_rmsnorm": [_VP] * 3 + [_I] * 4 + [_F, _I, _VP]},
 }
 
 _LOADED: Dict[str, object] = {}
@@ -116,7 +121,10 @@ def function(name: str, symbol: str):
         argtypes = SIGNATURES[name][symbol]
         if _stale(name):
             build_all([name])
-        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+        # PyDLL keeps the GIL across the call: a launcher only enqueues
+        # work and returns, so releasing and retaking the GIL around it
+        # would cost more than it frees
+        fn = getattr(ctypes.PyDLL(str(library_path(name))), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _LOADED[symbol] = fn

@@ -1,25 +1,28 @@
-"""Fused RMSNorm: a Triton row kernel and its plain PyTorch version.
+"""Fused RMSNorm: the CUDA kernel's wrapper and its plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/rmsnorm.py``
 (``fused_rmsnorm``): ``x * rsqrt(mean(x**2) + eps) * scale`` over the last
-axis, computed in float32 and cast back to ``x.dtype``. The serving path
-runs it at ln1 and ln2 of every layer and at the final norm, on every
-token.
-
-Bound on the H100: bytes. Each element is read once and written once with
-four flops in between, so the floor is ``2 * x.nbytes / 3.35 TB/s``.
-Design: one program per row and one pass — the row (D = 2048 at full
-width) is loaded into registers once, reduced, scaled and stored, so no
-float32 upcast or variance ever goes back to device memory.
-
-The Triton kernel is built at first launch: ``triton`` is imported inside
-the launching function, never when this module is imported.
+axis, computed in float32 and cast back to ``x.dtype``. The serving paths
+run it at ln1 and ln2 of every layer, at the SSM's gated norm and at the
+final norm, on every token: it is the most-launched kernel of both serves,
+so the wrapper keeps its host work to a few attribute reads, one
+``torch.empty`` and one ``ctypes`` call. Source, bound and design notes:
+``csrc/rmsnorm.cu``.
 """
 from __future__ import annotations
 
-import functools
+from typing import Optional
 
 import torch
+
+from . import _build
+
+# (x dtype, scale dtype) -> the C entry's dtype flags (bit 1: x bf16,
+# bit 2: scale bf16); bit 0, the 16-byte-slot path, is added per call
+_FLAGS = {(torch.float32, torch.float32): 0,
+          (torch.bfloat16, torch.float32): 2,
+          (torch.bfloat16, torch.bfloat16): 6}
+_INT_MAX = 2 ** 31 - 1
 
 
 def fused_rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -32,56 +35,95 @@ def fused_rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype)
 
 
-def _rmsnorm_body(x_ptr, scale_ptr, out_ptr, D, eps,
-                  BLOCK: tl.constexpr):
-    row = tl.program_id(0)
-    offs = tl.arange(0, BLOCK)
-    mask = offs < D
-    x = tl.load(x_ptr + row * D + offs, mask=mask, other=0.0).to(tl.float32)
-    var = tl.sum(x * x, axis=0) / D
-    s = tl.load(scale_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-    y = x * tl.rsqrt(var + eps) * s
-    tl.store(out_ptr + row * D + offs, y.to(out_ptr.dtype.element_ty),
-             mask=mask)
+def row_stride(x: torch.Tensor) -> Optional[int]:
+    """The one stride, in elements, between consecutive rows of x's
+    ``(rows, D)`` view, when its last axis is contiguous and its leading
+    axes collapse into one (``x[:, -1]`` of a contiguous (B, S, D) block
+    gives S * D); None when they do not."""
+    shape, strides = x.shape, x.stride()
+    if not shape or (shape[-1] != 1 and strides[-1] != 1):
+        return None
+    stride, span = None, None
+    for size, st in zip(reversed(shape[:-1]), reversed(strides[:-1])):
+        if size == 1:
+            continue
+        if stride is None:
+            stride = st
+        elif st != span:
+            return None
+        span = st * size
+    return shape[-1] if stride is None else stride
 
 
-@functools.lru_cache(maxsize=None)
-def _triton_kernel():
-    """JIT-wrap the kernel body on first use (``tl`` becomes a module
-    global here, where Triton's compiler resolves the body's names)."""
-    global tl
-    import triton
-    import triton.language as tl
-    return triton.jit(_rmsnorm_body)
+_launch = None              # the bound C entry and the raw-stream query
+
+
+def _launcher():
+    global _launch
+    if _launch is None:
+        # torch's raw current-stream query returns the handle as an int,
+        # without building a Stream object per call
+        _launch = (_build.function("rmsnorm", "repro_rmsnorm"),
+                   torch._C._cuda_getCurrentRawStream)
+    return _launch
 
 
 def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
-    """x: (..., D); scale: (D,). Returns rmsnorm(x) * scale in x.dtype.
+    """x: (..., D) with a contiguous last axis; scale: (D,), float32 or
+    x's dtype. Returns rmsnorm(x) * scale in x.dtype, contiguous.
 
     A CPU tensor takes :func:`fused_rmsnorm_plain`; a CUDA tensor launches
-    the Triton kernel or raises."""
-    if x.device.type == "cpu":
-        return fused_rmsnorm_plain(x, scale, eps)
-    if x.device.type != "cuda":
+    the kernel on the current stream or raises. Rows may sit at any one
+    stride (:func:`row_stride`), so a view such as ``x[:, -1]`` is read in
+    place."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return fused_rmsnorm_plain(x, scale, eps)
         raise ValueError(f"fused_rmsnorm: unsupported device {x.device}")
-    if scale.device != x.device:
-        raise ValueError("fused_rmsnorm: scale must be on x's device")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_rmsnorm: x dtype {x.dtype} not supported")
+    flags = _FLAGS.get((x.dtype, scale.dtype))
+    if flags is None:
+        raise TypeError(f"fused_rmsnorm: x {x.dtype} with scale "
+                        f"{scale.dtype} not supported (x float32 or "
+                        f"bfloat16; scale float32 or x's dtype)")
+    if x.dim() == 0:
+        raise ValueError("fused_rmsnorm: x needs a last axis")
     D = x.shape[-1]
-    if scale.shape != (D,):
-        raise ValueError(f"fused_rmsnorm: scale {tuple(scale.shape)} != ({D},)")
-    if not x.is_contiguous() or not scale.is_contiguous():
-        raise ValueError("fused_rmsnorm: x and scale must be contiguous")
-    out = torch.empty_like(x)
-    rows = x.numel() // D
-    if rows == 0:
+    dev = x.get_device()
+    if (scale.shape != (D,) or not scale.is_contiguous()
+            or scale.get_device() != dev):
+        raise ValueError(f"fused_rmsnorm: scale must be a contiguous ({D},) "
+                         f"tensor on x's device, got {tuple(scale.shape)} "
+                         f"on {scale.device}")
+    if x.is_contiguous():
+        stride = D
+        out = torch.empty_like(x)
+    else:
+        stride = row_stride(x)
+        if stride is None:
+            raise ValueError(f"fused_rmsnorm: x {tuple(x.shape)} with "
+                             f"strides {x.stride()} is no set of rows at one "
+                             f"stride with a contiguous last axis")
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    n = out.numel()
+    if n == 0:
         return out
-    block = 1 << max(0, D - 1).bit_length()
-    with torch.cuda.device(x.device):
-        _triton_kernel()[(rows,)](x, scale, out, D, eps, BLOCK=block,
-                                  num_warps=8 if block >= 2048 else 4)
+    rows = n // D
+    if rows > _INT_MAX or stride > _INT_MAX:
+        raise ValueError(f"fused_rmsnorm: {rows} rows at stride {stride} "
+                         f"exceed the kernel's 32-bit sizes")
+    xp, sp = x.data_ptr(), scale.data_ptr()
+    es = x.element_size()
+    if not (xp | sp | (stride * es) | (D * es)) & 15:
+        flags |= 1                                  # 16-byte slots
+    fn, raw_stream = _launch or _launcher()
+    err = fn(xp, sp, out.data_ptr(), rows, D, stride, flags, eps, dev,
+             raw_stream(dev))
+    if err:
+        raise RuntimeError(f"fused_rmsnorm: CUDA error {err} at launch "
+                           f"(rows={rows}, D={D}, stride={stride}, "
+                           f"flags={flags}, x {x.dtype}, scale "
+                           f"{scale.dtype})")
     fused_rmsnorm.launches += 1
     return out
 

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from ..kernels import flash_attention, fused_rmsnorm, ragged_decode_attention
+from ..kernels.rmsnorm import row_stride
 
 # ---------------------------------------------------------------------------
 # RMSNorm
@@ -29,8 +30,12 @@ def init_rmsnorm(d: int, device) -> dict:
 
 
 def rms_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
-    """Row RMSNorm through the fused kernel (its plain version on CPU)."""
-    return fused_rmsnorm(x.contiguous(), p["scale"], eps)
+    """Row RMSNorm through the fused kernel (its plain version on CPU).
+    Rows at one stride with a contiguous last axis (the prefill's
+    ``x[:, -1]``) go in as they are; any other layout is copied first."""
+    if not x.is_contiguous() and row_stride(x) is None:
+        x = x.contiguous()
+    return fused_rmsnorm(x, p["scale"], eps)
 
 
 # ---------------------------------------------------------------------------

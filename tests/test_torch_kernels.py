@@ -20,6 +20,7 @@ from repro.models.layers import chunked_causal_attention as jax_chunked  # noqa:
 from repro.models.layers import rms_norm as jax_rms_norm  # noqa: E402
 import repro_torch.kernels as K  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.rmsnorm import row_stride  # noqa: E402
 from repro_torch.kernels.ssd_chunk import ssd_tc_heads  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 
@@ -329,10 +330,11 @@ def test_ssd_tc_heads_per_cta(Bb, S, nh, chunk, heads):
 
 def test_build_sources_and_dtype_codes():
     assert list(_build.sources()) == ["flash_attn", "ragged_decode_attn",
-                                      "ssd_chunk"]
+                                      "rmsnorm", "ssd_chunk"]
     assert set(_build.SIGNATURES) == set(_build.sources())
     assert set(_build.SIGNATURES["ssd_chunk"]) == {
         "repro_ssd_chunk", "repro_ssd_chunk_tc", "repro_ssd_chunk_recurrent"}
+    assert set(_build.SIGNATURES["rmsnorm"]) == {"repro_rmsnorm"}
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.name == f"lib{name}.so"
@@ -340,3 +342,70 @@ def test_build_sources_and_dtype_codes():
     assert _build.dtype_code(torch.bfloat16) == 1
     with pytest.raises(TypeError):
         _build.dtype_code(torch.float16)
+
+
+def _c_entries(source):
+    """{symbol: [parameter declaration, ...]} of every ``extern "C"``
+    function defined in ``source``."""
+    import re
+    text = re.sub(r"//[^\n]*", "", source.read_text())
+    found = {}
+    for m in re.finditer(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', text):
+        found[m.group(1)] = [p.strip() for p in m.group(2).split(",")]
+    return found
+
+
+def _c_kind(decl):
+    """The ctypes type a C parameter declaration crosses as."""
+    import ctypes
+    if "*" in decl:
+        return ctypes.c_void_p
+    words = decl.replace("const", " ").split()
+    return {"int": ctypes.c_int, "float": ctypes.c_float}[words[0]]
+
+
+@pytest.mark.parametrize("name", ["flash_attn", "ragged_decode_attn",
+                                  "rmsnorm", "ssd_chunk"])
+def test_signatures_match_the_c_declarations(name):
+    """Every ``_build.SIGNATURES`` entry has the count and the kinds of its
+    ``extern "C"`` declaration's parameters (pointer <-> c_void_p, int <->
+    c_int, float <-> c_float), and every C entry of the source is listed."""
+    entries = _c_entries(_build.CSRC / f"{name}.cu")
+    sigs = _build.SIGNATURES[name]
+    assert set(entries) == set(sigs)
+    for symbol, params in entries.items():
+        assert [_c_kind(p) for p in params] == sigs[symbol], symbol
+
+
+@pytest.mark.parametrize("make,stride", [
+    (lambda t: t, 32),                              # contiguous (2, 3, 32)
+    (lambda t: t[:, -1], 96),                       # the prefill's x[:, -1]
+    (lambda t: t[:, 1], 96),
+    (lambda t: t[:1, :2], 32),                      # leading slices that
+    (lambda t: t[:, :1], 96),                       # still collapse
+    (lambda t: t[:, 1:], None),                     # (2, 2, 32) no longer
+    (lambda t: t[..., ::2], None),                  # a strided last axis
+    (lambda t: t.transpose(0, 1), None),
+    (lambda t: t[:, :, :1], 32),                    # D == 1
+    (lambda t: t[0, 0].expand(4, 32), 0),           # one row read 4 times
+])
+def test_rmsnorm_row_stride(make, stride):
+    """The kernel's row stride of a view, or None where its rows do not
+    sit at one stride with a contiguous last axis."""
+    x = torch.zeros(2, 3, 32)
+    assert row_stride(make(x)) == stride
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_rms_norm_layer_on_a_strided_view(dtype):
+    """``layers.rms_norm`` of ``x[:, -1]`` (the prefill's final norm, read
+    in place on the card) against the JAX layer on the same rows."""
+    rng = np.random.default_rng(7)
+    xj, xt = _pair(rng.standard_normal((3, 5, 96)) * 2.0, dtype)
+    sj, st = _pair(rng.standard_normal((96,)))
+    view = xt[:, -1]
+    assert not view.is_contiguous() and row_stride(view) == 5 * 96
+    got = TL.rms_norm(view, {"scale": st}, 1e-5)
+    want = jax_rms_norm(xj[:, -1], {"scale": sj}, 1e-5)
+    assert got.shape == (3, 96) and got.dtype == xt.dtype
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))

@@ -204,20 +204,102 @@ def test_flash_kernel_at_serve_buckets(cuda, B, S, dtype):
     _flash_case(cuda, B, S, S, 32, 8, 64, dtype, None, 0)
 
 
+def _rmsnorm_check(got, want):
+    tol = 2e-2 if want.dtype == torch.bfloat16 else 2e-5
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 128), (2, 64, 256), (3, 5, 512),
                                    (8, 2048), (7, 1000),
                                    # mamba2-2.7b: d_model and d_inner
-                                   (8, 2560), (8, 5120), (1, 384, 5120)])
+                                   (8, 2560), (8, 5120), (1, 384, 5120),
+                                   # no multiple of a 16-byte slot, a width
+                                   # of 1, rows past 8 slots x 512 threads
+                                   (3, 1001), (2, 5, 36), (4, 1),
+                                   (2, 40000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_on_card(cuda, shape, dtype):
     g = torch.Generator(device=cuda).manual_seed(4)
     x = (torch.randn(shape, generator=g, device=cuda) * 3.0).to(dtype)
     scale = torch.randn((shape[-1],), generator=g, device=cuda)
+    n0 = K.fused_rmsnorm.launches
     got = K.fused_rmsnorm(x, scale)
-    want = K.fused_rmsnorm_plain(x, scale)
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert K.fused_rmsnorm.launches == n0 + 1
+    _rmsnorm_check(got, K.fused_rmsnorm_plain(x, scale))
+
+
+def _rmsnorm_inputs(cuda, shape, dtype, seed=6):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=cuda) * 3.0).to(dtype)
+    return x, torch.randn((shape[-1],), generator=g, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2048, 5120, 36])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_reads_row_views_in_place(cuda, D, dtype):
+    """``x[:, -1]`` of a (B, S, D) block (rows at stride S * D) and a view
+    whose pointer is one element past a 16-byte boundary (the
+    element-by-element path): each equals the kernel on a contiguous copy
+    of the same values bit for bit, and the plain version within the
+    tolerance."""
+    block, scale = _rmsnorm_inputs(cuda, (4, 7, D), dtype)
+    view = block[:, -1]
+    assert not view.is_contiguous()
+    got = K.fused_rmsnorm(view, scale)
+    assert got.is_contiguous()
+    assert torch.equal(got, K.fused_rmsnorm(view.contiguous(), scale))
+    _rmsnorm_check(got, K.fused_rmsnorm_plain(view, scale))
+    flat = torch.empty(3 * D + 1, dtype=dtype, device=cuda)
+    offset = flat[1:].view(3, D)
+    offset.copy_(block[0, :3])
+    assert offset.data_ptr() % 16 != 0
+    got = K.fused_rmsnorm(offset, scale)
+    assert torch.equal(got, K.fused_rmsnorm(block[0, :3].contiguous(),
+                                            scale))
+    _rmsnorm_check(got, K.fused_rmsnorm_plain(offset, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 2048), (3, 1001), (1, 384, 5120)])
+def test_rmsnorm_kernel_takes_a_bf16_scale(cuda, shape):
+    x, scale = _rmsnorm_inputs(cuda, shape, torch.bfloat16)
+    scale = scale.to(torch.bfloat16)
+    _rmsnorm_check(K.fused_rmsnorm(x, scale),
+                   K.fused_rmsnorm_plain(x, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2048, 5120])
+def test_rmsnorm_kernel_is_batch_invariant(cuda, D):
+    """Each row of an (8, D) float32 call equals that row normalised alone,
+    bit for bit: a row's sum does not depend on the rows beside it."""
+    x, scale = _rmsnorm_inputs(cuda, (8, D), torch.float32)
+    batched = K.fused_rmsnorm(x, scale)
+    for i in range(8):
+        alone = K.fused_rmsnorm(x[i:i + 1].clone(), scale)
+        assert torch.equal(batched[i:i + 1], alone), i
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_rejects_what_it_does_not_take(cuda):
+    """A CUDA tensor the kernel does not take raises; nothing falls back
+    to the plain version."""
+    x, scale = _rmsnorm_inputs(cuda, (4, 64), torch.float32)
+    n0 = K.fused_rmsnorm.launches
+    with pytest.raises(TypeError):
+        K.fused_rmsnorm(x.half(), scale)
+    with pytest.raises(TypeError):                  # a bf16 scale, f32 x
+        K.fused_rmsnorm(x, scale.to(torch.bfloat16))
+    with pytest.raises(ValueError):                 # a strided last axis
+        K.fused_rmsnorm(x[:, ::2], scale[:32])
+    with pytest.raises(ValueError):
+        K.fused_rmsnorm(x, scale[:32])
+    with pytest.raises(ValueError):
+        K.fused_rmsnorm(x, scale.cpu())
+    assert K.fused_rmsnorm.launches == n0
 
 
 def _ssd_inputs(cuda, B, S, nh, hd, N, dtype):
