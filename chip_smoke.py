@@ -8,7 +8,9 @@ Phases, always all of them, in order:
   build    compile every CUDA source of ``src/repro_torch/csrc`` with nvcc
            (one process per source, all started together); print seconds
            and what ptxas reports per kernel; fail when the RMSNorm kernel
-           spills.
+           or the float32 flash kernel at D 64 spills, when the flash or
+           SSD library holds no HGMMA (wgmma) instruction, or when the
+           flash library holds no TF32 tensor-core instruction.
   kernels  run each hand-written kernel against its plain PyTorch version on
            the card at the serving paths' shapes (RMSNorm at llama's width
            2048 and mamba's 2560 and 5120; the SSD scan at chunks 256, 128
@@ -18,7 +20,10 @@ Phases, always all of them, in order:
            with its device time by kernel), in float32 (tolerance 2e-5;
            the SSD scan 1e-4) and bfloat16 (2e-2; the SSD scan 5e-2 on y,
            1e-4 on its float32 final state, and in both types every head's
-           ||y - y_ref|| / ||y_ref|| below 1e-2); time kernel, plain version
+           ||y - y_ref|| / ||y_ref|| below 1e-2; the float32 flash lines
+           name the kernels the library call ran, and at S 512 the float32
+           flash kernel's output must be the same bit for bit over 200
+           launches in a row); time kernel, plain version
            and one PyTorch library call where one computes the same
            function (the yardstick, never used by the port) as medians over
            CUDA events with the L2 flushed before each call, and as device
@@ -27,9 +32,11 @@ Phases, always all of them, in order:
            take kernel and library call in turns (library, kernel, kernel,
            library) for events and host time and report the mean of each
            one's two turns; compute each call's roofline bound at 3.35 TB/s
-           and the card's peak rate for the input type. A hand-written
+           and the card's peak rate for the input type (float32: three
+           TF32 products per product, 495 / 3 TFLOP/s). A hand-written
            kernel whose device time the profiler did not record fails the
-           phase.
+           phase (an empty trace is taken again with longer pads, three
+           times in all).
   serve    full-width llama3.2-1b (16 layers, d_model 2048, random weights
            from a seed) in bfloat16: TorchEngine + ServingSession +
            LazyBatching(max_batch=8) serve 24 Poisson-arriving requests
@@ -57,9 +64,13 @@ Phases, always all of them, in order:
            of 34, 97, 257 and 385 tokens: SSD chunks 1 and 32 (the
            recurrent route), 256 and 128 (the CUDA cores).
 
-Any failure exits non-zero. The last lines are the card's name and power
-limit, one JSON line of per-kernel numbers, and ``{"ok": true, ...}``.
-Exits non-zero before printing any result when no CUDA device is present.
+Each phase ends with a line that counts its profiler sessions and those
+that came back empty. Any failure exits 1 and prints ``[fail] <phase>:
+<type>: <message>`` on stdout and on stderr, with the last frames of the
+traceback for anything but a failed check. The last lines are the card's
+name and power limit, one JSON line of per-kernel numbers, and ``{"ok":
+true, ...}``. Exits non-zero before printing any result when no CUDA device
+is present.
 """
 from __future__ import annotations
 
@@ -71,14 +82,18 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
+# float32 work at float32 accuracy can run on the tensor cores as three TF32
+# products per product (hi*hi + hi*lo + lo*hi), so its least time is the
+# lower of the CUDA cores' 67 TFLOP/s and a third of dense TF32's 495
 PEAK_FLOPS = {"bfloat16": 989e12,             # dense bf16 tensor cores
-              "float32": 67e12}               # f32 outside the tensor cores
+              "float32": max(67e12, 495e12 / 3)}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}    # y; its f32 states: 1e-4
 SSD_HEAD_REL_TOL = 1e-2          # per head: ||y - y_ref|| / ||y_ref||
@@ -98,7 +113,8 @@ SOURCES = {
 # a substring of each hand-written kernel's symbol, for the profile windows
 SYMBOLS = {"ragged decode": "ragged_decode_split_kernel",
            "flash prefill (bf16, tensor cores)": "flash_tc_kernel",
-           "flash prefill (f32, CUDA cores)": "flash_fwd_kernel",
+           "flash prefill (f32, split TF32 tensor cores)":
+               "flash_tf32x3_kernel",
            "SSD scan": "ssd_", "RMSNorm": "rmsnorm_kernel"}
 # the kernels each serving path must launch; the bf16 mamba serve runs the
 # SSD scan's tensor-core route (ssd_chunked_tc counts it) and its recurrent
@@ -152,7 +168,12 @@ def cuda_ms(torch, fn, reps: int = 25, warmup: int = 3):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-TRACES = {"sessions": 0, "empty": 0}   # profiler sessions, and those empty
+PHASE = ["env"]         # the phase running, named by a failure
+TRACES = {}             # phase: {"sessions": n, "empty": n} of the profiler
+SKEW_US = {"early": 0.0, "late": 0.0}   # farthest device record before /
+                                        # after the host's traced span
+TRACE_PAD_S = 0.02      # least host time traced before and after the work
+TRACE_TRIES = 3
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,34 +190,57 @@ def _cupti():
 def traced_device_s(torch, fn, what: str):
     """(device seconds, the profiler's averages of the CUDA events, fn's
     result) of one call of ``fn`` under torch.profiler; device seconds sum
-    every kernel's and copy's self time. A session's kernel records reach
-    the profiler through CUPTI's activity buffers, and in some short
-    sessions none of them arrived (PERF.md §6), so the session makes
-    CUPTI flush its buffers before it stops. A trace that still recorded no
-    device event is printed, with ``what`` it traced, and taken once more;
-    a second empty one gives None seconds."""
+    every kernel's and copy's self time. The profiler keeps only the
+    device records whose timestamps fall inside the session's window on
+    the host's clock, and the device's timestamps, converted to that
+    clock, have strayed from it by milliseconds either way on an H100
+    (PERF.md §6), so a short session lost its first or last records, or
+    all of them. How far the device records reached outside the host's
+    span is kept in ``SKEW_US``, and the session idles before and after
+    the work for twice the farthest stray seen so far (``TRACE_PAD_S`` at
+    least); it makes CUPTI flush its buffers before it stops. A trace that
+    still recorded no device event is printed, with ``what`` it traced,
+    and taken again with a pad four times longer, ``TRACE_TRIES`` times in
+    all; then None seconds. ``TRACES`` counts the sessions of each phase
+    and those that came back empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cupti = _cupti()
-    for _ in range(2):
+    count = TRACES.setdefault(PHASE[0], {"sessions": 0, "empty": 0})
+    for attempt in range(TRACE_TRIES):
+        pad = max(TRACE_PAD_S, 2e-6 * max(SKEW_US.values())) * 4 ** attempt
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             out = fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
             if cupti is not None:      # CUPTI_ACTIVITY_FLAG_FLUSH_FORCED
                 cupti.cuptiActivityFlushAll(ctypes.c_uint32(1))
+        events = prof.events()
+        spans = {t: [(e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == t]
+                 for t in (DeviceType.CPU, DeviceType.CUDA)}
+        host, devs = spans[DeviceType.CPU], spans[DeviceType.CUDA]
+        if host and devs:
+            early = min(h for h, _ in host) - min(d for d, _ in devs)
+            late = max(d for _, d in devs) - max(h for _, h in host)
+            SKEW_US["early"] = max(SKEW_US["early"], early)
+            SKEW_US["late"] = max(SKEW_US["late"], late)
         dev = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
         us = sum(e.self_device_time_total for e in dev)
-        TRACES["sessions"] += 1
+        count["sessions"] += 1
         if us > 0:
             return us / 1e6, dev, out
-        TRACES["empty"] += 1
-        print(f"[profiler] the trace of {what} recorded no device time")
+        count["empty"] += 1
+        print(f"[profiler] the trace of {what} recorded no device time "
+              f"(pad {pad * 1e3:.0f} ms, try {attempt + 1} of {TRACE_TRIES})")
     return None, [], out
 
 
 HOST_CALLS = 200
+REPEATS = 200   # launches in a row of a kernel whose ring is checked
 
 
 def host_us(torch, fn, calls: int = HOST_CALLS):
@@ -227,16 +271,19 @@ def in_turns(measure, kernel_fn, lib_fn):
 
 
 def device_ms(torch, fn, what: str, reps: int = 10):
-    """Device time per call in ms from the profiler over ``reps`` calls
-    (L2 warm); unlike :func:`cuda_ms` it excludes the host's launch gaps.
-    None without ``fn`` or when the profiler recorded nothing."""
+    """(device time per call in ms from the profiler over ``reps`` calls (L2
+    warm), the names of the two kernels that took most of it); unlike
+    :func:`cuda_ms` it excludes the host's launch gaps. (None, []) without
+    ``fn`` or when the profiler recorded nothing."""
     if fn is None:
-        return None
+        return None, []
     fn()
     torch.cuda.synchronize()
-    secs, _, _ = traced_device_s(torch, lambda: [fn() for _ in range(reps)],
-                                 what)
-    return None if secs is None else secs * 1e3 / reps
+    secs, dev, _ = traced_device_s(
+        torch, lambda: [fn() for _ in range(reps)], what)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:2]
+    return (None if secs is None else secs * 1e3 / reps,
+            [e.key[:100] for e in top])
 
 
 def bound(nbytes: float, flops: float, dtype_name: str):
@@ -277,6 +324,10 @@ def compare(torch, got, ref, dtype_name: str, what: str, tols=None) -> float:
 # phases
 # ---------------------------------------------------------------------------
 
+# the f32 flash kernel at D 64 (llama's head dim), as ptxas names it
+F32_FLASH_D64 = "flash_tf32x3_kernelILi64E"
+
+
 def phase_build():
     import shutil
     from repro_torch.kernels import _build
@@ -295,11 +346,15 @@ def phase_build():
                 print(f"[build] {name} {kernel}: {line.strip()}")
                 spilled = [int(b) for b in re.findall(
                     r"(\d+) bytes spill (?:stores|loads)", line)]
-                check(name != "rmsnorm" or not any(spilled),
-                      f"rmsnorm: ptxas reports spills in {kernel}: "
+                # RMSNorm, and the f32 flash kernel at llama's head dim
+                no_spill = name == "rmsnorm" or (
+                    name == "flash_attn" and F32_FLASH_D64 in kernel)
+                check(not (no_spill and any(spilled)),
+                      f"{name}: ptxas reports spills in {kernel}: "
                       f"{line.strip()}")
     # the bf16 flash kernel and the SSD scan's tensor-core route run on the
-    # tensor cores: their SASS holds HGMMA (wgmma) instructions
+    # tensor cores: their SASS holds HGMMA (wgmma) instructions; the f32
+    # flash kernel's split products are TF32 ones (HGMMA ... TF32)
     tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent
                                             / "cuobjdump")
     for name in ("flash_attn", "ssd_chunk"):
@@ -311,6 +366,13 @@ def phase_build():
               f"SASS (cuobjdump -sass)")
         check(n_hgmma > 0, f"{name}: no tensor-core (HGMMA) instruction in "
                            f"the built kernels")
+        if name == "flash_attn":
+            tf32 = [line.split("*/")[1].strip() for line in sass.splitlines()
+                    if "MMA" in line and "TF32" in line and "*/" in line]
+            print(f"[build] {name}: {len(tf32)} TF32 tensor-core instructions "
+                  f"in its SASS, e.g. {tf32[0] if tf32 else None}")
+            check(bool(tf32), f"{name}: no TF32 tensor-core instruction: the "
+                              f"f32 kernel does not run on the tensor cores")
 
 
 # ragged decode shapes: (lengths, slots, ctx); the last slot is a padding
@@ -396,6 +458,8 @@ def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64):
     elt = q.element_size()
     return {"shape": f"q{tuple(q.shape)} kv{tuple(k.shape)} causal",
             "out": out, "ref": ref, "main": S == 512,
+            "lib_kernels": dtype == torch.float32,
+            "repeats": dtype == torch.float32 and S == 512,
             "fns": (lambda: K.flash_attention(q, k, v),
                     lambda: K.flash_attention_plain(q, k, v),
                     lambda: F.scaled_dot_product_attention(qt, kt, vt,
@@ -502,7 +566,7 @@ def phase_kernels(torch):
         plain_ms = cuda_ms(torch, plain_fn)
         host, lib_host, turns = in_turns(lambda f: host_us(torch, f),
                                          kernel_fn, lib_fn)
-        dev_ms, dev_plain, dev_lib = (
+        (dev_ms, _), (dev_plain, _), (dev_lib, lib_ran) = (
             device_ms(torch, f, f"{part} of {name} {dname} {r['shape']}")
             for f, part in zip(r["fns"], ("kernel", "plain", "library")))
         check(dev_ms is not None, f"{name} {dname} {r['shape']}: the "
@@ -515,6 +579,8 @@ def phase_kernels(torch):
                               else f"{a / b:.2f}x")
         note = f" | {r['note']}" if "note" in r else ""
         if r.get("by_kernel"):   # the call's kernels and PyTorch ops, one call
+            r["fns"][0]()
+            torch.cuda.synchronize()
             secs, dev, _ = traced_device_s(
                 torch, r["fns"][0], f"{name} {dname} {r['shape']} by kernel")
             check(secs is not None, f"{name} {dname} {r['shape']}: the "
@@ -524,6 +590,20 @@ def phase_kernels(torch):
             note += " | device time by kernel: " + ", ".join(
                 f"{short_name(e.key)} {e.self_device_time_total:.2f} us"
                 for e in top)
+        if r.get("lib_kernels"):   # which kernels the library call ran
+            note += " | library ran: " + (", ".join(lib_ran) or
+                                          "not measured")
+        if r.get("repeats"):   # launches in a row agree bit for bit
+            first = kernel_fn()
+            outs = [kernel_fn() for _ in range(REPEATS)]
+            torch.cuda.synchronize()
+            n_diff = sum(not torch.equal(o, first) for o in outs)
+            del first, outs
+            check(n_diff == 0, f"{name} {dname} {r['shape']}: {n_diff} of "
+                               f"{REPEATS} launches in a row differ from the "
+                               f"first")
+            note += (f" | {REPEATS} launches in a row equal the first bit "
+                     f"for bit")
         vs_lib = (f" | kernel / library: device {ratio(dev_ms, dev_lib)}, "
                   f"events {ratio(ms, lib_ms)}"
                   if r["fns"][2] is not None else "")
@@ -557,9 +637,6 @@ def phase_kernels(torch):
                           "shape": f"{dname} {r['shape']}"}
         del r
         torch.cuda.empty_cache()
-    print(f"[kernels] profiler: {TRACES['empty']} of {TRACES['sessions']} "
-          f"sessions recorded no device time (each retried once; CUPTI "
-          f"flush forced: {_cupti() is not None})")
     return rows
 
 
@@ -814,18 +891,19 @@ def main() -> int:
           f"python {sys.version.split()[0]} device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t_all = time.perf_counter()
-    phase_build()
-    rows = phase_kernels(torch)
+    run(phase_build)
+    rows = run(phase_kernels, torch)
     # each serving path's own launches: llama's for its three kernels,
     # mamba's for the SSD scan
-    counts = phase_serve(torch, "llama3.2-1b", "serve", LLAMA_KERNELS,
-                         (64, 128, 256, 384))
-    phase_exact(torch, "llama3.2-1b", "exact", LLAMA_KERNELS,
-                (64, 128, 256, 384))
-    m_counts = phase_serve(torch, "mamba2-2.7b", "mamba serve",
-                           MAMBA_KERNELS, (128, 257, 259, 384))
-    phase_exact(torch, "mamba2-2.7b", "mamba exact", MAMBA_EXACT_KERNELS,
-                (34, 97, 257, 385))
+    counts = run(phase_serve, torch, "llama3.2-1b", "serve", LLAMA_KERNELS,
+                 (64, 128, 256, 384))
+    run(phase_exact, torch, "llama3.2-1b", "exact", LLAMA_KERNELS,
+        (64, 128, 256, 384))
+    m_counts = run(phase_serve, torch, "mamba2-2.7b", "mamba serve",
+                   MAMBA_KERNELS, (128, 257, 259, 384))
+    run(phase_exact, torch, "mamba2-2.7b", "mamba exact", MAMBA_EXACT_KERNELS,
+        (34, 97, 257, 385))
+    PHASE[0] = "result"
     print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact "
           f"in {time.perf_counter() - t_all:.1f} s")
     counts["ssd_chunked"] = m_counts["ssd_chunked"]
@@ -839,9 +917,37 @@ def main() -> int:
     return 0
 
 
+def run(phase, *args):
+    """``phase(*args)``, named for a failure; then how many of its profiler
+    sessions came back empty."""
+    PHASE[0] = (args[2] if phase in (phase_serve, phase_exact)
+                else phase.__name__.replace("phase_", ""))
+    out = phase(*args)
+    count = TRACES.get(PHASE[0], {"sessions": 0, "empty": 0})
+    print(f"[{PHASE[0]}] profiler: {count['empty']} of {count['sessions']} "
+          f"sessions came back empty (each taken up to {TRACE_TRIES} times, "
+          f"pads of at least {TRACE_PAD_S * 1e3:.0f} ms and twice the "
+          f"farthest stray, 4x longer on each retry; CUPTI flush forced: "
+          f"{_cupti() is not None}); device records so far reached "
+          f"{SKEW_US['early']:.1f} us before and {SKEW_US['late']:.1f} us "
+          f"after the host's traced span")
+    return out
+
+
+def report_failure(e: BaseException) -> None:
+    """The failing phase and check, on stdout and on stderr; the last
+    frames of the traceback of anything but a failed check."""
+    lines = [f"[fail] {PHASE[0]}: {type(e).__name__}: {e}"]
+    if not isinstance(e, SmokeFailure):
+        lines += ["[fail] traceback, last frames:"] + [
+            ln.rstrip() for ln in traceback.format_tb(e.__traceback__)[-4:]]
+    for stream in (sys.stdout, sys.stderr):
+        print("\n".join(lines), file=stream, flush=True)
+
+
 if __name__ == "__main__":
     try:
         sys.exit(main())
-    except SmokeFailure as e:
-        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+    except Exception as e:   # a failed check, a CUDA error, anything else
+        report_failure(e)
         sys.exit(1)

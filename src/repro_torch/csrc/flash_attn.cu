@@ -11,7 +11,9 @@
 //
 // Bound on the H100: at the serve's prefill buckets (S <= 512, D = 64) the
 // bytes of q, k, v and the output; the causal half's 4 * B * H * D * S^2 / 2
-// flops outweigh them on the tensor cores from S of about 700 (H 32, KV 8).
+// flops outweigh them on the tensor cores from S of about 700 (H 32, KV 8)
+// in bfloat16, and from S of about 250 in float32, whose products cost
+// three TF32 ones each.
 //
 // One C entry point, two kernels chosen by dtype:
 //
@@ -40,12 +42,56 @@
 // products inside a warpgroup, with or without the warpgroups taking turns
 // at the tensor cores, was tried and lost time at the serve's shapes.
 //
-// float32 (the exact checks, TF32 off): flash_fwd_kernel, on the CUDA
-// cores, since the tensor cores have no full-float32 product. One CTA per
-// (q-tile of 64 rows, head, batch row), looping over 64-key tiles up to the
-// causal bound; each of 256 threads owns a 4 x 4 block of the score tile
-// and a 4 x (D / 16) block of the accumulator; Q, K, V and P tiles live in
-// float32 shared memory. No bfloat16 input reaches it.
+// float32 (the exact checks): flash_tf32x3_kernel, on the tensor cores at
+// float32 accuracy. The tensor cores take TF32 (10 mantissa bits), so each
+// float32 operand x is split into hi = cvt.rna.tf32(x) and lo =
+// cvt.rna.tf32(x - hi) (the rounding done with integer operations: the
+// conversion instruction is emulated in several), and each product is
+// lo*hi + hi*lo + hi*hi, accumulated in float32 by wgmma m64nNk8 TF32: three
+// tensor-core products per product, as CUTLASS's FastF32 does; the lo*lo
+// term and the residual below lo are about 2^-22 of the product. The kernel
+// reads no allow_tf32 setting: the split is what keeps float32 accuracy
+// with TF32 off. Its bound is 3 x the causal flops over the 495 TFLOP/s of
+// dense TF32.
+// One CTA per (q-tile of 128 rows, head, batch row; 64 rows at D = 128),
+// the q-tiles with the most keys first, in warpgroups of two roles. A
+// producer warpgroup copies each tile of 64 keys (32 at D = 128) of K and
+// V by cp.async (16 bytes, zero-filled past T) into a float32 staging
+// tile, splits it into hi and lo planes in a ring of two stages (K as it
+// is, V transposed: TF32 wgmma reads B K-major only) and signals the
+// stage's mbarrier; tiles above the causal diagonal or below the window
+// are never loaded. Each consumer warpgroup owns 64 q rows, splits Q once
+// into planes of its own, and per tile forms S = Q K^T with wgmma (A and B
+// from shared memory), runs the online softmax on the accumulator (row
+// max and sum over a quad; only the tiles that cross a bound or the T
+// tail are masked), splits P in registers and adds P V with wgmma (A from
+// registers), then frees the stage. The accumulator's columns (2 t, 2 t +
+// 1) of a k slice are the A fragment's columns (t, t + 4), so the producer
+// stores V's keys 2 t and 2 t + 1 of each 8 at positions t and t + 4 (a
+// sum over keys does not depend on their order). Planes use the 128-byte
+// swizzle that the wgmma descriptors name. Each row's result depends on
+// its own q, its keys and its position only (no split over keys), so
+// batched and isolated prefills agree bit for bit. Letting the two
+// consumers take turns at the tensor cores (softmax of one under the
+// products of the other) needs more than the 168 registers a thread has
+// at 384 threads, and spilled.
+// Hand-overs, in the order of a tile's life:
+//  - staging tile: each producer thread waits for its own cp.async group,
+//    then bar.sync 1 (the producer's 128 threads) makes the float32 tile
+//    whole for all; a second bar.sync 1 after the split keeps the next
+//    tile's copies out until every thread has read it;
+//  - full(st) counts the 128 producer threads, each of which fences its
+//    own plane stores to the async proxy (fence.proxy.async) before it
+//    arrives; consumers wait on it before their wgmma reads;
+//  - empty(st) counts lane 0 of each consumer warp, which arrives after
+//    its warp's wgmma.wait_group 0, so the stage's reads are over before
+//    the producer, waiting on it, writes the stage again;
+//  - tile j uses stage j % 2 and waits for phase parity (j / 2) & 1 on
+//    full, its complement on empty (a fresh barrier's "previous" phase
+//    counts as done, so the first pass through each stage does not wait).
+// tools/check_flash_f32_sync.py checks these with compute-sanitizer and
+// with repeated launches, also on a build whose warps sleep at random at
+// each hand-over (jitter() below).
 //
 // The tensor maps, tiles and barriers are tma.cuh's (shared with the SSD
 // scan's tensor-core kernel); the library links against the CUDA runtime
@@ -59,146 +105,379 @@
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
+__device__ __forceinline__ float ex2(float x) {   // 2^x; ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// float32: three-way split TF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+using repro::smem_addr;
+using repro::wgmma_desc;
+
+constexpr int kRows = 64;        // q rows per consumer warpgroup
+constexpr int kThreads = 128;    // threads per warpgroup
+
+// keys per tile: 64, 32 at D = 128 (shared memory)
+template <int D>
+__host__ __device__ constexpr int keys() { return D == 128 ? 32 : 64; }
+
+// cvt.rna.tf32.f32's rounding (to nearest on the low 13 mantissa bits,
+// ties away from zero) for finite x, on the integer pipe
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo (+ a residual of about 2^-22 x), both TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void split4(const float (&x)[4], uint4& hi,
+                                       uint4& lo) {
+  split(x[0], hi.x, lo.x);
+  split(x[1], hi.y, lo.y);
+  split(x[2], hi.z, lo.z);
+  split(x[3], hi.w, lo.w);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// A TF32 plane of R rows x C columns as wgmma reads it K-major (C along
+// K) with the 128-byte swizzle: atoms of 32 columns, each R rows of 128
+// bytes, whose 16-byte chunk c of row r sits at chunk c ^ (r % 8).
+template <int R, int C>
+struct Plane {
+  static constexpr int kAtomBytes = R * 128;
+  static constexpr int kBytes = C / 32 * kAtomBytes;
+  // byte offset of the 4-column chunk (r, c4)
+  static __device__ __forceinline__ uint32_t chunk(int r, int c4) {
+    return (c4 >> 3) * kAtomBytes + r * 128 + (((c4 & 7) ^ (r & 7)) << 4);
+  }
+  // descriptor of k slice kk (columns 8 kk ... 8 kk + 7)
+  static __device__ __forceinline__ uint64_t desc(uint32_t base, int kk) {
+    return wgmma_desc(base + (kk >> 2) * kAtomBytes + (kk & 3) * 32, 16,
+                      1024, 1);
+  }
+};
+
+// Shared memory: a ring of two stages of K and V planes (hi, lo), one
+// float32 staging tile of K and V, and each consumer's Q planes
+template <int D>
+struct Layout {
+  static constexpr int KN = keys<D>();
+  static constexpr int NC = D == 128 ? 1 : 2;   // consumer warpgroups
+  static constexpr int kStages = 2;
+  using Q = Plane<kRows, D>;        // q rows x d
+  using K = Plane<KN, D>;           // keys x d
+  using V = Plane<D, KN>;           // d x key positions (V transposed)
+  static constexpr uint32_t k_hi = 0;
+  static constexpr uint32_t k_lo = k_hi + K::kBytes;
+  static constexpr uint32_t v_hi = k_lo + K::kBytes;
+  static constexpr uint32_t v_lo = v_hi + V::kBytes;
+  static constexpr uint32_t kStageBytes = v_lo + V::kBytes;
+  static constexpr uint32_t stage = kStages * kStageBytes;  // float32 K, V
+  static constexpr uint32_t q = stage + 2 * KN * D * 4;     // per consumer
+  static constexpr uint32_t bars = q + NC * 2 * Q::kBytes;
+  static constexpr uint32_t bytes = bars + 8 * 2 * kStages;
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
-                 int T,
-                 int H, int KV, int q_offset, int window, float scale) {
-  constexpr int DJ = D / 16;  // output columns per thread
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+constexpr size_t smem_bytes() {   // 1 KB of slack for the 1024-byte align
+  return 1024 + Layout<D>::bytes;
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The synchronization check's build (-DREPRO_SYNC_JITTER, made only by
+// tools/check_flash_f32_sync.py) makes each warp sleep a pseudo-random 0-4
+// us at every point where a stage or the staging tile passes from one role
+// to the other. An access that a missing wait left unordered then lands at
+// another time in every launch, and a repeated-launch stress sees the
+// output change. The normal build compiles it to nothing.
+__device__ __forceinline__ void jitter(uint32_t site) {
+#ifdef REPRO_SYNC_JITTER
+  uint32_t x = (uint32_t)clock() ^ (site << 24) ^
+               ((threadIdx.x >> 5) * 0x9e3779b9u) ^
+               ((blockIdx.x + 131u * blockIdx.y + 8191u * blockIdx.z) *
+                0x85ebca6bu);
+  x ^= x >> 15;
+  x *= 0x2c1b3c6du;
+  x ^= x >> 12;
+  x = __shfl_sync(0xffffffffu, x, 0);   // one sleep per warp
+  __nanosleep(x & 4095u);
+  __syncwarp();
+#endif
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads * (Layout<D>::NC + 1), 1)
+flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    int S, int T, int H, int KV, int q_offset, int window,
+                    float scale_log2) {
+  using L = Layout<D>;
+  constexpr int KN = L::KN;
+  constexpr int NC = L::NC;
+  constexpr int CH = D / 4;         // 16-byte chunks per row of d
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const sm = smem_raw + (base - smem_addr(smem_raw));
+  auto full = [&](int st) { return base + L::bars + 8 * st; };
+  auto empty = [&](int st) { return base + L::bars + 8 * (L::kStages + st); };
+
+  // grid (H, B, q-tiles of 64 NC rows): the heads of a KV group side by
+  // side, the q-tiles with the most keys first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows * NC;
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int wg = tid / kThreads;    // consumers 0 ... NC - 1, then producer
+  const int tw = tid % kThreads;
 
-  extern __shared__ float smem[];
-  float* Qs = smem;                       // kBQ * (D + 1)
-  float* Ks = Qs + kBQ * (D + 1);         // kBK * (D + 1)
-  float* Vs = Ks + kBK * (D + 1);         // kBK * D
-  float* Ps = Vs + kBK * D;               // kBQ * (kBK + 1)
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int s = q0 + r;
-    Qs[r * (D + 1) + d] =
-        s < S ? q[(((size_t)b * S + s) * H + h) * D + d] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -1e30f;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[r][j] = 0.f;
-  }
-
-  // keys any row of this tile may attend: [k_lo, k_hi)
-  const int last_q = q_offset + min(q0 + kBQ, S) - 1;
+  // keys any row of this q-tile may attend: [k_lo, k_hi)
+  const int last_q = q_offset + min(q0 + kRows * NC, S) - 1;
   const int k_hi = min(T, last_q + 1);
   int k_lo = 0;
   if (window > 0) k_lo = max(0, q_offset + q0 - window + 1);
-  k_lo = (k_lo / kBK) * kBK;
+  k_lo = (k_lo / KN) * KN;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + KN - 1) / KN : 0;
+
+  if (tid == 0) {
+    for (int st = 0; st < L::kStages; ++st) {
+      repro::mbar_init(full(st), kThreads);       // every producer thread
+      repro::mbar_init(empty(st), NC * 4);        // lane 0 of each consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int c = i / D, d = i % D;
-      const int t = k0 + c;
-      float kx = 0.f, vx = 0.f;
-      if (t < T) {
-        const size_t off = (((size_t)b * T + t) * KV + kvh) * D + d;
-        kx = k[off];
-        vx = v[off];
+  if (wg == NC) {
+    // producer: each tile's float32 K and V by cp.async into the staging
+    // tile (keys past T zero-filled from a valid address), then split
+    // into a ring stage's planes: K as it is, V transposed with key 8 q +
+    // e + 2 m at position 8 q + 4 e + m, the order in which P's registers
+    // hold keys
+    const size_t ld = (size_t)KV * D;
+    const float* k_bh = k + ((size_t)b * T * KV + kvh) * D;
+    const float* v_bh = v + ((size_t)b * T * KV + kvh) * D;
+    const float* stage_k = reinterpret_cast<const float*>(sm + L::stage);
+    const float* stage_v = stage_k + KN * D;
+    auto load = [&](int k0) {
+      for (int i = tw; i < KN * CH; i += kThreads) {
+        const int r = i / CH, c = i % CH;
+        const bool in = k0 + r < T;
+        const size_t off = (in ? (k0 + r) * ld : 0) + 4 * c;
+        cp_async16(base + L::stage + 16 * i, k_bh + off, in);
+        cp_async16(base + L::stage + KN * D * 4 + 16 * i, v_bh + off, in);
       }
-      Ks[c * (D + 1) + d] = kx;
-      Vs[c * D + d] = vx;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) qv[r] = Qs[(ty * 4 + r) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[r][j] += qv[r] * kv[j];
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qpos = q_offset + q0 + ty * 4 + r;
-      bool ok[4];
-      float mx = -1e30f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < T && kpos <= qpos &&
-                (window <= 0 || kpos > qpos - window);
-        s[r][j] = ok[j] ? s[r][j] * scale : -1e30f;
-        mx = fmaxf(mx, s[r][j]);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    if (n_tiles > 0) load(k_lo);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % L::kStages;
+      // each thread waits for its own copies, then the barrier makes
+      // tile j's float32 staging tile whole for all of them
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      jitter(1);
+      named_sync(1, kThreads);
+      // the stage is free once every consumer warp has arrived on it
+      // after its wgmma reads of the stage's previous tile completed
+      repro::mbar_wait(empty(st), ((j / L::kStages) & 1) ^ 1);
+      jitter(2);
+      uint8_t* const ring = sm + st * L::kStageBytes;
+      for (int i = tw; i < KN * CH; i += kThreads) {
+        const int r = i / CH, c = i % CH;
+        const float4 x = reinterpret_cast<const float4*>(stage_k)[i];
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+        uint4 hi, lo;
+        split4(xs, hi, lo);
+        *reinterpret_cast<uint4*>(ring + L::k_hi + L::K::chunk(r, c)) = hi;
+        *reinterpret_cast<uint4*>(ring + L::k_lo + L::K::chunk(r, c)) = lo;
       }
-      // the 16 threads of one row are one half-warp: xor 8..1 stays inside
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[r][j] - m_new) : 0.f;
-        Ps[(ty * 4 + r) * (kBK + 1) + tx + 16 * j] = p;
-        sum += p;
+      for (int i = tw; i < D * KN / 4; i += kThreads) {
+        const int d = i % D, qe = i / D;
+        const int key = 8 * (qe >> 1) + (qe & 1);
+        const float xs[4] = {
+            stage_v[key * D + d], stage_v[(key + 2) * D + d],
+            stage_v[(key + 4) * D + d], stage_v[(key + 6) * D + d]};
+        uint4 hi, lo;
+        split4(xs, hi, lo);
+        *reinterpret_cast<uint4*>(ring + L::v_hi + L::V::chunk(d, qe)) = hi;
+        *reinterpret_cast<uint4*>(ring + L::v_lo + L::V::chunk(d, qe)) = lo;
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[r][j] *= corr;
+      jitter(3);
+      // written by the generic proxy, read by wgmma's async proxy: each
+      // thread fences its own stores before its arrival (full(st) counts
+      // all 128)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      repro::mbar_arrive(full(st));
+      // no thread refills the staging tile before all have split it
+      named_sync(1, kThreads);
+      jitter(4);
+      if (j + 1 < n_tiles) load(k_lo + (j + 1) * KN);
     }
-    __syncthreads();
-
-    for (int c = 0; c < kBK; ++c) {
-      float vv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = Vs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p = Ps[(ty * 4 + r) * (kBK + 1) + c];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[r][j] += p * vv[j];
-      }
-    }
-    __syncthreads();
+    return;
   }
 
+  // consumer wg: rows q0 + 64 wg ... q0 + 64 wg + 63
+  const int qw = q0 + kRows * wg;
+  const int warp = tw >> 5, lane = tw & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = qw + 16 * warp + g;   // rows row0 and row0 + 8
+  const uint32_t q_hi = L::q + wg * 2 * L::Q::kBytes;
+  const uint32_t q_lo = q_hi + L::Q::kBytes;
+  // Q once, split into its hi and lo planes (rows past S are zeros)
+  for (int i = tw; i < kRows * CH; i += kThreads) {
+    const int r = i / CH, c = i % CH;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (qw + r < S)
+      x = *reinterpret_cast<const float4*>(
+          q + (((size_t)b * S + qw + r) * H + h) * D + 4 * c);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    uint4 hi, lo;
+    split4(xs, hi, lo);
+    *reinterpret_cast<uint4*>(sm + q_hi + L::Q::chunk(r, c)) = hi;
+    *reinterpret_cast<uint4*>(sm + q_lo + L::Q::chunk(r, c)) = lo;
+  }
+  jitter(5);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(2 + wg, kThreads);
+
+  // the last key any of this warpgroup's rows attends (below: none)
+  const int last_key = qw < S ? min(k_hi, q_offset + min(qw + kRows, S)) - 1
+                              : -1;
+  float acc[D / 2];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int s_idx = q0 + ty * 4 + r;
-    if (s_idx >= S) continue;
-    const float den = fmaxf(l[r], 1e-30f);
-    float* orow = o + (((size_t)b * S + s_idx) * H + h) * D;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % L::kStages;
+    const int k0 = k_lo + j * KN;
+    repro::mbar_wait(full(st), (j / L::kStages) & 1);
+    jitter(6);
+    if (k0 <= last_key) {
+      const uint32_t ring = base + st * L::kStageBytes;
+      // S = Q K^T, three TF32 products per product: lo hi, hi lo, hi hi
+      float s[KN / 2];
+      repro::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = acc[r][j] / den;
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint64_t qh = L::Q::desc(base + q_hi, kk);
+        const uint64_t ql = L::Q::desc(base + q_lo, kk);
+        const uint64_t kh = L::K::desc(ring + L::k_hi, kk);
+        const uint64_t kl = L::K::desc(ring + L::k_lo, kk);
+        repro::wgmma_tf32_ss<KN>(s, ql, kh, kk > 0);
+        repro::wgmma_tf32_ss<KN>(s, qh, kl, 1);
+        repro::wgmma_tf32_ss<KN>(s, qh, kh, 1);
+      }
+      repro::wgmma_commit();
+      repro::wgmma_wait_all();
+      repro::fence_regs(s);
+
+      // online softmax on the accumulator: s[4 jj + 2 hh + e] is row row0
+      // + 8 hh, key k0 + 8 jj + 2 t + e; a row's max and sum over its quad
+      const bool edge =
+          k0 + KN > T || k0 + KN - 1 > q_offset + qw ||
+          (window > 0 && k0 <= q_offset + qw + kRows - 1 - window);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int qpos = q_offset + row0 + 8 * hh;
+        const int kmax = min(qpos, T - 1) - k0 - 2 * t;
+        const int kmin = (window > 0 ? qpos - window + 1 : 0) - k0 - 2 * t;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int jj = 0; jj < KN / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * jj + 2 * hh + e];
+            if (edge && (8 * jj + e > kmax || 8 * jj + e < kmin))
+              x = -INFINITY;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        // a row that has seen no key yet keeps p = 0 and l = 0
+        const float m_use = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+        const float corr = ex2(m[hh] * scale_log2 - m_use);
+        m[hh] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < KN / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * jj + 2 * hh + e];
+            x = ex2(fmaf(x, scale_log2, -m_use));
+            sum += x;
+          }
+        l[hh] = l[hh] * corr + sum;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          acc[4 * jj + 2 * hh] *= corr;
+          acc[4 * jj + 2 * hh + 1] *= corr;
+        }
+      }
+
+      // O += P V: P's k slice kk, split, as A registers: columns t and t +
+      // 4 are keys 8 kk + 2 t and 8 kk + 2 t + 1, V's positions 8 kk + t
+      // and 8 kk + t + 4
+      uint32_t ph[KN / 8][4], pl[KN / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < KN / 8; ++kk) {
+        split(s[4 * kk], ph[kk][0], pl[kk][0]);
+        split(s[4 * kk + 2], ph[kk][1], pl[kk][1]);
+        split(s[4 * kk + 1], ph[kk][2], pl[kk][2]);
+        split(s[4 * kk + 3], ph[kk][3], pl[kk][3]);
+      }
+      repro::fence_regs(acc);
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KN / 8; ++kk) {
+        const uint64_t vh = L::V::desc(ring + L::v_hi, kk);
+        const uint64_t vl = L::V::desc(ring + L::v_lo, kk);
+        repro::wgmma_tf32_rs<D>(acc, pl[kk], vh);
+        repro::wgmma_tf32_rs<D>(acc, ph[kk], vl);
+        repro::wgmma_tf32_rs<D>(acc, ph[kk], vh);
+      }
+      repro::wgmma_commit();
+      repro::wgmma_wait_all();   // this warp's reads of the stage are done
+      repro::fence_regs(acc);
+    }
+    jitter(7);
+    __syncwarp();
+    if (lane == 0) repro::mbar_arrive(empty(st));
+  }
+
+  // acc[4 jj + 2 hh + e] is row row0 + 8 hh, column 8 jj + 2 t + e
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float den = l[hh];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    den = fmaxf(den, 1e-30f);
+    const int row = row0 + 8 * hh;
+    if (row >= S) continue;
+    float* orow = o + (((size_t)b * S + row) * H + h) * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<float2*>(orow + 8 * jj + 2 * t) =
+          make_float2(acc[4 * jj + 2 * hh] / den,
+                      acc[4 * jj + 2 * hh + 1] / den);
   }
 }
 
@@ -206,24 +485,25 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int T, int H, int KV, int q_offset, int window,
            cudaStream_t stream) {
+  using L = Layout<D>;
   static int granted = 48 * 1024;
-  const size_t smem = sizeof(float) *
-      ((size_t)kBQ * (D + 1) + (size_t)kBK * (D + 1) + (size_t)kBK * D +
-       (size_t)kBQ * (kBK + 1));
-  cudaError_t err = repro::allow_smem(flash_fwd_kernel<D>, smem, &granted);
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err =
+      repro::allow_smem(flash_tf32x3_kernel<D>, smem, &granted);
   if (err != cudaSuccess) return (int)err;
-  const float scale = (float)(1.0 / sqrt((double)D));
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  constexpr int rows = kRows * L::NC;
+  dim3 grid(H, B, (S + rows - 1) / rows);
+  flash_tf32x3_kernel<D><<<grid, kThreads * (L::NC + 1), smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, T, H, KV,
-      q_offset, window, scale);
+      q_offset, window, scale_log2);
   return (int)cudaGetLastError();
 }
 
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int T, int H, int KV, int D, int q_offset, int window,
-               cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o, int B,
+             int S, int T, int H, int KV, int D, int q_offset, int window,
+             cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch<32>(q, k, v, o, B, S, T, H, KV, q_offset, window,
@@ -238,6 +518,8 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bfloat16: the tensor-core kernel
@@ -261,12 +543,6 @@ constexpr int kRows = repro::kTileRows;   // q rows and keys per tile
 // at D = 128
 template <int D>
 __host__ __device__ constexpr int stages() { return D == 128 ? 3 : 4; }
-
-__device__ __forceinline__ float ex2(float x) {   // 2^x; ex2(-inf) = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int D, int NC>
 constexpr size_t smem_bytes() {
@@ -533,7 +809,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return dispatch_d(q, k, v, o, B, S, T, H, KV, D, q_offset, window, s);
+    return f32::dispatch(q, k, v, o, B, S, T, H, KV, D, q_offset, window,
+                         s);
   if (dtype == repro::kBFloat16)
     return tc::dispatch(q, k, v, o, B, S, T, H, KV, D, q_offset, window, s);
   return (int)cudaErrorInvalidValue;

@@ -66,7 +66,11 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
 
     A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor
     launches the kernel on the current stream or raises: bfloat16 on the
-    tensor cores (wgmma, TMA), float32 on the CUDA cores."""
+    tensor cores (wgmma, TMA); float32 on the tensor cores too, as three
+    TF32 products per product (lo*hi + hi*lo + hi*hi, wgmma), which keeps
+    float32 accuracy. The kernel does not read
+    ``torch.backends.cuda.matmul.allow_tf32``: with TF32 off it is still
+    float32-accurate."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window,
                                      q_offset=q_offset)

@@ -224,6 +224,75 @@ def test_flash_plain_chunks_gqa_like_jax_chunked_on_repeated_heads(KV):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
 
 
+def _tf32(x):
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest on the low 13 mantissa bits, ties away from zero (the carry
+    runs into the exponent), in int32 bit operations."""
+    bits = np.asarray(x, np.float32).view(np.int32)
+    return ((bits + np.int32(0x1000)) & np.int32(-0x2000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, three: bool):
+    """a @ b as the float32 flash kernel's tensor cores form it, summed in
+    float64 and rounded to float32: hi*hi + hi*lo + lo*hi with hi = tf32(x)
+    and lo = tf32(x - hi) (``three``), or hi*hi alone (one TF32 product)."""
+    ah, bh = _tf32(a), _tf32(b)
+    f64 = np.float64
+    out = ah.astype(f64) @ bh.astype(f64)
+    if three:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out += ah.astype(f64) @ bl.astype(f64) + al.astype(f64) @ bh.astype(f64)
+    return out.astype(np.float32)
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+def test_flash_f32_split_tf32_keeps_the_f32_tolerance(scale):
+    """The float32 flash kernel's numerics budget: attention with both
+    products (Q K^T and P V) as three TF32 products lies within the f32
+    tolerance (2e-5) of the plain version, one TF32 product does not. A
+    llama-like shape (S 128, 4 query heads on one KV head, D 64); q and k
+    scaled by ``scale`` (2: scores four times larger)."""
+    rng = np.random.default_rng(9)
+    B, S, H, D = 1, 128, 4, 64
+    q = (rng.standard_normal((B, S, H, D)) * scale).astype(np.float32)
+    k = (rng.standard_normal((B, S, 1, D)) * scale).astype(np.float32)
+    v = rng.standard_normal((B, S, 1, D)).astype(np.float32)
+    want = K.flash_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v)).numpy()
+    qh = q[0].transpose(1, 0, 2)                    # (H, S, D)
+    kt, vv = k[0, :, 0].T, v[0, :, 0]               # (D, S), (S, D)
+    causal = np.tril(np.ones((S, S), bool))
+
+    def emulate(three):
+        s = _tf32_matmul(qh, kt, three)             # raw scores, f32
+        s = np.where(causal, s, -np.inf)
+        p = np.exp((s - s.max(-1, keepdims=True)) / np.sqrt(D))
+        p = p.astype(np.float32)
+        o = _tf32_matmul(p, vv, three) / p.sum(-1, keepdims=True,
+                                                  dtype=np.float64)
+        return o.astype(np.float32).transpose(1, 0, 2)[None]
+
+    np.testing.assert_allclose(emulate(True), want, rtol=2e-5, atol=2e-5)
+    one = emulate(False)
+    assert not np.allclose(one, want, rtol=2e-5, atol=2e-5)
+    assert np.abs(one - want).max() > 10 * np.abs(emulate(True) - want).max()
+
+
+def test_tf32_rounding_ties_away_from_zero():
+    """The test helper's rounding: a tie rounds away from zero in both
+    signs, a value below the tie truncates, and a carry reaches the
+    exponent."""
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)                     # TF32's ulp at 1
+    half = np.float32(2.0 ** -11)
+    assert _tf32(one + half) == one + ulp
+    assert _tf32(-(one + half)) == -(one + ulp)
+    below = np.nextafter(one + half, np.float32(0))
+    assert _tf32(below) == one
+    top = np.float32(2.0) - np.float32(2.0 ** -23)   # all mantissa bits set
+    assert _tf32(top) == np.float32(2.0)
+
+
 def test_flash_matches_model_chunked_attention():
     """The plain version is the JAX model's chunked attention (the serving
     path): chunk by chunk it equals ``chunked_causal_attention``, with and

@@ -204,6 +204,87 @@ def test_flash_kernel_at_serve_buckets(cuda, B, S, dtype):
     _flash_case(cuda, B, S, S, 32, 8, 64, dtype, None, 0)
 
 
+def _flash_inputs(cuda, B, S, T, H, KV, D, seed=7, scale=1.0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda) * scale
+    k = torch.randn((B, T, KV, D), generator=g, device=cuda) * scale
+    v = torch.randn((B, T, KV, D), generator=g, device=cuda)
+    return q, k, v
+
+
+@pytest.mark.cuda
+def test_flash_f32_kernel_is_batch_invariant(cuda):
+    """llama's heads in float32: row b of a B 4 call equals the same
+    request run at B 1 bit for bit, and a 384-token prompt gives the same
+    rows at S 384 as padded to the 512 bucket (no split over keys depends
+    on the grid)."""
+    q, k, v = _flash_inputs(cuda, 4, 512, 512, 32, 8, 64)
+    batched = K.flash_attention(q, k, v)
+    for b in range(4):
+        alone = K.flash_attention(q[b:b + 1].clone(), k[b:b + 1].clone(),
+                                  v[b:b + 1].clone())
+        assert torch.equal(batched[b:b + 1], alone), b
+    short = K.flash_attention(q[:, :384].contiguous(),
+                              k[:, :384].contiguous(),
+                              v[:, :384].contiguous())
+    assert torch.equal(batched[:, :384], short)
+    torch.testing.assert_close(short, K.flash_attention_plain(
+        q[:, :384], k[:, :384], v[:, :384]), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,KV,D,window,q_offset", [
+    (4, 512, 512, 32, 8, 64, None, 0),   # llama's largest bucket
+    (2, 187, 250, 8, 2, 128, None, 63),
+    (2, 200, 200, 6, 3, 32, 77, 0),
+])
+def test_flash_f32_kernel_at_large_scores(cuda, B, S, T, H, KV, D, window,
+                                          q_offset):
+    """q and k scaled by 2 (scores four times larger, softmax peakier): the
+    split products still agree with the plain version within 2e-5."""
+    q, k, v = _flash_inputs(cuda, B, S, T, H, KV, D, seed=8, scale=2.0)
+    got = K.flash_attention(q, k, v, window=window, q_offset=q_offset)
+    want = K.flash_attention_plain(q, k, v, window=window, q_offset=q_offset)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,q_offset,window", [
+    (1, 1, 0, None),          # one row, one key
+    (20, 23, 3, None),        # one partial key tile
+    (63, 63, 0, None),
+    (65, 65, 0, 17),          # a q-tile's second half idle at D <= 64
+    (129, 200, 71, None),     # odd tile counts, T > S
+    (257, 257, 0, 100),
+    (383, 384, 1, None),      # llama's 384 prompt after one cached token
+])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (6, 1)])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_f32_kernel_sweep(cuda, D, H, KV, S, T, q_offset, window):
+    """The float32 kernel against the plain version within 2e-5 at every
+    head dim, MHA, GQA 4 and MQA 6, with S and T no multiple of a tile, one,
+    two, odd and many key tiles per q-tile, query offsets and windows."""
+    _flash_case(cuda, 2, S, T, H, KV, D, torch.float32, window, q_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,q_offset,D", [(512, 512, 0, 64),
+                                            (383, 384, 1, 64),
+                                            (383, 384, 1, 128)])
+def test_flash_f32_kernel_repeat_launches_are_bit_equal(cuda, S, T, q_offset,
+                                                        D):
+    """200 launches in a row on one stream give the first launch's output
+    bit for bit: the producer/consumer ring hands every stage over whole,
+    whatever the timing of the warps."""
+    q, k, v = _flash_inputs(cuda, 4, S, T, 32, 8, D, seed=9)
+    first = K.flash_attention(q, k, v, q_offset=q_offset)
+    outs = [K.flash_attention(q, k, v, q_offset=q_offset) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert [i for i, o in enumerate(outs) if not torch.equal(o, first)] == []
+    torch.testing.assert_close(first, K.flash_attention_plain(
+        q, k, v, q_offset=q_offset), rtol=2e-5, atol=2e-5)
+
+
 def _rmsnorm_check(got, want):
     tol = 2e-2 if want.dtype == torch.bfloat16 else 2e-5
     assert got.dtype == want.dtype and got.shape == want.shape
