@@ -7,24 +7,29 @@ Phases, always all of them, in order:
 
   build    compile every CUDA source of ``src/repro_torch/csrc`` with nvcc
            (one process per source, all started together); print seconds
-           and what ptxas reports per kernel; fail when the RMSNorm kernel
-           or the float32 flash kernel at D 64 spills, when the flash or
-           SSD library holds no HGMMA (wgmma) instruction, or when the
-           flash library holds no TF32 tensor-core instruction.
+           and what ptxas reports per kernel; fail when the RMSNorm kernel,
+           the float32 flash kernel at D 64 or a kernel of the SSD scan's
+           split-TF32 route spills, when the flash or SSD library holds no
+           HGMMA (wgmma) instruction, or when either holds no TF32
+           tensor-core instruction.
   kernels  run each hand-written kernel against its plain PyTorch version on
            the card at the serving paths' shapes (RMSNorm at llama's width
            2048 and mamba's 2560 and 5120; the SSD scan at chunks 256, 128
-           and 64, which take its tensor-core route in bfloat16 and the
-           CUDA cores in float32, and at 1, 2 and 32, which take the
-           recurrent route; the route of each case is printed and checked,
-           with its device time by kernel), in float32 (tolerance 2e-5;
-           the SSD scan 1e-4) and bfloat16 (2e-2; the SSD scan 5e-2 on y,
-           1e-4 on its float32 final state, and in both types every head's
-           ||y - y_ref|| / ||y_ref|| below 1e-2; the float32 flash lines
-           name the kernels the library call ran, and at S 512 the float32
-           flash kernel's output must be the same bit for bit over 200
-           launches in a row); time kernel, plain version
-           and one PyTorch library call where one computes the same
+           and 64, which take its tensor-core route in bfloat16 and its
+           split-TF32 route in float32, at 1, 2 and 32, which take the
+           recurrent route, and at 200, which takes the CUDA-core route;
+           the route of each case is printed and checked, with its device
+           time by kernel; the split-TF32 cases are also held and timed
+           against the CUDA-core pair they replaced, on the same inputs,
+           and fail when their device time is the longer), in float32
+           (tolerance 2e-5; the SSD scan 1e-4) and bfloat16 (2e-2; the SSD
+           scan 5e-2 on y, 1e-4 on its float32 final state, and in both
+           types every head's ||y - y_ref|| / ||y_ref|| below 1e-2; the
+           float32 flash lines name the kernels the library call ran; at S
+           512 the float32 flash kernel's output, and at chunk 256 the
+           float32 SSD scan's, must be the same bit for bit over 200
+           launches in a row); time kernel, plain version and one PyTorch
+           library call where one computes the same
            function (the yardstick, never used by the port) as medians over
            CUDA events with the L2 flushed before each call, and as device
            time from the profiler; time the host's cost per call as the
@@ -62,13 +67,17 @@ Phases, always all of them, in order:
            launch.
   mamba exact  as exact, on full-width mamba2-2.7b in float32, with prompts
            of 34, 97, 257 and 385 tokens: SSD chunks 1 and 32 (the
-           recurrent route), 256 and 128 (the CUDA cores).
+           recurrent route), 256 and 128 (the split-TF32 route), each
+           route launched on the batched and on the isolated path.
 
 Each phase ends with a line that counts its profiler sessions and those
 that came back empty. Any failure exits 1 and prints ``[fail] <phase>:
 <type>: <message>`` on stdout and on stderr, with the last frames of the
 traceback for anything but a failed check. The last lines are the card's
-name and power limit, one JSON line of per-kernel numbers, and ``{"ok":
+name and power limit, one JSON line of per-kernel numbers (bfloat16 at the
+serves' main shapes, and the float32 SSD scan's split-TF32 route at chunk
+256, whose launches are those of ``mamba exact``'s batched and isolated
+paths together), and ``{"ok":
 true, ...}``. Exits non-zero before printing any result when no CUDA device
 is present.
 """
@@ -102,6 +111,7 @@ REPLACES = {
     "fused_rmsnorm": "src/repro/kernels/rmsnorm.py:28",
     "flash_attention": "src/repro/kernels/flash_attn.py:72",
     "ssd_chunked": "src/repro/kernels/ssd_chunk.py:64",
+    "ssd_chunked_tf32": "src/repro/kernels/ssd_chunk.py:64",
 }
 SOURCES = {
     "ragged_decode_attention": ("cuda",
@@ -109,6 +119,7 @@ SOURCES = {
     "fused_rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attn.cu"),
     "ssd_chunked": ("cuda", "src/repro_torch/csrc/ssd_chunk.cu"),
+    "ssd_chunked_tf32": ("cuda", "src/repro_torch/csrc/ssd_chunk.cu"),
 }
 # a substring of each hand-written kernel's symbol, for the profile windows
 SYMBOLS = {"ragged decode": "ragged_decode_split_kernel",
@@ -119,11 +130,12 @@ SYMBOLS = {"ragged decode": "ragged_decode_split_kernel",
 # the kernels each serving path must launch; the bf16 mamba serve runs the
 # SSD scan's tensor-core route (ssd_chunked_tc counts it) and its recurrent
 # route (ssd_chunked_recurrent), its float32 exact check the recurrent
-# route and the CUDA cores
+# route and the split-TF32 route (ssd_chunked_tf32)
 LLAMA_KERNELS = ("ragged_decode_attention", "fused_rmsnorm", "flash_attention")
 MAMBA_KERNELS = ("ssd_chunked", "ssd_chunked_tc", "ssd_chunked_recurrent",
                  "fused_rmsnorm")
-MAMBA_EXACT_KERNELS = ("ssd_chunked", "ssd_chunked_recurrent", "fused_rmsnorm")
+MAMBA_EXACT_KERNELS = ("ssd_chunked", "ssd_chunked_recurrent",
+                       "ssd_chunked_tf32", "fused_rmsnorm")
 
 
 class SmokeFailure(RuntimeError):
@@ -324,8 +336,10 @@ def compare(torch, got, ref, dtype_name: str, what: str, tols=None) -> float:
 # phases
 # ---------------------------------------------------------------------------
 
-# the f32 flash kernel at D 64 (llama's head dim), as ptxas names it
+# the f32 flash kernel at D 64 (llama's head dim), and the SSD scan's
+# split-TF32 kernels, as ptxas names them
 F32_FLASH_D64 = "flash_tf32x3_kernelILi64E"
+SSD_TF32 = ("ssd_intra_tf32_kernel", "ssd_scores_tf32_kernel")
 
 
 def phase_build():
@@ -346,15 +360,19 @@ def phase_build():
                 print(f"[build] {name} {kernel}: {line.strip()}")
                 spilled = [int(b) for b in re.findall(
                     r"(\d+) bytes spill (?:stores|loads)", line)]
-                # RMSNorm, and the f32 flash kernel at llama's head dim
+                # RMSNorm, the f32 flash kernel at llama's head dim and the
+                # SSD scan's split-TF32 kernels
                 no_spill = name == "rmsnorm" or (
-                    name == "flash_attn" and F32_FLASH_D64 in kernel)
+                    name == "flash_attn" and F32_FLASH_D64 in kernel) or (
+                    name == "ssd_chunk" and any(k in kernel
+                                                for k in SSD_TF32))
                 check(not (no_spill and any(spilled)),
                       f"{name}: ptxas reports spills in {kernel}: "
                       f"{line.strip()}")
     # the bf16 flash kernel and the SSD scan's tensor-core route run on the
     # tensor cores: their SASS holds HGMMA (wgmma) instructions; the f32
-    # flash kernel's split products are TF32 ones (HGMMA ... TF32)
+    # flash kernel's and the f32 SSD route's split products are TF32 ones
+    # (HGMMA ... TF32)
     tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent
                                             / "cuobjdump")
     for name in ("flash_attn", "ssd_chunk"):
@@ -366,13 +384,12 @@ def phase_build():
               f"SASS (cuobjdump -sass)")
         check(n_hgmma > 0, f"{name}: no tensor-core (HGMMA) instruction in "
                            f"the built kernels")
-        if name == "flash_attn":
-            tf32 = [line.split("*/")[1].strip() for line in sass.splitlines()
-                    if "MMA" in line and "TF32" in line and "*/" in line]
-            print(f"[build] {name}: {len(tf32)} TF32 tensor-core instructions "
-                  f"in its SASS, e.g. {tf32[0] if tf32 else None}")
-            check(bool(tf32), f"{name}: no TF32 tensor-core instruction: the "
-                              f"f32 kernel does not run on the tensor cores")
+        tf32 = [line.split("*/")[1].strip() for line in sass.splitlines()
+                if "MMA" in line and "TF32" in line and "*/" in line]
+        print(f"[build] {name}: {len(tf32)} TF32 tensor-core instructions "
+              f"in its SASS, e.g. {tf32[0] if tf32 else None}")
+        check(bool(tf32), f"{name}: no TF32 tensor-core instruction: the "
+                          f"f32 kernel does not run on the tensor cores")
 
 
 # ragged decode shapes: (lengths, slots, ctx); the last slot is a padding
@@ -402,7 +419,9 @@ def kernel_decode(torch, K, dtype, lens, slots, ctx, n_slots=32, layer=5):
     torch.cuda.synchronize()
     res = {"shape": f"q{tuple(q.shape)} arena{tuple(k.shape)} "
                     f"lengths{list(lens)} ctx {ctx}", "out": out, "ref": ref,
-           "main": B == 8 and ctx is None}
+           "row": ("ragged_decode_attention"
+                   if dtype == torch.bfloat16 and B == 8 and ctx is None
+                   else None)}
     # library yardstick: SDPA over the gathered, head-repeated rows
     span = T if ctx is None else ctx
     grow = torch.clamp(rows.long(), max=N - 1)
@@ -435,7 +454,8 @@ def kernel_rmsnorm(torch, K, dtype, shape):
     w = scale.to(dtype)
     F = torch.nn.functional
     return {"shape": f"x{tuple(shape)}", "out": out, "ref": ref,
-            "main": tuple(shape) == (8, 2048),
+            "row": ("fused_rmsnorm" if dtype == torch.bfloat16
+                    and tuple(shape) == (8, 2048) else None),
             "fns": (lambda: K.fused_rmsnorm(x, scale),
                     lambda: K.fused_rmsnorm_plain(x, scale),
                     lambda: F.rms_norm(x, (shape[-1],), w, 1e-5)),
@@ -457,7 +477,9 @@ def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64):
     F = torch.nn.functional
     elt = q.element_size()
     return {"shape": f"q{tuple(q.shape)} kv{tuple(k.shape)} causal",
-            "out": out, "ref": ref, "main": S == 512,
+            "out": out, "ref": ref,
+            "row": ("flash_attention" if dtype == torch.bfloat16 and S == 512
+                    else None),
             "lib_kernels": dtype == torch.float32,
             "repeats": dtype == torch.float32 and S == 512,
             "fns": (lambda: K.flash_attention(q, k, v),
@@ -487,13 +509,16 @@ def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
                     + torch.log(torch.expm1(dt0)))
     A = -torch.arange(1, nh + 1, dtype=torch.float32, device="cuda")
     route = K.ssd_route(dtype, chunk, hd, N)
-    tc0 = K.ssd_chunked.tc_launches
-    rc0 = K.ssd_chunked.recurrent_launches
+    # every route moves ``launches`` and its own counter; cuda_cores has
+    # none of its own, so it moves ``launches`` alone
+    counters = ("", "tc_", "tf32_", "recurrent_")
+    before = [getattr(K.ssd_chunked, f"{c}launches") for c in counters]
     y, st = K.ssd_chunked(x, dt, A, Bm, Cm, chunk)
     y_ref, st_ref = K.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk)
     torch.cuda.synchronize()
-    check(K.ssd_chunked.tc_launches == tc0 + (route == "tc")
-          and K.ssd_chunked.recurrent_launches == rc0 + (route == "recurrent"),
+    check(all(getattr(K.ssd_chunked, f"{c}launches")
+              == n + (c in ("", f"{route}_"))
+              for c, n in zip(counters, before)),
           f"ssd_chunked chunk {chunk}: the {route} route was not the one "
           f"launched")
     yf, rf = y.float(), y_ref.float()
@@ -509,7 +534,16 @@ def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
     tri = chunk * (chunk + 1) // 2
     elt = x.element_size()
     return {"shape": shape, "out": (y, st), "ref": (y_ref, st_ref),
-            "tols": (ytol, 1e-4), "main": chunk == 256, "by_kernel": True,
+            "tols": (ytol, 1e-4), "by_kernel": True,
+            # the JSON rows: bf16 at the serve's chunk 256, and the f32
+            # split-TF32 route at mamba exact's chunk 256
+            "row": (None if chunk != 256 else "ssd_chunked"
+                    if dtype == torch.bfloat16 else "ssd_chunked_tf32"),
+            # the split-TF32 route against the CUDA-core pair it replaced
+            "before": (None if route != "tf32" else
+                       lambda: ssd_cuda_cores(torch, x, dt, A, Bm, Cm,
+                                              chunk)),
+            "repeats": dtype == torch.float32 and chunk == 256,
             "note": f"median |y_ref| {rf.abs().median().item():.3e}, worst "
                     f"head ||y - y_ref|| / ||y_ref|| {rel:.3e}",
             "fns": (lambda: K.ssd_chunked(x, dt, A, Bm, Cm, chunk),
@@ -524,6 +558,54 @@ def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
             "flops": 2 * nc * tri * N + 2 * nc * nh * tri * hd
             + 2 * S * nh * hd * N + 2 * nc * nh * hd * N
             + 2 * (nc - 1) * chunk * nh * hd * N}
+
+
+def ssd_cuda_cores(torch, x, dt, A, Bm, Cm, chunk):
+    """ssd_chunked's steps on its CUDA-core route, at any shape that route
+    takes: the pair the split-TF32 route replaced, timed beside it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_chunk import _check_inputs, _y_inter
+    _check_inputs(x, dt, A, Bm, Cm, chunk)
+    Bb, S, nh, hd = x.shape
+    N, nc = Bm.shape[-1], S // chunk
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    h_prev = torch.empty((Bb, nc, nh, hd, N), **f32)
+    cum_exp = torch.empty((Bb, S, nh), **f32)
+    decay = torch.empty((Bb, nc, nh), **f32)
+    final = torch.empty((Bb, nh, hd, N), **f32)
+    err = _build.function("ssd_chunk", "repro_ssd_chunk")(
+        *(t.data_ptr() for t in (x, dt, A, Bm, Cm, y, h_prev, cum_exp, decay,
+                                 final)),
+        Bb, S, nh, hd, N, chunk, _build.dtype_code(x.dtype),
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"ssd CUDA-core pair: CUDA error {err} at launch")
+    if nc == 1:
+        return y, final
+    return y + _y_inter(Cm, cum_exp, h_prev, chunk, x.dtype), final
+
+
+def before_vs(torch, r, kernel_fn, dev_ms, dname, what):
+    """The kernel against the kernel it replaced (``r["before"]``), on the
+    same inputs in one run: both held to the plain version, events and
+    host time in turns (before, kernel, kernel, before), device time from
+    the profiler; fails when the kernel's device time is the longer."""
+    before = r["before"]
+    err = compare(torch, before(), r["ref"], dname,
+                  f"{what}, the kernel it replaced", r.get("tols"))
+    ev, ev_b, _ = in_turns(lambda f: cuda_ms(torch, f), kernel_fn, before)
+    host, host_b, _ = in_turns(lambda f: host_us(torch, f), kernel_fn,
+                               before)
+    dev_b, _ = device_ms(torch, before, f"the kernel it replaced, {what}")
+    check(dev_b is not None, f"{what}: the profiler recorded no device time "
+                             f"for the kernel it replaced")
+    check(dev_ms <= dev_b, f"{what}: device time {dev_ms:.4f} ms, longer "
+                           f"than the {dev_b:.4f} ms of the kernel it "
+                           f"replaced")
+    print(f"[kernels] {what}: against the kernel it replaced, same inputs "
+          f"(its max|err| {err:.3e}): events {ev:.4f} vs {ev_b:.4f} ms, host "
+          f"{host:.2f} vs {host_b:.2f} us per call, device {dev_ms:.4f} vs "
+          f"{dev_b:.4f} ms")
 
 
 def phase_kernels(torch):
@@ -547,10 +629,10 @@ def phase_kernels(torch):
             cases.append(("flash_attention", dt,
                           lambda dt=dt, S=S: kernel_flash(torch, K, dt, S)))
         # the serve's chunks 256, 128 and 64 (the tensor-core route in
-        # bf16), chunks 1 and 2 at odd prefill lengths and 32 (the
-        # recurrent route)
+        # bf16, split TF32 in f32), chunks 1 and 2 at odd prefill lengths
+        # and 32 (the recurrent route), and 200 (the CUDA-core route)
         for S, chunk in ((256, 256), (384, 128), (64, 64), (383, 1),
-                         (258, 2), (384, 32)):
+                         (258, 2), (384, 32), (400, 200)):
             cases.append(("ssd_chunked", dt,
                           lambda dt=dt, S=S, c=chunk: kernel_ssd(torch, K, dt,
                                                                  S, c)))
@@ -597,7 +679,9 @@ def phase_kernels(torch):
             first = kernel_fn()
             outs = [kernel_fn() for _ in range(REPEATS)]
             torch.cuda.synchronize()
-            n_diff = sum(not torch.equal(o, first) for o in outs)
+            same = (lambda a, b: all(map(torch.equal, a, b))) \
+                if isinstance(first, tuple) else torch.equal
+            n_diff = sum(not same(o, first) for o in outs)
             del first, outs
             check(n_diff == 0, f"{name} {dname} {r['shape']}: {n_diff} of "
                                f"{REPEATS} launches in a row differ from the "
@@ -624,17 +708,20 @@ def phase_kernels(torch):
               f"{b_ms * 1e3:.2f} us ({b_by}), kernel device at {share} of "
               f"it{vs_lib}{note}")
         print(f"[kernels] {name} {dname} {r['shape']}: {host_line}")
-        # the JSON row: bfloat16 at the decode / full-width prefill shape
-        if dname == "bfloat16" and r["main"]:
-            route, source = SOURCES[name]
-            rows[name] = {"name": name, "route": route, "source": source,
-                          "replaces": REPLACES[name], "max_abs_err": err,
-                          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "bound_by": b_by, "library_ms": lib_ms,
-                          "device_ms": dev_ms, "plain_device_ms": dev_plain,
-                          "library_device_ms": dev_lib, "host_us": host,
-                          "library_host_us": lib_host,
-                          "shape": f"{dname} {r['shape']}"}
+        if r.get("before") is not None:
+            before_vs(torch, r, kernel_fn, dev_ms, dname,
+                      f"{name} {dname} {r['shape']}")
+        key = r["row"]      # the JSON row this case fills, if any
+        if key is not None:
+            route, source = SOURCES[key]
+            rows[key] = {"name": key, "route": route, "source": source,
+                         "replaces": REPLACES[key], "max_abs_err": err,
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": lib_ms,
+                         "device_ms": dev_ms, "plain_device_ms": dev_plain,
+                         "library_device_ms": dev_lib, "host_us": host,
+                         "library_host_us": lib_host,
+                         "shape": f"{dname} {r['shape']}"}
         del r
         torch.cuda.empty_cache()
     return rows
@@ -875,6 +962,7 @@ def phase_exact(torch, arch, tag, kernels, prompts):
           f"isolated ones token for token, {n_ties} near-ties")
     del engine
     torch.cuda.empty_cache()
+    return {k: batched_counts[k] + isolated_counts[k] for k in batched_counts}
 
 
 def main() -> int:
@@ -901,12 +989,14 @@ def main() -> int:
         (64, 128, 256, 384))
     m_counts = run(phase_serve, torch, "mamba2-2.7b", "mamba serve",
                    MAMBA_KERNELS, (128, 257, 259, 384))
-    run(phase_exact, torch, "mamba2-2.7b", "mamba exact", MAMBA_EXACT_KERNELS,
-        (34, 97, 257, 385))
+    x_counts = run(phase_exact, torch, "mamba2-2.7b", "mamba exact",
+                   MAMBA_EXACT_KERNELS, (34, 97, 257, 385))
     PHASE[0] = "result"
     print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact "
           f"in {time.perf_counter() - t_all:.1f} s")
     counts["ssd_chunked"] = m_counts["ssd_chunked"]
+    # the split-TF32 route: its launches in mamba exact, batched and isolated
+    counts["ssd_chunked_tf32"] = x_counts["ssd_chunked_tf32"]
     for name, row in rows.items():
         row["launches"] = counts[name]
     print(smi)

@@ -89,9 +89,9 @@
 //  - tile j uses stage j % 2 and waits for phase parity (j / 2) & 1 on
 //    full, its complement on empty (a fresh barrier's "previous" phase
 //    counts as done, so the first pass through each stage does not wait).
-// tools/check_flash_f32_sync.py checks these with compute-sanitizer and
-// with repeated launches, also on a build whose warps sleep at random at
-// each hand-over (jitter() below).
+// tools/check_f32_sync.py (target flash) checks these with compute-sanitizer
+// and with repeated launches, also on a build whose warps sleep at random at
+// each hand-over (repro::jitter, tf32.cuh).
 //
 // The tensor maps, tiles and barriers are tma.cuh's (shared with the SSD
 // scan's tensor-core kernel); the library links against the CUDA runtime
@@ -100,6 +100,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tf32.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
 
@@ -117,8 +118,13 @@ __device__ __forceinline__ float ex2(float x) {   // 2^x; ex2(-inf) = 0
 
 namespace f32 {
 
+using repro::cp_async16;
+using repro::jitter;
+using repro::named_sync;
+using repro::Plane;
 using repro::smem_addr;
-using repro::wgmma_desc;
+using repro::split;
+using repro::split4;
 
 constexpr int kRows = 64;        // q rows per consumer warpgroup
 constexpr int kThreads = 128;    // threads per warpgroup
@@ -126,50 +132,6 @@ constexpr int kThreads = 128;    // threads per warpgroup
 // keys per tile: 64, 32 at D = 128 (shared memory)
 template <int D>
 __host__ __device__ constexpr int keys() { return D == 128 ? 32 : 64; }
-
-// cvt.rna.tf32.f32's rounding (to nearest on the low 13 mantissa bits,
-// ties away from zero) for finite x, on the integer pipe
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo (+ a residual of about 2^-22 x), both TF32
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-__device__ __forceinline__ void split4(const float (&x)[4], uint4& hi,
-                                       uint4& lo) {
-  split(x[0], hi.x, lo.x);
-  split(x[1], hi.y, lo.y);
-  split(x[2], hi.z, lo.z);
-  split(x[3], hi.w, lo.w);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// A TF32 plane of R rows x C columns as wgmma reads it K-major (C along
-// K) with the 128-byte swizzle: atoms of 32 columns, each R rows of 128
-// bytes, whose 16-byte chunk c of row r sits at chunk c ^ (r % 8).
-template <int R, int C>
-struct Plane {
-  static constexpr int kAtomBytes = R * 128;
-  static constexpr int kBytes = C / 32 * kAtomBytes;
-  // byte offset of the 4-column chunk (r, c4)
-  static __device__ __forceinline__ uint32_t chunk(int r, int c4) {
-    return (c4 >> 3) * kAtomBytes + r * 128 + (((c4 & 7) ^ (r & 7)) << 4);
-  }
-  // descriptor of k slice kk (columns 8 kk ... 8 kk + 7)
-  static __device__ __forceinline__ uint64_t desc(uint32_t base, int kk) {
-    return wgmma_desc(base + (kk >> 2) * kAtomBytes + (kk & 3) * 32, 16,
-                      1024, 1);
-  }
-};
 
 // Shared memory: a ring of two stages of K and V planes (hi, lo), one
 // float32 staging tile of K and V, and each consumer's Q planes
@@ -195,31 +157,6 @@ struct Layout {
 template <int D>
 constexpr size_t smem_bytes() {   // 1 KB of slack for the 1024-byte align
   return 1024 + Layout<D>::bytes;
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// The synchronization check's build (-DREPRO_SYNC_JITTER, made only by
-// tools/check_flash_f32_sync.py) makes each warp sleep a pseudo-random 0-4
-// us at every point where a stage or the staging tile passes from one role
-// to the other. An access that a missing wait left unordered then lands at
-// another time in every launch, and a repeated-launch stress sees the
-// output change. The normal build compiles it to nothing.
-__device__ __forceinline__ void jitter(uint32_t site) {
-#ifdef REPRO_SYNC_JITTER
-  uint32_t x = (uint32_t)clock() ^ (site << 24) ^
-               ((threadIdx.x >> 5) * 0x9e3779b9u) ^
-               ((blockIdx.x + 131u * blockIdx.y + 8191u * blockIdx.z) *
-                0x85ebca6bu);
-  x ^= x >> 15;
-  x *= 0x2c1b3c6du;
-  x ^= x >> 12;
-  x = __shfl_sync(0xffffffffu, x, 0);   // one sleep per warp
-  __nanosleep(x & 4095u);
-  __syncwarp();
-#endif
 }
 
 template <int D>

@@ -25,12 +25,13 @@
 // writes y and the final state (~5.2 MB): ~2.4 us at 3.35 TB/s, against
 // ~0.7 GFLOP (~0.7 us on the bf16 tensor cores).
 //
-// Three C entry points, one per route; the wrapper picks the route by
+// Four C entry points, one per route; the wrapper picks the route by
 // dtype and shape alone (kernels/ssd_chunk.py, ssd_route):
 //
 //   chunk < 64 (any dtype, hd a multiple of 16, N <= 256): recurrent
 //   bf16, chunk a multiple of 64, hd 64, N 32 / 64 / 128: tensor cores
-//   everything else (f32 at 64 and up, long odd chunks): CUDA cores
+//   f32, the same shapes: tensor cores as split TF32
+//   everything else (long odd chunks, other hd and N): CUDA cores
 //
 // repro_ssd_chunk_recurrent, every chunk below 64 (63 of every 64 prefill
 // lengths under the reference's halving rule; chunk 1 at every odd one):
@@ -49,7 +50,7 @@
 // its floor is the f32 CUDA-core rate (22.5 us there), not the bytes.
 // Per-CTA layout and schedule: see rec::ssd_recurrent_kernel.
 //
-// The other two routes end with the same state pass and write the
+// The other three routes end with the same state pass and write the
 // per-chunk states, cumsum exponentials and decays for the wrapper's
 // y_inter.
 //
@@ -81,10 +82,36 @@
 // hi + lo keeps ~2^-17). No atomics: repeated launches are bit-equal. The
 // grid runs i-tile 0 first, then the others by most j-tiles.
 //
-// repro_ssd_chunk, float32 at chunks of 64 and up, and bfloat16 at long
-// chunks the tensor cores do not take (the tests' chunk 200):
-// ssd_intra_kernel on the CUDA cores. The TPU kernel holds a whole chunk
-// in VMEM (B and C alone are 128 KB each in float32 at chunk 256, N 128).
+// repro_ssd_chunk_tf32, float32 at the tensor-core route's shapes (every
+// f32 chunk of 64 and up that mamba2-2.7b runs): ssd_scores_tf32_kernel,
+// then ssd_intra_tf32_kernel, on the tensor cores as split TF32 (tf32.cuh:
+// three TF32 wgmma products per product, float32-accurate with TF32 off).
+// Bound on the H100 at (1, 256, 80, 64, N 128), chunk 256: operations,
+// ~0.68 GFLOP at 165 TFLOP/s (4.1 us), just above its bytes (x and y,
+// 5.2 MB each, and the 2.6 MB final state: ~13.4 MB, 4.0 us at 3.35 TB/s).
+// The bf16 design does not carry over: TF32 wgmma reads shared-memory
+// operands K-major only, and float32 tiles are twice as large, so C_i and
+// the B_j tiles as hi and lo planes (64 KB each at N 128) with a ring of
+// x_j tiles do not fit in 227 KB. C . B^T does not depend on the head
+// (n_groups is 1), so the first kernel forms it once per chunk for every
+// head (one warpgroup per 64 x 64 tile pair, i-tile >= j-tile) into a
+// (B, nc, chunk, chunk) buffer that stays in L2; the second reads its tile
+// straight into accumulator-layout registers. One CTA per (64-row i-tile,
+// group of G heads, batch row and chunk) runs a producer warpgroup, which
+// streams each head's x_j as x_j^T hi and lo planes through a two-stage
+// mbarrier ring, and one consumer warpgroup per head, which forms the
+// decay weights W in float32 on the registers, splits them as the A
+// operand of W . x_j, and (in the CTA of i-tile 0) the chunk state
+// transposed, state^T = sum_j (B_j u_j)^T . x_j, with A = (B_j u_j)^T read
+// from L2 into registers: only what wgmma reads from shared memory goes
+// through the ring. G is 2 when a grid of two-head CTAs covers the SMs
+// (ssd_tc_heads, as the bf16 kernel), else 1. Layout, schedule and the
+// hand-over rules: see tf32x3::ssd_intra_tf32_kernel.
+//
+// repro_ssd_chunk, the shapes no other route takes (the tests' chunk 200,
+// hd 16 / 32 / 128, N 256): ssd_intra_kernel on the CUDA cores. The TPU
+// kernel holds a whole chunk in VMEM (B and C alone are 128 KB each in
+// float32 at chunk 256, N 128).
 // Here one CTA of 256 threads per (b, c, h) walks 64-row i-tiles; for each
 // it loops over the j-tiles at or below it, forms C_i . B_j^T over N in
 // 32-wide shared-memory slices (each thread owns a 4 x 4 block of scores),
@@ -107,6 +134,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tf32.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
 
@@ -1120,6 +1148,542 @@ int dispatch_n(const void* x, const void* dt, const void* A, const void* Bm,
 
 }  // namespace rec
 
+// ---------------------------------------------------------------------------
+// float32 at chunks that are multiples of 64: split TF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tf32x3 {
+
+using repro::cp_async16;
+using repro::jitter;
+using repro::mbar_arrive;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::named_sync;
+using repro::Plane;
+using repro::smem_addr;
+using repro::split;
+using repro::split4;
+
+constexpr int kRows = 64;        // rows of an i- or j-tile
+constexpr int kHD = 64;          // the head dim it takes
+constexpr int kThreads = 128;    // threads per warpgroup
+constexpr int kStages = 2;       // the ring of x_j^T planes
+using XP = Plane<kHD, kRows>;    // one head's x_j^T: p rows x j positions
+
+// scores[b, c, i, j] = C_i . B_j over the chunk's 64 x 64 tile pairs with
+// i-tile >= j-tile, once for every head (n_groups is 1): one warpgroup per
+// pair splits C_i and B_j into hi and lo planes (both K-major, K = N) and
+// forms the tile with three TF32 wgmma products per product.
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_scores_tf32_kernel(const float* __restrict__ Bm,
+                       const float* __restrict__ Cm,
+                       float* __restrict__ scores, int S, int chunk) {
+  using P = Plane<kRows, N>;
+  constexpr int CH = N / 4;        // 16-byte chunks per row
+  int it = 0;                      // blockIdx.x = it (it + 1) / 2 + jt
+  while ((it + 1) * (it + 2) / 2 <= (int)blockIdx.x) ++it;
+  const int jt = blockIdx.x - it * (it + 1) / 2;
+  const int nc = S / chunk;
+  const int c = blockIdx.y, b = blockIdx.z;
+  const size_t t0 = (size_t)b * S + (size_t)c * chunk;
+  const int tid = threadIdx.x;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const sm = smem_raw + (base - smem_addr(smem_raw));
+  const float* const crow = Cm + (t0 + it * kRows) * N;
+  const float* const brow = Bm + (t0 + jt * kRows) * N;
+#pragma unroll 4
+  for (int i = tid; i < kRows * CH; i += kThreads) {
+    const int r = i / CH, c4 = i % CH;
+    const float4 cv = *reinterpret_cast<const float4*>(crow + r * N + 4 * c4);
+    const float4 bv = *reinterpret_cast<const float4*>(brow + r * N + 4 * c4);
+    const float cs[4] = {cv.x, cv.y, cv.z, cv.w};
+    const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
+    uint4 hi, lo;
+    split4(cs, hi, lo);
+    *reinterpret_cast<uint4*>(sm + P::chunk(r, c4)) = hi;
+    *reinterpret_cast<uint4*>(sm + P::kBytes + P::chunk(r, c4)) = lo;
+    split4(bs, hi, lo);
+    *reinterpret_cast<uint4*>(sm + 2 * P::kBytes + P::chunk(r, c4)) = hi;
+    *reinterpret_cast<uint4*>(sm + 3 * P::kBytes + P::chunk(r, c4)) = lo;
+  }
+  // written by the generic proxy, read by wgmma's async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  float s[32];
+  repro::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    const uint64_t ch = P::desc(base, kk);
+    const uint64_t cl = P::desc(base + P::kBytes, kk);
+    const uint64_t bh = P::desc(base + 2 * P::kBytes, kk);
+    const uint64_t bl = P::desc(base + 3 * P::kBytes, kk);
+    repro::wgmma_tf32_ss<64>(s, cl, bh, kk > 0);
+    repro::wgmma_tf32_ss<64>(s, ch, bl, 1);
+    repro::wgmma_tf32_ss<64>(s, ch, bh, 1);
+  }
+  repro::wgmma_commit();
+  repro::wgmma_wait_all();
+  repro::fence_regs(s);
+  // s[4 jj + 2 hh + e] is row 16 w + g + 8 hh, column 8 jj + 2 t + e
+  const int lane = tid & 31;
+  const int row = 16 * (tid >> 5) + (lane >> 2);
+  float* const out = scores + ((size_t)(b * nc + c) * chunk + it * kRows) *
+                                  chunk + jt * kRows;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+      *reinterpret_cast<float2*>(out + (size_t)(row + 8 * hh) * chunk +
+                                 8 * jj + 2 * (lane & 3)) =
+          make_float2(s[4 * jj + 2 * hh], s[4 * jj + 2 * hh + 1]);
+}
+
+template <int N>
+constexpr size_t scores_smem_bytes() {
+  return 1024 + 4 * (size_t)Plane<kRows, N>::kBytes;
+}
+
+// Shared memory of the intra-chunk kernel, from a 1024-byte aligned base: a
+// ring of kStages stages of each head's x_j^T planes (hi, lo), one float32
+// staging tile of x_j per head, each head's scalars (cum, dt, u for up to
+// kMaxChunk rows, the i-tile's 64 row factors), then the barriers.
+template <int G>
+struct Layout {
+  static constexpr uint32_t kStageBytes = G * 2 * XP::kBytes;
+  static constexpr uint32_t staging = kStages * kStageBytes;
+  static constexpr uint32_t scal = staging + G * kRows * kHD * 4;
+  static constexpr int kScalFloats = 3 * kMaxChunk + kRows;
+  static constexpr uint32_t bars = scal + G * kScalFloats * 4;
+  static constexpr uint32_t bytes = bars + 8 * 2 * kStages;
+};
+
+template <int G>
+constexpr size_t smem_bytes() { return 1024 + Layout<G>::bytes; }
+
+// One CTA per (64-row i-tile, group of G heads, batch row and chunk): G
+// consumer warpgroups, one per head, and a producer warpgroup.
+//
+// The producer copies each j-tile of each head's x_j (64 rows of 64 floats)
+// by cp.async into a float32 staging tile, then splits it into a ring
+// stage's hi and lo planes of x_j^T (p rows, j positions; TF32 wgmma reads
+// B K-major only), with key 8 q + e + 2 m at position 8 q + 4 e + m: the
+// order in which the accumulator's registers become the A fragments of W.
+//
+// Each consumer takes its head's decay terms (a sequential cumsum in
+// torch's order), then per j-tile <= its i-tile reads the scores tile from
+// ssd_scores_tf32_kernel's output straight into accumulator-layout
+// registers, forms the decay weights there in float32 (no rounding: in
+// float32 the reference's w.to(x.dtype) does nothing), splits them into hi
+// and lo A fragments and adds W . x_j with TF32 wgmma (B = the x_j^T planes).
+// The CTA of i-tile 0, which has the least y work, also forms its head's
+// chunk state transposed, state^T (N x hd) = sum_j (B_j u_j)^T . x_j with
+// u = exp(total - cum) dt: A = (B_j u_j)^T, read from B in device memory
+// (L2) into registers and split there, as m64 blocks of N (N 32 pads rows
+// 32 ... 63 with zeros); B = the same x_j^T planes. It is written back as
+// (hd, N). No atomics: repeated launches are bit-equal, and each head's
+// result depends on its own inputs only.
+//
+// Hand-overs, in the order of a tile's life:
+//  - staging tile: each producer thread waits for its own cp.async group,
+//    then bar.sync 1 (the producer's 128 threads) makes the float32 tile
+//    whole for all; a second bar.sync 1 after the split keeps the next
+//    tile's copies out until every thread has read it;
+//  - full(st) counts the 128 producer threads, each of which fences its
+//    own plane stores to the async proxy (fence.proxy.async) before it
+//    arrives; consumers wait on it before their wgmma reads;
+//  - empty(st) counts lane 0 of each warp of the CTA's n_heads busy
+//    consumers, which arrives after its warp's wgmma.wait_group 0 on the
+//    stage's last use (the state CTA keeps tile 0 through its y and its
+//    state products), so the stage's reads are over before the producer,
+//    waiting on it, writes the stage again; an idle consumer (nh not a
+//    multiple of G) never arrives and is not counted;
+//  - tile j uses stage j % 2 and waits for phase parity (j / 2) & 1 on
+//    full, its complement on empty (a fresh barrier's "previous" phase
+//    counts as done, so the first pass through each stage does not wait);
+//  - each consumer's scalars: bar.sync 2 + wg (its own 128 threads) after
+//    the dt loads, after the cumsum and after the exponentials.
+// tools/check_f32_sync.py (target ssd) checks these with compute-sanitizer
+// and with repeated launches, also on a build whose warps sleep at random at
+// each hand-over (repro::jitter, tf32.cuh).
+template <int N, int G>
+__global__ void __launch_bounds__(kThreads * (G + 1), 1)
+ssd_intra_tf32_kernel(const float* __restrict__ x,
+                      const float* __restrict__ dt,
+                      const float* __restrict__ A,
+                      const float* __restrict__ Bm,
+                      const float* __restrict__ scores,
+                      float* __restrict__ y, float* __restrict__ states,
+                      float* __restrict__ cum_exp, float* __restrict__ decay,
+                      int S, int nh, int chunk) {
+  using L = Layout<G>;
+  constexpr int MB = N < 64 ? 1 : N / 64;   // m64 blocks of the state
+  const int n_it = chunk / kRows;
+  const int nc = S / chunk;
+  // grid (head groups, B * nc, i-tiles): i-tile 0, which also forms the
+  // chunk state, first; then the others, most j-tiles first
+  const int it = blockIdx.z == 0 ? 0 : n_it - blockIdx.z;
+  const int hg = blockIdx.x;
+  const int b = blockIdx.y / nc;
+  const int c = blockIdx.y % nc;
+  const bool with_state = it == 0;
+  const int n_load = with_state ? n_it : it + 1;   // j-tiles it reads
+  const int rows = n_load * kRows;                 // rows whose cum it needs
+  const int i0 = it * kRows;
+  const int n_heads = min(G, nh - hg * G);
+  const int tid = threadIdx.x;
+  const int wg = tid / kThreads;     // consumers 0 ... G - 1, then producer
+  const int tw = tid % kThreads;
+  const size_t t0 = (size_t)b * S + (size_t)c * chunk;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const sm = smem_raw + (base - smem_addr(smem_raw));
+  auto full = [&](int st) { return base + L::bars + 8 * st; };
+  auto empty = [&](int st) { return base + L::bars + 8 * (kStages + st); };
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), kThreads);        // every producer thread
+      mbar_init(empty(st), n_heads * 4);    // lane 0 of each busy consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == G) {
+    // producer: each tile's x_j of the CTA's heads by cp.async into the
+    // staging tile, then split into a ring stage's x_j^T planes
+    const float* const stage_x = reinterpret_cast<const float*>(sm + L::staging);
+    auto load = [&](int j) {
+      for (int i = tw; i < n_heads * kRows * (kHD / 4); i += kThreads) {
+        const int g = i / (kRows * (kHD / 4));
+        const int r = i / (kHD / 4) % kRows, c4 = i % (kHD / 4);
+        cp_async16(base + L::staging + 16 * i,
+                   x + ((t0 + j * kRows + r) * nh + hg * G + g) * kHD + 4 * c4,
+                   true);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    load(0);
+    for (int j = 0; j < n_load; ++j) {
+      const int st = j % kStages;
+      // each thread waits for its own copies, then the barrier makes
+      // tile j's float32 staging tile whole for all of them
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      jitter(1);
+      named_sync(1, kThreads);
+      // the stage is free once every busy consumer warp has arrived on it
+      // after its wgmma reads of the stage's previous tile completed
+      mbar_wait(empty(st), ((j / kStages) & 1) ^ 1);
+      jitter(2);
+      uint8_t* const ring = sm + st * L::kStageBytes;
+      for (int i = tw; i < n_heads * kHD * (kRows / 4); i += kThreads) {
+        const int g = i / (kHD * (kRows / 4));
+        const int p = i % kHD, qe = i / kHD % (kRows / 4);
+        const int key = 8 * (qe >> 1) + (qe & 1);
+        const float* const xs = stage_x + g * kRows * kHD + p;
+        const float v[4] = {xs[key * kHD], xs[(key + 2) * kHD],
+                            xs[(key + 4) * kHD], xs[(key + 6) * kHD]};
+        uint4 hi, lo;
+        split4(v, hi, lo);
+        uint8_t* const planes = ring + g * 2 * XP::kBytes;
+        *reinterpret_cast<uint4*>(planes + XP::chunk(p, qe)) = hi;
+        *reinterpret_cast<uint4*>(planes + XP::kBytes + XP::chunk(p, qe)) =
+            lo;
+      }
+      jitter(3);
+      // written by the generic proxy, read by wgmma's async proxy: each
+      // thread fences its own stores before its arrival (full(st) counts
+      // all 128)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(full(st));
+      // no thread refills the staging tile before all have split it
+      named_sync(1, kThreads);
+      jitter(4);
+      if (j + 1 < n_load) load(j + 1);
+    }
+    return;
+  }
+  if (wg >= n_heads) return;          // an idle consumer
+
+  // ---- decay terms: a sequential cumsum in torch's order -----------------
+  const int h = hg * G + wg;
+  float* const cum =
+      reinterpret_cast<float*>(sm + L::scal) + wg * L::kScalFloats;
+  float* const dts = cum + kMaxChunk;
+  // i-tile 0: exp(total - cum_j) * dt_j, for the state; the others:
+  // exp(cum_i0 - cum_j) * dt_j for j < i0, the column factors of W
+  float* const u = dts + kMaxChunk;
+  float* const rowf = u + kMaxChunk;  // exp(cum_i - cum_i0), i in the i-tile
+  const float a = A[h];
+  for (int i = tw; i < rows; i += kThreads) {
+    const float d = dt[(t0 + i) * nh + h];
+    dts[i] = d;
+    cum[i] = d * a;
+  }
+  named_sync(2 + wg, kThreads);
+  if (tw == 0) {   // 32 rows at a time: 16-byte loads, then the add chain
+    float s = 0.f;
+    float4* const c4 = reinterpret_cast<float4*>(cum);
+    for (int k0 = 0; k0 < rows / 4; k0 += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = c4[k0 + e];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s += v[e].x;
+        v[e].x = s;
+        s += v[e].y;
+        v[e].y = s;
+        s += v[e].z;
+        v[e].z = s;
+        s += v[e].w;
+        v[e].w = s;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) c4[k0 + e] = v[e];
+    }
+  }
+  named_sync(2 + wg, kThreads);
+  if (with_state) {
+    const float total = cum[chunk - 1];
+    for (int i = tw; i < chunk; i += kThreads) {
+      u[i] = expf(total - cum[i]) * dts[i];
+      cum_exp[(t0 + i) * nh + h] = expf(cum[i]);
+    }
+    if (tw == 0) decay[((size_t)b * nc + c) * nh + h] = expf(total);
+  } else {
+    const float ci0 = cum[i0];
+    for (int j = tw; j < i0; j += kThreads) u[j] = expf(ci0 - cum[j]) * dts[j];
+    if (tw < kRows) rowf[tw] = expf(cum[i0 + tw] - ci0);
+  }
+  named_sync(2 + wg, kThreads);
+
+  // ---- y_intra of i-tile it: sum over j-tiles <= it of W . x_j ----------
+  // W = (C_i . B_j) * exp(cum_i - cum_j) * dt_j where j <= i. Below the
+  // diagonal tile (j < i0 <= i) the decay factors into exp(cum_i - cum_i0)
+  // * exp(cum_i0 - cum_j), both <= 1 (A < 0); on the diagonal tile the
+  // exponent is taken per entry, and only where j <= i (above, it would
+  // overflow).
+  const int warp = tw >> 5, lane = tw & 31, t = lane & 3;
+  const int r_lo = 16 * warp + (lane >> 2);   // tile rows r_lo, r_lo + 8
+  float rf[2] = {0.f, 0.f};
+  if (!with_state) {
+    rf[0] = rowf[r_lo];
+    rf[1] = rowf[r_lo + 8];
+  }
+  const float* const srow =
+      scores + ((size_t)(b * nc + c) * chunk + i0 + r_lo) * chunk;
+  float acc[kHD / 2];
+#pragma unroll
+  for (int k = 0; k < kHD / 2; ++k) acc[k] = 0.f;
+  for (int j = 0; j <= it; ++j) {
+    const int st = j % kStages;
+    const uint32_t planes = base + st * L::kStageBytes + wg * 2 * XP::kBytes;
+    // s[4 jj + 2 hh + e]: row r_lo + 8 hh, column 8 jj + 2 t + e of the
+    // tile (the accumulator layout), from the scores in device memory
+    float s[32];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            srow + (size_t)8 * hh * chunk + j * kRows + 8 * jj + 2 * t);
+        s[4 * jj + 2 * hh] = v.x;
+        s[4 * jj + 2 * hh + 1] = v.y;
+      }
+    // below the diagonal tile the decay is factored into row and column
+    // terms, exp(cum_i - cum_i0) * (exp(cum_i0 - cum_j) dt_j): two products
+    // an entry, no exponent (an exponent per entry gave y the same error
+    // and cost 7-37 % more time, PERF.md)
+    if (j < it) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float cf = u[j * kRows + 8 * jj + 2 * t + e];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float& v = s[4 * jj + 2 * hh + e];
+            v = v * rf[hh] * cf;
+          }
+        }
+    } else {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int il = i0 + r_lo + 8 * hh;
+        const float ci = cum[il];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int jl = j * kRows + 8 * jj + 2 * t + e;
+            float& v = s[4 * jj + 2 * hh + e];
+            v = jl <= il ? v * expf(ci - cum[jl]) * dts[jl] : 0.f;
+          }
+      }
+    }
+    // W's k slice kk, split, as A registers: columns t and t + 4 are keys
+    // 8 kk + 2 t and 8 kk + 2 t + 1, the planes' positions 8 kk + t and
+    // 8 kk + t + 4
+    uint32_t ph[kRows / 8][4], pl[kRows / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < kRows / 8; ++kk) {
+      split(s[4 * kk], ph[kk][0], pl[kk][0]);
+      split(s[4 * kk + 2], ph[kk][1], pl[kk][1]);
+      split(s[4 * kk + 1], ph[kk][2], pl[kk][2]);
+      split(s[4 * kk + 3], ph[kk][3], pl[kk][3]);
+    }
+    mbar_wait(full(st), (j / kStages) & 1);
+    jitter(5);
+    repro::fence_regs(acc);
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 8; ++kk) {
+      const uint64_t xh = XP::desc(planes, kk);
+      const uint64_t xl = XP::desc(planes + XP::kBytes, kk);
+      repro::wgmma_tf32_rs<kHD>(acc, pl[kk], xh);
+      repro::wgmma_tf32_rs<kHD>(acc, ph[kk], xl);
+      repro::wgmma_tf32_rs<kHD>(acc, ph[kk], xh);
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();   // this warp's reads of the stage are done
+    repro::fence_regs(acc);
+    if (!with_state) {         // the state CTA keeps tile 0 for the state
+      jitter(6);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+  }
+  // acc[4 jj + 2 hh + e] is row r_lo + 8 hh, column 8 jj + 2 t + e
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float* const yrow = y + ((t0 + i0 + r_lo + 8 * hh) * nh + h) * kHD;
+#pragma unroll
+    for (int jj = 0; jj < kHD / 8; ++jj)
+      *reinterpret_cast<float2*>(yrow + 8 * jj + 2 * t) =
+          make_float2(acc[4 * jj + 2 * hh], acc[4 * jj + 2 * hh + 1]);
+  }
+  if (!with_state) return;
+
+  // ---- chunk state, transposed: sum_j (B_j u_j)^T . x_j, (N x hd) --------
+  float sacc[MB][kHD / 2];
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int k = 0; k < kHD / 2; ++k) sacc[mb][k] = 0.f;
+  for (int j = 0; j < n_it; ++j) {
+    const int st = j % kStages;
+    const uint32_t planes = base + st * L::kStageBytes + wg * 2 * XP::kBytes;
+    const float* const brow = Bm + (t0 + j * kRows) * N;
+    const float* const uj = u + j * kRows;
+    mbar_wait(full(st), (j / kStages) & 1);   // tile 0: already complete
+    jitter(5);
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        // A fragment of k slice kk: row n = 64 mb + r_lo + 8 (r & 1),
+        // column t + 4 (r >> 1), i.e. key 8 kk + 2 t + (r >> 1)
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int n = 64 * mb + r_lo + 8 * (r & 1);
+            const int jl = 8 * (4 * half + kq) + 2 * t + (r >> 1);
+            const float v = n < N ? brow[(size_t)jl * N + n] * uj[jl] : 0.f;
+            split(v, ah[kq][r], al[kq][r]);
+          }
+        repro::fence_regs(sacc[mb]);
+        repro::wgmma_fence();
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {
+          const uint64_t xh = XP::desc(planes, 4 * half + kq);
+          const uint64_t xl = XP::desc(planes + XP::kBytes, 4 * half + kq);
+          repro::wgmma_tf32_rs<kHD>(sacc[mb], al[kq], xh);
+          repro::wgmma_tf32_rs<kHD>(sacc[mb], ah[kq], xl);
+          repro::wgmma_tf32_rs<kHD>(sacc[mb], ah[kq], xh);
+        }
+        repro::wgmma_commit();
+        repro::wgmma_wait_all();
+        repro::fence_regs(sacc[mb]);
+      }
+    jitter(7);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+  // sacc[mb][4 jj + 2 hh + e] is state[p = 8 jj + 2 t + e][n = 64 mb +
+  // r_lo + 8 hh]
+  float* const out = states + (((size_t)b * nc + c) * nh + h) * kHD * N;
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int n = 64 * mb + r_lo + 8 * hh;
+      if (n >= N) continue;
+#pragma unroll
+      for (int jj = 0; jj < kHD / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          out[(size_t)(8 * jj + 2 * t + e) * N + n] =
+              sacc[mb][4 * jj + 2 * hh + e];
+    }
+}
+
+template <int N, int G>
+int launch(const void* x, const void* dt, const void* A, const void* Bm,
+           const void* Cm, void* scores, void* y, void* states,
+           void* cum_exp, void* decay, void* final_state, int B, int S,
+           int nh, int chunk, cudaStream_t stream) {
+  static int granted_scores = 48 * 1024, granted = 48 * 1024;
+  const int n_it = chunk / kRows;
+  const int nc = S / chunk;
+  cudaError_t err = repro::allow_smem(ssd_scores_tf32_kernel<N>,
+                                      scores_smem_bytes<N>(), &granted_scores);
+  if (err != cudaSuccess) return (int)err;
+  ssd_scores_tf32_kernel<N><<<dim3(n_it * (n_it + 1) / 2, nc, B), kThreads,
+                              scores_smem_bytes<N>(), stream>>>(
+      static_cast<const float*>(Bm), static_cast<const float*>(Cm),
+      static_cast<float*>(scores), S, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = repro::allow_smem(ssd_intra_tf32_kernel<N, G>, smem_bytes<G>(),
+                          &granted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((nh + G - 1) / G, B * nc, n_it);
+  ssd_intra_tf32_kernel<N, G><<<grid, kThreads * (G + 1), smem_bytes<G>(),
+                                stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(Bm),
+      static_cast<const float*>(scores), static_cast<float*>(y),
+      static_cast<float*>(states), static_cast<float*>(cum_exp),
+      static_cast<float*>(decay), S, nh, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return state_pass(states, decay, final_state, B, nc, nh, kHD * N, stream);
+}
+
+template <int N>
+int dispatch_group(const void* x, const void* dt, const void* A,
+                   const void* Bm, const void* Cm, void* scores, void* y,
+                   void* states, void* cum_exp, void* decay,
+                   void* final_state, int B, int S, int nh, int chunk,
+                   int group, cudaStream_t stream) {
+  if (group == 1)
+    return launch<N, 1>(x, dt, A, Bm, Cm, scores, y, states, cum_exp, decay,
+                        final_state, B, S, nh, chunk, stream);
+  if (group == 2)
+    return launch<N, 2>(x, dt, A, Bm, Cm, scores, y, states, cum_exp, decay,
+                        final_state, B, S, nh, chunk, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tf32x3
+
 }  // namespace
 
 // The intra-chunk kernel, then the state pass: `states` ends up holding
@@ -1202,4 +1766,42 @@ extern "C" int repro_ssd_chunk_recurrent(const void* x, const void* dt,
                                           final_state, B, S, nh, hd, N, chunk,
                                           s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The split-TF32 route: float32 x, B and C with hd 64, N 32, 64 or 128 and
+// a chunk that is a multiple of 64; `group` heads per CTA (1 or 2). Writes
+// the scores of the chunk's tile pairs (B, nc, chunk, chunk) to `scores`,
+// then the same outputs as repro_ssd_chunk.
+extern "C" int repro_ssd_chunk_tf32(const void* x, const void* dt,
+                                    const void* A, const void* Bm,
+                                    const void* Cm, void* scores, void* y,
+                                    void* states, void* cum_exp, void* decay,
+                                    void* final_state, int B, int S, int nh,
+                                    int hd, int N, int chunk, int group,
+                                    void* stream) {
+  if (B <= 0 || S <= 0 || nh <= 0 || hd != tf32x3::kHD || chunk <= 0 ||
+      chunk % tf32x3::kRows != 0 || chunk > kMaxChunk || S % chunk != 0 ||
+      !final_state || !scores)
+    return (int)cudaErrorInvalidValue;
+  // 16-byte loads and copies of x, B and C rows
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(Bm) |
+       reinterpret_cast<uintptr_t>(Cm)) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (N) {
+    case 32:
+      return tf32x3::dispatch_group<32>(x, dt, A, Bm, Cm, scores, y, states,
+                                        cum_exp, decay, final_state, B, S,
+                                        nh, chunk, group, s);
+    case 64:
+      return tf32x3::dispatch_group<64>(x, dt, A, Bm, Cm, scores, y, states,
+                                        cum_exp, decay, final_state, B, S,
+                                        nh, chunk, group, s);
+    case 128:
+      return tf32x3::dispatch_group<128>(x, dt, A, Bm, Cm, scores, y, states,
+                                         cum_exp, decay, final_state, B, S,
+                                         nh, chunk, group, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

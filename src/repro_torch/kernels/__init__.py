@@ -17,10 +17,11 @@ KERNELS = (ragged_decode_attention, fused_rmsnorm, flash_attention,
 
 
 def launch_counts() -> dict:
-    """Launches per wrapper, and of the SSD scan's tensor-core and
-    recurrent routes."""
+    """Launches per wrapper, and of the SSD scan's tensor-core, split-TF32
+    and recurrent routes."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts["ssd_chunked_tc"] = ssd_chunked.tc_launches
+    counts["ssd_chunked_tf32"] = ssd_chunked.tf32_launches
     counts["ssd_chunked_recurrent"] = ssd_chunked.recurrent_launches
     return counts
 
@@ -29,6 +30,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     ssd_chunked.tc_launches = 0
+    ssd_chunked.tf32_launches = 0
     ssd_chunked.recurrent_launches = 0
 
 

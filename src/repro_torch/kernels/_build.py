@@ -42,6 +42,9 @@ SIGNATURES = {
         # (CUDA cores) or heads per CTA (tensor cores), stream
         "repro_ssd_chunk": [_VP] * 10 + [_I] * 7 + [_VP],
         "repro_ssd_chunk_tc": [_VP] * 10 + [_I] * 7 + [_VP],
+        # split TF32: x, dt, A, B, C, scores, y, states, cum_exp, decay,
+        # final, B, S, nh, hd, N, chunk, heads per CTA, stream
+        "repro_ssd_chunk_tf32": [_VP] * 11 + [_I] * 7 + [_VP],
         # x, dt, A, B, C, scores, y, final, B, S, nh, hd, N, chunk, dtype,
         # stream
         "repro_ssd_chunk_recurrent": [_VP] * 8 + [_I] * 7 + [_VP]},

@@ -5,13 +5,17 @@ Replaces the TPU kernel ``src/repro/kernels/ssd_chunk.py``
 (batch, chunk, head) the within-chunk decay cumsum, the causal decay
 matrix, ``C·Bᵀ``, ``y_intra``, the chunk state, ``exp(cum)`` and
 ``exp(total)``; then the inter-chunk state recurrence and ``y_inter``.
-The SSM prefill of every layer runs it. Three routes, picked by dtype and
+The SSM prefill of every layer runs it. Four routes, picked by dtype and
 shape alone (:func:`ssd_route`): every chunk below 64 on the recurrent
-kernel, bfloat16 at chunks of whole 64-row tiles on the tensor cores, the
-rest (float32 at 64 and up, odd long chunks) on the CUDA cores. Source,
-bound and design notes: ``csrc/ssd_chunk.cu``.
+kernel; chunks of whole 64-row tiles at head dim 64 and state 32, 64 or
+128 on the tensor cores, in bfloat16 directly and in float32 as split TF32
+(three TF32 products per product); the rest (odd long chunks, other head
+dims and states) on the CUDA cores. Source, bound and design notes:
+``csrc/ssd_chunk.cu``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -20,7 +24,8 @@ from . import _build
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 256
 MAX_STATE = 256
-# the tensor-core route's shapes: chunks of whole 64-row tiles, hd 64
+# the tensor-core routes' shapes (bf16 and split-TF32 f32): chunks of whole
+# 64-row tiles, hd 64
 TC_ROWS = 64
 TC_HEAD_DIM = 64
 TC_STATES = (32, 64, 128)
@@ -178,24 +183,33 @@ def _check_inputs(x, dt, A, B_ssm, C_ssm, chunk: int):
 def ssd_route(dtype, chunk: int, hd: int, N: int) -> str:
     """The kernel a CUDA call takes, by dtype and shape alone:
     ``"recurrent"`` for every chunk below 64 (the chunks 63 of every 64
-    prefill lengths take under the halving rule); ``"tc"`` (the
-    tensor-core kernel) for bfloat16 at a chunk that is a multiple of 64,
-    head dim 64 and state size 32, 64 or 128; else ``"cuda_cores"``
-    (float32 at chunks of 64 and up, and long chunks of other shapes)."""
+    prefill lengths take under the halving rule); at a chunk that is a
+    multiple of 64, head dim 64 and state size 32, 64 or 128, ``"tc"``
+    (the tensor-core kernel) for bfloat16 and ``"tf32"`` (the split-TF32
+    tensor-core kernel) for float32; else ``"cuda_cores"`` (long chunks of
+    other shapes)."""
     if chunk < RECURRENT_BELOW:
         return "recurrent"
-    if (dtype == torch.bfloat16 and chunk % TC_ROWS == 0
-            and hd == TC_HEAD_DIM and N in TC_STATES):
-        return "tc"
+    if chunk % TC_ROWS == 0 and hd == TC_HEAD_DIM and N in TC_STATES:
+        if dtype == torch.bfloat16:
+            return "tc"
+        if dtype == torch.float32:
+            return "tf32"
     return "cuda_cores"
 
 
 def ssd_tc_heads(Bb: int, S: int, nh: int, chunk: int, n_sm: int) -> int:
-    """Heads per CTA of the tensor-core kernel: 2 when a grid of two-head
-    CTAs still covers the card's ``n_sm`` SMs, else 1 — a small grid
-    finishes sooner spread one head per CTA (PERF.md §6)."""
+    """Heads per CTA of the tensor-core kernels (bf16 and split TF32): 2
+    when a grid of two-head CTAs still covers the card's ``n_sm`` SMs,
+    else 1 — a small grid finishes sooner spread one head per CTA
+    (PERF.md §6, measured for each kernel)."""
     ctas = -(-nh // 2) * Bb * (S // chunk) * (chunk // TC_ROWS)
     return 2 if ctas >= n_sm else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _raise_on(err: int, route: str, Bb, S, nh, hd, N, chunk) -> None:
@@ -216,11 +230,12 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
     :func:`ssd_route` picks, or raises. The recurrent route forms the
     intra-chunk scores (B, S, chunk) once for all heads, then carries the
     state across the sequence and writes y and the final state only. The
-    other two run the intra-chunk kernel (with the JAX model's roundings of
-    C·Bᵀ and the weights), then the state pass, which turns the chunk
-    states into the state entering each chunk in place and writes the
-    final state; ``y_inter`` is added with one batched product when there
-    is more than one chunk."""
+    other three run the intra-chunk kernel (with the JAX model's roundings
+    of C·Bᵀ and the weights; the split-TF32 route forms C·Bᵀ of the
+    chunk's tile pairs first, once for all heads), then the state pass,
+    which turns the chunk states into the state entering each chunk in
+    place and writes the final state; ``y_inter`` is added with one
+    batched product when there is more than one chunk."""
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, A, B_ssm, C_ssm, chunk)
     if x.device.type != "cuda":
@@ -248,16 +263,25 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
     y_intra = torch.empty_like(x)
     h_prev = torch.empty((Bb, nc, nh, hd, N), **f32)
     cum_exp = torch.empty((Bb, S, nh), **f32)
-    decay = torch.empty((Bb, nc, nh), **f32)
     final = torch.empty((Bb, nh, hd, N), **f32)
+    # the state pass's decay per chunk and head, then on the split-TF32
+    # route C·Bᵀ of the chunk's tile pairs for all heads, 16-byte aligned:
+    # one allocation, since the host's cost per call is the route's floor
+    n_decay = -(-Bb * nc * nh // 4) * 4
+    decay = torch.empty(n_decay + (Bb * nc * chunk * chunk
+                                   if route == "tf32" else 0), **f32)
     args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_ssm.data_ptr(),
             C_ssm.data_ptr(), y_intra.data_ptr(), h_prev.data_ptr(),
             cum_exp.data_ptr(), decay.data_ptr(), final.data_ptr(),
             Bb, S, nh, hd, N, chunk)
+    if route in ("tc", "tf32"):
+        heads = ssd_tc_heads(Bb, S, nh, chunk, _sm_count(x.device.index))
     if route == "tc":
-        n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
         err = _build.function("ssd_chunk", "repro_ssd_chunk_tc")(
-            *args, ssd_tc_heads(Bb, S, nh, chunk, n_sm), stream)
+            *args, heads, stream)
+    elif route == "tf32":
+        err = _build.function("ssd_chunk", "repro_ssd_chunk_tf32")(
+            *args[:5], args[8] + 4 * n_decay, *args[5:], heads, stream)
     else:
         err = _build.function("ssd_chunk", "repro_ssd_chunk")(
             *args, _build.dtype_code(x.dtype), stream)
@@ -265,6 +289,8 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
     ssd_chunked.launches += 1
     if route == "tc":
         ssd_chunked.tc_launches += 1
+    elif route == "tf32":
+        ssd_chunked.tf32_launches += 1
     if nc == 1:          # the only chunk enters with a zero state
         return y_intra, final
     return y_intra + _y_inter(C_ssm, cum_exp, h_prev, chunk, x.dtype), final
@@ -272,4 +298,5 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
 
 ssd_chunked.launches = 0            # every launch, any route
 ssd_chunked.tc_launches = 0         # the tensor-core route's
+ssd_chunked.tf32_launches = 0       # the split-TF32 route's
 ssd_chunked.recurrent_launches = 0  # the recurrent route's

@@ -16,6 +16,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops, ref  # noqa: E402
+from repro.kernels.ssd_chunk import ssd_chunk_intra as pallas_intra  # noqa: E402
 from repro.models.layers import chunked_causal_attention as jax_chunked  # noqa: E402
 from repro.models.layers import rms_norm as jax_rms_norm  # noqa: E402
 import repro_torch.kernels as K  # noqa: E402
@@ -293,6 +294,99 @@ def test_tf32_rounding_ties_away_from_zero():
     assert _tf32(top) == np.float32(2.0)
 
 
+def _ssd_tf32_emulate(x, dt, A, Bm, Cm, chunk: int, three: bool = True,
+                      factor: bool = True):
+    """``ssd_chunk_intra`` as the float32 SSD kernel's split-TF32 route
+    forms it, in numpy: per chunk the cumsum of dt·A in order; C·Bᵀ as one
+    tensor-core product (``ssd_scores_tf32_kernel``); the decay weights W
+    in float32, below the diagonal 64-row tile factored into
+    exp(cum_i − cum_i0) · (exp(cum_i0 − cum_j)·dt_j) (``factor``), on it
+    exp(cum_i − cum_j)·dt_j where j ≤ i; y = W·x_j and the state
+    ((B∘u)ᵀ·x)ᵀ, u = exp(total − cum)·dt, as tensor-core products. Each
+    product is three TF32 products (``three``) or one."""
+    f32 = np.float32
+    Bb, S, nh, hd = x.shape
+    N = Bm.shape[-1]
+    nc = S // chunk
+    y = np.zeros_like(x)
+    states = np.zeros((Bb, nc, nh, hd, N), f32)
+    cum_exp = np.zeros((Bb, S, nh), f32)
+    decay = np.zeros((Bb, nc, nh), f32)
+    rows = np.arange(chunk)
+    i0 = rows // 64 * 64                       # each row's i-tile start
+    for b in range(Bb):
+        for c in range(nc):
+            part = slice(c * chunk, (c + 1) * chunk)
+            Bc, Cc = Bm[b, part], Cm[b, part]
+            scores = _tf32_matmul(Cc, Bc.T, three)
+            for h in range(nh):
+                d = dt[b, part, h]
+                cum = np.cumsum(d * A[h], dtype=f32)
+                ci, cj, c0 = cum[:, None], cum[None, :], cum[i0][:, None]
+                causal = rows[None, :] <= rows[:, None]
+                below = rows[None, :] < i0[:, None]
+                # exponents above the diagonal would overflow: -inf there
+                per_entry = np.exp(np.where(causal, ci - cj, -np.inf))
+                row_f = np.exp(ci - c0)
+                col_f = np.exp(np.where(below, c0 - cj, -np.inf))
+                w = np.where(below & factor, scores * row_f * (col_f * d),
+                             scores * per_entry * d).astype(f32)
+                y[b, part, h] = _tf32_matmul(w, x[b, part, h], three)
+                u = (np.exp(cum[-1] - cum) * d).astype(f32)
+                st_t = _tf32_matmul((Bc * u[:, None]).T, x[b, part, h], three)
+                states[b, c, h] = st_t.T
+                cum_exp[b, part, h] = np.exp(cum)
+                decay[b, c, h] = np.exp(cum[-1])
+    return y, states, cum_exp, decay
+
+
+def _ssd_f32_inputs(B, S, nh, hd, N, seed):
+    """float32 SSD inputs with the model's dt at init (softplus of noise
+    plus the inverse softplus of a log-uniform [1e-3, 1e-1] draw per head)
+    and A = -(1 ... nh), as ``chip_smoke.py`` makes them."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    dt0 = np.exp(np.log(1e-3) + rng.random(nh) * (np.log(1e-1) - np.log(1e-3)))
+    return (rng.standard_normal((B, S, nh, hd)).astype(f32),
+            np.logaddexp(rng.standard_normal((B, S, nh))
+                         + np.log(np.expm1(dt0)), 0.0).astype(f32),
+            -np.arange(1, nh + 1, dtype=f32),
+            rng.standard_normal((B, S, N)).astype(f32),
+            rng.standard_normal((B, S, N)).astype(f32))
+
+
+def test_ssd_f32_split_tf32_keeps_the_f32_tolerance():
+    """The float32 SSD kernel's numerics budget at mamba2-2.7b's widths
+    (hd 64, N 128, chunk 256; four heads): its three products C·Bᵀ, W·x_j
+    and (B∘u)ᵀ·x_j as three TF32 products each keep y_intra and the chunk
+    states within the f32 tolerance (1e-4) of ``ssd_chunk_intra_plain``,
+    with the decay factored below the diagonal tile or not; one TF32
+    product does not."""
+    inp = _ssd_f32_inputs(1, 256, 4, 64, 128, seed=11)
+    want = [t.numpy() for t in
+            K.ssd_chunk_intra_plain(*map(torch.from_numpy, inp), 256)]
+    for factor in (True, False):
+        got = _ssd_tf32_emulate(*inp, 256, factor=factor)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+    one = _ssd_tf32_emulate(*inp, 256, three=False)
+    assert not np.allclose(one[0], want[0], rtol=1e-4, atol=1e-4)
+    three_err = np.abs(_ssd_tf32_emulate(*inp, 256)[0] - want[0]).max()
+    assert np.abs(one[0] - want[0]).max() > 10 * three_err
+
+
+def test_ssd_f32_split_tf32_matches_pallas_intra():
+    """The same emulation at a tiny size (two chunks of one 64-row tile)
+    against the JAX package's Pallas ``ssd_chunk_intra`` in interpret
+    mode, output by output, within 1e-4."""
+    inp = _ssd_f32_inputs(1, 128, 2, 64, 32, seed=12)
+    want = pallas_intra(*map(jnp.asarray, inp), chunk=64, interpret=True)
+    got = _ssd_tf32_emulate(*inp, 64)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
 def test_flash_matches_model_chunked_attention():
     """The plain version is the JAX model's chunked attention (the serving
     path): chunk by chunk it equals ``chunked_causal_attention``, with and
@@ -359,6 +453,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     assert K.launch_counts() == {"ragged_decode_attention": 0,
                                  "fused_rmsnorm": 0, "flash_attention": 0,
                                  "ssd_chunked": 0, "ssd_chunked_tc": 0,
+                                 "ssd_chunked_tf32": 0,
                                  "ssd_chunked_recurrent": 0}
 
 
@@ -367,8 +462,14 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     (torch.bfloat16, 128, 64, 128, "tc"),
     (torch.bfloat16, 256, 64, 128, "tc"),       # the mamba2-2.7b serve's
     (torch.bfloat16, 256, 64, 32, "tc"),
-    (torch.float32, 256, 64, 128, "cuda_cores"),
-    (torch.float32, 64, 64, 128, "cuda_cores"),
+    (torch.float32, 256, 64, 128, "tf32"),      # the mamba2-2.7b exact
+    (torch.float32, 64, 64, 128, "tf32"),       # check's, and chunk 64
+    (torch.float32, 128, 64, 128, "tf32"),
+    (torch.float32, 256, 64, 32, "tf32"),
+    (torch.float32, 64, 64, 64, "tf32"),
+    (torch.float32, 200, 64, 128, "cuda_cores"),
+    (torch.float32, 256, 32, 128, "cuda_cores"),
+    (torch.float32, 256, 64, 256, "cuda_cores"),
     (torch.bfloat16, 1, 64, 128, "recurrent"),   # odd prefill length
     (torch.bfloat16, 32, 64, 128, "recurrent"),
     (torch.float32, 1, 64, 128, "recurrent"),
@@ -380,8 +481,9 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
 ])
 def test_ssd_route_by_dtype_and_shape(dtype, chunk, hd, N, route):
     """Every chunk below 64 takes the recurrent kernel, in both dtypes;
-    bf16 at chunks of whole 64-row tiles (hd 64, N up to 128) the
-    tensor-core kernel; float32 and every other shape the CUDA cores."""
+    chunks of whole 64-row tiles (hd 64, N 32, 64 or 128) the tensor-core
+    kernel in bf16 and the split-TF32 kernel in float32; every other shape
+    the CUDA cores."""
     assert K.ssd_route(dtype, chunk, hd, N) == route
 
 
@@ -393,7 +495,8 @@ def test_ssd_route_by_dtype_and_shape(dtype, chunk, hd, N, route):
     (2, 256, 5, 64, 1),
 ])
 def test_ssd_tc_heads_per_cta(Bb, S, nh, chunk, heads):
-    """Two heads per CTA when that grid still covers the card's 132 SMs."""
+    """Two heads per CTA when that grid still covers the card's 132 SMs,
+    for the bf16 and the split-TF32 kernels alike."""
     assert ssd_tc_heads(Bb, S, nh, chunk, 132) == heads
 
 
@@ -402,7 +505,8 @@ def test_build_sources_and_dtype_codes():
                                       "rmsnorm", "ssd_chunk"]
     assert set(_build.SIGNATURES) == set(_build.sources())
     assert set(_build.SIGNATURES["ssd_chunk"]) == {
-        "repro_ssd_chunk", "repro_ssd_chunk_tc", "repro_ssd_chunk_recurrent"}
+        "repro_ssd_chunk", "repro_ssd_chunk_tc", "repro_ssd_chunk_tf32",
+        "repro_ssd_chunk_recurrent"}
     assert set(_build.SIGNATURES["rmsnorm"]) == {"repro_rmsnorm"}
     for name in _build.sources():
         path = _build.library_path(name)

@@ -11,7 +11,7 @@ dims 32/64/128, ragged lengths, padding rows at an out-of-range slot,
 sliding windows, query offsets and tails that are no multiple of a tile —
 in float32 (tolerance 2e-5) and bfloat16 (2e-2); the SSD scan over its
 shapes, full width and chunks 1 … 256 in float32 (1e-4) and bfloat16
-(5e-2 on y, 1e-4 on the float32 states), on each of its three routes;
+(5e-2 on y, 1e-4 on the float32 states), on each of its four routes;
 and tiny llama and Mamba-2 engines on the card against the CPU engine.
 """
 import pytest
@@ -59,6 +59,20 @@ SSD_TC_CASES = [
     (1, 128, 80, 64, 128, 128),     # chunk 128, one chunk
     (1, 256, 80, 64, 128, 256),     # chunk 256
     (1, 384, 80, 64, 128, 128),     # chunk 128, three chunks
+]
+
+# f32 on the split-TF32 route (the same shapes): B = 2, several chunks per
+# sequence, N 32, 64 and 128, nh 3 and 5 (a two-head CTA's second warpgroup
+# idle), and mamba2-2.7b's f32 prefills
+SSD_TF32_CASES = [
+    (2, 256, 3, 64, 128, 64),
+    (2, 256, 5, 64, 64, 128),
+    (2, 512, 5, 64, 32, 256),
+    (1, 256, 3, 64, 32, 64),
+    (2, 384, 3, 64, 64, 64),
+    (1, 64, 80, 64, 128, 64),       # mamba2-2.7b prefill, chunk 64
+    (1, 384, 80, 64, 128, 128),     # chunk 128, three chunks
+    (1, 256, 80, 64, 128, 256),     # chunk 256
 ]
 
 # every chunk below 64 on the recurrent route: B = 2, nh 3 and 80, hd 16 …
@@ -413,11 +427,13 @@ def test_ssd_kernel_on_card(cuda, B, S, nh, hd, N, chunk, dtype):
     inputs = _ssd_inputs(cuda, B, S, nh, hd, N, dtype)
     n0, tc0 = K.ssd_chunked.launches, K.ssd_chunked.tc_launches
     rc0 = K.ssd_chunked.recurrent_launches
+    tf0 = K.ssd_chunked.tf32_launches
     y, st = K.ssd_chunked(*inputs, chunk)
     y_ref, st_ref = K.ssd_chunked_plain(*inputs, chunk)
     route = K.ssd_route(dtype, chunk, hd, N)
     assert K.ssd_chunked.launches == n0 + 1
     assert K.ssd_chunked.tc_launches == tc0 + (route == "tc")
+    assert K.ssd_chunked.tf32_launches == tf0 + (route == "tf32")
     assert K.ssd_chunked.recurrent_launches == rc0 + (route == "recurrent")
     _check_ssd(y, st, y_ref, st_ref)
 
@@ -434,6 +450,30 @@ def test_ssd_tc_route_on_card(cuda, B, S, nh, hd, N, chunk):
     y, st = K.ssd_chunked(*inputs, chunk)
     assert K.ssd_chunked.launches == n0 + 1
     assert K.ssd_chunked.tc_launches == tc0 + 1
+    y2, st2 = K.ssd_chunked(*inputs, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    _check_ssd(y, st, *K.ssd_chunked_plain(*inputs, chunk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", SSD_TF32_CASES)
+@pytest.mark.parametrize("heads", [1, 2])
+def test_ssd_tf32_route_on_card(cuda, monkeypatch, B, S, nh, hd, N, chunk,
+                                heads):
+    """The split-TF32 route at one and two heads per CTA: every chunk it
+    takes, N 32 … 128, B = 2, groups of heads with an idle warpgroup (nh 3
+    and 5), one and several chunks per sequence; its counter moves, two
+    launches on the same inputs are bit-equal, and y and the final state
+    agree with the plain version (per head too)."""
+    from repro_torch.kernels import ssd_chunk
+    monkeypatch.setattr(ssd_chunk, "ssd_tc_heads", lambda *a: heads)
+    assert K.ssd_route(torch.float32, chunk, hd, N) == "tf32"
+    inputs = _ssd_inputs(cuda, B, S, nh, hd, N, torch.float32)
+    n0, tf0 = K.ssd_chunked.launches, K.ssd_chunked.tf32_launches
+    y, st = K.ssd_chunked(*inputs, chunk)
+    assert K.ssd_chunked.launches == n0 + 1
+    assert K.ssd_chunked.tf32_launches == tf0 + 1
     y2, st2 = K.ssd_chunked(*inputs, chunk)
     torch.cuda.synchronize()
     assert torch.equal(y, y2) and torch.equal(st, st2)
