@@ -39,9 +39,10 @@ Phases, always all of them, in order:
            one's two turns; compute each call's roofline bound at 3.35 TB/s
            and the card's peak rate for the input type (float32: three
            TF32 products per product, 495 / 3 TFLOP/s). A hand-written
-           kernel whose device time the profiler did not record fails the
-           phase (an empty trace is taken again with longer pads, three
-           times in all).
+           kernel whose trace recorded no device time, or fewer records of
+           a kernel its calls launch than calls traced (the SSD scan's by
+           route), fails the phase (such a trace is taken again with
+           longer pads, three times in all).
   serve    full-width llama3.2-1b (16 layers, d_model 2048, random weights
            from a seed) in bfloat16: TorchEngine + ServingSession +
            LazyBatching(max_batch=8) serve 24 Poisson-arriving requests
@@ -69,15 +70,30 @@ Phases, always all of them, in order:
            of 34, 97, 257 and 385 tokens: SSD chunks 1 and 32 (the
            recurrent route), 256 and 128 (the split-TF32 route), each
            route launched on the batched and on the isolated path.
+  nemo serve  full-width mistral-nemo-12b (40 layers, d_model 5120, 32 q /
+           8 kv heads of 128, d_ff 14336, vocab 131072, an untied head:
+           12.25 B parameters, 24.5 GB) in bfloat16, as the serve phase;
+           flash and ragged decode at head_dim 128 and 4 q heads per kv
+           head, RMSNorm at 5120; prints the parameters on the card and
+           the bytes allocated.
+  nemo exact  as exact, on full-width mistral-nemo-12b at all 40 layers in
+           float32 (49 GB of weights): the float32 flash kernel at
+           head_dim 128 on a served path.
 
-Each phase ends with a line that counts its profiler sessions and those
-that came back empty. Any failure exits 1 and prints ``[fail] <phase>:
+Each serve's profile window must show every hand-written kernel whose
+launch counter moved in its traced serve; a window whose trace still
+lacks one after its tries prints its shares as not measured.
+
+Each phase frees its engine before the next one builds, and ends with a
+line that counts its profiler sessions and those that came back empty
+or incomplete. Any failure exits 1 and prints ``[fail] <phase>:
 <type>: <message>`` on stdout and on stderr, with the last frames of the
 traceback for anything but a failed check. The last lines are the card's
 name and power limit, one JSON line of per-kernel numbers (bfloat16 at the
-serves' main shapes, and the float32 SSD scan's split-TF32 route at chunk
+serves' main shapes, the float32 SSD scan's split-TF32 route at chunk
 256, whose launches are those of ``mamba exact``'s batched and isolated
-paths together), and ``{"ok":
+paths together, and flash and ragged decode at head_dim 128 in bfloat16,
+launched in ``nemo serve``, and float32, in ``nemo exact``), and ``{"ok":
 true, ...}``. Exits non-zero before printing any result when no CUDA device
 is present.
 """
@@ -85,6 +101,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import gc
 import json
 import os
 import statistics
@@ -106,27 +123,67 @@ PEAK_FLOPS = {"bfloat16": 989e12,             # dense bf16 tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}    # y; its f32 states: 1e-4
 SSD_HEAD_REL_TOL = 1e-2          # per head: ||y - y_ref|| / ||y_ref||
+DECODE_TPU = "src/repro/kernels/ragged_decode_attn.py:92"
+FLASH_TPU = "src/repro/kernels/flash_attn.py:72"
 REPLACES = {
-    "ragged_decode_attention": "src/repro/kernels/ragged_decode_attn.py:92",
+    "ragged_decode_attention": DECODE_TPU,
     "fused_rmsnorm": "src/repro/kernels/rmsnorm.py:28",
-    "flash_attention": "src/repro/kernels/flash_attn.py:72",
+    "flash_attention": FLASH_TPU,
     "ssd_chunked": "src/repro/kernels/ssd_chunk.py:64",
     "ssd_chunked_tf32": "src/repro/kernels/ssd_chunk.py:64",
+    "ragged_decode_attention_d128": DECODE_TPU,
+    "ragged_decode_attention_f32_d128": DECODE_TPU,
+    "flash_attention_d128": FLASH_TPU,
+    "flash_attention_f32_d128": FLASH_TPU,
 }
+DECODE_CU = ("cuda", "src/repro_torch/csrc/ragged_decode_attn.cu")
+FLASH_CU = ("cuda", "src/repro_torch/csrc/flash_attn.cu")
 SOURCES = {
-    "ragged_decode_attention": ("cuda",
-                                "src/repro_torch/csrc/ragged_decode_attn.cu"),
+    "ragged_decode_attention": DECODE_CU,
     "fused_rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu"),
-    "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attn.cu"),
+    "flash_attention": FLASH_CU,
     "ssd_chunked": ("cuda", "src/repro_torch/csrc/ssd_chunk.cu"),
     "ssd_chunked_tf32": ("cuda", "src/repro_torch/csrc/ssd_chunk.cu"),
+    "ragged_decode_attention_d128": DECODE_CU,
+    "ragged_decode_attention_f32_d128": DECODE_CU,
+    "flash_attention_d128": FLASH_CU,
+    "flash_attention_f32_d128": FLASH_CU,
 }
+# the JSON row a kernels-phase case fills, by (kernel, dtype, head dim):
+# llama's bf16 shapes, and mistral-nemo-12b's D 128 in bf16 (its serve)
+# and float32 (its exact check)
+ROWS = {("ragged_decode_attention", "bfloat16", 64): "ragged_decode_attention",
+        ("flash_attention", "bfloat16", 64): "flash_attention",
+        ("ragged_decode_attention", "bfloat16", 128):
+            "ragged_decode_attention_d128",
+        ("ragged_decode_attention", "float32", 128):
+            "ragged_decode_attention_f32_d128",
+        ("flash_attention", "bfloat16", 128): "flash_attention_d128",
+        ("flash_attention", "float32", 128): "flash_attention_f32_d128"}
 # a substring of each hand-written kernel's symbol, for the profile windows
 SYMBOLS = {"ragged decode": "ragged_decode_split_kernel",
            "flash prefill (bf16, tensor cores)": "flash_tc_kernel",
            "flash prefill (f32, split TF32 tensor cores)":
                "flash_tf32x3_kernel",
            "SSD scan": "ssd_", "RMSNorm": "rmsnorm_kernel"}
+# the symbols (substrings) of the kernels one call launches: the SSD
+# scan's by route, the others' by launch counter in bfloat16 (the serves'
+# type; float32 flash runs flash_tf32x3_kernel). A trace that lacks one of
+# them lost device records and is taken again.
+SSD_ROUTE_SYMBOLS = {
+    "recurrent": ("ssd_scores_kernel", "ssd_recurrent_kernel"),
+    "tf32": ("ssd_scores_tf32_kernel", "ssd_intra_tf32_kernel",
+             "ssd_state_pass_kernel"),
+    "tc": ("ssd_intra_tc_kernel", "ssd_state_pass_kernel"),
+    "cuda_cores": ("ssd_intra_kernel", "ssd_state_pass_kernel"),
+}
+COUNTER_SYMBOLS = {
+    "ragged_decode_attention": ("ragged_decode_split_kernel",),
+    "fused_rmsnorm": ("rmsnorm_kernel",),
+    "flash_attention": ("flash_tc_kernel",),
+    **{f"ssd_chunked_{route}": syms
+       for route, syms in SSD_ROUTE_SYMBOLS.items() if route != "cuda_cores"},
+}
 # the kernels each serving path must launch; the bf16 mamba serve runs the
 # SSD scan's tensor-core route (ssd_chunked_tc counts it) and its recurrent
 # route (ssd_chunked_recurrent), its float32 exact check the recurrent
@@ -145,6 +202,10 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, msg: str):
     if not ok:
         raise SmokeFailure(msg)
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def smi_line() -> str:
@@ -181,11 +242,12 @@ def cuda_ms(torch, fn, reps: int = 25, warmup: int = 3):
 
 
 PHASE = ["env"]         # the phase running, named by a failure
-TRACES = {}             # phase: {"sessions": n, "empty": n} of the profiler
+TRACES = {}             # phase: {"sessions": n, "empty": n, "incomplete": n}
 SKEW_US = {"early": 0.0, "late": 0.0}   # farthest device record before /
                                         # after the host's traced span
 TRACE_PAD_S = 0.02      # least host time traced before and after the work
 TRACE_TRIES = 3
+MARKER = "spin_kernel"  # torch.cuda._sleep's kernel, launched first in a trace
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,10 +261,11 @@ def _cupti():
     return None
 
 
-def traced_device_s(torch, fn, what: str):
+def traced_device_s(torch, fn, what: str, symbols=(), calls: int = 1):
     """(device seconds, the profiler's averages of the CUDA events, fn's
-    result) of one call of ``fn`` under torch.profiler; device seconds sum
-    every kernel's and copy's self time. The profiler keeps only the
+    result, the ``symbols`` the trace lacks) of one call of ``fn`` under
+    torch.profiler; device seconds sum every kernel's and copy's self
+    time. The profiler keeps only the
     device records whose timestamps fall inside the session's window on
     the host's clock, and the device's timestamps, converted to that
     clock, have strayed from it by milliseconds either way on an H100
@@ -210,26 +273,39 @@ def traced_device_s(torch, fn, what: str):
     all of them. How far the device records reached outside the host's
     span is kept in ``SKEW_US``, and the session idles before and after
     the work for twice the farthest stray seen so far (``TRACE_PAD_S`` at
-    least); it makes CUPTI flush its buffers before it stops. A trace that
-    still recorded no device event is printed, with ``what`` it traced,
-    and taken again with a pad four times longer, ``TRACE_TRIES`` times in
-    all; then None seconds. ``TRACES`` counts the sessions of each phase
-    and those that came back empty."""
+    least); it makes CUPTI flush its buffers before it stops. Later in a
+    run CUPTI also drops the first kernel record of nearly every session
+    (its first launch takes milliseconds of set-up on the host; PERF.md
+    §6), whatever kernel it is and whatever the pad, so each session
+    first launches a spin kernel (``MARKER``), waits for it and leaves its
+    record, if kept, out of every sum. A trace that
+    still recorded no device event, or lacks a kernel whose symbol
+    contains one of ``symbols`` (the hand-written kernels ``fn`` launches,
+    or a function that names them after ``fn`` ran: the trace lost
+    records), or, with ``calls``, holds fewer than ``calls`` records of
+    one (each kernel launched once per call of the kernel's wrapper), is
+    printed, with ``what`` it traced, and taken again
+    with a pad four times longer, ``TRACE_TRIES`` times in all; then None
+    seconds for an empty trace. ``TRACES`` counts the sessions of each
+    phase and those that came back empty or incomplete."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cupti = _cupti()
-    count = TRACES.setdefault(PHASE[0], {"sessions": 0, "empty": 0})
+    count = TRACES.setdefault(PHASE[0],
+                              {"sessions": 0, "empty": 0, "incomplete": 0})
     for attempt in range(TRACE_TRIES):
         pad = max(TRACE_PAD_S, 2e-6 * max(SKEW_US.values())) * 4 ** attempt
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             time.sleep(pad)
+            torch.cuda._sleep(1000)     # the record CUPTI may drop
+            torch.cuda.synchronize()
             out = fn()
             torch.cuda.synchronize()
             time.sleep(pad)
             if cupti is not None:      # CUPTI_ACTIVITY_FLAG_FLUSH_FORCED
                 cupti.cuptiActivityFlushAll(ctypes.c_uint32(1))
-        events = prof.events()
+        events = [e for e in prof.events() if MARKER not in e.name]
         spans = {t: [(e.time_range.start, e.time_range.end) for e in events
                      if e.device_type == t]
                  for t in (DeviceType.CPU, DeviceType.CUDA)}
@@ -240,15 +316,20 @@ def traced_device_s(torch, fn, what: str):
             SKEW_US["early"] = max(SKEW_US["early"], early)
             SKEW_US["late"] = max(SKEW_US["late"], late)
         dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA and MARKER not in e.key]
         us = sum(e.self_device_time_total for e in dev)
+        want = symbols() if callable(symbols) else symbols
+        seen = {s: sum(e.count for e in dev if s in e.key) for s in want}
+        missing = [s if not n else f"{s} ({n} of {calls} records)"
+                   for s, n in seen.items() if n < calls]
         count["sessions"] += 1
-        if us > 0:
-            return us / 1e6, dev, out
-        count["empty"] += 1
-        print(f"[profiler] the trace of {what} recorded no device time "
-              f"(pad {pad * 1e3:.0f} ms, try {attempt + 1} of {TRACE_TRIES})")
-    return None, [], out
+        if us > 0 and not missing:
+            return us / 1e6, dev, out, []
+        lost = "no device time" if us <= 0 else f"no {', '.join(missing)}"
+        count["empty" if us <= 0 else "incomplete"] += 1
+        print(f"[profiler] the trace of {what} recorded {lost} (pad "
+              f"{pad * 1e3:.0f} ms, try {attempt + 1} of {TRACE_TRIES})")
+    return (us / 1e6 if us > 0 else None), dev, out, missing
 
 
 HOST_CALLS = 200
@@ -282,20 +363,30 @@ def in_turns(measure, kernel_fn, lib_fn):
     return (turns[1] + turns[2]) / 2, lib, turns
 
 
-def device_ms(torch, fn, what: str, reps: int = 10):
+def device_ms(torch, fn, what: str, reps: int = 10, symbols=()):
     """(device time per call in ms from the profiler over ``reps`` calls (L2
-    warm), the names of the two kernels that took most of it); unlike
-    :func:`cuda_ms` it excludes the host's launch gaps. (None, []) without
-    ``fn`` or when the profiler recorded nothing."""
+    warm), the names of the two kernels that took most of it, the
+    ``symbols`` its trace lacks after every try); unlike :func:`cuda_ms`
+    it excludes the host's launch gaps. (None, [], []) without ``fn``;
+    None ms when the profiler recorded nothing."""
     if fn is None:
-        return None, []
+        return None, [], []
     fn()
     torch.cuda.synchronize()
-    secs, dev, _ = traced_device_s(
-        torch, lambda: [fn() for _ in range(reps)], what)
+    secs, dev, _, missing = traced_device_s(
+        torch, lambda: [fn() for _ in range(reps)], what, symbols, reps)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:2]
     return (None if secs is None else secs * 1e3 / reps,
-            [e.key[:100] for e in top])
+            [e.key[:100] for e in top], missing)
+
+
+def check_trace(ms, missing, what: str):
+    """A hand-written kernel's trace recorded device time and every kernel
+    it launches, after ``TRACE_TRIES`` tries."""
+    check(ms is not None, f"{what}: the profiler recorded no device time "
+                          f"for the hand-written kernel")
+    check(not missing, f"{what}: the trace still lacks {', '.join(missing)} "
+                       f"after {TRACE_TRIES} tries (device records lost)")
 
 
 def bound(nbytes: float, flops: float, dtype_name: str):
@@ -403,8 +494,9 @@ DECODE_CASES = (
 )
 
 
-def kernel_decode(torch, K, dtype, lens, slots, ctx, n_slots=32, layer=5):
-    B, H, KV, D, T, L = len(lens), 32, 8, 64, 1024, 16
+def kernel_decode(torch, K, dtype, lens, slots, ctx, H=32, KV=8, D=64,
+                  n_slots=32, layer=5):
+    B, T, L = len(lens), 1024, 16
     g = torch.Generator(device="cuda").manual_seed(1)
     N = L * n_slots
     q = torch.randn((B, H, D), generator=g, device="cuda").to(dtype)
@@ -419,9 +511,9 @@ def kernel_decode(torch, K, dtype, lens, slots, ctx, n_slots=32, layer=5):
     torch.cuda.synchronize()
     res = {"shape": f"q{tuple(q.shape)} arena{tuple(k.shape)} "
                     f"lengths{list(lens)} ctx {ctx}", "out": out, "ref": ref,
-           "row": ("ragged_decode_attention"
-                   if dtype == torch.bfloat16 and B == 8 and ctx is None
-                   else None)}
+           "row": (None if B != 8 or ctx is not None else
+                   ROWS.get(("ragged_decode_attention", dtype_name(dtype), D))),
+           "symbols": COUNTER_SYMBOLS["ragged_decode_attention"]}
     # library yardstick: SDPA over the gathered, head-repeated rows
     span = T if ctx is None else ctx
     grow = torch.clamp(rows.long(), max=N - 1)
@@ -456,6 +548,7 @@ def kernel_rmsnorm(torch, K, dtype, shape):
     return {"shape": f"x{tuple(shape)}", "out": out, "ref": ref,
             "row": ("fused_rmsnorm" if dtype == torch.bfloat16
                     and tuple(shape) == (8, 2048) else None),
+            "symbols": COUNTER_SYMBOLS["fused_rmsnorm"],
             "fns": (lambda: K.fused_rmsnorm(x, scale),
                     lambda: K.fused_rmsnorm_plain(x, scale),
                     lambda: F.rms_norm(x, (shape[-1],), w, 1e-5)),
@@ -478,8 +571,11 @@ def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64):
     elt = q.element_size()
     return {"shape": f"q{tuple(q.shape)} kv{tuple(k.shape)} causal",
             "out": out, "ref": ref,
-            "row": ("flash_attention" if dtype == torch.bfloat16 and S == 512
-                    else None),
+            "row": (None if S != 512 else
+                    ROWS.get(("flash_attention", dtype_name(dtype), D))),
+            "symbols": (COUNTER_SYMBOLS["flash_attention"]
+                        if dtype == torch.bfloat16
+                        else ("flash_tf32x3_kernel",)),
             "lib_kernels": dtype == torch.float32,
             "repeats": dtype == torch.float32 and S == 512,
             "fns": (lambda: K.flash_attention(q, k, v),
@@ -535,6 +631,7 @@ def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
     elt = x.element_size()
     return {"shape": shape, "out": (y, st), "ref": (y_ref, st_ref),
             "tols": (ytol, 1e-4), "by_kernel": True,
+            "symbols": SSD_ROUTE_SYMBOLS[route],
             # the JSON rows: bf16 at the serve's chunk 256, and the f32
             # split-TF32 route at mamba exact's chunk 256
             "row": (None if chunk != 256 else "ssd_chunked"
@@ -596,9 +693,10 @@ def before_vs(torch, r, kernel_fn, dev_ms, dname, what):
     ev, ev_b, _ = in_turns(lambda f: cuda_ms(torch, f), kernel_fn, before)
     host, host_b, _ = in_turns(lambda f: host_us(torch, f), kernel_fn,
                                before)
-    dev_b, _ = device_ms(torch, before, f"the kernel it replaced, {what}")
-    check(dev_b is not None, f"{what}: the profiler recorded no device time "
-                             f"for the kernel it replaced")
+    dev_b, _, missing = device_ms(torch, before,
+                                  f"the kernel it replaced, {what}",
+                                  symbols=SSD_ROUTE_SYMBOLS["cuda_cores"])
+    check_trace(dev_b, missing, f"{what}, the kernel it replaced")
     check(dev_ms <= dev_b, f"{what}: device time {dev_ms:.4f} ms, longer "
                            f"than the {dev_b:.4f} ms of the kernel it "
                            f"replaced")
@@ -628,6 +726,14 @@ def phase_kernels(torch):
         for S in (64, 128, 256, 512):      # every llama prefill bucket
             cases.append(("flash_attention", dt,
                           lambda dt=dt, S=S: kernel_flash(torch, K, dt, S)))
+        # mistral-nemo-12b's heads: 32 q / 8 kv of 128 (RMSNorm at its
+        # width 5120 is mamba's d_inner case below)
+        lens, slots, _ = DECODE_CASES[0]
+        cases.append(("ragged_decode_attention", dt,
+                      lambda dt=dt: kernel_decode(torch, K, dt, lens, slots,
+                                                  None, D=128)))
+        cases.append(("flash_attention", dt,
+                      lambda dt=dt: kernel_flash(torch, K, dt, 512, D=128)))
         # the serve's chunks 256, 128 and 64 (the tensor-core route in
         # bf16, split TF32 in f32), chunks 1 and 2 at odd prefill lengths
         # and 32 (the recurrent route), and 200 (the CUDA-core route)
@@ -648,12 +754,13 @@ def phase_kernels(torch):
         plain_ms = cuda_ms(torch, plain_fn)
         host, lib_host, turns = in_turns(lambda f: host_us(torch, f),
                                          kernel_fn, lib_fn)
-        (dev_ms, _), (dev_plain, _), (dev_lib, lib_ran) = (
-            device_ms(torch, f, f"{part} of {name} {dname} {r['shape']}")
+        what = f"{name} {dname} {r['shape']}"
+        syms = r["symbols"]     # the kernels its trace must show
+        (dev_ms, _, missing), (dev_plain, _, _), (dev_lib, lib_ran, _) = (
+            device_ms(torch, f, f"{part} of {what}",
+                      symbols=syms if part == "kernel" else ())
             for f, part in zip(r["fns"], ("kernel", "plain", "library")))
-        check(dev_ms is not None, f"{name} {dname} {r['shape']}: the "
-                                  f"profiler recorded no device time for the "
-                                  f"hand-written kernel")
+        check_trace(dev_ms, missing, what)
         b_ms, b_by = bound(r["bytes"], r["flops"], dname)
         fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"
         lib = fmt if r["fns"][2] is not None else (lambda t: "none")
@@ -663,11 +770,9 @@ def phase_kernels(torch):
         if r.get("by_kernel"):   # the call's kernels and PyTorch ops, one call
             r["fns"][0]()
             torch.cuda.synchronize()
-            secs, dev, _ = traced_device_s(
-                torch, r["fns"][0], f"{name} {dname} {r['shape']} by kernel")
-            check(secs is not None, f"{name} {dname} {r['shape']}: the "
-                                    f"profiler recorded no device time by "
-                                    f"kernel")
+            secs, dev, _, missing = traced_device_s(
+                torch, r["fns"][0], f"{what} by kernel", syms)
+            check_trace(secs, missing, f"{what} by kernel")
             top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
             note += " | device time by kernel: " + ", ".join(
                 f"{short_name(e.key)} {e.self_device_time_total:.2f} us"
@@ -782,6 +887,9 @@ def phase_serve(torch, arch, tag, kernels, prompts):
     print(f"[{tag}] {cfg.name} full width ({cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params) bf16 "
           f"init in {time.perf_counter() - t0:.2f} s")
+    print(f"[{tag}] {n_params(engine.params) / 1e9:.3f} B parameters on the "
+          f"card; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"(weights and the K/V or state arena)")
     kw = dict(rate=20.0, prompts=prompts, decodes=(16, 32, 64), max_batch=8,
               sla=10.0)
     # warmup: first launches load the kernels' libraries; every prompt
@@ -838,9 +946,13 @@ def phase_serve(torch, arch, tag, kernels, prompts):
     print(f"[{tag}] kernel launches on the main path: {counts}")
     check(san.max_syncs_per_run <= 1, f"{tag}: more than one sync in a run")
     profile_window(torch, engine, cfg, kw, tag)
-    del engine, session
-    torch.cuda.empty_cache()
     return counts
+
+
+def n_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(n_params(v) for v in tree.values())
+    return tree.numel()
 
 
 def profile_window(torch, engine, cfg, kw, tag, n=8):
@@ -848,15 +960,34 @@ def profile_window(torch, engine, cfg, kw, tag, n=8):
     requests (after the measured one, so tracing perturbs none of its
     numbers). Device busy = the sum of every CUDA kernel's and copy's self
     time; its share of the traced wall time is a lower bound on the
-    untraced one, since tracing slows the host."""
-    steps0 = engine.decode_layer_steps
-    busy, dev, res = traced_device_s(
-        torch, lambda: _serve(torch, engine, cfg, n=n, seed=5, **kw),
-        f"the {tag} window")
+    untraced one, since tracing slows the host. The trace must show every
+    hand-written kernel whose launch counter moved in the traced serve;
+    one that lacks any is taken again, and if it still does, its numbers
+    print as not measured."""
+    import repro_torch.kernels as K
+    window = {}         # the last traced serve's counters and layer-steps
+
+    def traced():
+        before, steps = K.launch_counts(), engine.decode_layer_steps
+        res = _serve(torch, engine, cfg, n=n, seed=5, **kw)
+        after = K.launch_counts()
+        window["moved"] = [k for k in after if after[k] > before[k]]
+        window["steps"] = engine.decode_layer_steps - steps
+        return res
+
+    def symbols():      # of the kernels the traced serve launched
+        return sorted({sym for k in window["moved"]
+                       for sym in COUNTER_SYMBOLS.get(k, ())})
+
+    busy, dev, res, missing = traced_device_s(
+        torch, traced, f"the {tag} window", symbols)
     wall = res[-1]
-    if busy is None:
-        print(f"[{tag} profile] the profiler recorded no device time: busy "
-              f"share not measured")
+    if busy is None or missing:
+        why = ("the profiler recorded no device time" if busy is None else
+               f"trace lacks {', '.join(missing)}")
+        print(f"[{tag} profile] traced serve of {n} requests: wall "
+              f"{wall:.3f} s; device busy share, ops per decode layer-step "
+              f"and kernel shares not measured ({why})")
         return
     print(f"[{tag} profile] traced serve of {n} requests: wall {wall:.3f} s, "
           f"device busy {busy:.3f} s ({100 * busy / wall:.1f}%), idle "
@@ -865,7 +996,7 @@ def profile_window(torch, engine, cfg, kw, tag, n=8):
     # step: the device ops issued per decode layer-step (prefill's few
     # included) say how much launch work the host does for each
     n_ops = sum(e.count for e in dev)
-    n_dec = engine.decode_layer_steps - steps0
+    n_dec = window["steps"]
     print(f"[{tag} profile] {n_ops} device ops (kernels and copies) for "
           f"{n_dec} decode layer-steps: {n_dec and n_ops / n_dec:.1f} ops per "
           f"decode layer-step")
@@ -903,16 +1034,22 @@ def _isolated(engine, wl, prompt, n_tokens):
 
 
 def phase_exact(torch, arch, tag, kernels, prompts):
-    """Full-width ``arch`` in f32, TF32 off: one request per prompt length
-    batched (fused runs), then each alone node by node; tokens equal or a
-    printed near-tie."""
+    """Full-width ``arch`` in f32, TF32 off, at all its layers: one request
+    per prompt length batched (fused runs), then each alone node by node;
+    tokens equal or a printed near-tie."""
     import repro_torch.kernels as K
     from repro_torch.configs import get_config
     from repro_torch.serving import HandleState, TorchEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(arch)
+    t0 = time.perf_counter()
     engine = TorchEngine(cfg, max_len=512, dtype=torch.float32, seed=0)
+    torch.cuda.synchronize()
+    print(f"[{tag}] {cfg.name} full width and depth ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {n_params(engine.params) / 1e9:.3f}"
+          f" B parameters) f32 init in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     K.reset_launch_counts()
     wl, session, handles, _, _, wall = _serve(
         torch, engine, cfg, n=len(prompts), seed=7, rate=0.0, prompts=prompts,
@@ -960,8 +1097,6 @@ def phase_exact(torch, arch, tag, kernels, prompts):
               f"{gap:.3e}); batched {got[j]} vs isolated {ref[j]}")
     print(f"[{tag}] {n_equal}/{len(handles)} batched generations equal the "
           f"isolated ones token for token, {n_ties} near-ties")
-    del engine
-    torch.cuda.empty_cache()
     return {k: batched_counts[k] + isolated_counts[k] for k in batched_counts}
 
 
@@ -991,12 +1126,21 @@ def main() -> int:
                    MAMBA_KERNELS, (128, 257, 259, 384))
     x_counts = run(phase_exact, torch, "mamba2-2.7b", "mamba exact",
                    MAMBA_EXACT_KERNELS, (34, 97, 257, 385))
+    # mistral-nemo-12b: head_dim 128, 4 q heads per kv head, an untied head
+    n_counts = run(phase_serve, torch, "mistral-nemo-12b", "nemo serve",
+                   LLAMA_KERNELS, (64, 128, 256, 384))
+    nx_counts = run(phase_exact, torch, "mistral-nemo-12b", "nemo exact",
+                    LLAMA_KERNELS, (64, 128, 256, 384))
     PHASE[0] = "result"
-    print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact "
-          f"in {time.perf_counter() - t_all:.1f} s")
+    print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact, "
+          f"nemo serve, nemo exact in {time.perf_counter() - t_all:.1f} s")
     counts["ssd_chunked"] = m_counts["ssd_chunked"]
     # the split-TF32 route: its launches in mamba exact, batched and isolated
     counts["ssd_chunked_tf32"] = x_counts["ssd_chunked_tf32"]
+    # the D 128 rows: bf16 launches in nemo serve, f32 in nemo exact
+    for name in ("ragged_decode_attention", "flash_attention"):
+        counts[f"{name}_d128"] = n_counts[name]
+        counts[f"{name}_f32_d128"] = nx_counts[name]
     for name, row in rows.items():
         row["launches"] = counts[name]
     print(smi)
@@ -1009,13 +1153,24 @@ def main() -> int:
 
 def run(phase, *args):
     """``phase(*args)``, named for a failure; then how many of its profiler
-    sessions came back empty."""
+    sessions came back empty or incomplete."""
     PHASE[0] = (args[2] if phase in (phase_serve, phase_exact)
                 else phase.__name__.replace("phase_", ""))
+    t0 = time.perf_counter()
     out = phase(*args)
-    count = TRACES.get(PHASE[0], {"sessions": 0, "empty": 0})
+    # a serving phase's engine sits in reference cycles (handles, session,
+    # engine) that only the cycle collector frees once the phase's frame is
+    # gone; without it the last engine stays on the card while the next
+    # one builds, and nemo exact's 49 GB of float32 weights do not fit
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    count = TRACES.get(PHASE[0], {"sessions": 0, "empty": 0, "incomplete": 0})
+    print(f"[{PHASE[0]}] done in {time.perf_counter() - t0:.1f} s")
     print(f"[{PHASE[0]}] profiler: {count['empty']} of {count['sessions']} "
-          f"sessions came back empty (each taken up to {TRACE_TRIES} times, "
+          f"sessions came back empty, {count['incomplete']} incomplete (a "
+          f"hand-written kernel's records missing; each taken up to "
+          f"{TRACE_TRIES} times, "
           f"pads of at least {TRACE_PAD_S * 1e3:.0f} ms and twice the "
           f"farthest stray, 4x longer on each retry; CUPTI flush forced: "
           f"{_cupti() is not None}); device records so far reached "

@@ -1,19 +1,28 @@
 """Architecture registry of the PyTorch port.
 
 A copy of ``repro.configs`` restricted to the architectures the port can
-serve so far: the dense ``llama3.2-1b`` and the SSM ``mamba2-2.7b``.
+serve so far: the dense GQA decoders ``llama3.2-1b``, ``qwen2.5-32b``,
+``mistral-nemo-12b``, ``internvl2-26b`` and ``musicgen-large``, and the
+SSM ``mamba2-2.7b``. ``internvl2-26b`` and ``musicgen-large`` keep their
+family and ``num_prefix_embeddings``; the port serves them as plain token
+models, as the JAX engine does.
 """
 from __future__ import annotations
 
 from .base import (InputShape, INPUT_SHAPES, MLAConfig, MoEConfig, ModelConfig,
                    SSMConfig, HybridConfig)
 
-from . import llama3_2_1b, mamba2_2_7b
+from . import (qwen2_5_32b, musicgen_large, internvl2_26b, llama3_2_1b,
+               mistral_nemo_12b, mamba2_2_7b)
 
 ARCHITECTURES: dict[str, ModelConfig] = {
     c.name: c
     for c in [
+        qwen2_5_32b.CONFIG,
+        musicgen_large.CONFIG,
+        internvl2_26b.CONFIG,
         llama3_2_1b.CONFIG,
+        mistral_nemo_12b.CONFIG,
         mamba2_2_7b.CONFIG,
     ]
 }

@@ -18,11 +18,15 @@ torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tools" / "check_f32_sync.py",
+    REPO / "tests" / "test_torch_kernels_cuda.py"]
 
 # modules kept as verbatim copies of the JAX package's pure-Python layer
 COPIES = ["configs/base.py", "configs/llama3_2_1b.py",
-          "configs/mamba2_2_7b.py", "core/__init__.py",
+          "configs/mamba2_2_7b.py", "configs/qwen2_5_32b.py",
+          "configs/mistral_nemo_12b.py", "configs/internvl2_26b.py",
+          "configs/musicgen_large.py", "core/__init__.py",
           "core/lifecycle.py", "core/request.py", "core/batch_table.py",
           "core/slack.py", "core/policies.py", "core/arbiter.py",
           "serving/backend.py", "serving/registry.py", "serving/metrics.py",

@@ -7,7 +7,8 @@ it runs there as it stands:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 It sweeps the shapes of ``tests/test_kernels.py`` — MHA, GQA, MQA, head
-dims 32/64/128, ragged lengths, padding rows at an out-of-range slot,
+dims 32/64/128, the head shapes of the dense architectures (G 1, 4, 5
+and 6), ragged lengths, padding rows at an out-of-range slot,
 sliding windows, query offsets and tails that are no multiple of a tile —
 in float32 (tolerance 2e-5) and bfloat16 (2e-2); the SSD scan over its
 shapes, full width and chunks 1 … 256 in float32 (1e-4) and bfloat16
@@ -209,6 +210,38 @@ def test_flash_kernel_head_passes(cuda, H, KV, D, dtype):
     _flash_case(cuda, 2, 150, 150, H, KV, D, dtype, None, 0)
 
 
+# (H, KV, D) of qwen2.5-32b (G 5), internvl2-26b (G 6), mistral-nemo-12b
+# (G 4) and musicgen-large (MHA at D 64)
+GQA_ARCH_HEADS = [(40, 8, 128), (48, 8, 128), (32, 8, 128), (32, 32, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", GQA_ARCH_HEADS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_gqa_archs_heads(cuda, H, KV, D, dtype):
+    """Each dense architecture's head shape: causal prefill at S 317 and a
+    catch-up chunk (S 190 at q_offset 63, T 253), tails of no multiple of
+    64 on both axes."""
+    _flash_case(cuda, 2, 317, 317, H, KV, D, dtype, None, 0)
+    _flash_case(cuda, 1, 190, 253, H, KV, D, dtype, None, 63)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", GQA_ARCH_HEADS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_decode_kernel_at_the_gqa_archs_heads(cuda, H, KV, D, dtype):
+    """Each dense architecture's head shape over a T 1000 arena: rows of
+    length 1, T, T / 2 + 7, 33 and T - 1, a padding row last."""
+    q, k, v, lengths, slots = _decode_case(cuda, 8, H, KV, D, 1000, dtype,
+                                           seed=5)
+    n0 = K.ragged_decode_attention.launches
+    got = K.ragged_decode_attention(q, k, v, lengths, slots=slots)
+    assert K.ragged_decode_attention.launches == n0 + 1
+    want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [64, 128, 256, 512])
 @pytest.mark.parametrize("B", [1, 2, 4, 8])
@@ -310,6 +343,8 @@ def _rmsnorm_check(got, want):
                                    (8, 2048), (7, 1000),
                                    # mamba2-2.7b: d_model and d_inner
                                    (8, 2560), (8, 5120), (1, 384, 5120),
+                                   # internvl2-26b's d_model
+                                   (8, 6144), (1, 384, 6144),
                                    # no multiple of a 16-byte slot, a width
                                    # of 1, rows past 8 slots x 512 threads
                                    (3, 1001), (2, 5, 36), (4, 1),
