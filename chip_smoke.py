@@ -79,6 +79,32 @@ Phases, always all of them, in order:
   nemo exact  as exact, on full-width mistral-nemo-12b at all 40 layers in
            float32 (49 GB of weights): the float32 flash kernel at
            head_dim 128 on a served path.
+  launch serve  the port's launcher, ``repro_torch.launch.serve``, in
+           process on full-width llama3.2-1b in bfloat16 (20/s for 1.2 s,
+           max_batch 8, SLA 10 s) with seeded transient faults (0.02 per
+           run, 16 retries) and ``--assert-no-leak``: exit code 0, every
+           request DONE with its tokens, faults injected and retried, no
+           slot live after the drain, the three llama kernels launched. A
+           retried request may have streamed a prefix of its voided
+           attempt that its bf16 replay, batched otherwise, does not
+           reproduce; such requests are counted and printed. The same
+           trace then runs in float32 with TF32 off, with and without the
+           faults: every request's tokens must equal the fault-free run's.
+  launch tenants  the launcher's multi-tenant path: full-width llama3.2-1b
+           and mamba2-2.7b behind one MultiBackend, 16 slots split between
+           their arenas, the least-slack arbiter, 16/s for 1.5 s: both
+           models complete every request, the SSD scan and the llama
+           kernels launch; per-model p50 / p99, busy time and peak memory
+           are printed.
+  gateway  ``repro_torch.launch.gateway``'s app on port 0 over full-width
+           llama3.2-1b in bfloat16 (tiers gold 2 s and bulk 10 s, 16
+           slots): 16 concurrent SSE streams and one that disconnects after
+           its first token, driven by a small asyncio client of this
+           script; every stream ends done with its handle's tokens, the
+           disconnected one CANCELLED, ``/metrics`` answers 200, no slot
+           is live after the drain, the llama kernels launched. Client
+           wall TTFT, SLA attainment by tier and the event loop's stalls
+           are printed, not gated.
 
 Each serve's profile window must show every hand-written kernel whose
 launch counter moved in its traced serve; a window whose trace still
@@ -931,6 +957,8 @@ def phase_serve(torch, arch, tag, kernels, prompts):
     print(f"[{tag}] 24 requests, {n_tok} tokens in {wall:.3f} s wall: "
           f"{n_tok / wall:.1f} tokens/s, {runs} runs, "
           f"{runs and n_tok / runs:.2f} tokens/run")
+    print(f"[{tag}] session busy {session.log.busy_time:.3f} s: "
+          f"{n_tok / session.log.busy_time:.1f} tokens per busy second")
     print(f"[{tag}] latency p50 {np.percentile(lat, 50) * 1e3:.1f} ms p99 "
           f"{np.percentile(lat, 99) * 1e3:.1f} ms; TTFT p50 "
           f"{np.percentile(ttft, 50) * 1e3:.1f} ms p99 "
@@ -1100,6 +1128,337 @@ def phase_exact(torch, arch, tag, kernels, prompts):
     return {k: batched_counts[k] + isolated_counts[k] for k in batched_counts}
 
 
+LAUNCH_TRACE = ["--engine", "torch", "--policy", "lazyb", "--max-batch", "8",
+                "--sla", "10", "--assert-no-leak"]
+
+
+def _launch_json(name: str) -> Path:
+    out = ROOT / "build" / f"{name}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    return out
+
+
+def _launch(torch, tag, argv):
+    """``python -m repro_torch.launch.serve <argv>`` in process: ``main``
+    is ``serve(parse_args(argv))[1]``, and the checks need the session.
+    Returns (session, JSON document, launch counts, wall seconds)."""
+    import repro_torch.kernels as K
+    from repro_torch.launch import serve as launch
+    print(f"[{tag}] python -m repro_torch.launch.serve {' '.join(argv)}")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    session, code = launch.serve(launch.parse_args(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check(code == 0, f"{tag}: exit code {code}")
+    out = Path(argv[argv.index("--json-out") + 1])
+    return session, json.loads(out.read_text()), counts, wall
+
+
+def _check_launch_session(session, tag, doc, spliced_ok=False):
+    """Every request DONE with its decode_len tokens, streamed == the
+    engine's, and no slot resident after the drain. With ``spliced_ok``
+    a retried request may stream a prefix of its voided attempt (the
+    session never retracts a streamed token) that its replay, batched
+    otherwise, does not reproduce; returns (tokens, such requests)."""
+    from repro_torch.serving import HandleState
+    states = [h.state for h in session.handles.values()]
+    check(all(st is HandleState.DONE for st in states),
+          f"{tag}: not every request completed: "
+          f"{sorted(st.value for st in states)}")
+    spliced = []
+    for h in session.handles.values():
+        r = h.request
+        check(len(h.tokens) == r.decode_len,
+              f"{tag}: rid {r.rid} has {len(h.tokens)} tokens, wanted "
+              f"{r.decode_len}")
+        if session.backend.tokens(h.model, r)[:r.decode_len] != h.tokens:
+            check(spliced_ok and r.retries > 0,
+                  f"{tag}: rid {r.rid} ({r.retries} retries) streamed "
+                  f"tokens diverge from the engine's")
+            spliced.append(r.rid)
+    summary = doc["summary"]
+    check(summary["completed"] == len(states)
+          and not any(k in summary for k in ("rejected", "cancelled",
+                                             "expired", "failed", "shed")),
+          f"{tag}: summary {summary}")
+    check(doc["memory"]["slots_live"] == 0,
+          f"{tag}: {doc['memory']['slots_live']} slots live after drain")
+    return sum(len(h.tokens) for h in session.handles.values()), spliced
+
+
+def _faults_seen(doc, tag):
+    injected = sum(per.get("transient", 0)
+                   for per in doc["injected_faults"].values())
+    retried = doc["summary"].get("retried", 0)
+    check(injected > 0 and retried > 0,
+          f"{tag}: {injected} transient faults injected, {retried} retries")
+    return injected, retried
+
+
+def phase_launch_serve(torch):
+    """``python -m repro_torch.launch.serve`` in process: full-width
+    llama3.2-1b in bf16 with seeded transient faults and retries; then
+    in float32 (TF32 off) with and without the faults, where every
+    request's tokens must be the fault-free run's."""
+    # transient faults void every member of the faulted batched run, and a
+    # retry replays its request from the prefill: 0.02 per run with 16
+    # retries leaves every request room to finish
+    argv = [*LAUNCH_TRACE, "--arch", "llama3.2-1b", "--rate", "20",
+            "--duration", "1.2", "--fault-spec", "transient:0.02",
+            "--max-retries", "16"]
+    session, doc, counts, wall = _launch(
+        torch, "launch serve",
+        [*argv, "--json-out", str(_launch_json("launch_serve"))])
+    n_tok, spliced = _check_launch_session(session, "launch serve", doc,
+                                           spliced_ok=True)
+    injected, retried = _faults_seen(doc, "launch serve")
+    check_launched(counts, "launch serve", LLAMA_KERNELS)
+    s, log = doc["summary"], doc["log"]
+    n_retried = sum(1 for h in session.handles.values()
+                    if h.request.retries)
+    print(f"[launch serve] {s['completed']} requests, {n_tok} tokens; "
+          f"{injected} transient faults injected, {retried} retries of "
+          f"{n_retried} requests; wall {wall:.3f} s (engine build "
+          f"included); session busy {log['busy_time']:.3f} s over "
+          f"{log['runs_executed']} runs: {n_tok / log['busy_time']:.1f} "
+          f"tokens per busy second")
+    print(f"[launch serve] latency p50 {s['p50_ms']:.1f} ms p99 "
+          f"{s['p99_ms']:.1f} ms (session clock); SLA 10 s violation rate "
+          f"{s['sla_violation_rate']:.3f}; slots live after drain "
+          f"{doc['memory']['slots_live']}")
+    print(f"[launch serve] bf16: {len(spliced)} of {n_retried} retried "
+          f"requests streamed a voided attempt's prefix that their replay, "
+          f"batched otherwise, does not reproduce (rids {spliced})")
+    print(f"[launch serve] kernel launches on the main path: {counts}")
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    # float32 with TF32 off: batched runs equal isolated ones (the exact
+    # phases), so a replay must give the fault-free run's tokens
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = [*argv, "--dtype", "float32"]
+    faulty, doc, f32_counts, wall = _launch(
+        torch, "launch serve f32",
+        [*f32, "--json-out", str(_launch_json("launch_serve_f32"))])
+    _check_launch_session(faulty, "launch serve f32", doc)
+    injected, retried = _faults_seen(doc, "launch serve f32")
+    check_launched(f32_counts, "launch serve f32", LLAMA_KERNELS)
+    got = [h.tokens for h in faulty.handles.values()]
+    del faulty
+    gc.collect()
+    torch.cuda.empty_cache()
+    clean, doc, _, _ = _launch(
+        torch, "launch serve f32 fault-free",
+        [*argv[:argv.index("--fault-spec")], "--dtype", "float32",
+         "--json-out", str(_launch_json("launch_serve_f32_clean"))])
+    _check_launch_session(clean, "launch serve f32 fault-free", doc)
+    ref = [h.tokens for h in clean.handles.values()]
+    differ = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+    check(len(got) == len(ref) and not differ,
+          f"launch serve f32: requests {differ} of {len(got)} got other "
+          f"tokens than the fault-free run's")
+    print(f"[launch serve f32] {len(got)} requests, {injected} transient "
+          f"faults injected, {retried} retries: every request's tokens "
+          f"equal the fault-free run's")
+    return counts
+
+
+def phase_launch_tenants(torch):
+    """The launcher's multi-tenant path: full-width llama3.2-1b and
+    mamba2-2.7b in bf16 on one card behind a MultiBackend, 16 slots
+    split between their arenas, the least-slack arbiter."""
+    argv = [*LAUNCH_TRACE, "--models", "llama3.2-1b:0.5,mamba2-2.7b:0.5",
+            "--mem-slots", "16", "--arbiter", "least-slack", "--rate", "16",
+            "--duration", "1.5", "--json-out",
+            str(_launch_json("launch_tenants"))]
+    torch.cuda.reset_peak_memory_stats()
+    session, doc, counts, wall = _launch(torch, "launch tenants", argv)
+    n_tok, _ = _check_launch_session(session, "launch tenants", doc)
+    engines = session.backend.backends
+    check(sum(e.max_slots for e in engines.values()) == 16
+          and min(e.max_slots for e in engines.values()) >= 1,
+          f"launch tenants: arena caps "
+          f"{ {n: e.max_slots for n, e in engines.items()} }")
+    for name in engines:
+        n_model = sum(1 for h in session.handles.values() if h.model == name)
+        row = doc["per_model"][name]
+        check(n_model > 0 and row["completed"] == n_model,
+              f"launch tenants: {name} completed {row['completed']} of "
+              f"{n_model}")
+    check_launched(counts, "launch tenants", LLAMA_KERNELS + ("ssd_chunked",))
+    print(f"[launch tenants] {doc['summary']['completed']} requests, {n_tok} "
+          f"tokens in {wall:.3f} s wall (two engine builds included); "
+          f"session busy {doc['log']['busy_time']:.3f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+    for name, eng in engines.items():
+        row = doc["per_model"][name]
+        print(f"[launch tenants] [{name}] completed {row['completed']} p50 "
+              f"{row['p50_ms']:.1f} ms p99 {row['p99_ms']:.1f} ms "
+              f"(session clock), attainment {row['sla_attainment']:.3f}, busy "
+              f"{doc['log']['busy_by_model'].get(name, 0.0):.3f} s; "
+              f"memory_stats {eng.memory_stats()}")
+    print(f"[launch tenants] kernel launches on the main path: {counts}")
+    return counts
+
+
+async def _sse_stream(port, body, disconnect_after=None):
+    """One ``POST /v1/generate``: (tokens, fate, wall seconds to the first
+    token); the connection is dropped after ``disconnect_after`` tokens."""
+    import asyncio
+    loop = asyncio.get_running_loop()
+    t0 = loop.time()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    payload = json.dumps(body).encode()
+    writer.write((f"POST /v1/generate HTTP/1.1\r\nhost: 127.0.0.1\r\n"
+                  f"content-type: application/json\r\ncontent-length: "
+                  f"{len(payload)}\r\nconnection: close\r\n\r\n").encode()
+                 + payload)
+    await writer.drain()
+    status = int((await reader.readline()).split()[1])
+    while (await reader.readline()).strip():
+        pass                                     # headers
+    tokens, fate, ttft, event = [], None, None, None
+    while True:
+        line = (await reader.readline()).decode()
+        if not line:
+            break
+        line = line.strip()
+        if line.startswith("event:"):
+            event = line[6:].strip()
+        elif line.startswith("data:"):
+            data = json.loads(line[5:])
+            if event == "token":
+                if ttft is None:
+                    ttft = loop.time() - t0
+                tokens.append(data["token"])
+                if disconnect_after is not None \
+                        and len(tokens) >= disconnect_after:
+                    writer.transport.abort()
+                    return tokens, "aborted", ttft
+            elif event in ("done", "error"):
+                fate = data.get("fate", event)
+    writer.close()
+    return tokens, fate if status == 200 else f"http {status}", ttft
+
+
+async def _fetch(port, path):
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nhost: 127.0.0.1\r\n"
+                 f"connection: close\r\n\r\n".encode())
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), body.decode()
+
+
+def phase_gateway(torch):
+    """``python -m repro_torch.launch.gateway``'s app in process over
+    full-width llama3.2-1b in bf16: 16 concurrent SSE streams (gold and
+    bulk) and one that disconnects after its first token."""
+    import asyncio
+    import numpy as np
+    import repro_torch.kernels as K
+    from repro_torch.launch import gateway
+    from repro_torch.launch.serve import FULL_LENGTHS
+    from repro_torch.serving import HandleState
+    argv = ["--engine", "torch", "--arch", "llama3.2-1b", "--port", "0",
+            "--time-scale", "1", "--sla-tiers", "gold:2,bulk:10",
+            "--mem-slots", "16", "--max-batch", "8", "--quiet"]
+    print(f"[gateway] python -m repro_torch.launch.gateway {' '.join(argv)}")
+    args = gateway.parse_args(argv)
+    t0 = time.perf_counter()
+    app = gateway.build_app(args)           # builds and warms the engine
+    print(f"[gateway] engine built and warmed up in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts, decodes = FULL_LENGTHS
+    rng = np.random.default_rng(0)
+    bodies = [{"sla_class": "gold" if i % 2 else "bulk",
+               "prompt_len": int(rng.choice(prompts)),
+               "decode_len": int(rng.choice(decodes))} for i in range(16)]
+
+    async def scenario():
+        await app.start()
+        loop = asyncio.get_running_loop()
+        handles = app.session.handles
+        tasks = []
+        # the stream that disconnects goes first; each stream is submitted
+        # once the previous one has its handle, so stream i is handle i
+        first = {"sla_class": "bulk", "prompt_len": prompts[1],
+                 "decode_len": decodes[-1]}
+        for i, body in enumerate([first] + bodies):
+            n = len(handles)
+            tasks.append(asyncio.create_task(_sse_stream(
+                app.port, body, disconnect_after=1 if i == 0 else None)))
+            deadline = loop.time() + 60
+            while len(handles) == n and loop.time() < deadline:
+                await asyncio.sleep(0.001)
+        try:
+            results = await asyncio.wait_for(asyncio.gather(*tasks), 600)
+        except asyncio.TimeoutError:
+            pump = app._pump_task          # the SessionDriver.pump() task
+            raise SmokeFailure(
+                "gateway: streams still open after 600 s; the pump "
+                + (f"died: {pump.exception()!r}" if pump.done()
+                   else "is running"))
+        aborted = list(handles.values())[0]
+        deadline = loop.time() + 60
+        while not aborted.done and loop.time() < deadline:
+            await asyncio.sleep(0.005)
+        metrics = await _fetch(app.port, "/metrics")
+        stats = await app.drain()
+        return results, metrics, stats
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    results, (m_status, metrics), stats = asyncio.run(scenario())
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    handles = list(app.session.handles.values())
+    check(len(handles) == 17, f"gateway: {len(handles)} handles, wanted 17")
+    check(results[0][1] == "aborted"
+          and handles[0].state is HandleState.CANCELLED,
+          f"gateway: the disconnected stream ended {handles[0].state.value}")
+    n_tok = 0
+    for i, ((tokens, fate, _), body, h) in enumerate(
+            zip(results[1:], bodies, handles[1:]), 1):
+        check(fate == "done" and h.state is HandleState.DONE,
+              f"gateway: stream {i} ended {fate} ({h.state.value})")
+        check(len(tokens) == body["decode_len"] and tokens == h.tokens,
+              f"gateway: stream {i} got {len(tokens)} tokens, wanted "
+              f"{body['decode_len']} equal to its handle's")
+        n_tok += len(tokens)
+    check(m_status == 200 and "gateway_requests_total" in metrics,
+          f"gateway: GET /metrics returned {m_status}")
+    mem = app.session.backend.memory_stats()
+    check(mem.slots_live == 0, f"gateway: {mem.slots_live} slots live "
+                               f"after drain")
+    check_launched(counts, "gateway", LLAMA_KERNELS)
+    ttft = [r[2] for r in results[1:]]
+    lat = [h.latency for h in handles[1:]]
+    loop_stats = app.sanitizer.stats
+    print(f"[gateway] 16 streams done, {n_tok} tokens in {wall:.3f} s wall; "
+          f"the disconnected stream CANCELLED after {len(results[0][0])} "
+          f"token(s); /metrics 200; slots live after drain 0")
+    print(f"[gateway] client wall TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f}"
+          f" ms p99 {np.percentile(ttft, 99) * 1e3:.1f} ms; latency p50 "
+          f"{np.percentile(lat, 50) * 1e3:.1f} ms p99 "
+          f"{np.percentile(lat, 99) * 1e3:.1f} ms (session clock)")
+    for name, row in stats.per_class(args.sla).items():
+        print(f"[gateway] tier {name}: completed {row['completed']}, SLA "
+              f"attainment {row['sla_attainment']:.3f}")
+    print(f"[gateway] event loop: {loop_stats.ticks} probes, "
+          f"{loop_stats.stalls} stall(s) over {args.stall_threshold} s, max "
+          f"lag {loop_stats.max_lag_s * 1e3:.1f} ms, lag p99 "
+          f"{loop_stats.lag_p99_s() * 1e3:.1f} ms (not gated)")
+    print(f"[gateway] kernel launches on the main path: {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1131,9 +1490,15 @@ def main() -> int:
                    LLAMA_KERNELS, (64, 128, 256, 384))
     nx_counts = run(phase_exact, torch, "mistral-nemo-12b", "nemo exact",
                     LLAMA_KERNELS, (64, 128, 256, 384))
+    # the port's entry points: the launcher (faults, then two tenants) and
+    # the HTTP/SSE gateway
+    run(phase_launch_serve, torch)
+    run(phase_launch_tenants, torch)
+    run(phase_gateway, torch)
     PHASE[0] = "result"
     print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact, "
-          f"nemo serve, nemo exact in {time.perf_counter() - t_all:.1f} s")
+          f"nemo serve, nemo exact, launch serve, launch tenants, gateway in "
+          f"{time.perf_counter() - t_all:.1f} s")
     counts["ssd_chunked"] = m_counts["ssd_chunked"]
     # the split-TF32 route: its launches in mamba exact, batched and isolated
     counts["ssd_chunked_tf32"] = x_counts["ssd_chunked_tf32"]
@@ -1155,7 +1520,7 @@ def run(phase, *args):
     """``phase(*args)``, named for a failure; then how many of its profiler
     sessions came back empty or incomplete."""
     PHASE[0] = (args[2] if phase in (phase_serve, phase_exact)
-                else phase.__name__.replace("phase_", ""))
+                else phase.__name__.replace("phase_", "").replace("_", " "))
     t0 = time.perf_counter()
     out = phase(*args)
     # a serving phase's engine sits in reference cycles (handles, session,

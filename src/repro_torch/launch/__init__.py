@@ -1,0 +1,5 @@
+"""Entry points of the port: ``python -m repro_torch.launch.serve`` replays
+a trace through a ``ServingSession``, ``python -m repro_torch.launch.gateway``
+serves one over HTTP/SSE. Both run ``TorchEngine`` on the card unless
+``--device cpu`` is given, or the discrete-event simulator (``--engine
+sim``)."""

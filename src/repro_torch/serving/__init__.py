@@ -12,7 +12,10 @@ from .registry import ModelEntry, ModelRegistry
 from .session import (ServingSession, RequestHandle, HandleState,
                       RetryPolicy, BrownoutConfig, run_trace,
                       run_mixture, DEFAULT_MODEL)
+from .server import InferenceServer, SimExecutor, run_policy
 from .metrics import ServeStats
+from .faults import (FaultSpec, FaultInjectingBackend, parse_fault_spec,
+                     parse_fault_specs)
 from .engine import TorchEngine
 
 __all__ = [
@@ -26,5 +29,16 @@ __all__ = [
     "ModelEntry", "ModelRegistry",
     "ServingSession", "RequestHandle", "HandleState", "RetryPolicy",
     "BrownoutConfig", "run_trace", "run_mixture", "DEFAULT_MODEL",
-    "ServeStats", "TorchEngine",
+    "InferenceServer", "SimExecutor", "run_policy", "ServeStats",
+    "FaultSpec", "FaultInjectingBackend", "parse_fault_spec",
+    "parse_fault_specs", "TorchEngine",
 ]
+
+
+def __getattr__(name):
+    if name == "Executor":                  # retired alias of Backend
+        import warnings
+        warnings.warn("Executor is deprecated; use repro_torch.serving.Backend",
+                      DeprecationWarning, stacklevel=2)
+        return Backend
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -20,7 +20,8 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "check_f32_sync.py",
-    REPO / "tests" / "test_torch_kernels_cuda.py"]
+    REPO / "tests" / "test_torch_kernels_cuda.py",
+    REPO / "examples" / "serve_real_model_torch.py"]
 
 # modules kept as verbatim copies of the JAX package's pure-Python layer
 COPIES = ["configs/base.py", "configs/llama3_2_1b.py",
@@ -31,6 +32,11 @@ COPIES = ["configs/base.py", "configs/llama3_2_1b.py",
           "core/slack.py", "core/policies.py", "core/arbiter.py",
           "serving/backend.py", "serving/registry.py", "serving/metrics.py",
           "serving/traffic.py", "serving/session.py", "serving/workload.py",
+          "serving/server.py", "serving/faults.py",
+          "serving/gateway/__init__.py", "serving/gateway/app.py",
+          "serving/gateway/bridge.py", "serving/gateway/http.py",
+          "serving/gateway/middleware.py", "serving/gateway/prom.py",
+          "serving/gateway/sanitizer.py", "serving/gateway/telemetry.py",
           "models/cost.py"]
 
 
@@ -57,7 +63,9 @@ def test_no_jax_or_repro_imports(path):
 
 
 def test_importing_the_engine_loads_neither_jax_nor_repro():
-    code = ("import sys, repro_torch.serving.engine, repro_torch.kernels; "
+    code = ("import sys, repro_torch.serving.engine, repro_torch.kernels, "
+            "repro_torch.serving.gateway, repro_torch.launch.serve, "
+            "repro_torch.launch.gateway; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
