@@ -13,8 +13,11 @@ Phases, always all of them, in order:
            HGMMA (wgmma) instruction, or when either holds no TF32
            tensor-core instruction.
   kernels  run each hand-written kernel against its plain PyTorch version on
-           the card at the serving paths' shapes (RMSNorm at llama's width
-           2048 and mamba's 2560 and 5120; the SSD scan at chunks 256, 128
+           the card at the serving paths' shapes (flash at llama's, nemo's
+           and MiniCPM3's MLA prefill, whose q and k are 96 wide and v 64;
+           ragged decode at llama's, nemo's and granite's heads; RMSNorm at
+           llama's width 2048 and mamba's 2560 and 5120; the SSD scan at
+           chunks 256, 128
            and 64, which take its tensor-core route in bfloat16 and its
            split-TF32 route in float32, at 1, 2 and 32, which take the
            recurrent route, and at 200, which takes the CUDA-core route;
@@ -79,6 +82,23 @@ Phases, always all of them, in order:
   nemo exact  as exact, on full-width mistral-nemo-12b at all 40 layers in
            float32 (49 GB of weights): the float32 flash kernel at
            head_dim 128 on a served path.
+  minicpm serve  full-width minicpm3-4b (62 layers, d_model 2560, 40 MLA
+           heads: q_lora 768, kv_lora 256, nope 64 / rope 32 / v 64, d_ff
+           6400, vocab 73448, tied: 4.1 B parameters, 8.2 GB) in bfloat16,
+           as the serve phase: MLA prefill through flash with q and k 96
+           wide and v 64, decode over the latent (ckv, krope) arena in
+           PyTorch ops; RMSNorm and flash must launch, ragged decode must
+           not.
+  minicpm exact  as exact, on full-width minicpm3-4b at all 62 layers in
+           float32 (16 GB): the float32 flash kernel at (96, 64) on a
+           served path.
+  granite serve  full-width granite-moe-3b-a800m (32 layers, d_model 1536,
+           24 q / 8 kv heads of 64, 40 experts top 8 of d_ff 512, vocab
+           49155, tied: 3.3 B parameters, 6.6 GB) in bfloat16, as the serve
+           phase: GQA at G 3 on the llama kernels, the MoE FFN in PyTorch
+           ops (each request prefills at its exact length: padding would
+           take expert capacity).
+  granite exact  as exact, on full-width granite-moe-3b-a800m in float32.
   launch serve  the port's launcher, ``repro_torch.launch.serve``, in
            process on full-width llama3.2-1b in bfloat16 (20/s for 1.2 s,
            max_batch 8, SLA 10 s) with seeded transient faults (0.02 per
@@ -119,12 +139,16 @@ name and power limit, one JSON line of per-kernel numbers (bfloat16 at the
 serves' main shapes, the float32 SSD scan's split-TF32 route at chunk
 256, whose launches are those of ``mamba exact``'s batched and isolated
 paths together, and flash and ragged decode at head_dim 128 in bfloat16,
-launched in ``nemo serve``, and float32, in ``nemo exact``), and ``{"ok":
-true, ...}``. Exits non-zero before printing any result when no CUDA device
-is present.
+launched in ``nemo serve``, and float32, in ``nemo exact``; flash at
+MiniCPM3's widths in bfloat16, launched in ``minicpm serve``, and
+float32, in ``minicpm exact``; ragged decode at granite's G 3 in
+bfloat16, launched in ``granite serve``), and ``{"ok": true, ...}``.
+Exits non-zero before printing any result when no CUDA device is
+present.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import gc
@@ -161,6 +185,9 @@ REPLACES = {
     "ragged_decode_attention_f32_d128": DECODE_TPU,
     "flash_attention_d128": FLASH_TPU,
     "flash_attention_f32_d128": FLASH_TPU,
+    "flash_attention_mla": FLASH_TPU,
+    "flash_attention_f32_mla": FLASH_TPU,
+    "ragged_decode_attention_g3": DECODE_TPU,
 }
 DECODE_CU = ("cuda", "src/repro_torch/csrc/ragged_decode_attn.cu")
 FLASH_CU = ("cuda", "src/repro_torch/csrc/flash_attn.cu")
@@ -174,10 +201,14 @@ SOURCES = {
     "ragged_decode_attention_f32_d128": DECODE_CU,
     "flash_attention_d128": FLASH_CU,
     "flash_attention_f32_d128": FLASH_CU,
+    "flash_attention_mla": FLASH_CU,
+    "flash_attention_f32_mla": FLASH_CU,
+    "ragged_decode_attention_g3": DECODE_CU,
 }
 # the JSON row a kernels-phase case fills, by (kernel, dtype, head dim):
-# llama's bf16 shapes, and mistral-nemo-12b's D 128 in bf16 (its serve)
-# and float32 (its exact check)
+# llama's bf16 shapes, mistral-nemo-12b's D 128 in bf16 (its serve) and
+# float32 (its exact check), and minicpm3-4b's MLA prefill (q and k 96
+# wide) in both; granite's G 3 decode row is named by its case
 ROWS = {("ragged_decode_attention", "bfloat16", 64): "ragged_decode_attention",
         ("flash_attention", "bfloat16", 64): "flash_attention",
         ("ragged_decode_attention", "bfloat16", 128):
@@ -185,7 +216,9 @@ ROWS = {("ragged_decode_attention", "bfloat16", 64): "ragged_decode_attention",
         ("ragged_decode_attention", "float32", 128):
             "ragged_decode_attention_f32_d128",
         ("flash_attention", "bfloat16", 128): "flash_attention_d128",
-        ("flash_attention", "float32", 128): "flash_attention_f32_d128"}
+        ("flash_attention", "float32", 128): "flash_attention_f32_d128",
+        ("flash_attention", "bfloat16", 96): "flash_attention_mla",
+        ("flash_attention", "float32", 96): "flash_attention_f32_mla"}
 # a substring of each hand-written kernel's symbol, for the profile windows
 SYMBOLS = {"ragged decode": "ragged_decode_split_kernel",
            "flash prefill (bf16, tensor cores)": "flash_tc_kernel",
@@ -219,6 +252,10 @@ MAMBA_KERNELS = ("ssd_chunked", "ssd_chunked_tc", "ssd_chunked_recurrent",
                  "fused_rmsnorm")
 MAMBA_EXACT_KERNELS = ("ssd_chunked", "ssd_chunked_recurrent",
                        "ssd_chunked_tf32", "fused_rmsnorm")
+# minicpm3-4b: MLA prefill through flash at q/k 96, v 64; its decode over
+# the latent cache is PyTorch ops, so no ragged decode may launch
+MLA_KERNELS = ("fused_rmsnorm", "flash_attention")
+MLA_ABSENT = ("ragged_decode_attention",)
 
 
 class SmokeFailure(RuntimeError):
@@ -288,9 +325,10 @@ def _cupti():
 
 
 def traced_device_s(torch, fn, what: str, symbols=(), calls: int = 1):
-    """(device seconds, the profiler's averages of the CUDA events, fn's
-    result, the ``symbols`` the trace lacks) of one call of ``fn`` under
-    torch.profiler; device seconds sum every kernel's and copy's self
+    """(device seconds, the CUDA events summed by kernel name
+    (:func:`kineto_sums`), fn's result, the ``symbols`` the trace lacks)
+    of one call of ``fn`` under torch.profiler; device seconds sum every
+    kernel's and copy's self
     time. The profiler keeps only the
     device records whose timestamps fall inside the session's window on
     the host's clock, and the device's timestamps, converted to that
@@ -331,18 +369,12 @@ def traced_device_s(torch, fn, what: str, symbols=(), calls: int = 1):
             time.sleep(pad)
             if cupti is not None:      # CUPTI_ACTIVITY_FLAG_FLUSH_FORCED
                 cupti.cuptiActivityFlushAll(ctypes.c_uint32(1))
-        events = [e for e in prof.events() if MARKER not in e.name]
-        spans = {t: [(e.time_range.start, e.time_range.end) for e in events
-                     if e.device_type == t]
-                 for t in (DeviceType.CPU, DeviceType.CUDA)}
-        host, devs = spans[DeviceType.CPU], spans[DeviceType.CUDA]
+        host, devs, dev = kineto_sums(prof, DeviceType.CUDA)
         if host and devs:
             early = min(h for h, _ in host) - min(d for d, _ in devs)
             late = max(d for _, d in devs) - max(h for _, h in host)
             SKEW_US["early"] = max(SKEW_US["early"], early)
             SKEW_US["late"] = max(SKEW_US["late"], late)
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and MARKER not in e.key]
         us = sum(e.self_device_time_total for e in dev)
         want = symbols() if callable(symbols) else symbols
         seen = {s: sum(e.count for e in dev if s in e.key) for s in want}
@@ -356,6 +388,42 @@ def traced_device_s(torch, fn, what: str, symbols=(), calls: int = 1):
         print(f"[profiler] the trace of {what} recorded {lost} (pad "
               f"{pad * 1e3:.0f} ms, try {attempt + 1} of {TRACE_TRIES})")
     return (us / 1e6 if us > 0 else None), dev, out, missing
+
+
+# the device's share of a session, summed by kernel name: what
+# key_averages() gives for its device events
+DeviceSum = collections.namedtuple("DeviceSum",
+                                   "key count self_device_time_total")
+# events the profiler's own post-processing leaves out
+_UTILITY_EVENTS = ("[memory]", "[OutOfMemory]")
+
+
+def kineto_sums(prof, device_type):
+    """(host spans, device spans, [DeviceSum] by kernel name) of a
+    session, in us, from its raw kineto events, leaving out the spin
+    kernel (``MARKER``). This is what ``prof.events()`` and
+    ``prof.key_averages()`` give, without building their FunctionEvents,
+    which takes about 70 us of Python per event: minutes for a deep
+    model's serve window of a million host and device events, against
+    seconds for this one pass."""
+    from torch.autograd import DeviceType
+    host, devs, sums = [], [], {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if (MARKER in name or name in _UTILITY_EVENTS
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        span = (e.start_ns() / 1e3, e.end_ns() / 1e3)
+        kind = e.device_type()
+        if kind == DeviceType.CPU:
+            host.append(span)
+        elif kind == device_type:
+            devs.append(span)
+            n, us = sums.get(name, (0, 0.0))
+            # an asynchronous event has no self time (FunctionEvent's rule)
+            sums[name] = (n + 1, us + (0.0 if e.is_async()
+                                       else e.duration_ns() / 1e3))
+    return host, devs, [DeviceSum(k, n, us) for k, (n, us) in sums.items()]
 
 
 HOST_CALLS = 200
@@ -426,11 +494,16 @@ def short_name(key: str) -> str:
     return key.replace("void ", "").replace("(anonymous namespace)::", "")[:44]
 
 
-def check_launched(counts: dict, what: str, kernels):
-    """Every kernel of the path (``kernels``) launched at least once."""
+def check_launched(counts: dict, what: str, kernels, absent=()):
+    """Every kernel of the path (``kernels``) launched at least once, and
+    none of ``absent`` (kernels the path must not run)."""
     for name in kernels:
         check(counts[name] > 0, f"{what}: kernel {name} was never launched "
                                 f"on this path (counts {counts})")
+    for name in absent:
+        check(counts[name] == 0, f"{what}: kernel {name} launched "
+                                 f"{counts[name]} times on a path that does "
+                                 f"not run it (counts {counts})")
 
 
 def compare(torch, got, ref, dtype_name: str, what: str, tols=None) -> float:
@@ -521,7 +594,7 @@ DECODE_CASES = (
 
 
 def kernel_decode(torch, K, dtype, lens, slots, ctx, H=32, KV=8, D=64,
-                  n_slots=32, layer=5):
+                  n_slots=32, layer=5, row=None):
     B, T, L = len(lens), 1024, 16
     g = torch.Generator(device="cuda").manual_seed(1)
     N = L * n_slots
@@ -537,8 +610,8 @@ def kernel_decode(torch, K, dtype, lens, slots, ctx, H=32, KV=8, D=64,
     torch.cuda.synchronize()
     res = {"shape": f"q{tuple(q.shape)} arena{tuple(k.shape)} "
                     f"lengths{list(lens)} ctx {ctx}", "out": out, "ref": ref,
-           "row": (None if B != 8 or ctx is not None else
-                   ROWS.get(("ragged_decode_attention", dtype_name(dtype), D))),
+           "row": row or (None if B != 8 or ctx is not None else ROWS.get(
+               ("ragged_decode_attention", dtype_name(dtype), D))),
            "symbols": COUNTER_SYMBOLS["ragged_decode_attention"]}
     # library yardstick: SDPA over the gathered, head-repeated rows
     span = T if ctx is None else ctx
@@ -582,11 +655,14 @@ def kernel_rmsnorm(torch, K, dtype, shape):
             "flops": 4 * x.numel()}
 
 
-def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64):
+def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64, Dv=None):
+    """Causal prefill at q/k width D and v width Dv (D by default); the
+    scores and P V read q, k at D and v at Dv, the output is Dv wide."""
+    Dv = Dv or D
     g = torch.Generator(device="cuda").manual_seed(3)
     q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
     k = torch.randn((B, S, KV, D), generator=g, device="cuda").to(dtype)
-    v = torch.randn((B, S, KV, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S, KV, Dv), generator=g, device="cuda").to(dtype)
     out = K.flash_attention(q, k, v)
     ref = K.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
@@ -595,7 +671,9 @@ def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64):
     vt = v.transpose(1, 2).repeat_interleave(H // KV, dim=1).contiguous()
     F = torch.nn.functional
     elt = q.element_size()
-    return {"shape": f"q{tuple(q.shape)} kv{tuple(k.shape)} causal",
+    kv_shape = (f"kv{tuple(k.shape)}" if Dv == D
+                else f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    return {"shape": f"q{tuple(q.shape)} {kv_shape} causal",
             "out": out, "ref": ref,
             "row": (None if S != 512 else
                     ROWS.get(("flash_attention", dtype_name(dtype), D))),
@@ -608,8 +686,10 @@ def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64):
                     lambda: K.flash_attention_plain(q, k, v),
                     lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                            is_causal=True)),
-            "bytes": (2 * q.numel() + 2 * k.numel()) * elt,
-            "flops": 4 * B * H * D * S * (S + 1) // 2}
+            # q, k, v read once and the output written once; Q K^T over D
+            # columns and P V over Dv on the causal half
+            "bytes": (q.numel() + k.numel() + v.numel() + out.numel()) * elt,
+            "flops": 2 * B * H * (D + Dv) * S * (S + 1) // 2}
 
 
 def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
@@ -760,6 +840,16 @@ def phase_kernels(torch):
                                                   None, D=128)))
         cases.append(("flash_attention", dt,
                       lambda dt=dt: kernel_flash(torch, K, dt, 512, D=128)))
+        # minicpm3-4b's MLA prefill: 40 heads, q and k 96 wide, v 64
+        cases.append(("flash_attention", dt,
+                      lambda dt=dt: kernel_flash(torch, K, dt, 512, H=40,
+                                                 KV=40, D=96, Dv=64)))
+        # granite-moe-3b-a800m's decode: 24 q / 8 kv heads of 64 (G 3)
+        cases.append(("ragged_decode_attention", dt,
+                      lambda dt=dt: kernel_decode(
+                          torch, K, dt, lens, slots, None, H=24,
+                          row=("ragged_decode_attention_g3"
+                               if dt == torch.bfloat16 else None))))
         # the serve's chunks 256, 128 and 64 (the tensor-core route in
         # bf16, split TF32 in f32), chunks 1 and 2 at odd prefill lengths
         # and 32 (the recurrent route), and 200 (the CUDA-core route)
@@ -898,7 +988,7 @@ def _serve(torch, engine, cfg, *, n, rate, seed, prompts, decodes,
     return wl, session, handles, streamed, stats, wall
 
 
-def phase_serve(torch, arch, tag, kernels, prompts):
+def phase_serve(torch, arch, tag, kernels, prompts, absent=()):
     """Full-width ``arch`` in bf16: warm up over every prompt length, then
     serve 24 Poisson requests and check them; returns the launch counts
     of the measured serve."""
@@ -948,7 +1038,7 @@ def phase_serve(torch, arch, tag, kernels, prompts):
               f"{tag}: rid {rid} generated {len(got)} tokens, wanted "
               f"{h.request.decode_len}")
         n_tok += len(got)
-    check_launched(counts, tag, kernels)
+    check_launched(counts, tag, kernels, absent)
     san = engine.sanitizer_stats()
     s = stats.summary(sla=kw["sla"])
     lat = [h.latency for h in handles]
@@ -1061,7 +1151,7 @@ def _isolated(engine, wl, prompt, n_tokens):
     return engine.states[req.rid].generated[:n_tokens]
 
 
-def phase_exact(torch, arch, tag, kernels, prompts):
+def phase_exact(torch, arch, tag, kernels, prompts, absent=()):
     """Full-width ``arch`` in f32, TF32 off, at all its layers: one request
     per prompt length batched (fused runs), then each alone node by node;
     tokens equal or a printed near-tie."""
@@ -1086,7 +1176,8 @@ def phase_exact(torch, arch, tag, kernels, prompts):
     batched_counts = K.launch_counts()
     check(all(h.state is HandleState.DONE for h in handles),
           f"{tag}: not every request finished")
-    check_launched(batched_counts, f"{tag} (batched, fused runs)", kernels)
+    check_launched(batched_counts, f"{tag} (batched, fused runs)", kernels,
+                   absent)
     print(f"[{tag}] {len(handles)} requests batched (f32, TF32 off, prompts "
           f"{list(prompts)}) in {wall:.3f} s, {engine.runs_executed} runs; "
           f"kernel launches {batched_counts}")
@@ -1098,7 +1189,7 @@ def phase_exact(torch, arch, tag, kernels, prompts):
                                 r.decode_len)
     isolated_counts = K.launch_counts()
     check_launched(isolated_counts, f"{tag} (isolated, node by node)",
-                   kernels)
+                   kernels, absent)
     print(f"[{tag}] isolated references (node by node): kernel launches "
           f"{isolated_counts}")
     n_equal, n_ties = 0, 0
@@ -1490,6 +1581,16 @@ def main() -> int:
                    LLAMA_KERNELS, (64, 128, 256, 384))
     nx_counts = run(phase_exact, torch, "mistral-nemo-12b", "nemo exact",
                     LLAMA_KERNELS, (64, 128, 256, 384))
+    # minicpm3-4b: MLA, flash at q/k 96 and v 64, no ragged decode
+    c_counts = run(phase_serve, torch, "minicpm3-4b", "minicpm serve",
+                   MLA_KERNELS, (64, 128, 256, 384), MLA_ABSENT)
+    cx_counts = run(phase_exact, torch, "minicpm3-4b", "minicpm exact",
+                    MLA_KERNELS, (64, 128, 256, 384), MLA_ABSENT)
+    # granite-moe-3b-a800m: 40 experts top 8 over GQA at G 3
+    g_counts = run(phase_serve, torch, "granite-moe-3b-a800m",
+                   "granite serve", LLAMA_KERNELS, (64, 128, 256, 384))
+    run(phase_exact, torch, "granite-moe-3b-a800m", "granite exact",
+        LLAMA_KERNELS, (64, 128, 256, 384))
     # the port's entry points: the launcher (faults, then two tenants) and
     # the HTTP/SSE gateway
     run(phase_launch_serve, torch)
@@ -1497,7 +1598,8 @@ def main() -> int:
     run(phase_gateway, torch)
     PHASE[0] = "result"
     print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact, "
-          f"nemo serve, nemo exact, launch serve, launch tenants, gateway in "
+          f"nemo serve, nemo exact, minicpm serve, minicpm exact, granite "
+          f"serve, granite exact, launch serve, launch tenants, gateway in "
           f"{time.perf_counter() - t_all:.1f} s")
     counts["ssd_chunked"] = m_counts["ssd_chunked"]
     # the split-TF32 route: its launches in mamba exact, batched and isolated
@@ -1506,6 +1608,11 @@ def main() -> int:
     for name in ("ragged_decode_attention", "flash_attention"):
         counts[f"{name}_d128"] = n_counts[name]
         counts[f"{name}_f32_d128"] = nx_counts[name]
+    # MLA flash: bf16 launches in minicpm serve, f32 in minicpm exact; the
+    # G 3 decode row: launches in granite serve
+    counts["flash_attention_mla"] = c_counts["flash_attention"]
+    counts["flash_attention_f32_mla"] = cx_counts["flash_attention"]
+    counts["ragged_decode_attention_g3"] = g_counts["ragged_decode_attention"]
     for name, row in rows.items():
         row["launches"] = counts[name]
     print(smi)

@@ -2,10 +2,14 @@
 
 A copy of ``repro.configs`` restricted to the architectures the port can
 serve so far: the dense GQA decoders ``llama3.2-1b``, ``qwen2.5-32b``,
-``mistral-nemo-12b``, ``internvl2-26b`` and ``musicgen-large``, and the
-SSM ``mamba2-2.7b``. ``internvl2-26b`` and ``musicgen-large`` keep their
-family and ``num_prefix_embeddings``; the port serves them as plain token
-models, as the JAX engine does.
+``mistral-nemo-12b``, ``internvl2-26b`` and ``musicgen-large``, the SSM
+``mamba2-2.7b``, the MLA decoder ``minicpm3-4b`` and the MoE decoders
+``granite-moe-3b-a800m`` and ``grok-1-314b``. ``internvl2-26b`` and
+``musicgen-large`` keep their family and ``num_prefix_embeddings``; the
+port serves them as plain token models, as the JAX engine does.
+``grok-1-314b`` (316.5 B parameters) does not fit one 80 GB card at full
+width; it runs at its own head and routing shapes on smaller widths.
+The hybrid ``recurrentgemma-9b`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,7 +17,8 @@ from .base import (InputShape, INPUT_SHAPES, MLAConfig, MoEConfig, ModelConfig,
                    SSMConfig, HybridConfig)
 
 from . import (qwen2_5_32b, musicgen_large, internvl2_26b, llama3_2_1b,
-               mistral_nemo_12b, mamba2_2_7b)
+               mistral_nemo_12b, mamba2_2_7b, minicpm3_4b,
+               granite_moe_3b_a800m, grok_1_314b)
 
 ARCHITECTURES: dict[str, ModelConfig] = {
     c.name: c
@@ -24,6 +29,9 @@ ARCHITECTURES: dict[str, ModelConfig] = {
         llama3_2_1b.CONFIG,
         mistral_nemo_12b.CONFIG,
         mamba2_2_7b.CONFIG,
+        minicpm3_4b.CONFIG,
+        granite_moe_3b_a800m.CONFIG,
+        grok_1_314b.CONFIG,
     ]
 }
 

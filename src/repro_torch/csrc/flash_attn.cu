@@ -2,12 +2,21 @@
 // sliding window.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attn.py
-// (flash_attention, body _kernel). Query i of a (B, S, H, D) block attends
-// keys kpos <= q_offset + i (and kpos > q_offset + i - window when a window
-// is given) of (B, T, KV, D) keys and values with an online softmax
-// (m, l, acc) in float32. KV may divide H: query head h reads KV head
-// h / (H / KV), so the engine passes un-repeated GQA heads and no
+// (flash_attention, body _kernel). Query i of a (B, S, H, Dqk) block
+// attends keys kpos <= q_offset + i (and kpos > q_offset + i - window when
+// a window is given) of (B, T, KV, Dqk) keys and (B, T, KV, Dv) values
+// with an online softmax (m, l, acc) in float32, its scores scaled by the
+// caller's scale (1 / sqrt(Dqk)). KV may divide H: query head h reads KV
+// head h / (H / KV), so the engine passes un-repeated GQA heads and no
 // repeat_kv copy is ever materialized (KV == H is the TPU kernel's case).
+//
+// Head widths: each kernel is compiled at D = 32, 64 and 128, and runs at
+// the smallest D that holds Dqk (Dv <= Dqk, both multiples of 8). Columns
+// past Dqk of q and k and past Dv of v load as zeros, so they add nothing
+// to a score or to the output, and only Dv columns are stored. GQA passes
+// Dqk == Dv == D; MLA's non-absorbed prefill (MiniCPM3: q and k 96 wide,
+// v 64) runs at D 128 with a third of its score columns and half of its
+// output columns zero (the work of D 128, not of 96 and 64).
 //
 // Bound on the H100: at the serve's prefill buckets (S <= 512, D = 64) the
 // bytes of q, k, v and the output; the causal half's 4 * B * H * D * S^2 / 2
@@ -24,8 +33,9 @@
 // by side, each loading the group's K/V tiles, mostly from L2), so
 // each K/V tile is loaded once per NC heads instead of once per head. A
 // producer warp streams K and V tiles by TMA (cp.async.bulk.tensor through
-// 3-D tensor maps (B, T, KV * D) with a box of (1, 64, <= 64 columns), so
-// rows t >= T read as zeros per batch row) into a ring of 3-4 stages with
+// 4-D tensor maps (B, T, KV, width) with a box of (1, 64, 1, <= 64
+// columns), so rows t >= T of a batch row and columns past a head's width
+// read as zeros) into a ring of 3-4 stages with
 // mbarrier completion: tile j + 1 loads while tile j computes. Each
 // consumer warpgroup loads its Q tile by TMA, forms S = Q K^T
 // with wgmma m64n64k16 (both operands K-major from shared memory, 128-byte
@@ -112,6 +122,12 @@ __device__ __forceinline__ float ex2(float x) {   // 2^x; ex2(-inf) = 0
   return y;
 }
 
+// A launch's sizes: width is the compiled D (32, 64 or 128) that holds Dqk
+struct Shape {
+  int B, S, T, H, KV, width, Dqk, Dv, q_offset, window;
+  float scale_log2;   // the scores' scale times log2(e)
+};
+
 // ---------------------------------------------------------------------------
 // float32: three-way split TF32 on the tensor cores
 // ---------------------------------------------------------------------------
@@ -163,8 +179,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads * (Layout<D>::NC + 1), 1)
 flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
-                    int S, int T, int H, int KV, int q_offset, int window,
-                    float scale_log2) {
+                    int S, int T, int H, int KV, int Dqk, int Dv,
+                    int q_offset, int window, float scale_log2) {
   using L = Layout<D>;
   constexpr int KN = L::KN;
   constexpr int NC = L::NC;
@@ -204,22 +220,24 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (wg == NC) {
     // producer: each tile's float32 K and V by cp.async into the staging
-    // tile (keys past T zero-filled from a valid address), then split
-    // into a ring stage's planes: K as it is, V transposed with key 8 q +
-    // e + 2 m at position 8 q + 4 e + m, the order in which P's registers
-    // hold keys
-    const size_t ld = (size_t)KV * D;
-    const float* k_bh = k + ((size_t)b * T * KV + kvh) * D;
-    const float* v_bh = v + ((size_t)b * T * KV + kvh) * D;
+    // tile (keys past T and columns past Dqk / Dv zero-filled from a valid
+    // address), then split into a ring stage's planes: K as it is, V
+    // transposed with key 8 q + e + 2 m at position 8 q + 4 e + m, the
+    // order in which P's registers hold keys
+    const size_t ld_k = (size_t)KV * Dqk, ld_v = (size_t)KV * Dv;
+    const float* k_bh = k + ((size_t)b * T * KV + kvh) * Dqk;
+    const float* v_bh = v + ((size_t)b * T * KV + kvh) * Dv;
     const float* stage_k = reinterpret_cast<const float*>(sm + L::stage);
     const float* stage_v = stage_k + KN * D;
     auto load = [&](int k0) {
       for (int i = tw; i < KN * CH; i += kThreads) {
         const int r = i / CH, c = i % CH;
-        const bool in = k0 + r < T;
-        const size_t off = (in ? (k0 + r) * ld : 0) + 4 * c;
-        cp_async16(base + L::stage + 16 * i, k_bh + off, in);
-        cp_async16(base + L::stage + KN * D * 4 + 16 * i, v_bh + off, in);
+        const bool row_in = k0 + r < T;
+        const bool in_k = row_in && 4 * c < Dqk, in_v = row_in && 4 * c < Dv;
+        cp_async16(base + L::stage + 16 * i,
+                   k_bh + (in_k ? (k0 + r) * ld_k + 4 * c : 0), in_k);
+        cp_async16(base + L::stage + KN * D * 4 + 16 * i,
+                   v_bh + (in_v ? (k0 + r) * ld_v + 4 * c : 0), in_v);
       }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     };
@@ -277,13 +295,14 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int row0 = qw + 16 * warp + g;   // rows row0 and row0 + 8
   const uint32_t q_hi = L::q + wg * 2 * L::Q::kBytes;
   const uint32_t q_lo = q_hi + L::Q::kBytes;
-  // Q once, split into its hi and lo planes (rows past S are zeros)
+  // Q once, split into its hi and lo planes (rows past S and columns past
+  // Dqk are zeros)
   for (int i = tw; i < kRows * CH; i += kThreads) {
     const int r = i / CH, c = i % CH;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (qw + r < S)
+    if (qw + r < S && 4 * c < Dqk)
       x = *reinterpret_cast<const float4*>(
-          q + (((size_t)b * S + qw + r) * H + h) * D + 4 * c);
+          q + (((size_t)b * S + qw + r) * H + h) * Dqk + 4 * c);
     const float xs[4] = {x.x, x.y, x.z, x.w};
     uint4 hi, lo;
     split4(xs, hi, lo);
@@ -400,7 +419,8 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (lane == 0) repro::mbar_arrive(empty(st));
   }
 
-  // acc[4 jj + 2 hh + e] is row row0 + 8 hh, column 8 jj + 2 t + e
+  // acc[4 jj + 2 hh + e] is row row0 + 8 hh, column 8 jj + 2 t + e; the
+  // columns past Dv are not stored
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float den = l[hh];
@@ -409,48 +429,43 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     den = fmaxf(den, 1e-30f);
     const int row = row0 + 8 * hh;
     if (row >= S) continue;
-    float* orow = o + (((size_t)b * S + row) * H + h) * D;
+    float* orow = o + (((size_t)b * S + row) * H + h) * Dv;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj)
-      *reinterpret_cast<float2*>(orow + 8 * jj + 2 * t) =
-          make_float2(acc[4 * jj + 2 * hh] / den,
-                      acc[4 * jj + 2 * hh + 1] / den);
+      if (8 * jj < Dv)
+        *reinterpret_cast<float2*>(orow + 8 * jj + 2 * t) =
+            make_float2(acc[4 * jj + 2 * hh] / den,
+                        acc[4 * jj + 2 * hh + 1] / den);
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int T, int H, int KV, int q_offset, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           const Shape& sh, cudaStream_t stream) {
   using L = Layout<D>;
   static int granted = 48 * 1024;
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err =
       repro::allow_smem(flash_tf32x3_kernel<D>, smem, &granted);
   if (err != cudaSuccess) return (int)err;
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   constexpr int rows = kRows * L::NC;
-  dim3 grid(H, B, (S + rows - 1) / rows);
+  dim3 grid(sh.H, sh.B, (sh.S + rows - 1) / rows);
   flash_tf32x3_kernel<D><<<grid, kThreads * (L::NC + 1), smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, T, H, KV,
-      q_offset, window, scale_log2);
+      static_cast<const float*>(v), static_cast<float*>(o), sh.S, sh.T, sh.H,
+      sh.KV, sh.Dqk, sh.Dv, sh.q_offset, sh.window, sh.scale_log2);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int T, int H, int KV, int D, int q_offset, int window,
-             cudaStream_t stream) {
-  switch (D) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             const Shape& sh, cudaStream_t stream) {
+  switch (sh.width) {
     case 32:
-      return launch<32>(q, k, v, o, B, S, T, H, KV, q_offset, window,
-                        stream);
+      return launch<32>(q, k, v, o, sh, stream);
     case 64:
-      return launch<64>(q, k, v, o, B, S, T, H, KV, q_offset, window,
-                        stream);
+      return launch<64>(q, k, v, o, sh, stream);
     case 128:
-      return launch<128>(q, k, v, o, B, S, T, H, KV, q_offset, window,
-                         stream);
+      return launch<128>(q, k, v, o, sh, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -470,9 +485,9 @@ using repro::mbar_init;
 using repro::mbar_wait;
 using repro::pack_bf16;
 using repro::smem_addr;
-using repro::tensor_map;
+using repro::head_tensor_map;
 using repro::Tile;
-using repro::tma_tile;
+using repro::tma_head_tile;
 
 constexpr int kRows = repro::kTileRows;   // q rows and keys per tile
 
@@ -494,7 +509,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, int S, int T, int H, int KV,
-                int q_offset, int window, float scale_log2) {
+                int Dv, int q_offset, int window, float scale_log2) {
   using L = Tile<D>;
   constexpr int kStages = stages<D>();
   constexpr int kOut = D / 2;            // accumulator floats per thread
@@ -548,8 +563,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(empty(st), ((j / kStages) & 1) ^ 1);
         mbar_expect_tx(full(st), 2 * L::kBytes);
         const int k0 = k_lo + j * kRows;
-        tma_tile<D>(k_s + st * L::kBytes, &tk, full(st), kvh * D, k0, b);
-        tma_tile<D>(v_s + st * L::kBytes, &tv, full(st), kvh * D, k0, b);
+        tma_head_tile<D>(k_s + st * L::kBytes, &tk, full(st), kvh, k0, b);
+        tma_head_tile<D>(v_s + st * L::kBytes, &tv, full(st), kvh, k0, b);
       }
     }
     return;
@@ -565,7 +580,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   if (active) {
     if (t == 0) {
       mbar_expect_tx(qbar(wg), L::kBytes);
-      tma_tile<D>(my_q, &tq, qbar(wg), head * D, q0, b);
+      tma_head_tile<D>(my_q, &tq, qbar(wg), head, q0, b);
     }
     mbar_wait(qbar(wg), 0);
   }
@@ -664,9 +679,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const float inv = 1.f / fmaxf(den, 1e-30f);
     const int row = row0 + 8 * h;
     if (row >= S) continue;
-    __nv_bfloat16* orow = o + (((size_t)b * S + row) * H + head) * D;
+    __nv_bfloat16* orow = o + (((size_t)b * S + row) * H + head) * Dv;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
+      if (8 * jj >= Dv) continue;        // columns past Dv are not stored
       const __nv_bfloat162 v = __floats2bfloat162_rn(
           acc[4 * jj + 2 * h] * inv, acc[4 * jj + 2 * h + 1] * inv);
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj + 2 * (lane & 3)) =
@@ -676,57 +692,48 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int D, int NC>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int T, int H, int KV, int q_offset, int window,
-              cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              const Shape& sh, cudaStream_t stream) {
   static int granted = 48 * 1024;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map<D>(&tq, q, B, S, H) || !tensor_map<D>(&tk, k, B, T, KV) ||
-      !tensor_map<D>(&tv, v, B, T, KV))
+  if (!head_tensor_map<D>(&tq, q, sh.B, sh.S, sh.H, sh.Dqk) ||
+      !head_tensor_map<D>(&tk, k, sh.B, sh.T, sh.KV, sh.Dqk) ||
+      !head_tensor_map<D>(&tv, v, sh.B, sh.T, sh.KV, sh.Dv))
     return (int)cudaErrorInvalidValue;
   constexpr size_t smem = smem_bytes<D, NC>();
   cudaError_t err = repro::allow_smem(flash_tc_kernel<D, NC>, smem, &granted);
   if (err != cudaSuccess) return (int)err;
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
-  dim3 grid(KV * ((H / KV + NC - 1) / NC), B, (S + kRows - 1) / kRows);
+  dim3 grid(sh.KV * ((sh.H / sh.KV + NC - 1) / NC), sh.B,
+            (sh.S + kRows - 1) / kRows);
   flash_tc_kernel<D, NC><<<grid, NC * 128 + 32, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, T, H, KV, q_offset,
-      window, scale_log2);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sh.S, sh.T, sh.H, sh.KV,
+      sh.Dv, sh.q_offset, sh.window, sh.scale_log2);
   return (int)cudaGetLastError();
 }
 
 // NC consumer warpgroups: 4 at D <= 64, 2 at D = 128 (registers), never
 // more than the G heads of a group
 template <int D>
-int dispatch_nc(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int T, int H, int KV, int q_offset, int window,
-                cudaStream_t stream) {
-  const int G = H / KV;
+int dispatch_nc(const void* q, const void* k, const void* v, void* o,
+                const Shape& sh, cudaStream_t stream) {
+  const int G = sh.H / sh.KV;
   const int nc_max = D == 128 ? 2 : 4;
   const int nc = G >= nc_max ? nc_max : (G >= 2 ? 2 : 1);
   if (nc == 4)
-    return launch_tc<D, (D == 128 ? 2 : 4)>(q, k, v, o, B, S, T, H, KV,
-                                            q_offset, window, stream);
-  if (nc == 2)
-    return launch_tc<D, 2>(q, k, v, o, B, S, T, H, KV, q_offset, window,
-                           stream);
-  return launch_tc<D, 1>(q, k, v, o, B, S, T, H, KV, q_offset, window,
-                         stream);
+    return launch_tc<D, (D == 128 ? 2 : 4)>(q, k, v, o, sh, stream);
+  if (nc == 2) return launch_tc<D, 2>(q, k, v, o, sh, stream);
+  return launch_tc<D, 1>(q, k, v, o, sh, stream);
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int T, int H, int KV, int D, int q_offset, int window,
-             cudaStream_t stream) {
-  switch (D) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             const Shape& sh, cudaStream_t stream) {
+  switch (sh.width) {
     case 32:
-      return dispatch_nc<32>(q, k, v, o, B, S, T, H, KV, q_offset, window,
-                             stream);
+      return dispatch_nc<32>(q, k, v, o, sh, stream);
     case 64:
-      return dispatch_nc<64>(q, k, v, o, B, S, T, H, KV, q_offset, window,
-                             stream);
+      return dispatch_nc<64>(q, k, v, o, sh, stream);
     case 128:
-      return dispatch_nc<128>(q, k, v, o, B, S, T, H, KV, q_offset, window,
-                              stream);
+      return dispatch_nc<128>(q, k, v, o, sh, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -736,19 +743,23 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// window <= 0 means no sliding window.
+// q (B, S, H, Dqk), k (B, T, KV, Dqk), v (B, T, KV, Dv), o (B, S, H, Dv);
+// width: the compiled D (32, 64 or 128) that holds Dqk; Dqk and Dv
+// multiples of 8 with Dv <= Dqk; scale: the scores' scale; window <= 0
+// means no sliding window.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int S,
-                                     int T, int H, int KV, int D,
-                                     int q_offset, int window, int dtype,
+                                     int T, int H, int KV, int width,
+                                     int Dqk, int Dv, int q_offset,
+                                     int window, float scale, int dtype,
                                      void* stream) {
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0)
+  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || Dqk % 8 || Dv % 8 ||
+      Dv <= 0 || Dv > Dqk || Dqk > width)
     return (int)cudaErrorInvalidValue;
+  const Shape sh{B, S, T, H, KV, width, Dqk, Dv, q_offset, window,
+                 (float)(1.4426950408889634 * (double)scale)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kFloat32)
-    return f32::dispatch(q, k, v, o, B, S, T, H, KV, D, q_offset, window,
-                         s);
-  if (dtype == repro::kBFloat16)
-    return tc::dispatch(q, k, v, o, B, S, T, H, KV, D, q_offset, window, s);
+  if (dtype == repro::kFloat32) return f32::dispatch(q, k, v, o, sh, s);
+  if (dtype == repro::kBFloat16) return tc::dispatch(q, k, v, o, sh, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -102,6 +102,30 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
     tma_load(dst + a * L::kAtomBytes, map, bar, col + a * L::kAtomCols, row,
              b);
 }
+// the same through a 4-D map of (width, heads, rows, B) (see
+// head_tensor_map): the 64 x D tile of head `head` at row `row`
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+template <int D>
+__device__ __forceinline__ void tma_head_tile(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int head, int row,
+                                              int b) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int a = 0; a < L::kAtoms; ++a)
+    tma_load4(dst + a * L::kAtomBytes, map, bar, a * L::kAtomCols, head, row,
+              b);
+}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -149,6 +173,35 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int rows,
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
+}
+
+// A (B, rows, heads, width) bf16 tensor, width <= D, seen through boxes
+// of (kAtomCols, 1, 64, 1) over (width, heads, rows, B): columns past
+// `width` of each head and rows past `rows` read as zeros, so a head
+// narrower than the tile (MLA's 96 q/k and 64 v columns in a 128-column
+// tile) loads with zero columns and never reads its neighbour's. The
+// tile lands in shared memory as tensor_map's does.
+template <int D>
+bool head_tensor_map(CUtensorMap* map, const void* ptr, int B, int rows,
+                     int heads, int width) {
+  using L = Tile<D>;
+  EncodeTiled encode = encoder();
+  if (encode == nullptr || width > D) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)width * 2,
+                                 (cuuint64_t)heads * width * 2,
+                                 (cuuint64_t)rows * heads * width * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)L::kAtomCols, 1,
+                             (cuuint32_t)kTileRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                           : CU_TENSOR_MAP_SWIZZLE_64B,

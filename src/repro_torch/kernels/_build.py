@@ -34,8 +34,9 @@ SIGNATURES = {
         # KV, D, N, T, n_split, split_t, dtype, stream
         "repro_ragged_decode_attention": [_VP] * 9 + [_I] * 9 + [_VP]},
     "flash_attn": {
-        # q, k, v, o, B, S, T, H, KV, D, q_offset, window, dtype, stream
-        "repro_flash_attention": [_VP] * 4 + [_I] * 9 + [_VP]},
+        # q, k, v, o, B, S, T, H, KV, width, Dqk, Dv, q_offset, window,
+        # scale, dtype, stream
+        "repro_flash_attention": [_VP] * 4 + [_I] * 10 + [_F, _I, _VP]},
     "ssd_chunk": {
         # one entry per route. CUDA and tensor cores: x, dt, A, B, C, y,
         # states, cum_exp, decay, final, B, S, nh, hd, N, chunk, then dtype

@@ -30,11 +30,13 @@ def flash_attention_plain(q, k, v, *, window: Optional[int] = None,
     scores, masked softmax and float32 P·V, cast to q.dtype at the end
     (in float32 it is the JAX function term for term).
 
-    q: (B, S, H, D); k, v: (B, T, KV, D) with KV dividing H: query head h
-    reads KV head h // (H // KV), so the heads are never repeated. Query i
-    sits at key position ``q_offset + i``. Returns (B, S, H, D)."""
+    q: (B, S, H, Dqk); k: (B, T, KV, Dqk); v: (B, T, KV, Dv) with KV
+    dividing H: query head h reads KV head h // (H // KV), so the heads
+    are never repeated. The scores scale by 1 / sqrt(Dqk), and Dv may
+    differ from Dqk (MLA's non-absorbed prefill). Query i sits at key
+    position ``q_offset + i``. Returns (B, S, H, Dv)."""
     B, S, H, D = q.shape
-    T, KV = k.shape[1], k.shape[2]
+    T, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // KV
     scale = 1.0 / math.sqrt(D)
     chunk = pick_chunk(S, chunk)
@@ -54,15 +56,31 @@ def flash_attention_plain(q, k, v, *, window: Optional[int] = None,
             mask &= kpos[None, :] > qpos[:, None] - window
         scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
         probs = torch.softmax(scores, dim=-1)
-        outs.append(torch.einsum("bkgst,btkd->bskgd", probs, v_i))
-    return torch.cat(outs, dim=1).reshape(B, S, H, D).to(q.dtype)
+        outs.append(torch.einsum("bkgst,btke->bskge", probs, v_i))
+    return torch.cat(outs, dim=1).reshape(B, S, H, Dv).to(q.dtype)
+
+
+def kernel_width(D: int, Dv: int) -> Optional[int]:
+    """The kernel's compiled width (32, 64 or 128) for q/k head dim ``D``
+    and v head dim ``Dv``: the smallest that holds D; None for a pair the
+    kernel does not take (not multiples of 8, Dv > D, or D > 128)."""
+    if D % 8 or Dv % 8 or not 0 < Dv <= D:
+        return None
+    return next((w for w in (32, 64, 128) if D <= w), None)
 
 
 def flash_attention(q, k, v, *, window: Optional[int] = None,
                     q_offset: int = 0):
-    """q: (B, S, H, D); k, v: (B, T, KV, D), KV dividing H. Causal with
-    ``q_offset`` (query i attends keys <= q_offset + i); optional sliding
-    ``window``. Returns (B, S, H, D) in q.dtype.
+    """q: (B, S, H, Dqk); k: (B, T, KV, Dqk); v: (B, T, KV, Dv), KV
+    dividing H. Causal with ``q_offset`` (query i attends keys <= q_offset
+    + i); optional sliding ``window``; scores scaled by 1 / sqrt(Dqk).
+    Returns (B, S, H, Dv) in q.dtype.
+
+    The kernel takes Dqk and Dv that are multiples of 8 with Dv <= Dqk <=
+    128: it runs at the smallest of its widths 32, 64 and 128 that holds
+    Dqk, and the columns past Dqk (q, k) and past Dv (v) load as zeros
+    (MiniCPM3's MLA prefill, (96, 64), runs at 128). Any other shape
+    raises.
 
     A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor
     launches the kernel on the current stream or raises: bfloat16 on the
@@ -77,12 +95,15 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, S, H, D = q.shape
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
-            or k.shape[3] != D or H % k.shape[2] != 0:
+    if k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3] \
+            or k.shape[0] != B or k.shape[3] != D or H % k.shape[2] != 0:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k {tuple(k.shape)} / v {tuple(v.shape)}")
-    if D not in (32, 64, 128):
-        raise ValueError(f"flash_attention: head_dim {D} not in (32, 64, 128)")
+    Dv = v.shape[3]
+    width = kernel_width(D, Dv)
+    if width is None:
+        raise ValueError(f"flash_attention: head dims q/k {D}, v {Dv}: the "
+                         f"kernel takes multiples of 8 with Dv <= Dqk <= 128")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v on different devices")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -95,15 +116,17 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be > 0, got {window}")
     T, KV = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    out = q.new_empty((B, S, H, Dv))
     fn = _build.function("flash_attn", "repro_flash_attention")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             B, S, T, H, KV, D, q_offset, -1 if window is None else window,
+             B, S, T, H, KV, width, D, Dv, q_offset,
+             -1 if window is None else window, 1.0 / math.sqrt(D),
              _build.dtype_code(q.dtype),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention: CUDA error {err} at launch "
-                           f"(B={B}, S={S}, T={T}, H={H}, KV={KV}, D={D})")
+                           f"(B={B}, S={S}, T={T}, H={H}, KV={KV}, D={D}, "
+                           f"Dv={Dv})")
     flash_attention.launches += 1
     return out
 

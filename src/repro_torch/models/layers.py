@@ -1,14 +1,18 @@
-"""Core transformer layers of the port: RMSNorm, RoPE, SwiGLU MLP, GQA.
+"""Core transformer layers of the port: RMSNorm, RoPE, SwiGLU MLP, GQA
+and MLA attention.
 
-The dense slice of ``repro.models.layers`` in PyTorch. Layers are plain
-functions over parameter dicts laid out exactly as the JAX package lays
-them out — ``wq (d, H, hd)``, ``wk``/``wv (d, KV, hd)``, ``wo (H, hd, d)``,
-``w_gate``/``w_up (d, ff)``, ``w_down (ff, d)``, ``scale (d,)`` — so the
-JAX weights load without reshaping and tests compare like with like.
+``repro.models.layers`` in PyTorch. Layers are plain functions over
+parameter dicts laid out exactly as the JAX package lays them out —
+``wq (d, H, hd)``, ``wk``/``wv (d, KV, hd)``, ``wo (H, hd, d)``,
+``w_gate``/``w_up (d, ff)``, ``w_down (ff, d)``, ``scale (d,)``, MLA's
+``wq_a (d, q_lora)``, ``wq_b (q_lora, H, nope + rope)``, ``wkv_a (d,
+kv_lora + rope)``, ``wkv_b (kv_lora, H, nope + v)``, ``wo (H, v, d)`` —
+so the JAX weights load without reshaping and tests compare like with
+like.
 
-Decode updates the KV cache IN PLACE (JAX returns a new array): the slot
-arena is one resident tensor per span, and a copy per token would cost a
-full arena read and write.
+Decode updates the KV (or MLA latent) cache IN PLACE (JAX returns a new
+array): the slot arena is one resident tensor per span, and a copy per
+token would cost a full arena read and write.
 """
 from __future__ import annotations
 
@@ -203,4 +207,144 @@ def init_attention_cache(cfg, batch: int, max_len: int, dtype,
     return {
         "k": torch.zeros((batch, max_len, kv, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, max_len, kv, hd), dtype=dtype, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V2 / MiniCPM3)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg, dtype, device) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    s = 1.0 / math.sqrt(d)
+    return {
+        "wq_a": _normal(gen, (d, m.q_lora_rank), s, dtype, device),
+        "q_norm": init_rmsnorm(m.q_lora_rank, device),
+        "wq_b": _normal(gen, (m.q_lora_rank, h, qk),
+                        1.0 / math.sqrt(m.q_lora_rank), dtype, device),
+        "wkv_a": _normal(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim), s,
+                         dtype, device),
+        "kv_norm": init_rmsnorm(m.kv_lora_rank, device),
+        "wkv_b": _normal(gen, (m.kv_lora_rank, h,
+                               m.qk_nope_head_dim + m.v_head_dim),
+                         1.0 / math.sqrt(m.kv_lora_rank), dtype, device),
+        "wo": _normal(gen, (h, m.v_head_dim, d),
+                      1.0 / math.sqrt(h * m.v_head_dim), dtype, device),
+    }
+
+
+def mla_rope_tables(positions: torch.Tensor, cfg):
+    """The RoPE tables of MLA's rotated part: at ``qk_rope_head_dim``, the
+    width JAX's ``apply_rope`` sees there, not at ``head_dim``."""
+    return rope_tables(positions, cfg.mla.qk_rope_head_dim, cfg.rope_theta)
+
+
+def _mla_q(p: dict, x: torch.Tensor, cfg, rope):
+    """(q_nope, q_rope) of x (..., d): (..., H, nope) and (..., H, rope),
+    the latter rotated by ``mla_rope_tables``' output."""
+    m = cfg.mla
+    ql = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = _proj(ql, p["wq_b"])
+    return q[..., :m.qk_nope_head_dim], rotate(q[..., m.qk_nope_head_dim:],
+                                               rope)
+
+
+def _mla_latent(p: dict, x: torch.Tensor, cfg, rope):
+    """The cached latent of x (..., d): the normed ``ckv`` (..., kv_lora)
+    and the rotated shared key part ``krope`` (..., rope)."""
+    R = cfg.mla.kv_lora_rank
+    kv = x @ p["wkv_a"]
+    ckv = rms_norm(kv[..., :R], p["kv_norm"], cfg.norm_eps)
+    return ckv, rotate(kv[..., None, R:], rope)[..., 0, :]
+
+
+def apply_mla_dense(p: dict, x: torch.Tensor, cfg, *, rope=None):
+    """Full-sequence MLA (prefill), non-absorbed: per-head keys and values
+    expanded from the latent through ``wkv_b``, then causal attention
+    through the flash kernel with q and k at nope + rope columns and v at
+    ``v_head_dim`` (MiniCPM3: 96 and 64), scaled by 1 / sqrt(nope +
+    rope). ``rope``: the ``mla_rope_tables`` of the positions, by default
+    those of 0..S-1. Returns (out, {"ckv": (B, S, kv_lora), "krope": (B,
+    S, rope)})."""
+    m = cfg.mla
+    if rope is None:
+        rope = mla_rope_tables(
+            torch.arange(x.shape[1], device=x.device)[None, :], cfg)
+    q_nope, q_rope = _mla_q(p, x, cfg, rope)
+    ckv, k_rope = _mla_latent(p, x, cfg, rope)
+    kvb = _proj(ckv, p["wkv_b"])
+    k_nope = kvb[..., :m.qk_nope_head_dim]
+    value = kvb[..., m.qk_nope_head_dim:]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
+    out = flash_attention(q, k, value.contiguous())
+    return _out_proj(out, p["wo"]), {"ckv": ckv, "krope": k_rope}
+
+
+def apply_mla_decode(p: dict, x: torch.Tensor, cache: dict,
+                     pos: torch.Tensor, cfg, *,
+                     slots: Optional[torch.Tensor] = None,
+                     ctx: Optional[int] = None,
+                     live: Optional[int] = None, rope=None):
+    """Absorbed-matmul MLA decode over the latent cache, in PyTorch ops
+    (the JAX model computes it with jnp outside any Pallas kernel).
+
+    x: (B, d); pos: (B,) int. cache: {"ckv": (N, T, kv_lora), "krope":
+    (N, T, rope)}, row i of the batch at cache row i (no ``slots``) or at
+    arena row ``slots[i]``; the step's latent row is written in place for
+    the first ``live`` rows (padding rows past them carry an out-of-range
+    slot: their writes are skipped, their reads clamped). ``ctx`` (with
+    ``slots``, below T) bounds the scored time rows to a context bucket,
+    as in the JAX model. The dtype sequence is the reference's: the two
+    score products in the model dtype, their sum, then float32 for the
+    softmax. ``rope``: the ``mla_rope_tables`` of ``pos``."""
+    m = cfg.mla
+    B, d = x.shape
+    T = cache["ckv"].shape[1]
+    if ctx is not None and (slots is None or ctx >= T):
+        ctx = None
+    if rope is None:
+        rope = mla_rope_tables(pos, cfg)
+    q_nope, q_rope = _mla_q(p, x, cfg, rope)               # (B, H, .)
+    ckv_t, krope_t = _mla_latent(p, x, cfg, rope)
+    n = B if live is None else live
+    row_idx = (slots if slots is not None
+               else torch.arange(B, device=x.device))[:n]
+    ckv_full, krope_full = cache["ckv"], cache["krope"]
+    ckv_full[row_idx, pos[:n]] = ckv_t[:n].to(ckv_full.dtype)
+    krope_full[row_idx, pos[:n]] = krope_t[:n].to(krope_full.dtype)
+    if slots is None:
+        ckv, krope = ckv_full, krope_full
+    else:
+        gslots = torch.clamp(slots, max=ckv_full.shape[0] - 1)
+        span = T if ctx is None else ctx
+        ckv, krope = ckv_full[gslots, :span], krope_full[gslots, :span]
+
+    wkv_b_k = p["wkv_b"][..., :m.qk_nope_head_dim]          # (R, H, nope)
+    wkv_b_v = p["wkv_b"][..., m.qk_nope_head_dim:]          # (R, H, v)
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope, wkv_b_k)
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    scores = (torch.einsum("bhr,btr->bht", q_lat, ckv)
+              + torch.einsum("bhp,btp->bht", q_rope, krope)
+              ).to(torch.float32) * scale
+    t_idx = torch.arange(ckv.shape[1], device=x.device)[None, :]
+    valid = t_idx <= pos[:, None]
+    scores = torch.where(valid[:, None, :], scores,
+                         torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    lat = torch.einsum("bht,btr->bhr", probs, ckv)
+    out = torch.einsum("bhr,rhv->bhv", lat, wkv_b_v)
+    return _out_proj(out, p["wo"]), cache
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                             dtype=dtype, device=device),
     }

@@ -13,12 +13,13 @@
   * ``init_cache(batch, max_len, device=...)``,
   * per-block and per-span application for the LazyBatching engine.
 
-Block kinds: ``"dense"`` (GQA attention + SwiGLU MLP) and ``"ssm"``
-(Mamba-2 mixer, ``models/ssm.py``). The JAX package scans homogeneous
-layer stacks with ``lax.scan``; here a span is a Python loop over
-per-layer parameter views, and the flat slot arena is updated in place.
-Other families (MoE, MLA, hybrid) and the ``RuntimeFlags`` variants of the
-JAX model are not ported yet.
+Block kinds: ``"dense"`` (GQA attention + SwiGLU MLP), ``"mla"`` (MLA
+attention + SwiGLU MLP, cache ``{"ckv", "krope"}``), ``"moe"`` (GQA
+attention + the top-k MoE FFN of ``models/moe.py``) and ``"ssm"`` (Mamba-2
+mixer, ``models/ssm.py``). The JAX package scans homogeneous layer stacks
+with ``lax.scan``; here a span is a Python loop over per-layer parameter
+views, and the flat slot arena is updated in place. The hybrid family and
+the ``RuntimeFlags`` variants of the JAX model are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from . import moe as MOE
 from . import ssm as SSM
 
 
@@ -90,18 +92,25 @@ def _scatter_rows(arena, rows, slots, live: Optional[int] = None):
 
 class Model:
     def __init__(self, cfg: ModelConfig, flags: RuntimeFlags = RuntimeFlags()):
-        if (cfg.hybrid is not None or cfg.moe is not None
-                or (cfg.family != "ssm" and cfg.attention != "gqa")):
+        if cfg.hybrid is not None or (cfg.family != "ssm" and
+                                      cfg.attention not in ("gqa", "mla")):
             raise NotImplementedError(
-                f"{cfg.name}: the PyTorch port serves dense GQA and SSM "
-                f"models only so far (MoE, MLA and hybrid stacks come in "
-                f"later slices)")
+                f"{cfg.name}: the PyTorch port serves dense GQA, MLA, MoE "
+                f"and SSM models so far (hybrid stacks come in a later "
+                f"slice)")
         self.cfg = cfg
         self.flags = flags
 
     @property
     def block_kind(self) -> str:
-        return "ssm" if self.cfg.family == "ssm" else "dense"
+        c = self.cfg
+        if c.family == "ssm":
+            return "ssm"
+        if c.moe is not None:
+            return "moe"
+        if c.attention == "mla":
+            return "mla"
+        return "dense"
 
     # ------------------------------------------------------------------
     # Parameters
@@ -112,10 +121,12 @@ class Model:
         if kind == "ssm":
             return {"ln1": L.init_rmsnorm(d, dev),
                     "ssm": SSM.init_ssm(gen, cfg, dtype, dev)}
-        return {"ln1": L.init_rmsnorm(d, dev),
-                "attn": L.init_attention(gen, cfg, dtype, dev),
-                "ln2": L.init_rmsnorm(d, dev),
-                "mlp": L.init_mlp(gen, d, cfg.d_ff, dtype, dev)}
+        attn = (L.init_mla(gen, cfg, dtype, dev) if kind == "mla"
+                else L.init_attention(gen, cfg, dtype, dev))
+        ffn = ({"moe": MOE.init_moe(gen, cfg, dtype, dev)} if kind == "moe"
+               else {"mlp": L.init_mlp(gen, d, cfg.d_ff, dtype, dev)})
+        return {"ln1": L.init_rmsnorm(d, dev), "attn": attn,
+                "ln2": L.init_rmsnorm(d, dev), **ffn}
 
     def init(self, gen: torch.Generator) -> dict:
         """Seeded parameters on ``gen.device``: the shapes and scales of the
@@ -149,26 +160,44 @@ class Model:
     # ------------------------------------------------------------------
     # Single-block application
     # ------------------------------------------------------------------
-    def _rope(self, positions):
+    def _rope(self, kind: str, positions):
+        """The RoPE tables of ``positions`` for ``kind``'s attention: MLA
+        rotates only its ``qk_rope_head_dim`` columns, GQA its whole
+        heads."""
+        if kind == "mla":
+            return L.mla_rope_tables(positions, self.cfg)
         return L.rope_tables(positions, self.cfg.head_dim,
                              self.cfg.rope_theta)
 
+    def _ffn(self, bp: dict, x):
+        """ln2 and the block's FFN: the MoE on (B, S, d) rows (a decode
+        row (B, d) is a group of one token), else the SwiGLU MLP."""
+        h = L.rms_norm(x, bp["ln2"], self.cfg.norm_eps)
+        if "moe" not in bp:
+            return L.apply_mlp(bp["mlp"], h)
+        if h.dim() == 2:
+            return MOE.apply_moe(bp["moe"], h[:, None, :], self.cfg)[:, 0]
+        return MOE.apply_moe(bp["moe"], h, self.cfg)
+
     def apply_block_dense(self, bp: dict, x, *, kind: str,
                           return_cache: bool, rope=None):
-        """One prefill block of ``kind``; ``rope``: the
-        ``layers.rope_tables`` of the positions, by default those of
-        0..S-1 (attention blocks only)."""
+        """One prefill block of ``kind``; ``rope``: the RoPE tables of
+        the positions (``_rope``), by default those of 0..S-1 (attention
+        blocks only)."""
         cfg = self.cfg
         if kind == "ssm":
             h, cache = SSM.apply_ssm_dense(
                 bp["ssm"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg)
             return x + h, (cache if return_cache else None)
-        h, kv = L.apply_attention_dense(
-            bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg,
-            rope=rope)
+        xn = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        if kind == "mla":
+            h, cache = L.apply_mla_dense(bp["attn"], xn, cfg, rope=rope)
+        else:
+            h, kv = L.apply_attention_dense(bp["attn"], xn, cfg, rope=rope)
+            cache = {"k": kv[0], "v": kv[1]}
         x = x + h
-        x = x + L.apply_mlp(bp["mlp"], L.rms_norm(x, bp["ln2"], cfg.norm_eps))
-        return x, ({"k": kv[0], "v": kv[1]} if return_cache else None)
+        x = x + self._ffn(bp, x)
+        return x, (cache if return_cache else None)
 
     def apply_block_decode(self, bp: dict, x, cache, pos, *, kind: str,
                            slots=None, ctx=None, live=None, rope=None,
@@ -190,11 +219,17 @@ class Model:
             else:
                 _scatter_rows(cache, rows, slots, live)
             return x + h, cache
-        h, cache = L.apply_attention_decode(
-            bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cache, pos,
-            cfg, slots=slots, ctx=ctx, live=live, rope=rope, lengths=lengths)
+        xn = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        if kind == "mla":
+            h, cache = L.apply_mla_decode(
+                bp["attn"], xn, cache, pos, cfg, slots=slots, ctx=ctx,
+                live=live, rope=rope)
+        else:
+            h, cache = L.apply_attention_decode(
+                bp["attn"], xn, cache, pos, cfg, slots=slots, ctx=ctx,
+                live=live, rope=rope, lengths=lengths)
         x = x + h
-        x = x + L.apply_mlp(bp["mlp"], L.rms_norm(x, bp["ln2"], cfg.norm_eps))
+        x = x + self._ffn(bp, x)
         return x, cache
 
     # ------------------------------------------------------------------
@@ -205,7 +240,7 @@ class Model:
         once per span; attention-free spans need neither."""
         if kind == "ssm":
             return None, None
-        return self._rope(pos), (pos + 1).to(torch.int32)
+        return self._rope(kind, pos), (pos + 1).to(torch.int32)
 
     def apply_span_decode(self, layer_bps: Sequence[dict], x, flat_arena,
                           pos, *, kind: str, offs: Sequence[int], slots,
@@ -226,7 +261,8 @@ class Model:
     def _prefill_rope(self, kind: str, x):
         if kind == "ssm":
             return None
-        return self._rope(torch.arange(x.shape[1], device=x.device)[None, :])
+        return self._rope(kind,
+                          torch.arange(x.shape[1], device=x.device)[None, :])
 
     def apply_span_prefill(self, layer_bps: Sequence[dict], flat_arena, x, *,
                            kind: str, offs: Sequence[int], write=None):
@@ -260,8 +296,9 @@ class Model:
     def prefill(self, params, tokens):
         """Returns (last-token logits (B, V), cache) with the cache in the
         JAX layout: ``({"k": (L, B, S, KV, hd), "v": ...}, [])`` for dense
-        stacks, ``({"state": (L, B, nh, hd, N), "conv": (L, B, W-1, C)},
-        [])`` for SSM stacks."""
+        and MoE stacks, ``({"ckv": (L, B, S, kv_lora), "krope": (L, B, S,
+        rope)}, [])`` for MLA stacks, ``({"state": (L, B, nh, hd, N),
+        "conv": (L, B, W-1, C)}, [])`` for SSM stacks."""
         cfg = self.cfg
         x = self.embed(params, tokens)
         kind = self.block_kind
@@ -298,6 +335,9 @@ class Model:
         if kind == "ssm":
             return SSM.init_ssm_cache(self.cfg, batch, self.flags.dtype,
                                       device=device)
+        if kind == "mla":
+            return L.init_mla_cache(self.cfg, batch, max_len,
+                                    self.flags.dtype, device=device)
         return L.init_attention_cache(self.cfg, batch, max_len,
                                       self.flags.dtype, device=device)
 

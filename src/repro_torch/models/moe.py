@@ -1,0 +1,105 @@
+"""Top-k Mixture-of-Experts FFN of the port, with sort-based dispatch.
+
+The port of ``repro.models.moe`` (serving path): each batch row is one
+routing group (the JAX model's ``group_rows = 1``, which its serving
+uses), so a batch-bucket padding row is a group of its own and takes no
+capacity from a live row. Per group of t tokens:
+
+  1. route: float32 router logits, softmax, top-k experts per token
+     (``torch.topk``), weights renormalised over the k chosen,
+  2. sort the (token, expert) pairs by expert id (stable argsort),
+  3. each pair's rank within its expert's run (``torch.searchsorted`` on
+     the sorted ids, side left),
+  4. scatter-add the token vectors into an (E, C) capacity buffer with
+     ``C = ceil(t * k / E * capacity_factor)``; a pair ranked C or later
+     is dropped — it adds zeros at slot C - 1, as in the reference,
+  5. one batched SwiGLU over all experts' buffers,
+  6. gather each pair's output back, mask the dropped ones, and
+     scatter-add it into its token weighted by its routing weight.
+
+The scatter-adds are ``index_put_(accumulate=True)``, the counterpart of
+JAX's ``.at[].add``. Nothing here reads a value back to the host (no
+``.item()``, no ``nonzero()``): a serving run keeps its one host sync.
+The auxiliary load-balance loss is training work and is not computed.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .layers import _normal
+
+
+def init_moe(gen: torch.Generator, cfg, dtype, device) -> dict:
+    """Seeded parameters with the JAX ``init_moe`` shapes, dtypes and
+    scales: a float32 N(0, 1/d) router (d, E) and per-expert SwiGLU
+    weights (E, d, ff), (E, d, ff), (E, ff, d)."""
+    m = cfg.moe
+    d, ff, e = cfg.d_model, cfg.d_ff, m.num_experts
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
+    return {
+        "router": _normal(gen, (d, e), s_in, torch.float32, device),
+        "w_gate": _normal(gen, (e, d, ff), s_in, dtype, device),
+        "w_up": _normal(gen, (e, d, ff), s_in, dtype, device),
+        "w_down": _normal(gen, (e, ff, d), s_out, dtype, device),
+    }
+
+
+def capacity(cfg, t: int) -> int:
+    """Slots per expert for a group of ``t`` tokens."""
+    m = cfg.moe
+    return max(1, math.ceil(t * m.experts_per_token / m.num_experts
+                            * m.capacity_factor))
+
+
+def _dispatch_indices(expert_ids: torch.Tensor, capacity: int):
+    """expert_ids: (G, n) flat (token * k) expert assignments per group.
+
+    Returns (order, sorted_eid, slot, keep), each (G, n): the pairs'
+    order sorted by expert, their expert ids in that order, each pair's
+    slot in its expert's capacity buffer, and whether it fits under the
+    capacity bound (a dropped pair's slot is ``capacity - 1``)."""
+    n = expert_ids.shape[-1]
+    order = torch.argsort(expert_ids, dim=-1, stable=True)
+    sorted_eid = torch.gather(expert_ids, -1, order)
+    # rank of each pair within its expert's run
+    first = torch.searchsorted(sorted_eid, sorted_eid, side="left")
+    rank = torch.arange(n, device=expert_ids.device) - first
+    keep = rank < capacity
+    slot = torch.where(keep, rank, torch.full_like(rank, capacity - 1))
+    return order, sorted_eid, slot, keep
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x: (B, S, d) -> y (B, S, d); each batch row routes on its own."""
+    m = cfg.moe
+    G, t, d = x.shape
+    e, k = m.num_experts, m.experts_per_token
+    cap = capacity(cfg, t)
+    logits = x.to(torch.float32) @ p["router"]             # (G, t, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.topk(probs, k, dim=-1)            # (G, t, k)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+    order, sorted_eid, slot, keep = _dispatch_indices(top_e.reshape(G, t * k),
+                                                      cap)
+    src = order // k                                       # token of a pair
+    g = torch.arange(G, device=x.device)[:, None].expand_as(src)
+    rows = torch.gather(x, 1, src[..., None].expand(G, t * k, d))
+    buf = x.new_zeros((G, e, cap, d))
+    buf.index_put_((g, sorted_eid, slot),
+                   torch.where(keep[..., None], rows, torch.zeros_like(rows)),
+                   accumulate=True)
+
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w_gate"]))
+    h = h * torch.einsum("gecd,edf->gecf", buf, p["w_up"])
+    out_buf = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+
+    vals = out_buf[g, sorted_eid, slot] * keep[..., None].to(out_buf.dtype)
+    w_sorted = torch.gather(top_w.reshape(G, t * k), -1,
+                            order).to(out_buf.dtype)
+    y = out_buf.new_zeros((G, t, d))
+    y.index_put_((g, src), vals * w_sorted[..., None], accumulate=True)
+    return y

@@ -22,18 +22,20 @@ request owns a lazily assigned slot for its lifetime, and the arena doubles
 on demand up to ``max_slots`` and shrinks back as occupancy drops (live
 slots are compacted below the watermark). Storage is per span of same-kind
 layers in FLAT layout: leaves are ``(span_len * n_slots, ...)`` —
-``(…, max_len, KV, hd)`` K/V for attention, ``(…, nh, hd, N)`` state and
-``(…, W - 1, C)`` conv tail for SSM — and layer k's batch rows sit at
-``slots + k * n_slots``.
+``(…, max_len, KV, hd)`` K/V for GQA attention (dense and MoE blocks),
+``(…, max_len, kv_lora)`` ``ckv`` and ``(…, max_len, rope)`` ``krope``
+latents for MLA, ``(…, nh, hd, N)`` state and ``(…, W - 1, C)`` conv tail
+for SSM — and layer k's batch rows sit at ``slots + k * n_slots``.
 
 Fused runs: a decode chunk ``D_i..D_j[+head]`` runs as one Python loop
 over the span's layers with the head folded in; a multi-cycle run keeps
 each cycle's sampled tokens on the device and feeds them to the next
-cycle's embedding. Emb + prefill chunks of attention stacks prefill all
-members together, right-padded to power-of-two length buckets (causal
-attention never lets a valid row read a padded one); SSM stacks prefill
-each request at its exact length, since a padded tail would run through
-the recurrence and change the state. Decode batches are padded to a power
+cycle's embedding. Emb + prefill chunks of attention stacks (dense, MLA)
+prefill all members together, right-padded to power-of-two length buckets
+(causal attention never lets a valid row read a padded one); SSM and MoE
+stacks prefill each request at its exact length, since a padded tail
+would run through the recurrence and change the state, or take expert
+capacity and change the routing. Decode batches are padded to a power
 of two; padding rows carry an out-of-range slot, their cache writes are
 skipped (JAX drops them; torch's ``index_put_`` would raise, or assert on
 the device) and their reads are clamped. Positions and last tokens of a stable
@@ -44,15 +46,16 @@ sight of each dispatch shape key — (chunk kind, lo, hi, with_head, padded
 batch, ctx or length bucket) — so the JAX contract carries over: after
 warmup, no new keys, and at most one host sync per run.
 
-On a CUDA device decode attention, prefill attention, the SSM prefill scan
-and every RMSNorm go through the hand-written kernels of
-``repro_torch.kernels``; on the CPU (``device="cpu"``, as the tests run it)
-they take their plain versions.
+On a CUDA device GQA decode attention, prefill attention (GQA and MLA),
+the SSM prefill scan and every RMSNorm go through the hand-written kernels
+of ``repro_torch.kernels``; on the CPU (``device="cpu"``, as the tests run
+it) they take their plain versions. MLA decode over the latent cache and
+the MoE FFN are PyTorch ops, as the JAX model computes them with jnp.
 
 Token semantics are exact: prefill covers ``prompt[:-1]`` and the prompt's
 last token is the first decode input, so every token is processed once.
-Not ported yet: ``cache_mode="legacy"``, the MoE, MLA and hybrid families
-and the ``RuntimeFlags`` variants.
+Not ported yet: ``cache_mode="legacy"``, the hybrid family and the
+``RuntimeFlags`` variants.
 """
 from __future__ import annotations
 
@@ -608,7 +611,9 @@ class TorchEngine(Backend):
         Attention stacks (dense/MLA) bucket by power-of-two padded prompt
         length (capped at ``max_len``). Other stacks prefill each request
         at its exact length, keyed ``(prefill_len, rid)``: a padded tail
-        would run through the SSM recurrence and change the state."""
+        would run through the SSM recurrence and change the state, or
+        enter the MoE routing group, take expert capacity and change which
+        pairs are dropped."""
         bucketable = set(self.kinds) <= {"dense", "mla"}
         groups: Dict[tuple, list] = {}
         for r, st in zip(reqs, sts):

@@ -27,7 +27,9 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [
 COPIES = ["configs/base.py", "configs/llama3_2_1b.py",
           "configs/mamba2_2_7b.py", "configs/qwen2_5_32b.py",
           "configs/mistral_nemo_12b.py", "configs/internvl2_26b.py",
-          "configs/musicgen_large.py", "core/__init__.py",
+          "configs/musicgen_large.py", "configs/minicpm3_4b.py",
+          "configs/granite_moe_3b_a800m.py", "configs/grok_1_314b.py",
+          "core/__init__.py",
           "core/lifecycle.py", "core/request.py", "core/batch_table.py",
           "core/slack.py", "core/policies.py", "core/arbiter.py",
           "serving/backend.py", "serving/registry.py", "serving/metrics.py",

@@ -225,6 +225,38 @@ def test_flash_plain_chunks_gqa_like_jax_chunked_on_repeated_heads(KV):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("Dqk,Dv", [(96, 64), (48, 32)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_flash_plain_takes_mla_widths_like_jax_chunked(Dqk, Dv, dtype):
+    """MLA's non-absorbed prefill (MiniCPM3's (96, 64), reduced()'s (48,
+    32)): q, k at Dqk and v at Dv; the JAX model's
+    ``chunked_causal_attention`` scales by 1 / sqrt(Dqk) and returns Dv
+    columns, and so does the port."""
+    rng = np.random.default_rng(8)
+    B, S, H = 2, 96, 4
+    qj, qt = _pair(rng.standard_normal((B, S, H, Dqk)), dtype)
+    kj, kt = _pair(rng.standard_normal((B, S, H, Dqk)), dtype)
+    vj, vt = _pair(rng.standard_normal((B, S, H, Dv)), dtype)
+    got = K.flash_attention(qt, kt, vt)
+    plain = K.flash_attention_plain(qt, kt, vt, chunk=32)
+    want = jax_chunked(qj, kj, vj, chunk=32)
+    assert got.dtype == qt.dtype and tuple(got.shape) == (B, S, H, Dv)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    np.testing.assert_allclose(_np(plain), _np(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("D,Dv,width", [(64, 64, 64), (32, 32, 32),
+                                        (128, 128, 128), (96, 64, 128),
+                                        (48, 32, 64), (40, 40, 64),
+                                        (64, 96, None), (60, 60, None),
+                                        (136, 64, None)])
+def test_flash_kernel_width(D, Dv, width):
+    """The kernel's compiled width for q/k width D and v width Dv: the
+    smallest of 32, 64 and 128 that holds D; None for what it does not
+    take (Dv > D, widths no multiple of 8, D above 128)."""
+    assert K.flash_attn.kernel_width(D, Dv) == width
+
+
 def _tf32(x):
     """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
     nearest on the low 13 mantissa bits, ties away from zero (the carry

@@ -7,8 +7,9 @@ it runs there as it stands:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 It sweeps the shapes of ``tests/test_kernels.py`` — MHA, GQA, MQA, head
-dims 32/64/128, the head shapes of the dense architectures (G 1, 4, 5
-and 6), ragged lengths, padding rows at an out-of-range slot,
+dims 32/64/128, the head shapes of the dense and MoE architectures (G 1,
+3, 4, 5 and 6), MLA's prefill widths (q/k 96 with v 64, 48 with 32),
+ragged lengths, padding rows at an out-of-range slot,
 sliding windows, query offsets and tails that are no multiple of a tile —
 in float32 (tolerance 2e-5) and bfloat16 (2e-2); the SSD scan over its
 shapes, full width and chunks 1 … 256 in float32 (1e-4) and bfloat16
@@ -173,11 +174,11 @@ def test_ragged_decode_kernel_repeat_calls_agree(cuda, dtype):
                                atol=tol)
 
 
-def _flash_case(cuda, B, S, T, H, KV, D, dtype, window, q_offset):
+def _flash_case(cuda, B, S, T, H, KV, D, dtype, window, q_offset, Dv=None):
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.randn((B, S, H, D), generator=g, device=cuda).to(dtype)
     k = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
-    v = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, T, KV, Dv or D), generator=g, device=cuda).to(dtype)
     n0 = K.flash_attention.launches
     got = K.flash_attention(q, k, v, window=window, q_offset=q_offset)
     want = K.flash_attention_plain(q, k, v, window=window, q_offset=q_offset)
@@ -210,9 +211,11 @@ def test_flash_kernel_head_passes(cuda, H, KV, D, dtype):
     _flash_case(cuda, 2, 150, 150, H, KV, D, dtype, None, 0)
 
 
-# (H, KV, D) of qwen2.5-32b (G 5), internvl2-26b (G 6), mistral-nemo-12b
-# (G 4) and musicgen-large (MHA at D 64)
-GQA_ARCH_HEADS = [(40, 8, 128), (48, 8, 128), (32, 8, 128), (32, 32, 64)]
+# (H, KV, D) of qwen2.5-32b (G 5), internvl2-26b and grok-1-314b (G 6),
+# mistral-nemo-12b (G 4), musicgen-large (MHA at D 64) and
+# granite-moe-3b-a800m (G 3)
+GQA_ARCH_HEADS = [(40, 8, 128), (48, 8, 128), (32, 8, 128), (32, 32, 64),
+                  (24, 8, 64)]
 
 
 @pytest.mark.cuda
@@ -240,6 +243,32 @@ def test_ragged_decode_kernel_at_the_gqa_archs_heads(cuda, H, KV, D, dtype):
     want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dqk,Dv", [(96, 64), (48, 32)])
+@pytest.mark.parametrize("B,S,T,H,q_offset,window", [
+    (2, 317, 317, 40, 0, None),          # minicpm3-4b's 40 heads
+    (1, 190, 253, 4, 63, None),          # a catch-up chunk
+    (2, 200, 200, 6, 0, 77),             # a sliding window
+    (4, 512, 512, 40, 0, None)])         # the smoke's prefill shape
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_mla_widths(cuda, B, S, T, H, q_offset, window, Dqk,
+                                    Dv, dtype):
+    """MLA's non-absorbed prefill: q and k at Dqk, v at Dv, KV == H
+    (MiniCPM3's (96, 64) runs at the kernel's width 128, reduced()'s (48,
+    32) at 64, with the columns past each width loaded as zeros); the
+    output is (B, S, H, Dv)."""
+    _flash_case(cuda, B, S, T, H, H, Dqk, dtype, window, q_offset, Dv=Dv)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_raises_on_widths_it_does_not_take(cuda):
+    for dk, dv in ((64, 96), (60, 60), (136, 64)):
+        q = torch.zeros((1, 64, 2, dk), device=cuda)
+        v = torch.zeros((1, 64, 2, dv), device=cuda)
+        with pytest.raises(ValueError, match="head dims"):
+            K.flash_attention(q, q, v)
 
 
 @pytest.mark.cuda
@@ -617,6 +646,23 @@ def test_mamba_engine_on_card_matches_cpu_engine(cuda):
                            MAMBA_KERNELS)
 
 
+@pytest.mark.cuda
+def test_mla_engine_on_card_matches_cpu_engine(cuda):
+    """The tiny MiniCPM3 (MLA at reduced()'s widths, q/k 48 and v 32):
+    flash prefill at those widths and RMSNorm; MLA decode is PyTorch
+    ops."""
+    _engine_on_card_vs_cpu(cuda, "minicpm3-4b", (5, 9, 20),
+                           ("fused_rmsnorm", "flash_attention"))
+
+
+@pytest.mark.cuda
+def test_moe_engine_on_card_matches_cpu_engine(cuda):
+    """The tiny granite MoE (4 experts, top 2): GQA attention on the llama
+    kernels, the MoE FFN in PyTorch ops."""
+    _engine_on_card_vs_cpu(cuda, "granite-moe-3b-a800m", (5, 9, 20),
+                           LLAMA_KERNELS)
+
+
 def _no_hidden_sync(cuda, arch):
     """Inside a committed run nothing waits for the card: with torch's sync
     debug mode set to raise, warm fused runs (prefill + decode cycles,
@@ -667,3 +713,11 @@ def test_fused_runs_make_no_hidden_host_sync(cuda):
 @pytest.mark.cuda
 def test_fused_ssm_runs_make_no_hidden_host_sync(cuda):
     _no_hidden_sync(cuda, "mamba2-2.7b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "granite-moe-3b-a800m"])
+def test_fused_mla_and_moe_runs_make_no_hidden_host_sync(cuda, arch):
+    """MLA decode and the MoE dispatch (top-k, argsort, searchsorted,
+    scatter-adds) wait for nothing inside a run."""
+    _no_hidden_sync(cuda, arch)

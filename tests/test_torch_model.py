@@ -22,7 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import Model as JaxModel, RuntimeFlags as JaxFlags  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: E402
+from repro_torch.configs.base import HybridConfig, ModelConfig, MoEConfig  # noqa: E402
 from repro_torch.models import Model, RuntimeFlags, params_from_jax  # noqa: E402
 from repro_torch.models import layers as TL, ssm as TSSM  # noqa: E402
 from repro_torch.models.model import _gather_rows, _scatter_rows  # noqa: E402
@@ -189,11 +189,14 @@ def test_gather_clamps_and_scatter_skips_padding_rows():
 
 
 def test_unported_families_raise():
-    base = dict(name="x", num_layers=2, d_model=64, num_heads=4,
+    """The hybrid family (RG-LRU + local attention) is the one left; MoE
+    and MLA are ported (tests/test_torch_moe.py, tests/test_torch_mla.py)."""
+    base = dict(name="x", num_layers=3, d_model=64, num_heads=4,
                 num_kv_heads=4, head_dim=16, d_ff=128, vocab_size=128)
-    moe = ModelConfig(family="moe", moe=MoEConfig(4, 2), **base)
-    with pytest.raises(NotImplementedError, match="dense GQA"):
-        Model(moe)
+    hybrid = ModelConfig(family="hybrid", hybrid=HybridConfig(), **base)
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        Model(hybrid)
+    Model(ModelConfig(family="moe", moe=MoEConfig(4, 2), **base))
 
 
 @pytest.mark.parametrize("entry", ["params_from_jax", "init_cache",

@@ -96,9 +96,10 @@ def flash_case(torch, label, B, S, T, H, KV, off, win, D, seed, ref_device):
 
     def launch(fn):
         o = torch.empty_like(q)
+        # width, Dqk and Dv all D; the scores' scale 1 / sqrt(D)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
-                 S, T, H, KV, D, off, -1 if win is None else win, 0,
-                 _stream(torch))
+                 S, T, H, KV, D, D, D, off, -1 if win is None else win,
+                 D ** -0.5, 0, _stream(torch))
         if err:
             raise RuntimeError(f"flash_attention: CUDA error {err} at launch")
         return (o,)
