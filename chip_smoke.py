@@ -8,15 +8,20 @@ Phases, always all of them, in order:
   build    compile every CUDA source of ``src/repro_torch/csrc`` with nvcc
            (one process per source, all started together); print seconds
            and what ptxas reports per kernel; fail when the RMSNorm kernel,
-           the float32 flash kernel at D 64 or a kernel of the SSD scan's
-           split-TF32 route spills, when the flash or SSD library holds no
+           the float32 flash kernel at D 64, a flash or ragged decode kernel
+           at D 256 or a kernel of the SSD scan's split-TF32 route spills,
+           when the flash or SSD library holds no
            HGMMA (wgmma) instruction, or when either holds no TF32
            tensor-core instruction.
   kernels  run each hand-written kernel against its plain PyTorch version on
            the card at the serving paths' shapes (flash at llama's, nemo's
-           and MiniCPM3's MLA prefill, whose q and k are 96 wide and v 64;
-           ragged decode at llama's, nemo's and granite's heads; RMSNorm at
-           llama's width 2048 and mamba's 2560 and 5120; the SSD scan at
+           and MiniCPM3's MLA prefill, whose q and k are 96 wide and v 64,
+           and at recurrentgemma-9b's, 16 q heads over one kv head of 256
+           with its window of 2048, at S 512 and at S 4096 where the window
+           binds; ragged decode at llama's, nemo's, granite's and
+           recurrentgemma-9b's heads (G 16, D 256); RMSNorm at llama's
+           width 2048, mamba's 2560 and 5120 and recurrentgemma-9b's 4096;
+           the SSD scan at
            chunks 256, 128
            and 64, which take its tensor-core route in bfloat16 and its
            split-TF32 route in float32, at 1, 2 and 32, which take the
@@ -99,6 +104,18 @@ Phases, always all of them, in order:
            ops (each request prefills at its exact length: padding would
            take expert capacity).
   granite exact  as exact, on full-width granite-moe-3b-a800m in float32.
+  rgemma serve  full-width recurrentgemma-9b (38 layers: 12 x (rec, rec,
+           attn) and 2 rec, d_model 4096, RG-LRU width 4096, 16 q heads
+           over 1 kv head of 256 with a local window of 2048, d_ff 12288,
+           vocab 256000, tied: 9.40 B parameters, 18.8 GB) in bfloat16, as
+           the serve phase: flash prefill and ragged decode at head_dim 256,
+           RMSNorm at 4096, the RG-LRU in PyTorch ops (each request
+           prefills at its exact length: padding would run through the
+           recurrence). Also prints the device ops of one decode
+           layer-step of a rec layer and of an attn layer apart, at batch 8.
+  rgemma exact  as exact, on full-width recurrentgemma-9b at all 38 layers
+           in float32 (37.6 GB): the float32 flash kernel at D 256 (CUDA
+           cores) and the float32 ragged decode at D 256 on both paths.
   launch serve  the port's launcher, ``repro_torch.launch.serve``, in
            process on full-width llama3.2-1b in bfloat16 (20/s for 1.2 s,
            max_batch 8, SLA 10 s) with seeded transient faults (0.02 per
@@ -142,7 +159,10 @@ paths together, and flash and ragged decode at head_dim 128 in bfloat16,
 launched in ``nemo serve``, and float32, in ``nemo exact``; flash at
 MiniCPM3's widths in bfloat16, launched in ``minicpm serve``, and
 float32, in ``minicpm exact``; ragged decode at granite's G 3 in
-bfloat16, launched in ``granite serve``), and ``{"ok": true, ...}``.
+bfloat16, launched in ``granite serve``; flash and ragged decode at
+head_dim 256 in bfloat16, launched in ``rgemma serve``, and float32, in
+``rgemma exact``, and RMSNorm at 4096 in bfloat16, launched in ``rgemma
+serve``), and ``{"ok": true, ...}``.
 Exits non-zero before printing any result when no CUDA device is
 present.
 """
@@ -188,6 +208,11 @@ REPLACES = {
     "flash_attention_mla": FLASH_TPU,
     "flash_attention_f32_mla": FLASH_TPU,
     "ragged_decode_attention_g3": DECODE_TPU,
+    "flash_attention_d256": FLASH_TPU,
+    "flash_attention_f32_d256": FLASH_TPU,
+    "ragged_decode_attention_d256": DECODE_TPU,
+    "ragged_decode_attention_f32_d256": DECODE_TPU,
+    "fused_rmsnorm_4096": "src/repro/kernels/rmsnorm.py:28",
 }
 DECODE_CU = ("cuda", "src/repro_torch/csrc/ragged_decode_attn.cu")
 FLASH_CU = ("cuda", "src/repro_torch/csrc/flash_attn.cu")
@@ -204,11 +229,17 @@ SOURCES = {
     "flash_attention_mla": FLASH_CU,
     "flash_attention_f32_mla": FLASH_CU,
     "ragged_decode_attention_g3": DECODE_CU,
+    "flash_attention_d256": FLASH_CU,
+    "flash_attention_f32_d256": FLASH_CU,
+    "ragged_decode_attention_d256": DECODE_CU,
+    "ragged_decode_attention_f32_d256": DECODE_CU,
+    "fused_rmsnorm_4096": ("cuda", "src/repro_torch/csrc/rmsnorm.cu"),
 }
 # the JSON row a kernels-phase case fills, by (kernel, dtype, head dim):
 # llama's bf16 shapes, mistral-nemo-12b's D 128 in bf16 (its serve) and
-# float32 (its exact check), and minicpm3-4b's MLA prefill (q and k 96
-# wide) in both; granite's G 3 decode row is named by its case
+# float32 (its exact check), minicpm3-4b's MLA prefill (q and k 96 wide)
+# and recurrentgemma-9b's D 256 in both; granite's G 3 decode row and the
+# RMSNorm row at 4096 are named by their cases
 ROWS = {("ragged_decode_attention", "bfloat16", 64): "ragged_decode_attention",
         ("flash_attention", "bfloat16", 64): "flash_attention",
         ("ragged_decode_attention", "bfloat16", 128):
@@ -218,12 +249,19 @@ ROWS = {("ragged_decode_attention", "bfloat16", 64): "ragged_decode_attention",
         ("flash_attention", "bfloat16", 128): "flash_attention_d128",
         ("flash_attention", "float32", 128): "flash_attention_f32_d128",
         ("flash_attention", "bfloat16", 96): "flash_attention_mla",
-        ("flash_attention", "float32", 96): "flash_attention_f32_mla"}
+        ("flash_attention", "float32", 96): "flash_attention_f32_mla",
+        ("ragged_decode_attention", "bfloat16", 256):
+            "ragged_decode_attention_d256",
+        ("ragged_decode_attention", "float32", 256):
+            "ragged_decode_attention_f32_d256",
+        ("flash_attention", "bfloat16", 256): "flash_attention_d256",
+        ("flash_attention", "float32", 256): "flash_attention_f32_d256"}
 # a substring of each hand-written kernel's symbol, for the profile windows
 SYMBOLS = {"ragged decode": "ragged_decode_split_kernel",
            "flash prefill (bf16, tensor cores)": "flash_tc_kernel",
            "flash prefill (f32, split TF32 tensor cores)":
                "flash_tf32x3_kernel",
+           "flash prefill (f32, CUDA cores, D 256)": "flash_f32_cc_kernel",
            "SSD scan": "ssd_", "RMSNorm": "rmsnorm_kernel"}
 # the symbols (substrings) of the kernels one call launches: the SSD
 # scan's by route, the others' by launch counter in bfloat16 (the serves'
@@ -252,8 +290,10 @@ MAMBA_KERNELS = ("ssd_chunked", "ssd_chunked_tc", "ssd_chunked_recurrent",
                  "fused_rmsnorm")
 MAMBA_EXACT_KERNELS = ("ssd_chunked", "ssd_chunked_recurrent",
                        "ssd_chunked_tf32", "fused_rmsnorm")
-# minicpm3-4b: MLA prefill through flash at q/k 96, v 64; its decode over
-# the latent cache is PyTorch ops, so no ragged decode may launch
+# recurrentgemma-9b's local attention runs the llama kernels at D 256 (the
+# RG-LRU is PyTorch ops); minicpm3-4b: MLA prefill through flash at q/k 96,
+# v 64; its decode over the latent cache is PyTorch ops, so no ragged
+# decode may launch
 MLA_KERNELS = ("fused_rmsnorm", "flash_attention")
 MLA_ABSENT = ("ragged_decode_attention",)
 
@@ -526,9 +566,12 @@ def compare(torch, got, ref, dtype_name: str, what: str, tols=None) -> float:
 # phases
 # ---------------------------------------------------------------------------
 
-# the f32 flash kernel at D 64 (llama's head dim), and the SSD scan's
-# split-TF32 kernels, as ptxas names them
+# the f32 flash kernel at D 64 (llama's head dim), the flash kernels at
+# D 256 (recurrentgemma-9b's), the ragged decode kernel at D 256 and the
+# SSD scan's split-TF32 kernels, as ptxas names them
 F32_FLASH_D64 = "flash_tf32x3_kernelILi64E"
+FLASH_D256 = ("flash_tc_kernelILi256E", "flash_f32_cc_kernel")
+DECODE_D256 = "Li256E"
 SSD_TF32 = ("ssd_intra_tf32_kernel", "ssd_scores_tf32_kernel")
 
 
@@ -550,10 +593,13 @@ def phase_build():
                 print(f"[build] {name} {kernel}: {line.strip()}")
                 spilled = [int(b) for b in re.findall(
                     r"(\d+) bytes spill (?:stores|loads)", line)]
-                # RMSNorm, the f32 flash kernel at llama's head dim and the
-                # SSD scan's split-TF32 kernels
+                # RMSNorm, the f32 flash kernel at llama's head dim, the
+                # D-256 flash and decode kernels and the SSD scan's
+                # split-TF32 kernels
                 no_spill = name == "rmsnorm" or (
-                    name == "flash_attn" and F32_FLASH_D64 in kernel) or (
+                    name == "flash_attn" and any(
+                        k in kernel for k in (F32_FLASH_D64, *FLASH_D256))) or (
+                    name == "ragged_decode_attn" and DECODE_D256 in kernel) or (
                     name == "ssd_chunk" and any(k in kernel
                                                 for k in SSD_TF32))
                 check(not (no_spill and any(spilled)),
@@ -645,8 +691,9 @@ def kernel_rmsnorm(torch, K, dtype, shape):
     w = scale.to(dtype)
     F = torch.nn.functional
     return {"shape": f"x{tuple(shape)}", "out": out, "ref": ref,
-            "row": ("fused_rmsnorm" if dtype == torch.bfloat16
-                    and tuple(shape) == (8, 2048) else None),
+            "row": (None if dtype != torch.bfloat16 else
+                    {(8, 2048): "fused_rmsnorm",
+                     (8, 4096): "fused_rmsnorm_4096"}.get(tuple(shape))),
             "symbols": COUNTER_SYMBOLS["fused_rmsnorm"],
             "fns": (lambda: K.fused_rmsnorm(x, scale),
                     lambda: K.fused_rmsnorm_plain(x, scale),
@@ -655,16 +702,18 @@ def kernel_rmsnorm(torch, K, dtype, shape):
             "flops": 4 * x.numel()}
 
 
-def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64, Dv=None):
-    """Causal prefill at q/k width D and v width Dv (D by default); the
-    scores and P V read q, k at D and v at Dv, the output is Dv wide."""
+def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64, Dv=None,
+                 window=None):
+    """Causal prefill at q/k width D and v width Dv (D by default), with a
+    sliding ``window`` when given; the scores and P V read q, k at D and v
+    at Dv, the output is Dv wide."""
     Dv = Dv or D
     g = torch.Generator(device="cuda").manual_seed(3)
     q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
     k = torch.randn((B, S, KV, D), generator=g, device="cuda").to(dtype)
     v = torch.randn((B, S, KV, Dv), generator=g, device="cuda").to(dtype)
-    out = K.flash_attention(q, k, v)
-    ref = K.flash_attention_plain(q, k, v)
+    out = K.flash_attention(q, k, v, window=window)
+    ref = K.flash_attention_plain(q, k, v, window=window)
     torch.cuda.synchronize()
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).repeat_interleave(H // KV, dim=1).contiguous()
@@ -673,23 +722,35 @@ def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64, Dv=None):
     elt = q.element_size()
     kv_shape = (f"kv{tuple(k.shape)}" if Dv == D
                 else f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    return {"shape": f"q{tuple(q.shape)} {kv_shape} causal",
+    binds = window is not None and window < S
+    if binds:       # the library call takes the window as a boolean mask
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     attn_mask=mask)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True)
+    # the (query, key) pairs the mask keeps: query i sees min(i + 1, window)
+    pairs = sum(min(i + 1, window or S) for i in range(S))
+    return {"shape": f"q{tuple(q.shape)} {kv_shape} causal"
+                     + (f" window {window}" if window else ""),
             "out": out, "ref": ref,
             "row": (None if S != 512 else
                     ROWS.get(("flash_attention", dtype_name(dtype), D))),
             "symbols": (COUNTER_SYMBOLS["flash_attention"]
                         if dtype == torch.bfloat16
-                        else ("flash_tf32x3_kernel",)),
+                        else ("flash_tf32x3_kernel",) if D <= 128
+                        else ("flash_f32_cc_kernel",)),
             "lib_kernels": dtype == torch.float32,
             "repeats": dtype == torch.float32 and S == 512,
-            "fns": (lambda: K.flash_attention(q, k, v),
-                    lambda: K.flash_attention_plain(q, k, v),
-                    lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                           is_causal=True)),
+            "fns": (lambda: K.flash_attention(q, k, v, window=window),
+                    lambda: K.flash_attention_plain(q, k, v, window=window),
+                    lib),
             # q, k, v read once and the output written once; Q K^T over D
-            # columns and P V over Dv on the causal half
+            # columns and P V over Dv on the pairs the mask keeps
             "bytes": (q.numel() + k.numel() + v.numel() + out.numel()) * elt,
-            "flops": 2 * B * H * (D + Dv) * S * (S + 1) // 2}
+            "flops": 2 * B * H * (D + Dv) * pairs}
 
 
 def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
@@ -850,6 +911,22 @@ def phase_kernels(torch):
                           torch, K, dt, lens, slots, None, H=24,
                           row=("ragged_decode_attention_g3"
                                if dt == torch.bfloat16 else None))))
+        # recurrentgemma-9b: 16 q heads over one kv head of 256, window
+        # 2048 (not binding at S 512, binding at S 4096), and its width
+        cases.append(("flash_attention", dt,
+                      lambda dt=dt: kernel_flash(torch, K, dt, 512, H=16,
+                                                 KV=1, D=256, window=2048)))
+        cases.append(("flash_attention", dt,
+                      lambda dt=dt: kernel_flash(torch, K, dt, 4096, B=1,
+                                                 H=16, KV=1, D=256,
+                                                 window=2048)))
+        cases.append(("ragged_decode_attention", dt,
+                      lambda dt=dt: kernel_decode(torch, K, dt, lens, slots,
+                                                  None, H=16, KV=1, D=256)))
+        for shape in ((8, 4096), (1, 384, 4096)):
+            cases.append(("fused_rmsnorm", dt,
+                          lambda dt=dt, s=shape: kernel_rmsnorm(torch, K, dt,
+                                                                s)))
         # the serve's chunks 256, 128 and 64 (the tensor-core route in
         # bf16, split TF32 in f32), chunks 1 and 2 at odd prefill lengths
         # and 32 (the recurrent route), and 200 (the CUDA-core route)
@@ -1064,7 +1141,55 @@ def phase_serve(torch, arch, tag, kernels, prompts, absent=()):
     print(f"[{tag}] kernel launches on the main path: {counts}")
     check(san.max_syncs_per_run <= 1, f"{tag}: more than one sync in a run")
     profile_window(torch, engine, cfg, kw, tag)
+    if len(set(engine.kinds)) > 1:
+        ops_by_kind(torch, engine, tag)
     return counts
+
+
+def ops_by_kind(torch, engine, tag, B=8, ctx=512, reps=10):
+    """The device ops and time of one decode layer-step of each layer kind
+    of a mixed stack (the hybrid's rec and attn layers), traced apart: the
+    first layer of each kind steps B rows at position ctx - 1 of free
+    arena slots 0 .. B - 1 (the serves are drained; a prefill rewrites
+    every row it takes), ``reps`` times in one session, whose trace must
+    hold a record of each hand-written kernel per step (RMSNorm twice,
+    ragged decode once in an attn layer). Each kernel launches a whole
+    number of times per step, so a count of some kernel that is no
+    multiple of ``reps`` says that the trace lost its records (later in a
+    run CUPTI drops a few); the step's ops are then also given as the sum
+    over kernels of count / reps rounded."""
+    x = torch.randn((B, engine.cfg.d_model), device="cuda",
+                    dtype=engine.model.flags.dtype)
+    pos = torch.full((B,), ctx - 1, dtype=torch.int32, device="cuda")
+    slots = torch.arange(B, dtype=torch.int32, device="cuda")
+    for kind in sorted(set(engine.kinds)):
+        lo = engine.kinds.index(kind)
+        (si, _, bps, offs), = engine._span_parts(lo, lo)
+        fn = functools.partial(engine.model.apply_span_decode, bps, x,
+                               engine.arenas[si], pos, kind=kind, offs=offs,
+                               slots=slots, ctx=ctx, live=B)
+        syms = ("rmsnorm_kernel",) + (("ragged_decode_split_kernel",)
+                                      if kind == "attn" else ())
+        with torch.no_grad():
+            fn()
+            torch.cuda.synchronize()
+            secs, dev, _, missing = traced_device_s(
+                torch, lambda: [fn() for _ in range(reps)],
+                f"{reps} {kind} decode layer-steps", syms, calls=reps)
+        n_ops = sum(e.count for e in dev)
+        if secs is None or missing:
+            print(f"[{tag}] one {kind} decode layer-step: not measured "
+                  f"(trace lacks {', '.join(missing) or 'device time'})")
+            continue
+        lost = [e for e in dev if e.count % reps]
+        note = "" if not lost else (
+            f" (records lost for {len(lost)} kernels; by kernel, count / "
+            f"{reps} rounded: "
+            f"{sum(round(e.count / reps) for e in dev)} device ops)")
+        print(f"[{tag}] one {kind} decode layer-step (layer {lo}, batch {B}, "
+              f"position {ctx - 1}, {reps} in one trace): "
+              f"{n_ops / reps:.1f} device ops{note}, device time "
+              f"{secs * 1e6 / reps:.1f} us")
 
 
 def n_params(tree) -> int:
@@ -1591,6 +1716,11 @@ def main() -> int:
                    "granite serve", LLAMA_KERNELS, (64, 128, 256, 384))
     run(phase_exact, torch, "granite-moe-3b-a800m", "granite exact",
         LLAMA_KERNELS, (64, 128, 256, 384))
+    # recurrentgemma-9b: RG-LRU blocks beside local attention at D 256
+    r_counts = run(phase_serve, torch, "recurrentgemma-9b", "rgemma serve",
+                   LLAMA_KERNELS, (64, 128, 256, 384))
+    rx_counts = run(phase_exact, torch, "recurrentgemma-9b", "rgemma exact",
+                    LLAMA_KERNELS, (64, 128, 256, 384))
     # the port's entry points: the launcher (faults, then two tenants) and
     # the HTTP/SSE gateway
     run(phase_launch_serve, torch)
@@ -1599,7 +1729,8 @@ def main() -> int:
     PHASE[0] = "result"
     print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact, "
           f"nemo serve, nemo exact, minicpm serve, minicpm exact, granite "
-          f"serve, granite exact, launch serve, launch tenants, gateway in "
+          f"serve, granite exact, rgemma serve, rgemma exact, launch serve, "
+          f"launch tenants, gateway in "
           f"{time.perf_counter() - t_all:.1f} s")
     counts["ssd_chunked"] = m_counts["ssd_chunked"]
     # the split-TF32 route: its launches in mamba exact, batched and isolated
@@ -1613,6 +1744,12 @@ def main() -> int:
     counts["flash_attention_mla"] = c_counts["flash_attention"]
     counts["flash_attention_f32_mla"] = cx_counts["flash_attention"]
     counts["ragged_decode_attention_g3"] = g_counts["ragged_decode_attention"]
+    # the D 256 rows: bf16 launches in rgemma serve, f32 in rgemma exact;
+    # RMSNorm at 4096: launches in rgemma serve
+    for name in ("ragged_decode_attention", "flash_attention"):
+        counts[f"{name}_d256"] = r_counts[name]
+        counts[f"{name}_f32_d256"] = rx_counts[name]
+    counts["fused_rmsnorm_4096"] = r_counts["fused_rmsnorm"]
     for name, row in rows.items():
         row["launches"] = counts[name]
     print(smi)

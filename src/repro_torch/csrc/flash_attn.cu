@@ -10,13 +10,15 @@
 // head h / (H / KV), so the engine passes un-repeated GQA heads and no
 // repeat_kv copy is ever materialized (KV == H is the TPU kernel's case).
 //
-// Head widths: each kernel is compiled at D = 32, 64 and 128, and runs at
-// the smallest D that holds Dqk (Dv <= Dqk, both multiples of 8). Columns
-// past Dqk of q and k and past Dv of v load as zeros, so they add nothing
-// to a score or to the output, and only Dv columns are stored. GQA passes
-// Dqk == Dv == D; MLA's non-absorbed prefill (MiniCPM3: q and k 96 wide,
-// v 64) runs at D 128 with a third of its score columns and half of its
-// output columns zero (the work of D 128, not of 96 and 64).
+// Head widths: each kernel is compiled at D = 32, 64, 128 and 256, and runs
+// at the smallest D that holds Dqk (Dv <= Dqk, both multiples of 8).
+// Columns past Dqk of q and k and past Dv of v load as zeros, so they add
+// nothing to a score or to the output, and only Dv columns are stored. GQA
+// passes Dqk == Dv == D; MLA's non-absorbed prefill (MiniCPM3: q and k 96
+// wide, v 64) runs at D 128 with a third of its score columns and half of
+// its output columns zero (the work of D 128, not of 96 and 64);
+// recurrentgemma-9b's local attention (16 q heads over 1 kv head of 256,
+// window 2048) runs at D 256.
 //
 // Bound on the H100: at the serve's prefill buckets (S <= 512, D = 64) the
 // bytes of q, k, v and the output; the causal half's 4 * B * H * D * S^2 / 2
@@ -24,35 +26,41 @@
 // in bfloat16, and from S of about 250 in float32, whose products cost
 // three TF32 ones each.
 //
-// One C entry point, two kernels chosen by dtype:
+// One C entry point, three kernels chosen by dtype and width:
 //
 // bfloat16 (what the serve runs): flash_tc_kernel, on the tensor cores.
 // One CTA per (q-tile of 64 rows, NC heads of a KV group, batch row) runs
-// one consumer warpgroup per head (NC is 4 for D <= 64 and 2 for D = 128,
-// by registers; a group of G > NC heads takes (G + NC - 1) / NC CTAs side
-// by side, each loading the group's K/V tiles, mostly from L2), so
+// one consumer warpgroup per head (NC is 4 for D <= 64, 2 for D = 128 and
+// 1 for D = 256, by registers: at D = 256 two consumers get 168 registers a
+// thread and spill, one gets 208 and does not; a group of G > NC heads
+// takes (G + NC - 1) / NC CTAs side by side, each loading the group's K/V
+// tiles, mostly from L2), so
 // each K/V tile is loaded once per NC heads instead of once per head. A
 // producer warp streams K and V tiles by TMA (cp.async.bulk.tensor through
 // 4-D tensor maps (B, T, KV, width) with a box of (1, 64, 1, <= 64
-// columns), so rows t >= T of a batch row and columns past a head's width
-// read as zeros) into a ring of 3-4 stages with
+// columns: two boxes per row of a tile at D = 128, four at D = 256), so
+// rows t >= T of a batch row and columns past a head's width read as
+// zeros) into a ring of 3-4 stages (three 64 KB ones at D = 256) with
 // mbarrier completion: tile j + 1 loads while tile j computes. Each
 // consumer warpgroup loads its Q tile by TMA, forms S = Q K^T
 // with wgmma m64n64k16 (both operands K-major from shared memory, 128-byte
-// swizzle for D = 64 and two 64-column atoms for D = 128, 64-byte swizzle
-// for D = 32, the same swizzle in the tensor map and the descriptor), runs
+// swizzle for D = 64 and two or four 64-column atoms for D = 128 and 256,
+// 64-byte swizzle for D = 32, the same swizzle in the tensor map and the
+// descriptor), runs
 // the online softmax on the float32 accumulator fragment (row max and sum
 // over the four lanes that share a row), re-packs P as bf16 A-operand
 // registers and adds P V with a second wgmma whose B operand is the V tile
-// read MN-major (the transposed-B form). Tiles above the causal diagonal
-// and below the window are never loaded; only the tiles that cross a bound
-// or the T tail are masked. Output rows past S are not stored. The grid
+// read MN-major (the transposed-B form; one m64n256k16 per k slice at
+// D = 256, whose accumulator is 128 floats a thread). Tiles above the
+// causal diagonal and below the window are never loaded; only the tiles
+// that cross a bound or the T tail are masked. Output rows past S are not stored. The grid
 // runs the q-tiles with the most keys first, so the longest CTAs start in
 // the first wave. Overlapping one tile's softmax with the next tile's
 // products inside a warpgroup, with or without the warpgroups taking turns
 // at the tensor cores, was tried and lost time at the serve's shapes.
 //
-// float32 (the exact checks): flash_tf32x3_kernel, on the tensor cores at
+// float32 at D <= 128 (the exact checks): flash_tf32x3_kernel, on the
+// tensor cores at
 // float32 accuracy. The tensor cores take TF32 (10 mantissa bits), so each
 // float32 operand x is split into hi = cvt.rna.tf32(x) and lo =
 // cvt.rna.tf32(x - hi) (the rounding done with integer operations: the
@@ -103,6 +111,21 @@
 // and with repeated launches, also on a build whose warps sleep at random at
 // each hand-over (repro::jitter, tf32.cuh).
 //
+// float32 at D = 256: flash_f32_cc_kernel, on the CUDA cores. The split-TF32
+// layout does not fit at this width (Q's hi and lo planes alone are 128 KB
+// for 64 rows), and the float32 path runs only in the exact checks, so this
+// is the plain design: one CTA of 8 warps per (q-tile of 64 rows, head,
+// batch row), the q-tiles with the most keys first. Q sits in shared memory
+// for the CTA's life; tiles of 32 keys of K and V are loaded together by
+// all threads (float4 loads, zero past T and past Dqk / Dv; rows padded to
+// 260 floats so that the lanes' K reads hit distinct banks). Each warp owns
+// 8 q rows: lane l scores key l of the tile against its 8 rows (Q read by
+// broadcast), the online softmax takes its max over the warp, and P V
+// accumulates columns l + 32 j (j < 8) of the 8 rows, P's entries passed by
+// shuffles. Bound: the causal flops over the CUDA cores' 67 TFLOP/s. Each
+// row's result depends on its q, its keys and its position only, so batched
+// and isolated prefills agree bit for bit.
+//
 // The tensor maps, tiles and barriers are tma.cuh's (shared with the SSD
 // scan's tensor-core kernel); the library links against the CUDA runtime
 // only.
@@ -122,7 +145,8 @@ __device__ __forceinline__ float ex2(float x) {   // 2^x; ex2(-inf) = 0
   return y;
 }
 
-// A launch's sizes: width is the compiled D (32, 64 or 128) that holds Dqk
+// A launch's sizes: width is the compiled D (32, 64, 128 or 256) that holds
+// Dqk
 struct Shape {
   int B, S, T, H, KV, width, Dqk, Dv, q_offset, window;
   float scale_log2;   // the scores' scale times log2(e)
@@ -457,6 +481,162 @@ int launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// ---- D = 256: the CUDA-core kernel ----------------------------------------
+
+namespace cc {
+
+constexpr int kD = 256;
+constexpr int kRows = 64;               // q rows per CTA, 8 per warp
+constexpr int kKeys = 32;               // keys per tile, one per lane
+constexpr int kThreads = 256;
+constexpr int kRowsPerWarp = kRows / (kThreads / 32);
+constexpr int kLd = kD + 4;             // padded row of Q and K (floats)
+constexpr int kCh = kD / 4;             // float4 chunks per row
+constexpr size_t kSmem =
+    sizeof(float) * ((size_t)kRows * kLd + (size_t)kKeys * kLd +
+                     (size_t)kKeys * kD);
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_f32_cc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, int S,
+                    int T, int H, int KV, int Dqk, int Dv, int q_offset,
+                    int window, float scale_log2) {
+  extern __shared__ float4 smem4[];
+  float* const q_s = reinterpret_cast<float*>(smem4);
+  float* const k_s = q_s + kRows * kLd;
+  float* const v_s = k_s + kKeys * kLd;
+
+  // grid (H, B, q-tiles), the q-tiles with the most keys first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int i = tid; i < kRows * kCh; i += kThreads) {
+    const int r = i / kCh, c = i % kCh;
+    float4 x = zero;
+    if (q0 + r < S && 4 * c < Dqk)
+      x = *reinterpret_cast<const float4*>(
+          q + (((size_t)b * S + q0 + r) * H + h) * Dqk + 4 * c);
+    *reinterpret_cast<float4*>(q_s + r * kLd + 4 * c) = x;
+  }
+
+  // keys any row of this q-tile may attend: [k_lo, k_hi)
+  const int last_q = q_offset + min(q0 + kRows, S) - 1;
+  const int k_hi = min(T, last_q + 1);
+  const int k_lo = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
+
+  const int r0 = warp * kRowsPerWarp;     // this warp's rows r0 .. r0 + 7
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kD / 32];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;                           // this lane's keys' share
+#pragma unroll
+    for (int j = 0; j < kD / 32; ++j) acc[r][j] = 0.f;
+  }
+
+  for (int k0 = k_lo; k0 < k_hi; k0 += kKeys) {
+    __syncthreads();                      // Q stored; the last tile read
+    for (int i = tid; i < kKeys * kCh; i += kThreads) {
+      const int r = i / kCh, c = i % kCh;
+      const int t = k0 + r;
+      const size_t row = ((size_t)b * T + t) * KV + kvh;
+      float4 kx = zero, vx = zero;
+      if (t < T && 4 * c < Dqk)
+        kx = *reinterpret_cast<const float4*>(k + row * Dqk + 4 * c);
+      if (t < T && 4 * c < Dv)
+        vx = *reinterpret_cast<const float4*>(v + row * Dv + 4 * c);
+      *reinterpret_cast<float4*>(k_s + r * kLd + 4 * c) = kx;
+      *reinterpret_cast<float4*>(v_s + r * kD + 4 * c) = vx;
+    }
+    __syncthreads();
+
+    // lane l scores key k0 + l against the warp's 8 rows
+    float s[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
+    const float* krow = k_s + lane * kLd;
+#pragma unroll 4
+    for (int c = 0; c < kCh; ++c) {
+      const float4 kx = *reinterpret_cast<const float4*>(krow + 4 * c);
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float4 qx =
+            *reinterpret_cast<const float4*>(q_s + (r0 + r) * kLd + 4 * c);
+        s[r] = fmaf(qx.x, kx.x, s[r]);
+        s[r] = fmaf(qx.y, kx.y, s[r]);
+        s[r] = fmaf(qx.z, kx.z, s[r]);
+        s[r] = fmaf(qx.w, kx.w, s[r]);
+      }
+    }
+
+    // masked online softmax in the log2 domain; a row that has seen no
+    // key yet keeps p = 0 and l = 0
+    const int kpos = k0 + lane;
+    float p[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int qpos = q_offset + q0 + r0 + r;
+      const bool ok = kpos < T && kpos <= qpos &&
+                      (window <= 0 || kpos > qpos - window);
+      const float x = ok ? s[r] * scale_log2 : -INFINITY;
+      const float m_new = fmaxf(m[r], repro::warp_max(x));
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = ex2(m[r] - m_use);
+      m[r] = m_new;
+      p[r] = ex2(x - m_use);
+      l[r] = l[r] * corr + p[r];
+#pragma unroll
+      for (int j = 0; j < kD / 32; ++j) acc[r][j] *= corr;
+    }
+
+    // O += P V: key kk's weights from lane kk, columns lane + 32 j
+#pragma unroll 4
+    for (int kk = 0; kk < kKeys; ++kk) {
+      float vx[kD / 32];
+#pragma unroll
+      for (int j = 0; j < kD / 32; ++j) vx[j] = v_s[kk * kD + lane + 32 * j];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float pk = __shfl_sync(0xffffffffu, p[r], kk);
+#pragma unroll
+        for (int j = 0; j < kD / 32; ++j) acc[r][j] = fmaf(pk, vx[j], acc[r][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const float den = fmaxf(repro::warp_sum(l[r]), 1e-30f);
+    const int row = q0 + r0 + r;
+    if (row >= S) continue;
+    float* orow = o + (((size_t)b * S + row) * H + h) * Dv;
+#pragma unroll
+    for (int j = 0; j < kD / 32; ++j)
+      if (lane + 32 * j < Dv) orow[lane + 32 * j] = acc[r][j] / den;
+  }
+}
+
+}  // namespace cc
+
+int launch_cc(const void* q, const void* k, const void* v, void* o,
+              const Shape& sh, cudaStream_t stream) {
+  static int granted = 48 * 1024;
+  cudaError_t err =
+      repro::allow_smem(cc::flash_f32_cc_kernel, cc::kSmem, &granted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(sh.H, sh.B, (sh.S + cc::kRows - 1) / cc::kRows);
+  cc::flash_f32_cc_kernel<<<grid, cc::kThreads, cc::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sh.S, sh.T, sh.H,
+      sh.KV, sh.Dqk, sh.Dv, sh.q_offset, sh.window, sh.scale_log2);
+  return (int)cudaGetLastError();
+}
+
 int dispatch(const void* q, const void* k, const void* v, void* o,
              const Shape& sh, cudaStream_t stream) {
   switch (sh.width) {
@@ -466,6 +646,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
       return launch<64>(q, k, v, o, sh, stream);
     case 128:
       return launch<128>(q, k, v, o, sh, stream);
+    case 256:
+      return launch_cc(q, k, v, o, sh, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -492,9 +674,10 @@ using repro::tma_head_tile;
 constexpr int kRows = repro::kTileRows;   // q rows and keys per tile
 
 // K/V ring depth: four 16 KB stages (K and V) at D <= 64, three 32 KB ones
-// at D = 128
+// at D = 128, three 64 KB ones at D = 256 (beside its one 32 KB Q tile:
+// 230,456 bytes of the 232,448 a block may have)
 template <int D>
-__host__ __device__ constexpr int stages() { return D == 128 ? 3 : 4; }
+__host__ __device__ constexpr int stages() { return D >= 128 ? 3 : 4; }
 
 template <int D, int NC>
 constexpr size_t smem_bytes() {
@@ -711,18 +894,22 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// NC consumer warpgroups: 4 at D <= 64, 2 at D = 128 (registers), never
-// more than the G heads of a group
+// NC consumer warpgroups: 4 at D <= 64, 2 at D = 128, 1 at D = 256
+// (registers), never more than the G heads of a group
 template <int D>
 int dispatch_nc(const void* q, const void* k, const void* v, void* o,
                 const Shape& sh, cudaStream_t stream) {
-  const int G = sh.H / sh.KV;
-  const int nc_max = D == 128 ? 2 : 4;
-  const int nc = G >= nc_max ? nc_max : (G >= 2 ? 2 : 1);
-  if (nc == 4)
-    return launch_tc<D, (D == 128 ? 2 : 4)>(q, k, v, o, sh, stream);
-  if (nc == 2) return launch_tc<D, 2>(q, k, v, o, sh, stream);
-  return launch_tc<D, 1>(q, k, v, o, sh, stream);
+  if constexpr (D == 256) {
+    return launch_tc<D, 1>(q, k, v, o, sh, stream);
+  } else {
+    const int G = sh.H / sh.KV;
+    const int nc_max = D == 128 ? 2 : 4;
+    const int nc = G >= nc_max ? nc_max : (G >= 2 ? 2 : 1);
+    if (nc == 4)
+      return launch_tc<D, (D == 128 ? 2 : 4)>(q, k, v, o, sh, stream);
+    if (nc == 2) return launch_tc<D, 2>(q, k, v, o, sh, stream);
+    return launch_tc<D, 1>(q, k, v, o, sh, stream);
+  }
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o,
@@ -734,6 +921,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
       return dispatch_nc<64>(q, k, v, o, sh, stream);
     case 128:
       return dispatch_nc<128>(q, k, v, o, sh, stream);
+    case 256:
+      return dispatch_nc<256>(q, k, v, o, sh, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -744,7 +933,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q (B, S, H, Dqk), k (B, T, KV, Dqk), v (B, T, KV, Dv), o (B, S, H, Dv);
-// width: the compiled D (32, 64 or 128) that holds Dqk; Dqk and Dv
+// width: the compiled D (32, 64, 128 or 256) that holds Dqk; Dqk and Dv
 // multiples of 8 with Dv <= Dqk; scale: the scores' scale; window <= 0
 // means no sliding window.
 extern "C" int repro_flash_attention(const void* q, const void* k,

@@ -23,7 +23,9 @@
 // or past lengths[b] exits at once. Each warp reads K and V rows straight
 // from the arena with 16-byte vector loads, D / 8 (bf16) or D / 4 (f32)
 // neighbouring lanes per row, so one load instruction covers 32 / LPR
-// rows, and keeps 8 such rows of K and V in flight per lane as raw
+// rows (a row wider than a warp's loads, f32 at D = 256, gives each of
+// the 32 lanes VPL = 2 chunks of it, chunks c and c + 32), and keeps up to
+// 8 such rows of K and V in flight per lane as raw
 // registers, widened to float only where they are used; q for the heads
 // lives in registers, each dot product is reduced with shuffles over the
 // row's lanes, and every lane group keeps its own online softmax. The
@@ -32,11 +34,12 @@
 // Otherwise each span writes a float32 partial (m, l, acc) to scratch, and
 // the last CTA of the (b, kv) group to arrive — it learns so from a
 // per-group counter, after __threadfence — merges the partials (one warp
-// per head weighs the spans, then every thread sums its outputs over them
-// with independent loads), writes the output and resets the counter for
-// the next launch. So the split adds no launch. Heads are processed GC at
+// per head weighs the spans, then every thread sums four neighbouring
+// outputs over them, 16-byte loads of eight spans in flight), writes the
+// output and resets the counter for the next launch. So the split adds no launch. Heads are processed GC at
 // a time (a compile-time chunk of at most 8) to bound the registers at
-// G = 16, D = 128.
+// G = 16, D = 128 and 256 (recurrentgemma-9b's MQA: one kv head of 256 for
+// 16 q heads, two chunks of 8).
 #include <math.h>
 #include <stdint.h>
 
@@ -77,6 +80,14 @@ __device__ __forceinline__ uint4 load16(const E* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
+// a += x * w, componentwise
+__device__ __forceinline__ void fma4(float4& a, float4 x, float w) {
+  a.x = fmaf(x.x, w, a.x);
+  a.y = fmaf(x.y, w, a.y);
+  a.z = fmaf(x.z, w, a.z);
+  a.w = fmaf(x.w, w, a.w);
+}
+
 // merge (m2, l2, a2) into (m, l, a)
 __device__ __forceinline__ void merge(float& m, float& l, float m2, float l2,
                                       float& ca, float& cb) {
@@ -97,12 +108,14 @@ ragged_decode_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
                            float* __restrict__ part_ml,
                            int* __restrict__ counters, int H, int KV, int N,
                            int T, int n_split, int split_t, float scale) {
-  constexpr int EPL = Vec<E>::n;   // elements per lane
+  constexpr int EPV = Vec<E>::n;   // elements per 16-byte vector
+  constexpr int VPL = D / EPV > 32 ? D / EPV / 32 : 1;  // vectors per lane
+  constexpr int EPL = EPV * VPL;   // elements per lane
   constexpr int LPR = D / EPL;     // lanes per row
   constexpr int RPW = 32 / LPR;    // rows per warp load
-  // rows in flight per lane, 32 bytes each (fewer at GC = 8, which holds
-  // 2 * 8 * EPL floats of q and acc)
-  constexpr int kUnroll = GC >= 8 ? 4 : 8;
+  // rows in flight per lane, 32 bytes each per vector (fewer at GC = 8,
+  // which holds 2 * 8 * EPL floats of q and acc)
+  constexpr int kUnroll = GC >= 8 ? (VPL > 1 ? 2 : 4) : 8;
   const int split = blockIdx.x;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
@@ -110,7 +123,7 @@ ragged_decode_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int c = lane % LPR;        // 16-byte chunk of the row
+  const int c = lane % LPR;        // 16-byte chunks c + LPR * i of the row
   const int r = lane / LPR;        // row within the warp's load
 
   // a length past the planned spans (above ctx) is cut there, as the plain
@@ -129,7 +142,7 @@ ragged_decode_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
   __shared__ int s_last;
 
   const size_t t_stride = (size_t)KV * D;
-  const size_t base = (size_t)slot * T * t_stride + (size_t)kvh * D + c * EPL;
+  const size_t base = (size_t)slot * T * t_stride + (size_t)kvh * D + c * EPV;
   const E* kb = k + base;
   const E* vb = v + base;
   const size_t group = (size_t)b * KV + kvh;
@@ -143,8 +156,11 @@ ragged_decode_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
       if (g0 + g < G) {
-        Vec<E>::widen(load16(q + ((size_t)b * H + (size_t)kvh * G + g0 + g) *
-                                     D + c * EPL), qr[g]);
+        const E* qh = q + ((size_t)b * H + (size_t)kvh * G + g0 + g) * D +
+                      c * EPV;
+#pragma unroll
+        for (int i = 0; i < VPL; ++i)
+          Vec<E>::widen(load16(qh + i * LPR * EPV), qr[g] + i * EPV);
 #pragma unroll
         for (int e = 0; e < EPL; ++e) qr[g][e] *= scale;
       } else {
@@ -156,23 +172,27 @@ ragged_decode_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
     // this lane's rows: t_begin + (it * kWarps + warp) * RPW + r
     for (int t0 = t_begin + warp * RPW; t0 < t_end;
          t0 += kWarps * RPW * kUnroll) {
-      uint4 kraw[kUnroll], vraw[kUnroll];
+      uint4 kraw[kUnroll][VPL], vraw[kUnroll][VPL];
       bool ok[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int t = t0 + u * kWarps * RPW + r;
         ok[u] = t < t_end;
-        kraw[u] = vraw[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (ok[u]) {
-          kraw[u] = load16(kb + (size_t)t * t_stride);
-          vraw[u] = load16(vb + (size_t)t * t_stride);
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) {
+          kraw[u][i] = vraw[u][i] = make_uint4(0u, 0u, 0u, 0u);
+          if (ok[u]) {
+            kraw[u][i] = load16(kb + (size_t)t * t_stride + i * LPR * EPV);
+            vraw[u][i] = load16(vb + (size_t)t * t_stride + i * LPR * EPV);
+          }
         }
       }
       float s[GC][kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         float kx[EPL];
-        Vec<E>::widen(kraw[u], kx);
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) Vec<E>::widen(kraw[u][i], kx + i * EPV);
 #pragma unroll
         for (int g = 0; g < GC; ++g) {
           float a = 0.f;
@@ -203,7 +223,8 @@ ragged_decode_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         float vx[EPL];
-        Vec<E>::widen(vraw[u], vx);
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) Vec<E>::widen(vraw[u][i], vx + i * EPV);
 #pragma unroll
         for (int g = 0; g < GC; ++g)
 #pragma unroll
@@ -232,7 +253,8 @@ ragged_decode_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) s_acc[warp][g][c * EPL + e] = acc[g][e];
+        for (int e = 0; e < EPL; ++e)
+          s_acc[warp][g][(c + LPR * (e / EPV)) * EPV + e % EPV] = acc[g][e];
         if (c == 0) {
           s_m[warp][g] = m[g];
           s_l[warp][g] = l[g];
@@ -300,20 +322,35 @@ ragged_decode_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
       if (lane == 0) s_inv[g] = 1.f / fmaxf(ll, 1e-30f);
     }
     __syncthreads();
-    for (int i = tid; i < ng * D; i += kThreads) {
-      const int g = i / D, d = i % D;
-      const float* pa = part_acc + (group * n_split * G + g0 + g) * D + d;
-      float a[4] = {0.f, 0.f, 0.f, 0.f};
+    // every thread sums four neighbouring outputs over the spans with
+    // 16-byte loads, eight spans' loads in flight: the merge of a group
+    // of many heads (MQA at G 16, D 256: 16 x 256 outputs over up to 32
+    // spans, all in this one CTA) is bound by the latency of its loads
+    constexpr int D4 = D / 4;
+    const size_t span4 = (size_t)G * D4;    // float4s from span to span
+    for (int i = tid; i < ng * D4; i += kThreads) {
+      const int g = i / D4, d4 = i % D4;
+      const float4* pa = reinterpret_cast<const float4*>(
+                             part_acc + (group * n_split * G + g0 + g) * D) +
+                         d4;
+      float4 a[2] = {make_float4(0.f, 0.f, 0.f, 0.f),
+                     make_float4(0.f, 0.f, 0.f, 0.f)};
       int s = 0;
-      for (; s + 4 <= n_active; s += 4) {
+      for (; s + 8 <= n_active; s += 8) {
+        float4 x[8];
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-          a[u] += __ldcg(pa + (size_t)(s + u) * G * D) * s_w[s + u][g];
+        for (int u = 0; u < 8; ++u) x[u] = __ldcg(pa + (s + u) * span4);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) fma4(a[u & 1], x[u], s_w[s + u][g]);
       }
       for (; s < n_active; ++s)
-        a[0] += __ldcg(pa + (size_t)s * G * D) * s_w[s][g];
-      out[((size_t)b * H + (size_t)kvh * G + g0 + g) * D + d] =
-          repro::from_float<E>((a[0] + a[1] + (a[2] + a[3])) * s_inv[g]);
+        fma4(a[0], __ldcg(pa + s * span4), s_w[s][g]);
+      const float inv = s_inv[g];
+      const float r[4] = {(a[0].x + a[1].x) * inv, (a[0].y + a[1].y) * inv,
+                          (a[0].z + a[1].z) * inv, (a[0].w + a[1].w) * inv};
+      E* o = out + ((size_t)b * H + (size_t)kvh * G + g0 + g) * D + 4 * d4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] = repro::from_float<E>(r[e]);
     }
     __syncthreads();
   }
@@ -370,6 +407,10 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
                                split_t, stream);
     case 128:
       return dispatch_g<E, 128>(G, q, k, v, lengths, slots, out, part_acc,
+                                part_ml, counters, B, H, KV, N, T, n_split,
+                                split_t, stream);
+    case 256:
+      return dispatch_g<E, 256>(G, q, k, v, lengths, slots, out, part_acc,
                                 part_ml, counters, B, H, KV, N, T, n_split,
                                 split_t, stream);
     default:

@@ -2,9 +2,10 @@
 // shared by the tensor-core kernels (sm_90a only).
 //
 // A Tile<D> is a 64 x D bf16 tile as TMA writes it into shared memory: one
-// or two atoms of 64 rows x kAtomCols columns, each row kRowBytes long and
-// swizzled (128-byte swizzle for 64-column atoms, 64-byte for D = 32). The
-// same swizzle goes into the tensor map and into the wgmma descriptors.
+// atom of 64 rows x kAtomCols columns, or D / 64 of them above D = 64 (two
+// at D = 128, four at D = 256), each row kRowBytes long and swizzled
+// (128-byte swizzle for 64-column atoms, 64-byte for D = 32). The same
+// swizzle goes into the tensor map and into the wgmma descriptors.
 //
 // The tensor-map encoder cuTensorMapEncodeTiled is a driver symbol; it is
 // looked up once through cudaGetDriverEntryPoint(ByVersion), so a library
@@ -24,8 +25,8 @@ constexpr int kTileRows = 64;
 
 template <int D>
 struct Tile {
-  static constexpr int kAtoms = D == 128 ? 2 : 1;
-  static constexpr int kAtomCols = D == 128 ? 64 : D;
+  static constexpr int kAtoms = D > 64 ? D / 64 : 1;
+  static constexpr int kAtomCols = D > 64 ? 64 : D;
   static constexpr int kRowBytes = kAtomCols * 2;            // 128 or 64
   static constexpr int kLayout = kRowBytes == 128 ? 1 : 2;   // B128 / B64
   static constexpr int kAtomBytes = kTileRows * kRowBytes;

@@ -61,12 +61,12 @@ def flash_attention_plain(q, k, v, *, window: Optional[int] = None,
 
 
 def kernel_width(D: int, Dv: int) -> Optional[int]:
-    """The kernel's compiled width (32, 64 or 128) for q/k head dim ``D``
-    and v head dim ``Dv``: the smallest that holds D; None for a pair the
-    kernel does not take (not multiples of 8, Dv > D, or D > 128)."""
+    """The kernel's compiled width (32, 64, 128 or 256) for q/k head dim
+    ``D`` and v head dim ``Dv``: the smallest that holds D; None for a pair
+    the kernel does not take (not multiples of 8, Dv > D, or D > 256)."""
     if D % 8 or Dv % 8 or not 0 < Dv <= D:
         return None
-    return next((w for w in (32, 64, 128) if D <= w), None)
+    return next((w for w in (32, 64, 128, 256) if D <= w), None)
 
 
 def flash_attention(q, k, v, *, window: Optional[int] = None,
@@ -77,18 +77,19 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
     Returns (B, S, H, Dv) in q.dtype.
 
     The kernel takes Dqk and Dv that are multiples of 8 with Dv <= Dqk <=
-    128: it runs at the smallest of its widths 32, 64 and 128 that holds
-    Dqk, and the columns past Dqk (q, k) and past Dv (v) load as zeros
-    (MiniCPM3's MLA prefill, (96, 64), runs at 128). Any other shape
+    256: it runs at the smallest of its widths 32, 64, 128 and 256 that
+    holds Dqk, and the columns past Dqk (q, k) and past Dv (v) load as
+    zeros (MiniCPM3's MLA prefill, (96, 64), runs at 128). Any other shape
     raises.
 
     A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor
     launches the kernel on the current stream or raises: bfloat16 on the
-    tensor cores (wgmma, TMA); float32 on the tensor cores too, as three
-    TF32 products per product (lo*hi + hi*lo + hi*hi, wgmma), which keeps
-    float32 accuracy. The kernel does not read
-    ``torch.backends.cuda.matmul.allow_tf32``: with TF32 off it is still
-    float32-accurate."""
+    tensor cores (wgmma, TMA); float32 up to width 128 on the tensor cores
+    too, as three TF32 products per product (lo*hi + hi*lo + hi*hi,
+    wgmma), which keeps float32 accuracy, and at width 256 on the CUDA
+    cores. The kernels do not read
+    ``torch.backends.cuda.matmul.allow_tf32``: with TF32 off they are
+    still float32-accurate."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window,
                                      q_offset=q_offset)
@@ -103,7 +104,7 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
     width = kernel_width(D, Dv)
     if width is None:
         raise ValueError(f"flash_attention: head dims q/k {D}, v {Dv}: the "
-                         f"kernel takes multiples of 8 with Dv <= Dqk <= 128")
+                         f"kernel takes multiples of 8 with Dv <= Dqk <= 256")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v on different devices")
     if k.dtype != q.dtype or v.dtype != q.dtype:

@@ -58,9 +58,9 @@ def _check(q, k, v, lengths, slots):
     if k.shape[3] != D or H % KV != 0:
         raise ValueError(f"ragged_decode_attention: q {tuple(q.shape)} does "
                          f"not fit k {tuple(k.shape)} (H % KV, D)")
-    if D not in (32, 64, 128):
+    if D not in HEAD_DIMS:
         raise ValueError(f"ragged_decode_attention: head_dim {D} not in "
-                         f"(32, 64, 128)")
+                         f"{HEAD_DIMS}")
     for name, t in (("k", k), ("v", v), ("lengths", lengths),
                     ("slots", slots)):
         if t.device != q.device:
@@ -83,6 +83,7 @@ def _check(q, k, v, lengths, slots):
                              f"16-byte aligned (vector loads)")
 
 
+HEAD_DIMS = (32, 64, 128, 256)   # the kernel's compiled head dims
 H100_SMS = 132              # the grid is planned for the card's SM count
 # split spans are multiples of this many rows: one round of a CTA's loads
 # at D = 64 in bf16 (4 warps x 4 rows x 8 loads in flight)
@@ -90,14 +91,29 @@ SPLIT_GRANULE = 128
 MAX_SPLITS = 64             # spans per row (csrc: kMaxSplits)
 
 
+def split_granule(D: int) -> int:
+    """Rows per split granule at head dim ``D``: ``SPLIT_GRANULE`` up to
+    D = 128; at D = 256 (a 512-byte bf16 row, one per warp load) 32 rows,
+    so that recurrentgemma-9b's single kv head at batch 8 still spreads a
+    context of 512 over 128 CTAs and one of 1024 over 256."""
+    return SPLIT_GRANULE if D <= 128 else SPLIT_GRANULE * 64 // D
+
+
 def split_plan(B: int, KV: int, span: int, split_t: Optional[int] = None):
+    """``(n_split, split_t)`` of the context split, from static sizes only,
+    in granules of ``SPLIT_GRANULE`` rows (see :func:`_plan`)."""
+    return _plan(B, KV, span, split_t, SPLIT_GRANULE)
+
+
+def _plan(B: int, KV: int, span: int, split_t: Optional[int],
+          granule: int):
     """``(n_split, split_t)`` of the context split, from static sizes only.
 
     ``span`` is the static context bound (the engine's ``ctx`` bucket, or
     the arena's T): the kernel's grid is (n_split, KV, B) and CTA s reads
     positions [s * split_t, (s + 1) * split_t) of its row, up to the row's
     length. Without ``split_t`` the span is cut so that the grid covers
-    the H100's 132 SMs at least twice, in multiples of ``SPLIT_GRANULE`` rows
+    the H100's 132 SMs at least twice, in multiples of ``granule`` rows
     (rounded down, so n_split never falls short of the target), and into
     at most ``MAX_SPLITS`` spans. Nothing here reads ``lengths``: planning
     costs no host sync."""
@@ -105,10 +121,9 @@ def split_plan(B: int, KV: int, span: int, split_t: Optional[int] = None):
     if split_t is None:
         want = -(-2 * H100_SMS // max(1, B * KV))   # splits for two waves
         per = -(-span // want)
-        split_t = max(SPLIT_GRANULE, per // SPLIT_GRANULE * SPLIT_GRANULE)
+        split_t = max(granule, per // granule * granule)
         if -(-span // split_t) > MAX_SPLITS:
-            split_t = -(-span // (MAX_SPLITS * SPLIT_GRANULE)) \
-                * SPLIT_GRANULE
+            split_t = -(-span // (MAX_SPLITS * granule)) * granule
     if split_t <= 0:
         raise ValueError(f"split_plan: split_t must be > 0, got {split_t}")
     n_split = -(-span // split_t)
@@ -144,7 +159,8 @@ def ragged_decode_attention(q, k, v, lengths, *,
     only the first ``ctx`` time rows when that bound is given; a CUDA
     tensor launches the kernel on the current stream or raises. The kernel
     splits ``ctx`` (T without it) into spans of ``split_t`` rows
-    (:func:`split_plan` picks it when not given) and stops at each row's
+    (planned as :func:`split_plan` plans it, in granules of
+    :func:`split_granule` rows, when not given) and stops at each row's
     length; a bound below a row's length would drop its tail, as in the
     plain version."""
     if q.device.type == "cpu":
@@ -160,7 +176,7 @@ def ragged_decode_attention(q, k, v, lengths, *,
     N, T, KV = k.shape[0], k.shape[1], k.shape[2]
     G = H // KV
     span = T if ctx is None else min(ctx, T)
-    n_split, split_t = split_plan(B, KV, span, split_t)
+    n_split, split_t = _plan(B, KV, span, split_t, split_granule(D))
     out = torch.empty_like(q)
     n_part = B * KV * n_split * G if n_split > 1 else 0
     part_acc = torch.empty((n_part * D,), dtype=torch.float32,

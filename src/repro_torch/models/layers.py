@@ -1,5 +1,5 @@
 """Core transformer layers of the port: RMSNorm, RoPE, SwiGLU MLP, GQA
-and MLA attention.
+(with an optional sliding window) and MLA attention.
 
 ``repro.models.layers`` in PyTorch. Layers are plain functions over
 parameter dicts laid out exactly as the JAX package lays them out —
@@ -143,17 +143,20 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.flatten(-2) @ wo.reshape(h * hd, d)
 
 
-def apply_attention_dense(p: dict, x: torch.Tensor, cfg, *, rope=None):
+def apply_attention_dense(p: dict, x: torch.Tensor, cfg, *, rope=None,
+                          window: Optional[int] = None):
     """Full-sequence causal self-attention (prefill) through the flash
     kernel — on the CPU its plain version, the JAX model's chunked
     attention. ``rope``: the ``rope_tables`` of the positions, by default
-    those of 0..S-1. Returns (out, (k, v)) with k, v of shape
-    (B, S, KV, hd) so prefill can keep the cache."""
+    those of 0..S-1; ``window``: a sliding window (query i attends keys
+    > i - window), as the hybrid's local attention. Returns (out, (k, v))
+    with k, v of shape (B, S, KV, hd) so prefill can keep the cache."""
     if rope is None:
         rope = rope_tables(torch.arange(x.shape[1], device=x.device)[None, :],
                            cfg.head_dim, cfg.rope_theta)
     q, k, v = _qkv(p, x, cfg, rope)
-    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          window=window)
     return _out_proj(out, p["wo"]), (k, v)
 
 
@@ -162,7 +165,8 @@ def apply_attention_decode(p: dict, x: torch.Tensor, cache: dict,
                            slots: Optional[torch.Tensor] = None,
                            ctx: Optional[int] = None,
                            live: Optional[int] = None,
-                           rope=None, lengths: Optional[torch.Tensor] = None):
+                           rope=None, lengths: Optional[torch.Tensor] = None,
+                           window: Optional[int] = None):
     """Single-token decode with ragged per-row positions, through the
     ragged decode kernel — on the CPU its plain version, the JAX model's
     gathered attention.
@@ -183,30 +187,44 @@ def apply_attention_decode(p: dict, x: torch.Tensor, cache: dict,
     only that many time rows, the kernel stops at each row's length.
     ``rope`` (the ``rope_tables`` of ``pos``) and ``lengths`` (``pos + 1``
     as int32) are the same for every layer of a step: a span passes them
-    in once, and they are computed here when absent."""
+    in once, and they are computed here when absent.
+
+    ``window`` (the hybrid's local attention, without ``slots`` only): the
+    cache is a ring buffer of T time rows, as the JAX model's — the token
+    goes to row ``pos % T`` and rows ``[0, min(pos + 1, T))`` are read.
+    The slot arena is never a ring: the JAX engine builds it at
+    ``max_len`` and its decode then reads every earlier token, and so does
+    this one (``lengths`` stay ``pos + 1``)."""
     B, d = x.shape
+    ring = window is not None and slots is None
+    T = cache["k"].shape[1]
     if rope is None:
         rope = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
     if lengths is None:
-        lengths = (pos + 1).to(torch.int32)
+        lengths = (torch.clamp(pos + 1, max=T) if ring
+                   else pos + 1).to(torch.int32)
     q, k, v = _qkv(p, x, cfg, rope)
     n = B if live is None else live
     row_idx = (slots if slots is not None
                else torch.arange(B, device=x.device))[:n]
+    t_idx = (pos % T if ring else pos)[:n]
     ck, cv = cache["k"], cache["v"]
-    ck[row_idx, pos[:n]] = k[:n].to(ck.dtype)
-    cv[row_idx, pos[:n]] = v[:n].to(cv.dtype)
+    ck[row_idx, t_idx] = k[:n].to(ck.dtype)
+    cv[row_idx, t_idx] = v[:n].to(cv.dtype)
     out = ragged_decode_attention(q.contiguous(), ck, cv, lengths,
                                   slots=slots, ctx=ctx)
     return _out_proj(out, p["wo"]), cache
 
 
 def init_attention_cache(cfg, batch: int, max_len: int, dtype,
-                         device) -> dict:
+                         device, window: Optional[int] = None) -> dict:
+    """Zeroed K/V of ``min(max_len, window)`` time rows (a ring buffer
+    with a ``window``, as the JAX model's)."""
+    T = min(max_len, window) if window else max_len
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     return {
-        "k": torch.zeros((batch, max_len, kv, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, max_len, kv, hd), dtype=dtype, device=device),
+        "k": torch.zeros((batch, T, kv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, T, kv, hd), dtype=dtype, device=device),
     }
 
 

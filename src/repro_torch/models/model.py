@@ -1,5 +1,4 @@
-"""Decoder model of the port: the dense and SSM slices of
-``repro.models.model``.
+"""Decoder model of the port: ``repro.models.model`` in PyTorch.
 
 ``Model`` consumes a ``ModelConfig`` and provides:
 
@@ -15,11 +14,18 @@
 
 Block kinds: ``"dense"`` (GQA attention + SwiGLU MLP), ``"mla"`` (MLA
 attention + SwiGLU MLP, cache ``{"ckv", "krope"}``), ``"moe"`` (GQA
-attention + the top-k MoE FFN of ``models/moe.py``) and ``"ssm"`` (Mamba-2
-mixer, ``models/ssm.py``). The JAX package scans homogeneous layer stacks
-with ``lax.scan``; here a span is a Python loop over per-layer parameter
-views, and the flat slot arena is updated in place. The hybrid family and
-the ``RuntimeFlags`` variants of the JAX model are not ported yet.
+attention + the top-k MoE FFN of ``models/moe.py``), ``"ssm"`` (Mamba-2
+mixer, ``models/ssm.py``), and the hybrid's ``"rec"`` (RG-LRU of
+``models/rglru.py`` + SwiGLU MLP, cache ``{"state", "conv"}``) and
+``"attn"`` (the dense block with the config's ``local_window``). A hybrid
+stack repeats its ``block_pattern`` in groups, with the layers past the
+last whole group as a tail: ``params["blocks"]`` holds one entry
+``b{i}_{kind}`` per pattern position, stacked over the groups, and
+``params["tail"]`` the tail's blocks, stacked — the JAX layout. The JAX
+package scans homogeneous layer stacks with ``lax.scan``; here a span is
+a Python loop over per-layer parameter views, and the flat slot arena is
+updated in place. The ``RuntimeFlags`` variants of the JAX model are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ import torch
 from ..configs.base import ModelConfig
 from . import layers as L
 from . import moe as MOE
+from .cost import _layer_kinds
+from . import rglru as RG
 from . import ssm as SSM
 
 
@@ -92,14 +100,20 @@ def _scatter_rows(arena, rows, slots, live: Optional[int] = None):
 
 class Model:
     def __init__(self, cfg: ModelConfig, flags: RuntimeFlags = RuntimeFlags()):
-        if cfg.hybrid is not None or (cfg.family != "ssm" and
-                                      cfg.attention not in ("gqa", "mla")):
+        kinds = set(cfg.hybrid.block_pattern) if cfg.hybrid else set()
+        if (cfg.family != "ssm" and cfg.attention not in ("gqa", "mla")) \
+                or not kinds <= {"rec", "attn"}:
             raise NotImplementedError(
-                f"{cfg.name}: the PyTorch port serves dense GQA, MLA, MoE "
-                f"and SSM models so far (hybrid stacks come in a later "
-                f"slice)")
+                f"{cfg.name}: the PyTorch port serves GQA and MLA attention, "
+                f"SSM stacks and hybrid patterns of 'rec' and 'attn' blocks "
+                f"(attention {cfg.attention!r}, pattern {sorted(kinds)})")
         self.cfg = cfg
         self.flags = flags
+        if cfg.hybrid is not None:
+            self.n_groups, self.n_tail = divmod(cfg.num_layers,
+                                                len(cfg.hybrid.block_pattern))
+        else:
+            self.n_groups, self.n_tail = cfg.num_layers, 0
 
     @property
     def block_kind(self) -> str:
@@ -121,6 +135,11 @@ class Model:
         if kind == "ssm":
             return {"ln1": L.init_rmsnorm(d, dev),
                     "ssm": SSM.init_ssm(gen, cfg, dtype, dev)}
+        if kind == "rec":
+            return {"ln1": L.init_rmsnorm(d, dev),
+                    "rec": RG.init_rglru_block(gen, cfg, dtype, dev),
+                    "ln2": L.init_rmsnorm(d, dev),
+                    "mlp": L.init_mlp(gen, d, cfg.d_ff, dtype, dev)}
         attn = (L.init_mla(gen, cfg, dtype, dev) if kind == "mla"
                 else L.init_attention(gen, cfg, dtype, dev))
         ffn = ({"moe": MOE.init_moe(gen, cfg, dtype, dev)} if kind == "moe"
@@ -145,6 +164,20 @@ class Model:
             params["unembed"] = L._normal(gen, (d, cfg.vocab_size),
                                           1.0 / math.sqrt(d), dtype,
                                           gen.device)
+        if cfg.hybrid is not None:
+            pat = cfg.hybrid.block_pattern
+            blocks, tail = None, None
+            for g in range(self.n_groups):
+                group = {f"b{i}_{kind}": self._init_block(gen, kind)
+                         for i, kind in enumerate(pat)}
+                blocks = _stack_into(blocks, group, g, self.n_groups)
+            for i in range(self.n_tail):
+                tail = _stack_into(tail, self._init_block(gen, pat[i]), i,
+                                   self.n_tail)
+            params["blocks"] = blocks
+            if self.n_tail:
+                params["tail"] = tail
+            return params
         blocks = None
         for i in range(cfg.num_layers):
             blocks = _stack_into(blocks, self._init_block(gen, self.block_kind),
@@ -152,10 +185,33 @@ class Model:
         params["blocks"] = blocks
         return params
 
+    def layer_kinds(self) -> List[str]:
+        """The block kind of every layer: the hybrid's pattern repeated
+        (``"rec"`` / ``"attn"``), else ``block_kind`` throughout."""
+        return _layer_kinds(self.cfg)
+
     def layer_params(self, params: dict) -> List[dict]:
-        """Per-layer views into the stacked ``params["blocks"]``."""
-        return [_index(params["blocks"], i)
-                for i in range(self.cfg.num_layers)]
+        """Per-layer views into the stacked ``params["blocks"]`` (and, for
+        a hybrid, ``params["tail"]``), as ``JaxEngine._layer_params``:
+        hybrid layer i is pattern position i % P of group i // P, or tail
+        block i - groups * P."""
+        cfg = self.cfg
+        if cfg.hybrid is None:
+            return [_index(params["blocks"], i)
+                    for i in range(cfg.num_layers)]
+        pat = cfg.hybrid.block_pattern
+        out = []
+        for i in range(cfg.num_layers):
+            g, j = divmod(i, len(pat))
+            out.append(_index(params["blocks"][f"b{j}_{pat[j]}"], g)
+                       if g < self.n_groups
+                       else _index(params["tail"], i - self.n_groups * len(pat)))
+        return out
+
+    def _window(self, kind: str) -> Optional[int]:
+        """The sliding window of ``kind``'s attention: the hybrid's
+        ``local_window`` for its ``"attn"`` blocks, else none."""
+        return self.cfg.hybrid.local_window if kind == "attn" else None
 
     # ------------------------------------------------------------------
     # Single-block application
@@ -190,10 +246,13 @@ class Model:
                 bp["ssm"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg)
             return x + h, (cache if return_cache else None)
         xn = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-        if kind == "mla":
+        if kind == "rec":
+            h, cache = RG.apply_rglru_dense(bp["rec"], xn, cfg)
+        elif kind == "mla":
             h, cache = L.apply_mla_dense(bp["attn"], xn, cfg, rope=rope)
         else:
-            h, kv = L.apply_attention_dense(bp["attn"], xn, cfg, rope=rope)
+            h, kv = L.apply_attention_dense(bp["attn"], xn, cfg, rope=rope,
+                                            window=self._window(kind))
             cache = {"k": kv[0], "v": kv[1]}
         x = x + h
         x = x + self._ffn(bp, x)
@@ -206,19 +265,25 @@ class Model:
         place. ``live`` counts the real (non-padding) rows; for attention,
         ``ctx`` bounds plain-version reads to a context bucket and
         ``rope``/``lengths`` carry the step's per-position tensors — see
-        ``layers.apply_attention_decode``. An SSM block gathers its rows,
-        steps the recurrence and writes the live rows back."""
+        ``layers.apply_attention_decode`` (an ``"attn"`` block's cache is a
+        ring of its window without ``slots``; the arena is not). SSM and
+        RG-LRU blocks gather their rows, step the recurrence and write the
+        live rows back."""
         cfg = self.cfg
-        if kind == "ssm":
-            h, rows = SSM.apply_ssm_decode(
-                bp["ssm"], L.rms_norm(x, bp["ln1"], cfg.norm_eps),
-                _gather_rows(cache, slots), cfg)
+        if kind in ("ssm", "rec"):
+            xn = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+            rows_in = _gather_rows(cache, slots)
+            if kind == "ssm":
+                h, rows = SSM.apply_ssm_decode(bp["ssm"], xn, rows_in, cfg)
+            else:
+                h, rows = RG.apply_rglru_decode(bp["rec"], xn, rows_in, cfg)
             if slots is None:
                 for k, leaf in cache.items():
                     leaf.copy_(rows[k])
             else:
                 _scatter_rows(cache, rows, slots, live)
-            return x + h, cache
+            x = x + h
+            return (x if kind == "ssm" else x + self._ffn(bp, x)), cache
         xn = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
         if kind == "mla":
             h, cache = L.apply_mla_decode(
@@ -227,7 +292,8 @@ class Model:
         else:
             h, cache = L.apply_attention_decode(
                 bp["attn"], xn, cache, pos, cfg, slots=slots, ctx=ctx,
-                live=live, rope=rope, lengths=lengths)
+                live=live, rope=rope, lengths=lengths,
+                window=self._window(kind))
         x = x + h
         x = x + self._ffn(bp, x)
         return x, cache
@@ -236,9 +302,10 @@ class Model:
     # Span application (run-fused serving dispatch)
     # ------------------------------------------------------------------
     def _step_tables(self, kind: str, pos):
-        """The RoPE tables and int32 lengths of a decode step, computed
-        once per span; attention-free spans need neither."""
-        if kind == "ssm":
+        """The RoPE tables and int32 lengths of a decode step over the slot
+        arena, computed once per span; attention-free spans need
+        neither."""
+        if kind in ("ssm", "rec"):
             return None, None
         return self._rope(kind, pos), (pos + 1).to(torch.int32)
 
@@ -259,7 +326,7 @@ class Model:
         return x, flat_arena
 
     def _prefill_rope(self, kind: str, x):
-        if kind == "ssm":
+        if kind in ("ssm", "rec"):
             return None
         return self._rope(kind,
                           torch.arange(x.shape[1], device=x.device)[None, :])
@@ -293,37 +360,62 @@ class Model:
     # ------------------------------------------------------------------
     # Public steps
     # ------------------------------------------------------------------
+    def _layer_caches(self, cache) -> List[dict]:
+        """Per-layer views into a cache in the JAX layout (see
+        :meth:`prefill`), in layer order."""
+        group, tail = cache
+        cfg = self.cfg
+        if cfg.hybrid is None:
+            return [_index(group, i) for i in range(cfg.num_layers)]
+        pat = cfg.hybrid.block_pattern
+        return [_index(group[f"b{i % len(pat)}_{pat[i % len(pat)]}"],
+                       i // len(pat)) for i in range(self.n_groups * len(pat))
+                ] + list(tail)
+
     def prefill(self, params, tokens):
         """Returns (last-token logits (B, V), cache) with the cache in the
         JAX layout: ``({"k": (L, B, S, KV, hd), "v": ...}, [])`` for dense
         and MoE stacks, ``({"ckv": (L, B, S, kv_lora), "krope": (L, B, S,
         rope)}, [])`` for MLA stacks, ``({"state": (L, B, nh, hd, N),
-        "conv": (L, B, W-1, C)}, [])`` for SSM stacks."""
+        "conv": (L, B, W-1, C)}, [])`` for SSM stacks, and for a hybrid
+        ``({"b{i}_{kind}": the layer cache stacked over the groups, ...},
+        [the tail's layer caches])`` — RG-LRU ``{"state": (B, w), "conv":
+        (B, W-1, w)}``, local attention ``{"k": (B, S, KV, hd), "v": ...}``
+        (every prompt row, as the JAX model keeps them)."""
         cfg = self.cfg
         x = self.embed(params, tokens)
-        kind = self.block_kind
-        rope = self._prefill_rope(kind, x)
+        kinds = self.layer_kinds()
+        ropes = {k: self._prefill_rope(k, x) for k in set(kinds)}
         caches = []
-        for bp in self.layer_params(params):
+        for bp, kind in zip(self.layer_params(params), kinds):
             x, c = self.apply_block_dense(bp, x, kind=kind, return_cache=True,
-                                          rope=rope)
+                                          rope=ropes[kind])
             caches.append(c)
         x = L.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
-        return self.unembed(params, x), (
-            {k: torch.stack([c[k] for c in caches]) for k in caches[0]}, [])
+        stack = lambda cs: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
+        if cfg.hybrid is None:
+            return self.unembed(params, x), (stack(caches), [])
+        pat = cfg.hybrid.block_pattern
+        P, n = len(pat), self.n_groups * len(pat)
+        group = {f"b{j}_{pat[j]}": stack(caches[j:n:P]) for j in range(P)}
+        return self.unembed(params, x), (group, caches[n:])
 
     def decode_step(self, params, cache, token, pos):
         """token: (B,) int; pos: (B,) int ragged positions. Returns
-        (logits (B, V), cache) — the cache is updated in place."""
+        (logits (B, V), cache) — the cache is updated in place. A hybrid's
+        local attention reads its cache as a ring of its time rows, as the
+        JAX model does."""
         cfg = self.cfg
         x = self.embed(params, token)
-        group, _tail = cache
-        kind = self.block_kind
-        rope, lengths = self._step_tables(kind, pos)
-        for i, bp in enumerate(self.layer_params(params)):
-            x, _ = self.apply_block_decode(bp, x, _index(group, i), pos,
-                                           kind=kind, rope=rope,
-                                           lengths=lengths)
+        kinds = self.layer_kinds()
+        # the ring's lengths depend on its size: attention computes them
+        tables = {k: (self._step_tables(k, pos) if k != "attn"
+                      else (self._rope(k, pos), None)) for k in set(kinds)}
+        for bp, c, kind in zip(self.layer_params(params),
+                               self._layer_caches(cache), kinds):
+            rope, lengths = tables[kind]
+            x, _ = self.apply_block_decode(bp, x, c, pos, kind=kind,
+                                           rope=rope, lengths=lengths)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self.unembed(params, x), cache
 
@@ -331,21 +423,37 @@ class Model:
     # Cache construction
     # ------------------------------------------------------------------
     def _init_layer_cache(self, kind: str, batch: int, max_len: int, *,
-                          device):
+                          device, window: Optional[int] = None):
+        """One layer's zeroed cache; ``window`` sizes an attention cache
+        as a ring (the slot arena passes none)."""
+        dtype = self.flags.dtype
         if kind == "ssm":
-            return SSM.init_ssm_cache(self.cfg, batch, self.flags.dtype,
-                                      device=device)
+            return SSM.init_ssm_cache(self.cfg, batch, dtype, device=device)
+        if kind == "rec":
+            return RG.init_rglru_cache(self.cfg, batch, dtype, device=device)
         if kind == "mla":
-            return L.init_mla_cache(self.cfg, batch, max_len,
-                                    self.flags.dtype, device=device)
-        return L.init_attention_cache(self.cfg, batch, max_len,
-                                      self.flags.dtype, device=device)
+            return L.init_mla_cache(self.cfg, batch, max_len, dtype,
+                                    device=device)
+        return L.init_attention_cache(self.cfg, batch, max_len, dtype,
+                                      device=device, window=window)
 
     def init_cache(self, batch: int, max_len: int, *, device):
         """Zeroed decode caches of every layer on ``device`` (required:
-        nothing lands on the CPU unless asked)."""
-        one = self._init_layer_cache(self.block_kind, batch, max_len,
-                                     device=device)
-        n = self.cfg.num_layers
-        return ({k: torch.zeros((n,) + v.shape, dtype=v.dtype,
-                                device=v.device) for k, v in one.items()}, [])
+        nothing lands on the CPU unless asked), in the JAX layout of
+        :meth:`prefill`; a hybrid's local attention gets a ring of
+        ``min(max_len, local_window)`` rows."""
+        def stacked(kind, n):
+            one = self._init_layer_cache(kind, batch, max_len, device=device,
+                                         window=self._window(kind))
+            return {k: torch.zeros((n,) + v.shape, dtype=v.dtype,
+                                   device=v.device) for k, v in one.items()}
+
+        cfg = self.cfg
+        if cfg.hybrid is None:
+            return (stacked(self.block_kind, cfg.num_layers), [])
+        pat = cfg.hybrid.block_pattern
+        tail = [self._init_layer_cache(pat[i], batch, max_len, device=device,
+                                       window=self._window(pat[i]))
+                for i in range(self.n_tail)]
+        return ({f"b{j}_{kind}": stacked(kind, self.n_groups)
+                 for j, kind in enumerate(pat)}, tail)

@@ -11,8 +11,8 @@ Node ids come from ``workload.from_model_config``:
 
   * ``emb``   — embed the prompt,
   * ``P<i>``  — prefill layer i over the prompt (writes the layer's cache —
-               K/V, or the SSM state and conv tail — directly into the
-               request's arena slot),
+               K/V, or the SSM or RG-LRU state and conv tail — directly
+               into the request's arena slot),
   * ``D<i>``  — decode layer i for ONE token, batched with ragged per-row
                positions across the merged sub-batch,
   * ``head``  — final norm + unembed + greedy sample.
@@ -25,7 +25,13 @@ layers in FLAT layout: leaves are ``(span_len * n_slots, ...)`` —
 ``(…, max_len, KV, hd)`` K/V for GQA attention (dense and MoE blocks),
 ``(…, max_len, kv_lora)`` ``ckv`` and ``(…, max_len, rope)`` ``krope``
 latents for MLA, ``(…, nh, hd, N)`` state and ``(…, W - 1, C)`` conv tail
-for SSM — and layer k's batch rows sit at ``slots + k * n_slots``.
+for SSM, ``(…, w)`` state and ``(…, W - 1, w)`` conv tail for the hybrid's
+RG-LRU blocks — and layer k's batch rows sit at ``slots + k * n_slots``.
+A hybrid stack (recurrentgemma-9b: rec, rec, attn, ...) is a run of short
+spans, one arena each. Its local-attention arena holds ``max_len`` rows,
+as ``JaxEngine`` builds it: prefill honours the window, and decode reads
+every earlier token of the request, which is what the JAX engine's arena
+decode does past the window too (a ring of ``max_len`` rows never wraps).
 
 Fused runs: a decode chunk ``D_i..D_j[+head]`` runs as one Python loop
 over the span's layers with the head folded in; a multi-cycle run keeps
@@ -33,9 +39,9 @@ each cycle's sampled tokens on the device and feeds them to the next
 cycle's embedding. Emb + prefill chunks of attention stacks (dense, MLA)
 prefill all members together, right-padded to power-of-two length buckets
 (causal attention never lets a valid row read a padded one); SSM and MoE
-stacks prefill each request at its exact length, since a padded tail
-would run through the recurrence and change the state, or take expert
-capacity and change the routing. Decode batches are padded to a power
+stacks, and hybrids, prefill each request at its exact length, since a
+padded tail would run through the recurrence and change the state, or
+take expert capacity and change the routing. Decode batches are padded to a power
 of two; padding rows carry an out-of-range slot, their cache writes are
 skipped (JAX drops them; torch's ``index_put_`` would raise, or assert on
 the device) and their reads are clamped. Positions and last tokens of a stable
@@ -46,16 +52,17 @@ sight of each dispatch shape key — (chunk kind, lo, hi, with_head, padded
 batch, ctx or length bucket) — so the JAX contract carries over: after
 warmup, no new keys, and at most one host sync per run.
 
-On a CUDA device GQA decode attention, prefill attention (GQA and MLA),
-the SSM prefill scan and every RMSNorm go through the hand-written kernels
-of ``repro_torch.kernels``; on the CPU (``device="cpu"``, as the tests run
-it) they take their plain versions. MLA decode over the latent cache and
-the MoE FFN are PyTorch ops, as the JAX model computes them with jnp.
+On a CUDA device GQA decode attention, prefill attention (GQA, local and
+MLA), the SSM prefill scan and every RMSNorm go through the hand-written
+kernels of ``repro_torch.kernels``; on the CPU (``device="cpu"``, as the
+tests run it) they take their plain versions. MLA decode over the latent
+cache, the MoE FFN and the RG-LRU are PyTorch ops, as the JAX model
+computes them with jnp.
 
 Token semantics are exact: prefill covers ``prompt[:-1]`` and the prompt's
 last token is the first decode input, so every token is processed once.
-Not ported yet: ``cache_mode="legacy"``, the hybrid family and the
-``RuntimeFlags`` variants.
+Not ported yet: ``cache_mode="legacy"`` and the ``RuntimeFlags``
+variants.
 """
 from __future__ import annotations
 
@@ -75,6 +82,9 @@ from .backend import Backend, BackendOOMError, MemoryStats, SanitizerStats
 
 # cache leaves whose leading (post-slot) axis is the KV time axis
 _TIME_AXIS_KEYS = ("k", "v", "ckv", "krope")
+
+# block kinds that read no context: their spans take no ctx bucket
+_NO_CONTEXT = ("ssm", "rec")
 
 # slot sentinel for batch-bucket padding rows: far out of range for any
 # arena size; must never be reachable by arena growth
@@ -611,9 +621,9 @@ class TorchEngine(Backend):
         Attention stacks (dense/MLA) bucket by power-of-two padded prompt
         length (capped at ``max_len``). Other stacks prefill each request
         at its exact length, keyed ``(prefill_len, rid)``: a padded tail
-        would run through the SSM recurrence and change the state, or
-        enter the MoE routing group, take expert capacity and change which
-        pairs are dropped."""
+        would run through the SSM or RG-LRU recurrence and change the
+        state, or enter the MoE routing group, take expert capacity and
+        change which pairs are dropped."""
         bucketable = set(self.kinds) <= {"dense", "mla"}
         groups: Dict[tuple, list] = {}
         for r, st in zip(reqs, sts):
@@ -687,11 +697,12 @@ class TorchEngine(Backend):
         # host positions: the deepest read is pos0 + n_cycles - 1 when the
         # run ends on a head, pos0 + n_cycles with a trailing headless chunk.
         # An SSM stack reads no context: it takes none, and its dispatch
-        # shape key does not change as the context grows.
+        # shape key does not change as the context grows. A hybrid's
+        # recurrent spans ignore the bucket its attention spans read.
         n_cycles = sum(1 for ch in chunks if ch[0] == "decode" and ch[3])
         ctx = None
         if (any(ch[0] == "decode" for ch in chunks)
-                and any(k != "ssm" for k in self.kinds)):
+                and any(k not in _NO_CONTEXT for k in self.kinds)):
             trailing = chunks[-1][0] == "decode" and not chunks[-1][3]
             deepest = (max(st.pos for st in sts) + n_cycles
                        + (1 if trailing else 0))

@@ -29,7 +29,7 @@ COPIES = ["configs/base.py", "configs/llama3_2_1b.py",
           "configs/mistral_nemo_12b.py", "configs/internvl2_26b.py",
           "configs/musicgen_large.py", "configs/minicpm3_4b.py",
           "configs/granite_moe_3b_a800m.py", "configs/grok_1_314b.py",
-          "core/__init__.py",
+          "configs/recurrentgemma_9b.py", "core/__init__.py",
           "core/lifecycle.py", "core/request.py", "core/batch_table.py",
           "core/slack.py", "core/policies.py", "core/arbiter.py",
           "serving/backend.py", "serving/registry.py", "serving/metrics.py",

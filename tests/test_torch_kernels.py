@@ -55,6 +55,7 @@ DECODE_SHAPES = [
     (4, 8, 2, 64, 256),      # GQA 4:1
     (2, 16, 1, 128, 512),    # MQA, large D
     (3, 6, 3, 32, 128),      # odd sizes
+    (3, 16, 1, 256, 256),    # recurrentgemma-9b: MQA at G 16, D 256
 ]
 
 
@@ -225,6 +226,27 @@ def test_flash_plain_chunks_gqa_like_jax_chunked_on_repeated_heads(KV):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_flash_plain_at_head_dim_256_with_a_binding_window(dtype):
+    """recurrentgemma-9b's local attention: 16 q heads over one kv head of
+    256, a window (48) shorter than the prompt (160) and than the chunk
+    (64), so chunks past the first read keys from ``hi - chunk - window``
+    on: the JAX model's ``chunked_causal_attention`` on heads repeated 16
+    times."""
+    rng = np.random.default_rng(9)
+    B, S, H, KV, D = 2, 160, 16, 1, 256
+    qj, qt = _pair(rng.standard_normal((B, S, H, D)), dtype)
+    kj, kt = _pair(rng.standard_normal((B, S, KV, D)), dtype)
+    vj, vt = _pair(rng.standard_normal((B, S, KV, D)), dtype)
+    got = K.flash_attention(qt, kt, vt, window=48)
+    plain = K.flash_attention_plain(qt, kt, vt, window=48, chunk=32)
+    want = jax_chunked(qj, jnp.repeat(kj, H, axis=2),
+                       jnp.repeat(vj, H, axis=2), window=48, chunk=32)
+    assert got.dtype == qt.dtype and tuple(got.shape) == (B, S, H, D)
+    np.testing.assert_allclose(_np(plain), _np(want), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
 @pytest.mark.parametrize("Dqk,Dv", [(96, 64), (48, 32)])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_flash_plain_takes_mla_widths_like_jax_chunked(Dqk, Dv, dtype):
@@ -248,12 +270,13 @@ def test_flash_plain_takes_mla_widths_like_jax_chunked(Dqk, Dv, dtype):
 @pytest.mark.parametrize("D,Dv,width", [(64, 64, 64), (32, 32, 32),
                                         (128, 128, 128), (96, 64, 128),
                                         (48, 32, 64), (40, 40, 64),
+                                        (256, 256, 256), (136, 64, 256),
                                         (64, 96, None), (60, 60, None),
-                                        (136, 64, None)])
+                                        (264, 64, None)])
 def test_flash_kernel_width(D, Dv, width):
     """The kernel's compiled width for q/k width D and v width Dv: the
-    smallest of 32, 64 and 128 that holds D; None for what it does not
-    take (Dv > D, widths no multiple of 8, D above 128)."""
+    smallest of 32, 64, 128 and 256 that holds D; None for what it does
+    not take (Dv > D, widths no multiple of 8, D above 256)."""
     assert K.flash_attn.kernel_width(D, Dv) == width
 
 

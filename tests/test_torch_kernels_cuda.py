@@ -7,14 +7,15 @@ it runs there as it stands:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 It sweeps the shapes of ``tests/test_kernels.py`` — MHA, GQA, MQA, head
-dims 32/64/128, the head shapes of the dense and MoE architectures (G 1,
-3, 4, 5 and 6), MLA's prefill widths (q/k 96 with v 64, 48 with 32),
+dims 32/64/128/256, the head shapes of the dense and MoE architectures (G
+1, 3, 4, 5 and 6), recurrentgemma-9b's MQA at head dim 256 (G 16, local
+window 2048), MLA's prefill widths (q/k 96 with v 64, 48 with 32),
 ragged lengths, padding rows at an out-of-range slot,
 sliding windows, query offsets and tails that are no multiple of a tile —
 in float32 (tolerance 2e-5) and bfloat16 (2e-2); the SSD scan over its
 shapes, full width and chunks 1 … 256 in float32 (1e-4) and bfloat16
 (5e-2 on y, 1e-4 on the float32 states), on each of its four routes;
-and tiny llama and Mamba-2 engines on the card against the CPU engine.
+and tiny engines of every family on the card against the CPU engine.
 """
 import pytest
 
@@ -30,6 +31,7 @@ DECODE_SHAPES = [
     (2, 16, 1, 128, 512),    # MQA, large D
     (3, 6, 3, 32, 128),      # odd sizes
     (8, 32, 8, 64, 1024),    # llama3.2-1b decode
+    (8, 16, 1, 256, 1024),   # recurrentgemma-9b decode: MQA at D 256
 ]
 
 FLASH_CASES = [
@@ -262,9 +264,54 @@ def test_flash_kernel_at_mla_widths(cuda, B, S, T, H, q_offset, window, Dqk,
     _flash_case(cuda, B, S, T, H, H, Dqk, dtype, window, q_offset, Dv=Dv)
 
 
+# recurrentgemma-9b's local attention: 16 q heads over 1 kv head of 256
+RGEMMA_FLASH_CASES = [
+    (2, 317, 317, 16, 1, None, 0),       # causal, tails of no tile multiple
+    (1, 300, 300, 16, 1, 100, 0),        # a binding window
+    (1, 190, 253, 16, 1, 64, 63),        # window and a catch-up offset
+    (2, 150, 150, 4, 4, 2048, 0),        # MHA, the model's window, unbound
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,KV,window,q_offset", RGEMMA_FLASH_CASES)
+@pytest.mark.parametrize("Dqk,Dv", [(256, 256), (136, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_head_dim_256(cuda, B, S, T, H, KV, window, q_offset,
+                                      Dqk, Dv, dtype):
+    """Width 256: bf16 on the tensor cores (four 64-column TMA boxes a row,
+    P V as one m64n256k16 wgmma a k slice), float32 on the CUDA cores;
+    (136, 64) runs at 256 with the columns past each width zero."""
+    _flash_case(cuda, B, S, T, H, KV, Dqk, dtype, window, q_offset, Dv=Dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_where_the_window_binds_at_head_dim_256(cuda, dtype):
+    """The smoke's long case: S 4096, window 2048, so most q-tiles start
+    past key 0."""
+    _flash_case(cuda, 1, 4096, 4096, 16, 1, 256, dtype, 2048, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_t", [None, 32, 160, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_decode_kernel_at_head_dim_256(cuda, split_t, dtype):
+    """recurrentgemma-9b's decode (G 16 in two chunks of 8 heads, one kv
+    head of 256: each float32 lane carries two 16-byte chunks of a row)
+    over a T 1000 arena with a padding row, split any way."""
+    q, k, v, lengths, slots = _decode_case(cuda, 8, 16, 1, 256, 1000, dtype,
+                                           seed=7)
+    got = K.ragged_decode_attention(q, k, v, lengths, slots=slots,
+                                    split_t=split_t)
+    want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_raises_on_widths_it_does_not_take(cuda):
-    for dk, dv in ((64, 96), (60, 60), (136, 64)):
+    for dk, dv in ((64, 96), (60, 60), (264, 64)):
         q = torch.zeros((1, 64, 2, dk), device=cuda)
         v = torch.zeros((1, 64, 2, dv), device=cuda)
         with pytest.raises(ValueError, match="head dims"):
@@ -656,6 +703,15 @@ def test_mla_engine_on_card_matches_cpu_engine(cuda):
 
 
 @pytest.mark.cuda
+def test_hybrid_engine_on_card_matches_cpu_engine(cuda):
+    """The tiny recurrentgemma (rec, rec, attn at reduced()'s head dim 64,
+    window 64): local attention on the llama kernels, the RG-LRU in
+    PyTorch ops; prompts of 2 and 3 tokens leave short conv tails."""
+    _engine_on_card_vs_cpu(cuda, "recurrentgemma-9b", (2, 3, 9, 20),
+                           LLAMA_KERNELS)
+
+
+@pytest.mark.cuda
 def test_moe_engine_on_card_matches_cpu_engine(cuda):
     """The tiny granite MoE (4 experts, top 2): GQA attention on the llama
     kernels, the MoE FFN in PyTorch ops."""
@@ -713,6 +769,13 @@ def test_fused_runs_make_no_hidden_host_sync(cuda):
 @pytest.mark.cuda
 def test_fused_ssm_runs_make_no_hidden_host_sync(cuda):
     _no_hidden_sync(cuda, "mamba2-2.7b")
+
+
+@pytest.mark.cuda
+def test_fused_hybrid_runs_make_no_hidden_host_sync(cuda):
+    """The RG-LRU's gathers, scans and scatter of the live rows wait for
+    nothing inside a run."""
+    _no_hidden_sync(cuda, "recurrentgemma-9b")
 
 
 @pytest.mark.cuda

@@ -107,7 +107,8 @@ FAULTS = ["--fault-spec", "transient:0.2", "--max-retries", "32"]
 
 @pytest.mark.parametrize("faults", [False, True], ids=["clean", "faults"])
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b", "minicpm3-4b",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m",
+                                  "recurrentgemma-9b"])
 def test_torch_engine_tokens_equal_the_jax_launcher(arch, faults,
                                                     monkeypatch):
     flags = ["--arch", arch, "--rate", "6", "--duration", "1",

@@ -189,14 +189,19 @@ def test_gather_clamps_and_scatter_skips_padding_rows():
 
 
 def test_unported_families_raise():
-    """The hybrid family (RG-LRU + local attention) is the one left; MoE
-    and MLA are ported (tests/test_torch_moe.py, tests/test_torch_mla.py)."""
+    """Every family of the JAX registry is ported — MoE and MLA
+    (tests/test_torch_moe.py, tests/test_torch_mla.py) and the hybrid
+    (tests/test_torch_rglru.py) build; an attention kind or a hybrid block
+    the port has no layer for raises."""
     base = dict(name="x", num_layers=3, d_model=64, num_heads=4,
                 num_kv_heads=4, head_dim=16, d_ff=128, vocab_size=128)
-    hybrid = ModelConfig(family="hybrid", hybrid=HybridConfig(), **base)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        Model(hybrid)
+    Model(ModelConfig(family="hybrid", hybrid=HybridConfig(), **base))
     Model(ModelConfig(family="moe", moe=MoEConfig(4, 2), **base))
+    with pytest.raises(NotImplementedError, match="attention 'linear'"):
+        Model(ModelConfig(family="dense", attention="linear", **base))
+    odd = HybridConfig(block_pattern=("rec", "ssm"))
+    with pytest.raises(NotImplementedError, match="pattern"):
+        Model(ModelConfig(family="hybrid", hybrid=odd, **base))
 
 
 @pytest.mark.parametrize("entry", ["params_from_jax", "init_cache",
