@@ -50,7 +50,23 @@ Phases, always all of them, in order:
            kernel whose trace recorded no device time, or fewer records of
            a kernel its calls launch than calls traced (the SSD scan's by
            route), fails the phase (such a trace is taken again with
-           longer pads, three times in all).
+           longer pads, three times in all). At the training path's shapes
+           (flash in float32 and bfloat16 at (8, 256, 32 / 8, 64) and in
+           float32 at MLA's (8, 256, 40, 96 / 64); RMSNorm float32 (8,
+           256, 2048); the SSD scan float32 at (4, 256, 80, 64), chunks
+           256 and 32) each wrapper also runs under autograd: its output
+           has its Function's grad_fn and its forward launched the kernel,
+           and every input's gradient for one random upstream gradient
+           agrees with autograd through the plain version at the forward's
+           tolerance; the backward's device time (PyTorch ops) is printed.
+           Only RMSNorm's closed-form backward and the SSD scan's at chunk
+           32 (the recurrent plain version against the chunked one) are
+           computed otherwise than their reference side: flash's and the
+           SSD scan's at chunk 256 re-run the reference's own plain version
+           under autograd, so those comparisons check the wiring (the
+           Function is taken, its saved inputs and the gradients' order),
+           not the gradient's arithmetic, which ``train exact`` and
+           ``train mamba`` hold against the CPU.
   serve    full-width llama3.2-1b (16 layers, d_model 2048, random weights
            from a seed) in bfloat16: TorchEngine + ServingSession +
            LazyBatching(max_batch=8) serve 24 Poisson-arriving requests
@@ -142,6 +158,33 @@ Phases, always all of them, in order:
            is live after the drain, the llama kernels launched. Client
            wall TTFT, SLA attainment by tier and the event loop's stalls
            are printed, not gated.
+  train    ``repro_torch.launch.train`` (``--arch llama3.2-1b --steps 30
+           --batch 8 --seq 256 --checkpoint build/train_llama.npz``) run
+           through its ``train``, in float32 with TF32 as the earlier
+           phases left it (off): every parameter leaf has a finite,
+           nonzero gradient at step 0 (the launcher's weights and first
+           batch), the launcher exits 0 with a falling loss, flash and
+           RMSNorm launch and ragged decode does not, the checkpoint
+           restores bit for bit, the trace of 3 more steps shows the flash
+           and RMSNorm kernels; prints seconds per step after step 0,
+           training tokens/s, peak memory, ``model_flops(cfg, tokens,
+           train=True)`` per second as a share of the 67 TFLOP/s f32 peak,
+           the SM clock and power draw sampled by nvidia-smi every 500 ms
+           over the launcher's run (min / median / max), and the
+           device-busy share and top kernels of 3 traced steps.
+  train exact  full-width llama3.2-1b, float32 with TF32 off, one sequence
+           of 64 tokens: the loss and every leaf's gradient on the card
+           (kernels) against the CPU (plain versions) from the same
+           weights: loss rtol 1e-5, each leaf ||dg|| / ||g|| <= 1e-3; the
+           worst leaf is printed.
+  train mamba  mamba2-2.7b at full width cut to 8 of its 64 layers (the
+           only cut), float32, 10 steps of 4 x 256 through ``train_loop``:
+           the loss falls, every parameter stays finite, and the SSD scan's
+           split-TF32 route and RMSNorm launch in the forward; then, from
+           fresh weights with TF32 off, one sequence of 64 tokens (SSD
+           chunk 64, the split-TF32 route): the loss and every leaf's
+           gradient on the card against the CPU, at ``train exact``'s
+           tolerances.
 
 Each serve's profile window must show every hand-written kernel whose
 launch counter moved in its traced serve; a window whose trace still
@@ -162,7 +205,10 @@ float32, in ``minicpm exact``; ragged decode at granite's G 3 in
 bfloat16, launched in ``granite serve``; flash and ragged decode at
 head_dim 256 in bfloat16, launched in ``rgemma serve``, and float32, in
 ``rgemma exact``, and RMSNorm at 4096 in bfloat16, launched in ``rgemma
-serve``), and ``{"ok": true, ...}``.
+serve``; float32 flash at (8, 256, 32 / 8, 64) and RMSNorm at (8, 256,
+2048), launched in ``train``, and the float32 SSD scan at (4, 256, 80,
+64) chunk 256, launched in ``train mamba``, each with its backward's
+device time), and ``{"ok": true, ...}``.
 Exits non-zero before printing any result when no CUDA device is
 present.
 """
@@ -213,6 +259,9 @@ REPLACES = {
     "ragged_decode_attention_d256": DECODE_TPU,
     "ragged_decode_attention_f32_d256": DECODE_TPU,
     "fused_rmsnorm_4096": "src/repro/kernels/rmsnorm.py:28",
+    "flash_attention_f32_train": FLASH_TPU,
+    "fused_rmsnorm_f32_train": "src/repro/kernels/rmsnorm.py:28",
+    "ssd_chunked_tf32_train": "src/repro/kernels/ssd_chunk.py:64",
 }
 DECODE_CU = ("cuda", "src/repro_torch/csrc/ragged_decode_attn.cu")
 FLASH_CU = ("cuda", "src/repro_torch/csrc/flash_attn.cu")
@@ -234,6 +283,9 @@ SOURCES = {
     "ragged_decode_attention_d256": DECODE_CU,
     "ragged_decode_attention_f32_d256": DECODE_CU,
     "fused_rmsnorm_4096": ("cuda", "src/repro_torch/csrc/rmsnorm.cu"),
+    "flash_attention_f32_train": FLASH_CU,
+    "fused_rmsnorm_f32_train": ("cuda", "src/repro_torch/csrc/rmsnorm.cu"),
+    "ssd_chunked_tf32_train": ("cuda", "src/repro_torch/csrc/ssd_chunk.cu"),
 }
 # the JSON row a kernels-phase case fills, by (kernel, dtype, head dim):
 # llama's bf16 shapes, mistral-nemo-12b's D 128 in bf16 (its serve) and
@@ -296,6 +348,15 @@ MAMBA_EXACT_KERNELS = ("ssd_chunked", "ssd_chunked_recurrent",
 # decode may launch
 MLA_KERNELS = ("fused_rmsnorm", "flash_attention")
 MLA_ABSENT = ("ragged_decode_attention",)
+# training: llama's forward runs flash (f32, split TF32) and RMSNorm, and
+# mamba's the SSD scan at chunk 256 (the split-TF32 route) and RMSNorm;
+# no decode runs
+TRAIN_KERNELS = ("fused_rmsnorm", "flash_attention")
+TRAIN_MAMBA_KERNELS = ("fused_rmsnorm", "ssd_chunked", "ssd_chunked_tf32")
+TRAIN_ABSENT = ("ragged_decode_attention",)
+# float32 outside the tensor cores: the rate of the training path's GEMMs
+# with TF32 off
+F32_CUDA_CORE_FLOPS = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -316,6 +377,46 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+class SmiSampler:
+    """``nvidia-smi`` sampling the SM clock (MHz) and the power draw (W)
+    every 500 ms while the ``with`` block runs; the process is stopped on
+    exit. ``summary()`` gives each one's min / median / max, or "not
+    measured" when nvidia-smi gave no sample."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "500"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        self.samples = []
+        for line in out.splitlines():
+            try:
+                self.samples.append(tuple(float(v) for v in line.split(",")))
+            except ValueError:
+                continue
+        return False
+
+    def summary(self) -> str:
+        if not self.samples:
+            return "clocks and power not measured (no nvidia-smi sample)"
+        parts = []
+        for i, (name, unit) in enumerate((("SM clock", "MHz"),
+                                          ("power", "W"))):
+            v = sorted(x[i] for x in self.samples)
+            parts.append(f"{name} min {v[0]} / median "
+                         f"{statistics.median(v)} / max {v[-1]} {unit}")
+        return f"{len(self.samples)} samples: {'; '.join(parts)}"
 
 
 # ---------------------------------------------------------------------------
@@ -681,7 +782,7 @@ def kernel_decode(torch, K, dtype, lens, slots, ctx, H=32, KV=8, D=64,
     return res
 
 
-def kernel_rmsnorm(torch, K, dtype, shape):
+def kernel_rmsnorm(torch, K, dtype, shape, row=None, grad=False):
     g = torch.Generator(device="cuda").manual_seed(2)
     x = (torch.randn(shape, generator=g, device="cuda") * 3.0).to(dtype)
     scale = torch.randn((shape[-1],), generator=g, device="cuda")
@@ -691,9 +792,13 @@ def kernel_rmsnorm(torch, K, dtype, shape):
     w = scale.to(dtype)
     F = torch.nn.functional
     return {"shape": f"x{tuple(shape)}", "out": out, "ref": ref,
-            "row": (None if dtype != torch.bfloat16 else
-                    {(8, 2048): "fused_rmsnorm",
-                     (8, 4096): "fused_rmsnorm_4096"}.get(tuple(shape))),
+            "row": row or (None if dtype != torch.bfloat16 else
+                           {(8, 2048): "fused_rmsnorm",
+                            (8, 4096): "fused_rmsnorm_4096"}.get(
+                               tuple(shape))),
+            "grad": None if not grad else (K.fused_rmsnorm,
+                                           K.fused_rmsnorm_plain,
+                                           (x, scale)),
             "symbols": COUNTER_SYMBOLS["fused_rmsnorm"],
             "fns": (lambda: K.fused_rmsnorm(x, scale),
                     lambda: K.fused_rmsnorm_plain(x, scale),
@@ -703,7 +808,7 @@ def kernel_rmsnorm(torch, K, dtype, shape):
 
 
 def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64, Dv=None,
-                 window=None):
+                 window=None, row=None, grad=False):
     """Causal prefill at q/k width D and v width Dv (D by default), with a
     sliding ``window`` when given; the scores and P V read q, k at D and v
     at Dv, the output is Dv wide."""
@@ -736,8 +841,13 @@ def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64, Dv=None,
     return {"shape": f"q{tuple(q.shape)} {kv_shape} causal"
                      + (f" window {window}" if window else ""),
             "out": out, "ref": ref,
-            "row": (None if S != 512 else
-                    ROWS.get(("flash_attention", dtype_name(dtype), D))),
+            "row": row or (None if S != 512 or B != 4 else
+                           ROWS.get(("flash_attention", dtype_name(dtype),
+                                     D))),
+            "grad": None if not grad else (
+                lambda *a: K.flash_attention(*a, window=window),
+                lambda *a: K.flash_attention_plain(*a, window=window),
+                (q, k, v)),
             "symbols": (COUNTER_SYMBOLS["flash_attention"]
                         if dtype == torch.bfloat16
                         else ("flash_tf32x3_kernel",) if D <= 128
@@ -753,7 +863,8 @@ def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64, Dv=None,
             "flops": 2 * B * H * (D + Dv) * pairs}
 
 
-def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
+def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128, B=1,
+               row=None, grad=False):
     """The SSD scan at mamba2-2.7b's prefill shapes, with the model's own
     input distribution at init: dt = softplus(noise + dt_bias) with dt_bias
     the inverse softplus of a log-uniform [1e-3, 1e-1] draw, A = -(1..nh).
@@ -763,12 +874,12 @@ def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
     import math
     g = torch.Generator(device="cuda").manual_seed(4)
     F = torch.nn.functional
-    x = torch.randn((1, S, nh, hd), generator=g, device="cuda").to(dtype)
-    Bm = torch.randn((1, S, N), generator=g, device="cuda").to(dtype)
-    Cm = torch.randn((1, S, N), generator=g, device="cuda").to(dtype)
+    x = torch.randn((B, S, nh, hd), generator=g, device="cuda").to(dtype)
+    Bm = torch.randn((B, S, N), generator=g, device="cuda").to(dtype)
+    Cm = torch.randn((B, S, N), generator=g, device="cuda").to(dtype)
     u = torch.rand((nh,), generator=g, device="cuda")
     dt0 = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
-    dt = F.softplus(torch.randn((1, S, nh), generator=g, device="cuda")
+    dt = F.softplus(torch.randn((B, S, nh), generator=g, device="cuda")
                     + torch.log(torch.expm1(dt0)))
     A = -torch.arange(1, nh + 1, dtype=torch.float32, device="cuda")
     route = K.ssd_route(dtype, chunk, hd, N)
@@ -801,27 +912,32 @@ def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128):
             "symbols": SSD_ROUTE_SYMBOLS[route],
             # the JSON rows: bf16 at the serve's chunk 256, and the f32
             # split-TF32 route at mamba exact's chunk 256
-            "row": (None if chunk != 256 else "ssd_chunked"
-                    if dtype == torch.bfloat16 else "ssd_chunked_tf32"),
+            "row": row or (None if chunk != 256 or B != 1 else "ssd_chunked"
+                           if dtype == torch.bfloat16
+                           else "ssd_chunked_tf32"),
+            "grad": None if not grad else (
+                lambda *a: K.ssd_chunked(*a, chunk),
+                lambda *a: K.ssd_chunked_plain(*a, chunk),
+                (x, dt, A, Bm, Cm)),
             # the split-TF32 route against the CUDA-core pair it replaced
-            "before": (None if route != "tf32" else
+            "before": (None if route != "tf32" or B != 1 else
                        lambda: ssd_cuda_cores(torch, x, dt, A, Bm, Cm,
                                               chunk)),
-            "repeats": dtype == torch.float32 and chunk == 256,
+            "repeats": dtype == torch.float32 and chunk == 256 and B == 1,
             "note": f"median |y_ref| {rf.abs().median().item():.3e}, worst "
                     f"head ||y - y_ref|| / ||y_ref|| {rel:.3e}",
             "fns": (lambda: K.ssd_chunked(x, dt, A, Bm, Cm, chunk),
                     lambda: K.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk),
                     None),
             # read x, dt, A, B, C once; write y and the final state once
-            "bytes": (2 * x.numel() + 2 * S * N) * elt + 4 * (S * nh + nh)
-            + 4 * nh * hd * N,
+            "bytes": (2 * x.numel() + 2 * B * S * N) * elt
+            + 4 * (B * S * nh + nh) + 4 * B * nh * hd * N,
             # C.B^T once for all heads over the causal half, W.x and the
             # chunk states per head, the state pass, and y_inter for the
             # chunks after the first (the first enters with a zero state)
-            "flops": 2 * nc * tri * N + 2 * nc * nh * tri * hd
-            + 2 * S * nh * hd * N + 2 * nc * nh * hd * N
-            + 2 * (nc - 1) * chunk * nh * hd * N}
+            "flops": B * (2 * nc * tri * N + 2 * nc * nh * tri * hd
+                          + 2 * S * nh * hd * N + 2 * nc * nh * hd * N
+                          + 2 * (nc - 1) * chunk * nh * hd * N)}
 
 
 def ssd_cuda_cores(torch, x, dt, A, Bm, Cm, chunk):
@@ -871,6 +987,68 @@ def before_vs(torch, r, kernel_fn, dev_ms, dname, what):
           f"(its max|err| {err:.3e}): events {ev:.4f} vs {ev_b:.4f} ms, host "
           f"{host:.2f} vs {host_b:.2f} us per call, device {dev_ms:.4f} vs "
           f"{dev_b:.4f} ms")
+
+
+def grad_check(torch, r, dname, what):
+    """The case's wrapper under autograd (``r["grad"]``: the wrapper, its
+    plain version, the inputs): its output has the Function's grad_fn and
+    its forward launched the kernel; the gradient of every input for one
+    random upstream gradient agrees with autograd through the plain
+    version on the same inputs, at the forward's tolerance (``r["tols"]``'s
+    first, else ``TOL``); the backward's device time (profiler) and events
+    time, and the plain version's full backward's. Returns the numbers for
+    the case's JSON row.
+
+    Where the Function's backward re-runs that same plain version (flash;
+    the SSD scan at chunk 64 and up) both sides run the same ops on the
+    same inputs: the check then shows the wiring only. RMSNorm's
+    closed-form backward and the SSD scan's recurrent one below chunk 64
+    are held against other arithmetic."""
+    import repro_torch.kernels as K
+    kernel, plain, inputs = r["grad"]
+    tol = r["tols"][0] if r.get("tols") else TOL[dname]
+
+    def leaves():
+        return [t.detach().clone().requires_grad_(True) for t in inputs]
+
+    def first(out):
+        return out[0] if isinstance(out, tuple) else out
+
+    before = K.launch_counts()
+    ins = leaves()
+    out = first(kernel(*ins))
+    launched = [k for k, n in K.launch_counts().items() if n > before[k]]
+    check(out.grad_fn is not None and "Backward" in type(out.grad_fn).__name__
+          and bool(launched),
+          f"{what}: under autograd the wrapper gave grad_fn "
+          f"{type(out.grad_fn).__name__} and launched {launched}")
+    g = torch.Generator(device=out.device).manual_seed(11)
+    up = torch.randn(out.shape, generator=g, device=out.device).to(out.dtype)
+    bwd = lambda: torch.autograd.grad(out, ins, up, retain_graph=True)
+    got = bwd()
+    ref_ins = leaves()
+    ref_out = first(plain(*ref_ins))
+    ref_bwd = lambda: torch.autograd.grad(ref_out, ref_ins, up,
+                                          retain_graph=True)
+    want = ref_bwd()
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"{what}: a gradient is not finite")
+    err = compare(torch, tuple(got), tuple(want), dname,
+                  f"{what} gradients", (tol,) * len(got))
+    dev, _, _ = device_ms(torch, bwd, f"the backward of {what}")
+    dev_plain, _, _ = device_ms(torch, ref_bwd,
+                                f"the plain backward of {what}")
+    ev = cuda_ms(torch, bwd)
+    fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"
+    print(f"[kernels] {what} gradients: {type(out.grad_fn).__name__} over "
+          f"the kernel ({', '.join(launched)}); max|err| {err:.3e} against "
+          f"autograd through the plain version (tolerance {tol}) | backward "
+          f"(PyTorch ops) device {fmt(dev)}, events {fmt(ev)} | the plain "
+          f"version's backward device {fmt(dev_plain)}")
+    del out, ref_out, got, want
+    return {"backward_device_ms": dev, "backward_ms": ev,
+            "backward_max_abs_err": err}
 
 
 def phase_kernels(torch):
@@ -935,6 +1113,27 @@ def phase_kernels(torch):
             cases.append(("ssd_chunked", dt,
                           lambda dt=dt, S=S, c=chunk: kernel_ssd(torch, K, dt,
                                                                  S, c)))
+    # the training path's shapes (llama3.2-1b at batch 8 x 256 in float32,
+    # mamba2-2.7b at 4 x 256), each also held for its gradient: the
+    # Function's backward against autograd through the plain version
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases += [
+        ("flash_attention", f32, lambda: kernel_flash(
+            torch, K, f32, 256, B=8, row="flash_attention_f32_train",
+            grad=True)),
+        ("flash_attention", bf16, lambda: kernel_flash(torch, K, bf16, 256,
+                                                       B=8, grad=True)),
+        ("flash_attention", f32, lambda: kernel_flash(
+            torch, K, f32, 256, B=8, H=40, KV=40, D=96, Dv=64, grad=True)),
+        ("fused_rmsnorm", f32, lambda: kernel_rmsnorm(
+            torch, K, f32, (8, 256, 2048), row="fused_rmsnorm_f32_train",
+            grad=True)),
+        ("ssd_chunked", f32, lambda: kernel_ssd(
+            torch, K, f32, 256, 256, B=4, row="ssd_chunked_tf32_train",
+            grad=True)),
+        ("ssd_chunked", f32, lambda: kernel_ssd(torch, K, f32, 256, 32, B=4,
+                                                grad=True)),
+    ]
     rows = {}
     for name, dt, make in cases:
         dname = str(dt).replace("torch.", "")
@@ -1009,6 +1208,9 @@ def phase_kernels(torch):
         if r.get("before") is not None:
             before_vs(torch, r, kernel_fn, dev_ms, dname,
                       f"{name} {dname} {r['shape']}")
+        bwd = (None if r.get("grad") is None
+               else grad_check(torch, r, dname, f"{name} {dname} "
+                                                f"{r['shape']}"))
         key = r["row"]      # the JSON row this case fills, if any
         if key is not None:
             route, source = SOURCES[key]
@@ -1020,6 +1222,8 @@ def phase_kernels(torch):
                          "library_device_ms": dev_lib, "host_us": host,
                          "library_host_us": lib_host,
                          "shape": f"{dname} {r['shape']}"}
+            if bwd is not None:
+                rows[key].update(bwd)
         del r
         torch.cuda.empty_cache()
     return rows
@@ -1675,6 +1879,267 @@ def phase_gateway(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# training: repro_torch.launch.train and the training API on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--arch", "llama3.2-1b", "--steps", "30", "--batch", "8",
+              "--seq", "256"]
+
+
+def _leaf_grad_check(torch, grads, tag):
+    """Every parameter leaf has a finite, nonzero gradient: (leaves, the
+    smallest gradient norm and its leaf)."""
+    from repro_torch.training.tree import flatten_with_paths, keystr
+    norms = {}
+    for path, g in flatten_with_paths(grads):
+        key = keystr(path)
+        check(bool(torch.isfinite(g).all()), f"{tag}: leaf {key} has a "
+                                             f"gradient that is not finite")
+        norms[key] = float(g.norm())
+        check(norms[key] > 0, f"{tag}: leaf {key} got no gradient (norm 0)")
+    low = min(norms, key=norms.get)
+    return len(norms), norms[low], low
+
+
+def phase_train(torch):
+    """``repro_torch.launch.train`` on full-width llama3.2-1b in float32:
+    every leaf's gradient at step 0, then 30 steps of 8 x 256 through the
+    launcher's own ``train`` (counters reset just before, read just after),
+    the loss falling, the checkpoint restoring bit for bit, and a profiled
+    window of 3 more steps; the SM clock and power draw are sampled over
+    the launcher's run."""
+    import repro_torch.kernels as K
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.cost import model_flops
+    from repro_torch.training import (checkpoint, init_state,
+                                      make_train_step, value_and_grad)
+    from repro_torch.training.trainer import to_device
+    from repro_torch.training.tree import leaves
+    ck = ROOT / "build" / "train_llama.npz"
+    args = launch_train.parse_args(TRAIN_ARGV + ["--checkpoint", str(ck)])
+    model, opt_cfg, data, gen = launch_train.build(args)
+    cfg = model.cfg
+    print(f"[train] python -m repro_torch.launch.train "
+          f"{' '.join(TRAIN_ARGV)} --checkpoint {ck}: {cfg.name} full width "
+          f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.3f} B params) in float32; TF32 "
+          f"matmul {torch.backends.cuda.matmul.allow_tf32}")
+    # step 0 of the launcher's own run: its weights (seed 0) and batch
+    state0 = init_state(model, gen)
+    (loss0, _), grads = value_and_grad(model, state0.params,
+                                       to_device(next(iter(data)), "cuda"))
+    n, low, low_key = _leaf_grad_check(torch, grads, "train")
+    print(f"[train] step 0: loss {loss0.item():.4f}; all {n} parameter "
+          f"leaves have a finite, nonzero gradient (smallest norm "
+          f"{low:.3e} at {low_key})")
+    del state0, grads, loss0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with SmiSampler() as smi:
+        t0 = time.perf_counter()
+        state, log, code = launch_train.train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    print(f"[train] during the launcher's run: {smi.summary()}")
+    check(code == 0, f"train: the launcher exited {code}")
+    check(log.losses[-1] < log.losses[0],
+          f"train: the loss did not fall ({log.losses})")
+    check_launched(counts, "train", TRAIN_KERNELS, TRAIN_ABSENT)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = args.batch * args.seq
+    sps = (log.wall[-1] - log.wall[0]) / (log.steps[-1] - log.steps[0])
+    flops = model_flops(cfg, tokens, train=True)
+    print(f"[train] losses {[round(x, 4) for x in log.losses]} at steps "
+          f"{log.steps}; {args.steps} steps in {wall:.2f} s wall (first step "
+          f"included)")
+    print(f"[train] {sps:.4f} s per step after step 0 "
+          f"({tokens / sps:.1f} training tokens/s); peak "
+          f"{peak:.2f} GB allocated; model_flops(train) "
+          f"{flops / 1e12:.2f} TFLOP per step: {flops / sps / 1e12:.2f} "
+          f"TFLOP/s, {100 * flops / sps / F32_CUDA_CORE_FLOPS:.1f}% of "
+          f"the f32 peak of {F32_CUDA_CORE_FLOPS / 1e12:.0f} TFLOP/s")
+    print(f"[train] kernel launches on the main path: {counts}")
+    restored, step = checkpoint.restore(str(ck), state.params)
+    same = all(torch.equal(a, b.detach()) for a, b in zip(
+        leaves(restored), leaves(state.params)))
+    check(same and step == args.steps,
+          f"train: the checkpoint does not restore bit for bit (step {step})")
+    print(f"[train] checkpoint {ck.name} ({ck.stat().st_size / 1e9:.2f} GB) "
+          f"restores bit for bit at step {step}")
+    del restored
+    # where the time goes: 3 more steps of the same state, traced
+    step_fn = make_train_step(model, opt_cfg)
+    more = iter(TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=args.seq,
+                                         batch_size=args.batch, seed=1)))
+    batches = [to_device(next(more), "cuda") for _ in range(3)]
+    span = {}
+
+    def three():
+        t = time.perf_counter()
+        for b in batches:
+            step_fn(state, b)
+        torch.cuda.synchronize()
+        span["wall"] = time.perf_counter() - t
+
+    busy, dev, _, missing = traced_device_s(
+        torch, three, "3 train steps",
+        ("flash_tf32x3_kernel", "rmsnorm_kernel"))
+    # the trace shows the kernels of the path (fails after its tries)
+    check_trace(busy, missing, "train: 3 traced steps")
+    print(f"[train profile] 3 traced steps: wall {span['wall']:.3f} s, "
+          f"device busy {busy:.3f} s ({100 * busy / span['wall']:.1f}%), "
+          f"{sum(e.count for e in dev) / 3:.0f} device ops per step")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
+        t = e.self_device_time_total / 1e6
+        print(f"[train profile]   {100 * t / busy:5.1f}% {t * 1e3:9.3f} ms "
+              f"x{e.count:<6d} {e.key[:90]}")
+    for label, part in SYMBOLS.items():
+        hits = [e for e in dev if part in e.key]
+        if hits:
+            t = sum(e.self_device_time_total for e in hits) / 1e6
+            print(f"[train profile] {label}: {100 * t / busy:.2f}% of device "
+                  f"time, {t * 1e3:.3f} ms over "
+                  f"{sum(e.count for e in hits)} launches")
+    return counts
+
+
+def card_vs_cpu_grads(torch, model, params, batch, tag, kernels):
+    """The loss and every leaf's gradient of ``model`` at ``params`` on the
+    card (the kernels' forwards, the Functions' backwards; ``kernels``
+    must launch) against the CPU (plain versions) from the same weights:
+    the loss to rtol 1e-5, each leaf to ||g_card - g_cpu|| / ||g_cpu||
+    <= 1e-3. Returns the card's launch counts."""
+    import repro_torch.kernels as K
+    from repro_torch.training import value_and_grad
+    from repro_torch.training.trainer import to_device
+    from repro_torch.training.tree import flatten_with_paths, keystr, map_tree
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    (loss, _), grads = value_and_grad(model, params, to_device(batch, "cuda"))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check_launched(counts, f"{tag} (card)", kernels, TRAIN_ABSENT)
+    card = {keystr(p): g.cpu() for p, g in flatten_with_paths(grads)}
+    card_loss = loss.item()
+    cpu_params = map_tree(lambda t: t.detach().cpu().requires_grad_(True),
+                          params)
+    del grads, loss
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (loss, _), grads = value_and_grad(model, cpu_params,
+                                      to_device(batch, "cpu"))
+    t_cpu = time.perf_counter() - t0
+    cpu_loss = loss.item()
+    check(abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss),
+          f"{tag}: loss {card_loss} on the card vs {cpu_loss} on the "
+          f"CPU (rtol 1e-5)")
+    rel = {}
+    for p, g in flatten_with_paths(grads):
+        key = keystr(p)
+        rel[key] = float((card[key] - g).norm() / g.norm())
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= 1e-3, f"{tag}: leaf {worst} gradient differs "
+                              f"by {rel[worst]:.3e} (||dg|| / ||g||, "
+                              f"tolerance 1e-3)")
+    print(f"[{tag}] loss card {card_loss:.7f} vs CPU {cpu_loss:.7f} (rel "
+          f"{abs(card_loss - cpu_loss) / abs(cpu_loss):.2e}); {len(rel)} "
+          f"leaves, worst ||g_card - g_cpu|| / ||g_cpu|| {rel[worst]:.3e} at "
+          f"{worst}; card {t_card:.2f} s, CPU {t_cpu:.2f} s; kernel "
+          f"launches on the card {counts}")
+    return counts
+
+
+def phase_train_exact(torch):
+    """Full-width llama3.2-1b, float32 with TF32 off, one sequence of 64
+    tokens: the loss and every leaf's gradient on the card (the kernels'
+    forwards, the Functions' backwards) against the CPU (plain versions)
+    from the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import Model, RuntimeFlags
+    from repro_torch.training import init_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama3.2-1b")
+    model = Model(cfg, RuntimeFlags(dtype=torch.float32))
+    state = init_state(model, torch.Generator(device="cuda").manual_seed(0))
+    batch = next(iter(TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, batch_size=1, seed=2))))
+    print(f"[train exact] {cfg.name} full width, f32, TF32 off, batch 1 x "
+          f"64")
+    return card_vs_cpu_grads(torch, model, state.params, batch,
+                             "train exact", TRAIN_KERNELS)
+
+
+def phase_train_mamba(torch):
+    """mamba2-2.7b at full width cut to 8 of its 64 layers, float32, 10
+    steps of 4 x 256 through ``train_loop``: the loss falls and the SSD
+    scan's split-TF32 route runs in every layer's forward. Then, from
+    fresh weights with TF32 off, one sequence of 64 tokens (SSD chunk 64,
+    the split-TF32 route): the loss and every leaf's gradient on the card
+    against the CPU, as ``train exact``."""
+    import dataclasses
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import Model, RuntimeFlags
+    from repro_torch.training import OptimizerConfig, init_state, train_loop
+    from repro_torch.training.tree import leaves
+    full = get_config("mamba2-2.7b")
+    cfg = dataclasses.replace(full, num_layers=8)
+    steps, B, S = 10, 4, 256
+    print(f"[train mamba] {cfg.name}: d_model {cfg.d_model}, "
+          f"{cfg.ssm.n_heads(cfg.d_model)} SSD heads of {cfg.ssm.head_dim}, "
+          f"state {cfg.ssm.d_state}, vocab {cfg.vocab_size}; cut: "
+          f"{cfg.num_layers} of "
+          f"{full.num_layers} layers (the only cut), "
+          f"{cfg.param_count() / 1e9:.3f} B params; float32, {steps} steps "
+          f"of {B} x {S} (SSD chunk 256)")
+    model = Model(cfg, RuntimeFlags(dtype=torch.float32))
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    batch_size=B))
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, log = train_loop(
+        model, OptimizerConfig(warmup_steps=1, total_steps=steps),
+        iter(data), steps,
+        generator=torch.Generator(device="cuda").manual_seed(0),
+        log_every=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check(log.losses[-1] < log.losses[0],
+          f"train mamba: the loss did not fall ({log.losses})")
+    check(all(bool(torch.isfinite(p).all()) for p in leaves(state.params)),
+          "train mamba: a parameter is not finite")
+    check_launched(counts, "train mamba", TRAIN_MAMBA_KERNELS, TRAIN_ABSENT)
+    sps = (log.wall[-1] - log.wall[0]) / (log.steps[-1] - log.steps[0])
+    print(f"[train mamba] losses {[round(x, 4) for x in log.losses]} at "
+          f"steps {log.steps}; {wall:.2f} s wall; {sps:.4f} s per step after "
+          f"step 0 ({B * S / sps:.1f} training tokens/s); peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+    print(f"[train mamba] kernel launches on the main path: {counts}")
+    del state, log
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fresh = init_state(model, torch.Generator(device="cuda").manual_seed(3))
+    batch = next(iter(TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, batch_size=1, seed=2))))
+    print(f"[train mamba exact] the same 8 layers, f32, TF32 off, batch 1 x "
+          f"64")
+    card_vs_cpu_grads(torch, model, fresh.params, batch, "train mamba exact",
+                      TRAIN_MAMBA_KERNELS)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1726,11 +2191,16 @@ def main() -> int:
     run(phase_launch_serve, torch)
     run(phase_launch_tenants, torch)
     run(phase_gateway, torch)
+    # training: the launcher on llama (f32), its gradients against the
+    # CPU's, and mamba's forward through the SSD scan
+    t_counts = run(phase_train, torch)
+    run(phase_train_exact, torch)
+    tm_counts = run(phase_train_mamba, torch)
     PHASE[0] = "result"
     print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact, "
           f"nemo serve, nemo exact, minicpm serve, minicpm exact, granite "
           f"serve, granite exact, rgemma serve, rgemma exact, launch serve, "
-          f"launch tenants, gateway in "
+          f"launch tenants, gateway, train, train exact, train mamba in "
           f"{time.perf_counter() - t_all:.1f} s")
     counts["ssd_chunked"] = m_counts["ssd_chunked"]
     # the split-TF32 route: its launches in mamba exact, batched and isolated
@@ -1750,6 +2220,11 @@ def main() -> int:
         counts[f"{name}_d256"] = r_counts[name]
         counts[f"{name}_f32_d256"] = rx_counts[name]
     counts["fused_rmsnorm_4096"] = r_counts["fused_rmsnorm"]
+    # the training rows: f32 flash and RMSNorm launches in train, the
+    # split-TF32 SSD route's in train mamba
+    counts["flash_attention_f32_train"] = t_counts["flash_attention"]
+    counts["fused_rmsnorm_f32_train"] = t_counts["fused_rmsnorm"]
+    counts["ssd_chunked_tf32_train"] = tm_counts["ssd_chunked_tf32"]
     for name, row in rows.items():
         row["launches"] = counts[name]
     print(smi)

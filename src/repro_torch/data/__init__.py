@@ -1,0 +1,5 @@
+"""Data pipeline of the port: the synthetic token stream of
+``repro.data`` in numpy, batch for batch."""
+from .pipeline import DataConfig, TokenPipeline
+
+__all__ = ["DataConfig", "TokenPipeline"]

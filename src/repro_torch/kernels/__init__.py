@@ -3,13 +3,20 @@
 Every wrapper counts the kernels it launches in a plain integer attribute
 (``fused_rmsnorm.launches`` ...): a run can show that its main path went
 through the kernels and not through their plain versions.
+
+``flash_attention``, ``fused_rmsnorm`` and ``ssd_chunked`` take gradients:
+with grad mode on and an input that requires grad they go through a
+``torch.autograd.Function`` (``FlashAttention``, ``FusedRMSNorm``,
+``SSDChunked``) whose forward is the same launch and whose backward is
+PyTorch ops. ``ragged_decode_attention`` raises there instead.
 """
-from .flash_attn import flash_attention, flash_attention_plain
+from .flash_attn import FlashAttention, flash_attention, flash_attention_plain
 from .ragged_decode_attn import (ragged_decode_attention,
                                  ragged_decode_attention_plain)
-from .rmsnorm import fused_rmsnorm, fused_rmsnorm_plain
-from .ssd_chunk import (ssd_chunk_intra_plain, ssd_chunked, ssd_chunked_plain,
-                        ssd_chunked_recurrent_plain, ssd_route)
+from .rmsnorm import FusedRMSNorm, fused_rmsnorm, fused_rmsnorm_plain
+from .ssd_chunk import (SSDChunked, ssd_chunk_intra_plain, ssd_chunked,
+                        ssd_chunked_plain, ssd_chunked_recurrent_plain,
+                        ssd_route)
 
 # the wrappers the serving paths launch
 KERNELS = (ragged_decode_attention, fused_rmsnorm, flash_attention,
@@ -35,6 +42,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "FlashAttention", "FusedRMSNorm", "SSDChunked",
     "flash_attention", "flash_attention_plain", "ragged_decode_attention",
     "ragged_decode_attention_plain", "fused_rmsnorm", "fused_rmsnorm_plain",
     "ssd_chunk_intra_plain", "ssd_chunked", "ssd_chunked_plain",

@@ -4,6 +4,11 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attn.py``
 (``flash_attention``): causal attention with a query offset and an
 optional sliding window, for the prefill ``P<i>`` nodes. Source, bound and
 design notes: ``csrc/flash_attn.cu``.
+
+Under autograd (grad mode on and q, k or v requiring grad) the call goes
+through :class:`FlashAttention`: the kernel's forward, and the gradient of
+:func:`flash_attention_plain` at the same inputs as its backward (the JAX
+package has no backward kernel).
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._vjp import plain_vjp
 
 
 def pick_chunk(s: int, target: int = 2048) -> int:
@@ -89,7 +95,16 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
     wgmma), which keeps float32 accuracy, and at width 256 on the CUDA
     cores. The kernels do not read
     ``torch.backends.cuda.matmul.allow_tf32``: with TF32 off they are
-    still float32-accurate."""
+    still float32-accurate. With grad mode on and an input requiring
+    grad, the call goes through :class:`FlashAttention`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, window, q_offset)
+    return _forward(q, k, v, window, q_offset)
+
+
+def _forward(q, k, v, window: Optional[int], q_offset: int):
+    """The plain version on the CPU, else one launch of the kernel."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window,
                                      q_offset=q_offset)
@@ -133,3 +148,25 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
 
 
 flash_attention.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a gradient. Forward: the kernel on the card,
+    the plain version on the CPU (:func:`_forward`), saving q, k and v.
+    Backward: the gradient of :func:`flash_attention_plain` at the saved
+    inputs, recomputed under autograd in PyTorch ops (causal mask,
+    ``window``, ``q_offset``, GQA and Dv != Dqk as the forward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.q_offset = window, q_offset
+        return _forward(q, k, v, window, q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(q, k, v):
+            return flash_attention_plain(q, k, v, window=ctx.window,
+                                         q_offset=ctx.q_offset)
+        return (*plain_vjp(plain, ctx.saved_tensors,
+                           ctx.needs_input_grad[:3], g), None, None)

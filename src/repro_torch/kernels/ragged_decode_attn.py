@@ -162,7 +162,16 @@ def ragged_decode_attention(q, k, v, lengths, *,
     (planned as :func:`split_plan` plans it, in granules of
     :func:`split_granule` rows, when not given) and stops at each row's
     length; a bound below a row's length would drop its tail, as in the
-    plain version."""
+    plain version.
+
+    Decode is on no loss path and has no gradient: with grad mode on and
+    q, k or v requiring grad it raises (on the CPU too), rather than
+    return an output that silently cuts the graph."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "ragged_decode_attention: decode attention has no gradient; "
+            "an input requires grad — run decode under torch.no_grad()")
     if q.device.type == "cpu":
         return ragged_decode_attention_plain(q, k, v, lengths, slots=slots,
                                              ctx=ctx)

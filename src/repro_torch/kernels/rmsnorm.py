@@ -8,6 +8,11 @@ final norm, on every token: it is the most-launched kernel of both serves,
 so the wrapper keeps its host work to a few attribute reads, one
 ``torch.empty`` and one ``ctypes`` call. Source, bound and design notes:
 ``csrc/rmsnorm.cu``.
+
+Under autograd (grad mode on and an input that requires grad) the call
+goes through :class:`FusedRMSNorm`, whose forward is the same launch and
+whose backward is PyTorch ops in float32: the JAX package has no backward
+kernel. Otherwise the wrapper launches directly, with no autograd cost.
 """
 from __future__ import annotations
 
@@ -76,7 +81,16 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     A CPU tensor takes :func:`fused_rmsnorm_plain`; a CUDA tensor launches
     the kernel on the current stream or raises. Rows may sit at any one
     stride (:func:`row_stride`), so a view such as ``x[:, -1]`` is read in
-    place."""
+    place. With grad mode on and x or scale requiring grad, the call goes
+    through :class:`FusedRMSNorm` and the output has a ``grad_fn``."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return FusedRMSNorm.apply(x, scale, eps)
+    return _forward(x, scale, eps)
+
+
+def _forward(x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """The plain version on the CPU, else one launch of the kernel."""
     if not x.is_cuda:
         if x.device.type == "cpu":
             return fused_rmsnorm_plain(x, scale, eps)
@@ -129,3 +143,35 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 
 fused_rmsnorm.launches = 0
+
+
+class FusedRMSNorm(torch.autograd.Function):
+    """RMSNorm with a gradient. Forward: the kernel on the card, the plain
+    version on the CPU (:func:`_forward`). Backward, in float32 PyTorch
+    ops, with r = rsqrt(mean(x**2) + eps) and x_hat = x * r:
+    ``dx = r * (g*s - x_hat * mean(g*s*x_hat))`` and ``dscale = sum over
+    rows of g * x_hat``, each cast back to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        xf = x.to(torch.float32)
+        r = torch.rsqrt(torch.mean(torch.square(xf), dim=-1, keepdim=True)
+                        + ctx.eps)
+        x_hat = xf * r
+        gf = g.to(torch.float32)
+        dx = dscale = None
+        if ctx.needs_input_grad[0]:
+            gs = gf * scale.to(torch.float32)
+            dx = (r * (gs - x_hat * torch.mean(gs * x_hat, dim=-1,
+                                                keepdim=True))).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dscale = (gf * x_hat).reshape(-1, x.shape[-1]).sum(0).to(
+                scale.dtype)
+        return dx, dscale, None

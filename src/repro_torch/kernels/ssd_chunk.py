@@ -12,6 +12,11 @@ kernel; chunks of whole 64-row tiles at head dim 64 and state 32, 64 or
 (three TF32 products per product); the rest (odd long chunks, other head
 dims and states) on the CUDA cores. Source, bound and design notes:
 ``csrc/ssd_chunk.cu``.
+
+Under autograd (grad mode on and x, dt, A, B or C requiring grad) the call
+goes through :class:`SSDChunked`: the kernels' forward, and the gradient
+of the plain version at the same inputs as its backward (the JAX package
+has no backward kernel).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import functools
 import torch
 
 from . import _build
+from ._vjp import plain_vjp
 
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 256
@@ -46,14 +52,18 @@ def _chunked(x, dt, B_ssm, C_ssm, chunk: int):
 
 def _decay_terms(dtc, A, chunk: int):
     """cum (B, nc, cs, nh), total (B, nc, nh) and the causal decay matrix
-    L (B, nc, i, j, nh) = exp(cum_i - cum_j) where j <= i, else 0."""
+    L (B, nc, i, j, nh) = exp(cum_i - cum_j) where j <= i, else 0. The
+    mask is applied before the exp: above the diagonal cum_i - cum_j > 0
+    can overflow to inf (at mamba2-2.7b's widths it does), and a masked
+    inf would make the gradient NaN (0 * inf); exp(-inf) is the same 0."""
     cum = torch.cumsum(dtc * A[None, None, None, :], dim=2)
     total = cum[:, :, -1]
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=dtc.device))
-    L = torch.where(mask[None, None, :, :, None], torch.exp(diff),
-                    torch.zeros((), dtype=diff.dtype, device=diff.device))
+    L = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                              torch.full((), -torch.inf, dtype=diff.dtype,
+                                         device=diff.device)))
     return cum, total, L
 
 
@@ -235,7 +245,17 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
     chunk's tile pairs first, once for all heads), then the state pass,
     which turns the chunk states into the state entering each chunk in
     place and writes the final state; ``y_inter`` is added with one
-    batched product when there is more than one chunk."""
+    batched product when there is more than one chunk. With grad mode on
+    and an input requiring grad, the call goes through
+    :class:`SSDChunked`."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B_ssm, C_ssm)):
+        return SSDChunked.apply(x, dt, A, B_ssm, C_ssm, chunk)
+    return _forward(x, dt, A, B_ssm, C_ssm, chunk)
+
+
+def _forward(x, dt, A, B_ssm, C_ssm, chunk: int):
+    """The plain version on the CPU, else the kernels of the route."""
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, A, B_ssm, C_ssm, chunk)
     if x.device.type != "cuda":
@@ -300,3 +320,30 @@ ssd_chunked.launches = 0            # every launch, any route
 ssd_chunked.tc_launches = 0         # the tensor-core route's
 ssd_chunked.tf32_launches = 0       # the split-TF32 route's
 ssd_chunked.recurrent_launches = 0  # the recurrent route's
+
+
+class SSDChunked(torch.autograd.Function):
+    """The SSD scan with a gradient. Forward: the kernels' route on the
+    card, the plain version on the CPU (:func:`_forward`), saving the
+    inputs. Backward: the gradient of the plain version at the saved
+    inputs, recomputed under autograd in PyTorch ops, for x, dt, A, B and
+    C: :func:`ssd_chunked_plain` for chunks of ``RECURRENT_BELOW`` and up,
+    :func:`ssd_chunked_recurrent_plain` below (the chunked version would
+    keep a state per chunk: at chunk 1 one per token). The final state is
+    a cache output and takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_ssm, C_ssm, chunk):
+        ctx.save_for_backward(x, dt, A, B_ssm, C_ssm)
+        ctx.chunk = chunk
+        y, final = _forward(x, dt, A, B_ssm, C_ssm, chunk)
+        ctx.mark_non_differentiable(final)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, gy, _g_final):
+        plain = (ssd_chunked_plain if ctx.chunk >= RECURRENT_BELOW
+                 else ssd_chunked_recurrent_plain)
+        return (*plain_vjp(lambda *ins: plain(*ins, ctx.chunk)[0],
+                           ctx.saved_tensors, ctx.needs_input_grad[:5], gy),
+                None)

@@ -2,4 +2,5 @@
 a trace through a ``ServingSession``, ``python -m repro_torch.launch.gateway``
 serves one over HTTP/SSE. Both run ``TorchEngine`` on the card unless
 ``--device cpu`` is given, or the discrete-event simulator (``--engine
-sim``)."""
+sim``). ``python -m repro_torch.launch.train`` trains a model, on the
+card unless ``--device cpu`` is given."""

@@ -5,8 +5,11 @@
   * ``init(generator)``   — parameter dict on the generator's device, with
                              the JAX ``Model.init`` layout, shapes and scales
                              (blocks stacked on a leading layer axis),
-  * ``prefill(params, tokens)`` — full-context forward, returns
-                             (last-token logits, decode cache),
+  * ``loss(params, batch)`` — the training loss (cross-entropy plus 0.01
+                             times the MoE load-balance loss), with its
+                             parts; differentiable through the kernels,
+  * ``prefill(params, tokens, prefix=None)`` — full-context forward,
+                             returns (last-token logits, decode cache),
   * ``decode_step(params, cache, token, pos)`` — ONE token with ragged
                              per-row positions (lazily merged batches),
   * ``init_cache(batch, max_len, device=...)``,
@@ -69,6 +72,18 @@ def _index(tree, i):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree) -> list:
+    """Per-layer views of a stacked tree, one ``torch.unbind`` per leaf.
+    Under autograd the views' gradients stack into the leaf in one op;
+    indexing layer by layer would add a zero-filled copy of the whole
+    stacked leaf per layer (at llama3.2-1b's width 16 x 4 GB a step)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _gather_rows(tree, slots):
@@ -197,15 +212,15 @@ class Model:
         block i - groups * P."""
         cfg = self.cfg
         if cfg.hybrid is None:
-            return [_index(params["blocks"], i)
-                    for i in range(cfg.num_layers)]
+            return _unbind(params["blocks"])
         pat = cfg.hybrid.block_pattern
+        groups = {k: _unbind(v) for k, v in params["blocks"].items()}
+        tail = _unbind(params["tail"]) if self.n_tail else []
         out = []
         for i in range(cfg.num_layers):
             g, j = divmod(i, len(pat))
-            out.append(_index(params["blocks"][f"b{j}_{pat[j]}"], g)
-                       if g < self.n_groups
-                       else _index(params["tail"], i - self.n_groups * len(pat)))
+            out.append(groups[f"b{j}_{pat[j]}"][g] if g < self.n_groups
+                       else tail[i - self.n_groups * len(pat)])
         return out
 
     def _window(self, kind: str) -> Optional[int]:
@@ -225,21 +240,28 @@ class Model:
         return L.rope_tables(positions, self.cfg.head_dim,
                              self.cfg.rope_theta)
 
-    def _ffn(self, bp: dict, x):
+    def _ffn(self, bp: dict, x, aux: Optional[list] = None):
         """ln2 and the block's FFN: the MoE on (B, S, d) rows (a decode
-        row (B, d) is a group of one token), else the SwiGLU MLP."""
+        row (B, d) is a group of one token), else the SwiGLU MLP. With an
+        ``aux`` list, the MoE appends its load-balance loss to it."""
         h = L.rms_norm(x, bp["ln2"], self.cfg.norm_eps)
         if "moe" not in bp:
             return L.apply_mlp(bp["mlp"], h)
         if h.dim() == 2:
             return MOE.apply_moe(bp["moe"], h[:, None, :], self.cfg)[:, 0]
-        return MOE.apply_moe(bp["moe"], h, self.cfg)
+        if aux is None:
+            return MOE.apply_moe(bp["moe"], h, self.cfg)
+        y, a = MOE.apply_moe(bp["moe"], h, self.cfg, with_aux=True)
+        aux.append(a)
+        return y
 
     def apply_block_dense(self, bp: dict, x, *, kind: str,
-                          return_cache: bool, rope=None):
+                          return_cache: bool, rope=None,
+                          aux: Optional[list] = None):
         """One prefill block of ``kind``; ``rope``: the RoPE tables of
         the positions (``_rope``), by default those of 0..S-1 (attention
-        blocks only)."""
+        blocks only); ``aux``: a list that collects an MoE block's
+        load-balance loss (training)."""
         cfg = self.cfg
         if kind == "ssm":
             h, cache = SSM.apply_ssm_dense(
@@ -255,7 +277,7 @@ class Model:
                                             window=self._window(kind))
             cache = {"k": kv[0], "v": kv[1]}
         x = x + h
-        x = x + self._ffn(bp, x)
+        x = x + self._ffn(bp, x, aux)
         return x, (cache if return_cache else None)
 
     def apply_block_decode(self, bp: dict, x, cache, pos, *, kind: str,
@@ -372,7 +394,56 @@ class Model:
                        i // len(pat)) for i in range(self.n_groups * len(pat))
                 ] + list(tail)
 
-    def prefill(self, params, tokens):
+    def _embed_with_prefix(self, params, tokens, prefix):
+        """Token embeddings, after the ``prefix`` embeddings (B, P, d)
+        when given (a VLM's patches, an audio prompt): positions 0..P+S-1
+        run over both."""
+        x = self.embed(params, tokens)
+        if prefix is None:
+            return x
+        return torch.cat([prefix.to(x.dtype), x], dim=1)
+
+    def _run_dense(self, params, x, *, return_cache: bool,
+                   aux: Optional[list] = None):
+        """Every layer over the full sequence x (B, S, d) at positions
+        0..S-1: (x, the per-layer caches, or Nones without
+        ``return_cache``)."""
+        kinds = self.layer_kinds()
+        ropes = {k: self._prefill_rope(k, x) for k in set(kinds)}
+        caches = []
+        for bp, kind in zip(self.layer_params(params), kinds):
+            x, c = self.apply_block_dense(bp, x, kind=kind,
+                                          return_cache=return_cache,
+                                          rope=ropes[kind], aux=aux)
+            caches.append(c)
+        return x, caches
+
+    def loss(self, params, batch) -> tuple:
+        """batch: {"tokens": (B, S), "targets": (B, S) int, optionally
+        "prefix": (B, P, d)}. Returns (loss, {"ce", "aux"}), as the JAX
+        ``Model.loss``: the prefix is prepended over positions 0..P+S-1
+        and dropped before the head; float32 logits; ``ce`` the mean
+        token cross-entropy, ``aux`` the MoE blocks' load-balance losses
+        summed over layers (0 for other stacks); loss = ce + 0.01 * aux.
+        No decode cache is built."""
+        cfg = self.cfg
+        prefix = batch.get("prefix")
+        x = self._embed_with_prefix(params, batch["tokens"], prefix)
+        auxs = []
+        x, _ = self._run_dense(params, x, return_cache=False, aux=auxs)
+        if prefix is not None:
+            x = x[:, prefix.shape[1]:]
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = self.unembed(params, x).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1,
+                           batch["targets"].to(torch.int64)[..., None])[..., 0]
+        ce = torch.mean(lse - tgt)
+        aux = (torch.stack(auxs).sum() if auxs else
+               torch.zeros((), dtype=torch.float32, device=ce.device))
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+    def prefill(self, params, tokens, prefix=None):
         """Returns (last-token logits (B, V), cache) with the cache in the
         JAX layout: ``({"k": (L, B, S, KV, hd), "v": ...}, [])`` for dense
         and MoE stacks, ``({"ckv": (L, B, S, kv_lora), "krope": (L, B, S,
@@ -381,16 +452,12 @@ class Model:
         ``({"b{i}_{kind}": the layer cache stacked over the groups, ...},
         [the tail's layer caches])`` — RG-LRU ``{"state": (B, w), "conv":
         (B, W-1, w)}``, local attention ``{"k": (B, S, KV, hd), "v": ...}``
-        (every prompt row, as the JAX model keeps them)."""
+        (every prompt row, as the JAX model keeps them). ``prefix`` (B, P,
+        d): embeddings before the tokens, as in :meth:`loss`; the cache
+        then covers P + S positions."""
         cfg = self.cfg
-        x = self.embed(params, tokens)
-        kinds = self.layer_kinds()
-        ropes = {k: self._prefill_rope(k, x) for k in set(kinds)}
-        caches = []
-        for bp, kind in zip(self.layer_params(params), kinds):
-            x, c = self.apply_block_dense(bp, x, kind=kind, return_cache=True,
-                                          rope=ropes[kind])
-            caches.append(c)
+        x = self._embed_with_prefix(params, tokens, prefix)
+        x, caches = self._run_dense(params, x, return_cache=True)
         x = L.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
         stack = lambda cs: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
         if cfg.hybrid is None:

@@ -20,7 +20,8 @@ capacity from a live row. Per group of t tokens:
 The scatter-adds are ``index_put_(accumulate=True)``, the counterpart of
 JAX's ``.at[].add``. Nothing here reads a value back to the host (no
 ``.item()``, no ``nonzero()``): a serving run keeps its one host sync.
-The auxiliary load-balance loss is training work and is not computed.
+The Switch-style load-balance loss (training) is computed only when asked
+for (``with_aux=True``), so the serving path's ops are unchanged.
 """
 from __future__ import annotations
 
@@ -72,8 +73,13 @@ def _dispatch_indices(expert_ids: torch.Tensor, capacity: int):
     return order, sorted_eid, slot, keep
 
 
-def apply_moe(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x: (B, S, d) -> y (B, S, d); each batch row routes on its own."""
+def apply_moe(p: dict, x: torch.Tensor, cfg, *, with_aux: bool = False):
+    """x: (B, S, d) -> y (B, S, d); each batch row routes on its own.
+    With ``with_aux`` returns (y, aux): the reference's load-balance loss
+    ``E * sum(frac_tokens * frac_probs)``, float32, with ``frac_tokens``
+    the share of tokens whose first choice is each expert and
+    ``frac_probs`` the mean router probability, both over (groups,
+    tokens)."""
     m = cfg.moe
     G, t, d = x.shape
     e, k = m.num_experts, m.experts_per_token
@@ -102,4 +108,9 @@ def apply_moe(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
                             order).to(out_buf.dtype)
     y = out_buf.new_zeros((G, t, d))
     y.index_put_((g, src), vals * w_sorted[..., None], accumulate=True)
-    return y
+    if not with_aux:
+        return y
+    frac_tokens = torch.mean(F.one_hot(top_e[..., 0], e).to(torch.float32),
+                             dim=(0, 1))
+    frac_probs = torch.mean(probs, dim=(0, 1))
+    return y, e * torch.sum(frac_tokens * frac_probs)

@@ -637,3 +637,116 @@ def test_rms_norm_layer_on_a_strided_view(dtype):
     want = jax_rms_norm(xj[:, -1], {"scale": sj}, 1e-5)
     assert got.shape == (3, 96) and got.dtype == xt.dtype
     np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
+# ---------------------------------------------------------------------------
+# gradients: the autograd Functions, with their plain forwards on the CPU
+# ---------------------------------------------------------------------------
+
+def _grads(fn, inputs, upstream):
+    """Gradients of ``sum(fn(*inputs) * upstream)`` w.r.t. every input, on
+    fresh leaves."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is not None
+    torch.autograd.backward(out, upstream)
+    return out, [t.grad for t in leaves]
+
+
+# (B, S, T, H, KV, Dqk, Dv, window, q_offset)
+FLASH_GRAD_CASES = [
+    (2, 16, 16, 4, 2, 32, 32, None, 0),    # GQA 2:1
+    (1, 24, 24, 4, 1, 64, 64, 8, 0),       # MQA with a sliding window
+    (2, 8, 20, 2, 2, 32, 32, None, 12),    # catch-up chunk: T > S
+    (1, 16, 16, 4, 4, 96, 64, None, 0),    # MLA's q/k 96 and v 64
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,D,Dv,window,q_offset", FLASH_GRAD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_backward_matches_autograd_of_plain(
+        B, S, T, H, KV, D, Dv, window, q_offset, dtype):
+    rng = np.random.default_rng(S + T + D)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  .to(dtype) for s in ((B, S, H, D), (B, T, KV, D),
+                                       (B, T, KV, Dv), (B, S, H, Dv)))
+    kw = dict(window=window, q_offset=q_offset)
+    out, got = _grads(lambda *a: K.flash_attention(*a, **kw), (q, k, v), g)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    _, want = _grads(lambda *a: K.flash_attention_plain(*a, **kw), (q, k, v),
+                     g)
+    tol = _tol(jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        np.testing.assert_allclose(_np(a), _np(b), **tol)
+
+
+@pytest.mark.parametrize("make", [
+    lambda r: r((8, 128)),
+    lambda r: r((2, 6, 64)),
+    lambda r: r((3, 5, 64))[:, -1],          # rows at a stride
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_function_backward_matches_autograd_of_plain(make, dtype):
+    rng = np.random.default_rng(5)
+    r = lambda s: torch.from_numpy(
+        (rng.standard_normal(s) * 3).astype(np.float32)).to(dtype)
+    x = make(r)
+    scale = torch.from_numpy(rng.standard_normal(x.shape[-1]).astype(
+        np.float32))
+    g = r(x.shape)
+    out, got = _grads(K.fused_rmsnorm, (x, scale), g)
+    assert type(out.grad_fn).__name__ == "FusedRMSNormBackward"
+    _, want = _grads(K.fused_rmsnorm_plain, (x, scale), g)
+    tol = _tol(jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a), _np(b), **tol)
+
+
+@pytest.mark.parametrize("S,chunk", [(128, 64), (128, 128), (48, 16),
+                                     (9, 1)])
+def test_ssd_function_backward_matches_autograd_of_plain(S, chunk):
+    """Chunks of 64 and up recompute through ``ssd_chunked_plain``, those
+    below through ``ssd_chunked_recurrent_plain``; both against autograd
+    through ``ssd_chunked_plain``, in float32 (tolerance 1e-4)."""
+    rng = np.random.default_rng(S + chunk)
+    nh, hd, N = 3, 16, 8
+    x = torch.from_numpy(rng.standard_normal((2, S, nh, hd)).astype(
+        np.float32))
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (2, S, nh)).astype(
+        np.float32))
+    A = -torch.arange(1, nh + 1, dtype=torch.float32)
+    Bm, Cm = (torch.from_numpy(rng.standard_normal((2, S, N)).astype(
+        np.float32)) for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal((2, S, nh, hd)).astype(
+        np.float32))
+    fn = lambda *a: K.ssd_chunked(*a, chunk)
+    out, got = _grads(fn, (x, dt, A, Bm, Cm), g)
+    assert type(out.grad_fn).__name__ == "SSDChunkedBackward"
+    _, want = _grads(lambda *a: K.ssd_chunked_plain(*a, chunk),
+                     (x, dt, A, Bm, Cm), g)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-4, atol=1e-4)
+
+
+def test_no_wrapper_cuts_the_graph_under_grad():
+    """Under grad every wrapper's output has a grad_fn or the wrapper
+    raises (decode); with grad off they take the direct path."""
+    x = torch.randn(4, 32, requires_grad=True)
+    assert K.fused_rmsnorm(x, torch.ones(32)).grad_fn is not None
+    q = torch.randn(1, 8, 2, 32, requires_grad=True)
+    assert K.flash_attention(q, q.detach(), q.detach()).grad_fn is not None
+    y, final = K.ssd_chunked(torch.randn(1, 8, 2, 16), torch.rand(1, 8, 2),
+                             -torch.rand(2, requires_grad=True),
+                             torch.randn(1, 8, 4), torch.randn(1, 8, 4), 4)
+    assert y.grad_fn is not None and not final.requires_grad
+    qd = torch.randn(2, 4, 32, requires_grad=True)
+    kv = torch.randn(2, 16, 2, 32)
+    lengths = torch.tensor([3, 16], dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        K.ragged_decode_attention(qd, kv, kv, lengths)
+    with torch.no_grad():
+        assert K.ragged_decode_attention(qd, kv, kv, lengths).grad_fn is None
+        assert K.fused_rmsnorm(x, torch.ones(32)).grad_fn is None

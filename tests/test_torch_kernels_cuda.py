@@ -784,3 +784,160 @@ def test_fused_mla_and_moe_runs_make_no_hidden_host_sync(cuda, arch):
     """MLA decode and the MoE dispatch (top-k, argsort, searchsorted,
     scatter-adds) wait for nothing inside a run."""
     _no_hidden_sync(cuda, arch)
+
+
+# ---------------------------------------------------------------------------
+# gradients: the kernels' autograd Functions and the training path
+# ---------------------------------------------------------------------------
+
+def _card_grads(fn, inputs, upstream):
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is not None
+    torch.autograd.backward(out, upstream)
+    torch.cuda.synchronize()
+    return [t.grad for t in leaves]
+
+
+def _close(got, want, tol):
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,KV,D,Dv,window,q_offset", [
+    (8, 256, 256, 32, 8, 64, 64, None, 0),    # llama's training shape
+    (2, 128, 128, 8, 1, 256, 256, 64, 0),     # MQA at D 256, a window
+    (2, 64, 96, 4, 2, 64, 64, None, 32),      # catch-up chunk: T > S
+    (2, 128, 128, 8, 8, 96, 64, None, 0),     # MLA's q/k 96 and v 64
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_gradients_on_card(cuda, B, S, T, H, KV, D, Dv,
+                                          window, q_offset, dtype):
+    """The kernel's forward (launched once) and the Function's backward
+    against autograd through the plain version on the card."""
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    q, k, v, up = r(B, S, H, D), r(B, T, KV, D), r(B, T, KV, Dv), \
+        r(B, S, H, Dv)
+    kw = dict(window=window, q_offset=q_offset)
+    n0 = K.flash_attention.launches
+    got = _card_grads(lambda *a: K.flash_attention(*a, **kw), (q, k, v), up)
+    assert K.flash_attention.launches == n0 + 1
+    want = _card_grads(lambda *a: K.flash_attention_plain(*a, **kw),
+                       (q, k, v), up)
+    _close(got, want, 2e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 2048), (4, 256, 2560), (8, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_function_gradients_on_card(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = (torch.randn(shape, generator=g, device=cuda) * 3).to(dtype)
+    scale = torch.randn(shape[-1], generator=g, device=cuda)
+    up = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    n0 = K.fused_rmsnorm.launches
+    got = _card_grads(K.fused_rmsnorm, (x, scale), up)
+    assert K.fused_rmsnorm.launches == n0 + 1
+    want = _card_grads(K.fused_rmsnorm_plain, (x, scale), up)
+    # dscale sums over every row: its tolerance scales with the rows
+    rows = x.numel() // shape[-1]
+    _close(got[:1], want[:1], 2e-5 if dtype == torch.float32 else 2e-2)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4,
+                               atol=1e-5 * rows ** 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,chunk", [(4, 256, 256), (1, 384, 128),
+                                       (4, 256, 32), (1, 400, 200),
+                                       (1, 33, 1)])
+def test_ssd_function_gradients_on_card(cuda, B, S, chunk):
+    """mamba2-2.7b's heads (80 of 64, state 128) in float32, on each route
+    (split TF32, recurrent, CUDA cores), against autograd through the
+    plain version on the card (tolerance 1e-4)."""
+    import math
+    g = torch.Generator(device=cuda).manual_seed(chunk)
+    nh, hd, N = 80, 64, 128
+    x = torch.randn((B, S, nh, hd), generator=g, device=cuda)
+    Bm = torch.randn((B, S, N), generator=g, device=cuda)
+    Cm = torch.randn((B, S, N), generator=g, device=cuda)
+    u = torch.rand((nh,), generator=g, device=cuda)
+    dt0 = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, nh), generator=g, device=cuda)
+        + torch.log(torch.expm1(dt0)))
+    A = -torch.arange(1, nh + 1, dtype=torch.float32, device=cuda)
+    up = torch.randn((B, S, nh, hd), generator=g, device=cuda)
+    n0 = K.ssd_chunked.launches
+    got = _card_grads(lambda *a: K.ssd_chunked(*a, chunk),
+                      (x, dt, A, Bm, Cm), up)
+    assert K.ssd_chunked.launches == n0 + 1
+    want = _card_grads(lambda *a: K.ssd_chunked_plain(*a, chunk),
+                       (x, dt, A, Bm, Cm), up)
+    assert all(torch.isfinite(t).all() for t in got)
+    for a, b in zip(got, want):
+        rel = ((a - b).norm() / b.norm()).item()
+        assert rel < 1e-4, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b",
+                                  "minicpm3-4b", "granite-moe-3b-a800m",
+                                  "recurrentgemma-9b"])
+def test_loss_gradients_on_card_match_cpu(cuda, arch):
+    """A tiny model of each family: the loss and every leaf's gradient on
+    the card (kernels in the forward) against the CPU (plain versions),
+    float32 with TF32 off: loss rtol 1e-5, each leaf ||dg|| / ||g|| 1e-4;
+    the kernels of the path launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, RuntimeFlags
+    from repro_torch.training import value_and_grad
+    from repro_torch.training.tree import flatten_with_paths, keystr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), d_model=64,
+                              d_ff=128, vocab_size=128)
+    model = Model(cfg, RuntimeFlags(dtype=torch.float32))
+    params = model.init(torch.Generator().manual_seed(0))
+    tok = torch.randint(0, 128, (2, 64), generator=torch.Generator()
+                        .manual_seed(1))
+    batch = {"tokens": tok, "targets": torch.roll(tok, -1, 1)}
+    out = []
+    K.reset_launch_counts()
+    for dev in ("cpu", cuda):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        (loss, _), grads = value_and_grad(model, _tree_to(params, dev), b)
+        out.append((loss.item(), {keystr(k): g.cpu() for k, g in
+                                  flatten_with_paths(grads)}))
+    (l_cpu, g_cpu), (l_card, g_card) = out
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for key, want in g_cpu.items():
+        rel = ((g_card[key] - want).norm() / want.norm()).item()
+        assert rel <= 1e-4, (key, rel)
+    counts = K.launch_counts()
+    assert counts["fused_rmsnorm"] > 0
+    assert counts["ssd_chunked" if arch == "mamba2-2.7b"
+                  else "flash_attention"] > 0
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.detach().to(dev).requires_grad_(True)
+
+
+@pytest.mark.cuda
+def test_train_launcher_on_card(cuda, tmp_path):
+    from repro_torch.launch import train as launch_train
+    K.reset_launch_counts()
+    code = launch_train.main(["--reduced", "--steps", "10", "--batch", "4",
+                              "--seq", "64", "--log-every", "3",
+                              "--checkpoint", str(tmp_path / "c.npz")])
+    assert code == 0
+    counts = K.launch_counts()
+    assert counts["flash_attention"] > 0 and counts["fused_rmsnorm"] > 0
+    assert counts["ragged_decode_attention"] == 0
