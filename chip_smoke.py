@@ -10,7 +10,9 @@ Phases, always all of them, in order:
            and what ptxas reports per kernel; fail when the RMSNorm kernel,
            the float32 flash kernel at D 64, a flash or ragged decode kernel
            at D 256 or a kernel of the SSD scan's split-TF32 route spills,
-           when the flash or SSD library holds no
+           when ptxas serializes the float32 flash kernel's wgmmas at D 256
+           (its 255 registers a thread leave no room), when the flash or
+           SSD library holds no
            HGMMA (wgmma) instruction, or when either holds no TF32
            tensor-core instruction.
   kernels  run each hand-written kernel against its plain PyTorch version on
@@ -51,8 +53,9 @@ Phases, always all of them, in order:
            a kernel its calls launch than calls traced (the SSD scan's by
            route), fails the phase (such a trace is taken again with
            longer pads, three times in all). At the training path's shapes
-           (flash in float32 and bfloat16 at (8, 256, 32 / 8, 64) and in
-           float32 at MLA's (8, 256, 40, 96 / 64); RMSNorm float32 (8,
+           (flash in float32 and bfloat16 at (8, 256, 32 / 8, 64), in
+           float32 at MLA's (8, 256, 40, 96 / 64) and at hybrid training's
+           (8, 256, 16 / 1, 256) with its window of 2048; RMSNorm float32 (8,
            256, 2048); the SSD scan float32 at (4, 256, 80, 64), chunks
            256 and 32) each wrapper also runs under autograd: its output
            has its Function's grad_fn and its forward launched the kernel,
@@ -130,8 +133,9 @@ Phases, always all of them, in order:
            recurrence). Also prints the device ops of one decode
            layer-step of a rec layer and of an attn layer apart, at batch 8.
   rgemma exact  as exact, on full-width recurrentgemma-9b at all 38 layers
-           in float32 (37.6 GB): the float32 flash kernel at D 256 (CUDA
-           cores) and the float32 ragged decode at D 256 on both paths.
+           in float32 (37.6 GB): the float32 flash kernel at D 256 (split
+           TF32 on the tensor cores, ``flash_tf32x3_d256_kernel``) and the
+           float32 ragged decode at D 256 on both paths.
   launch serve  the port's launcher, ``repro_torch.launch.serve``, in
            process on full-width llama3.2-1b in bfloat16 (20/s for 1.2 s,
            max_batch 8, SLA 10 s) with seeded transient faults (0.02 per
@@ -313,7 +317,8 @@ SYMBOLS = {"ragged decode": "ragged_decode_split_kernel",
            "flash prefill (bf16, tensor cores)": "flash_tc_kernel",
            "flash prefill (f32, split TF32 tensor cores)":
                "flash_tf32x3_kernel",
-           "flash prefill (f32, CUDA cores, D 256)": "flash_f32_cc_kernel",
+           "flash prefill (f32, split TF32 tensor cores, D 256)":
+               "flash_tf32x3_d256_kernel",
            "SSD scan": "ssd_", "RMSNorm": "rmsnorm_kernel"}
 # the symbols (substrings) of the kernels one call launches: the SSD
 # scan's by route, the others' by launch counter in bfloat16 (the serves'
@@ -671,7 +676,7 @@ def compare(torch, got, ref, dtype_name: str, what: str, tols=None) -> float:
 # D 256 (recurrentgemma-9b's), the ragged decode kernel at D 256 and the
 # SSD scan's split-TF32 kernels, as ptxas names them
 F32_FLASH_D64 = "flash_tf32x3_kernelILi64E"
-FLASH_D256 = ("flash_tc_kernelILi256E", "flash_f32_cc_kernel")
+FLASH_D256 = ("flash_tc_kernelILi256E", "flash_tf32x3_d256_kernel")
 DECODE_D256 = "Li256E"
 SSD_TF32 = ("ssd_intra_tf32_kernel", "ssd_scores_tf32_kernel")
 
@@ -690,6 +695,15 @@ def phase_build():
         for line in log.splitlines():
             if "Function properties for" in line:
                 kernel = line.split(" for ", 1)[1].strip()
+            elif "wgmma.mma_async instructions are serialized" in line:
+                # the split-TF32 flash kernel at D 256 holds 255 registers
+                # a thread: one more live value and ptxas waits after
+                # every wgmma
+                print(f"[build] {name}: {line.strip()}")
+                check(not (name == "flash_attn"
+                           and FLASH_D256[1] in line),
+                      f"{name}: ptxas serializes the wgmmas of "
+                      f"{FLASH_D256[1]}")
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name} {kernel}: {line.strip()}")
                 spilled = [int(b) for b in re.findall(
@@ -851,7 +865,7 @@ def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64, Dv=None,
             "symbols": (COUNTER_SYMBOLS["flash_attention"]
                         if dtype == torch.bfloat16
                         else ("flash_tf32x3_kernel",) if D <= 128
-                        else ("flash_f32_cc_kernel",)),
+                        else ("flash_tf32x3_d256_kernel",)),
             "lib_kernels": dtype == torch.float32,
             "repeats": dtype == torch.float32 and S == 512,
             "fns": (lambda: K.flash_attention(q, k, v, window=window),
@@ -1125,6 +1139,10 @@ def phase_kernels(torch):
                                                        B=8, grad=True)),
         ("flash_attention", f32, lambda: kernel_flash(
             torch, K, f32, 256, B=8, H=40, KV=40, D=96, Dv=64, grad=True)),
+        # recurrentgemma-9b's local attention at hybrid training's batch
+        ("flash_attention", f32, lambda: kernel_flash(
+            torch, K, f32, 256, B=8, H=16, KV=1, D=256, window=2048,
+            grad=True)),
         ("fused_rmsnorm", f32, lambda: kernel_rmsnorm(
             torch, K, f32, (8, 256, 2048), row="fused_rmsnorm_f32_train",
             grad=True)),

@@ -59,8 +59,8 @@
 // products inside a warpgroup, with or without the warpgroups taking turns
 // at the tensor cores, was tried and lost time at the serve's shapes.
 //
-// float32 at D <= 128 (the exact checks): flash_tf32x3_kernel, on the
-// tensor cores at
+// float32 at D <= 128 (the exact checks, training): flash_tf32x3_kernel,
+// on the tensor cores at
 // float32 accuracy. The tensor cores take TF32 (10 mantissa bits), so each
 // float32 operand x is split into hi = cvt.rna.tf32(x) and lo =
 // cvt.rna.tf32(x - hi) (the rounding done with integer operations: the
@@ -111,20 +111,33 @@
 // and with repeated launches, also on a build whose warps sleep at random at
 // each hand-over (repro::jitter, tf32.cuh).
 //
-// float32 at D = 256: flash_f32_cc_kernel, on the CUDA cores. The split-TF32
-// layout does not fit at this width (Q's hi and lo planes alone are 128 KB
-// for 64 rows), and the float32 path runs only in the exact checks, so this
-// is the plain design: one CTA of 8 warps per (q-tile of 64 rows, head,
-// batch row), the q-tiles with the most keys first. Q sits in shared memory
-// for the CTA's life; tiles of 32 keys of K and V are loaded together by
-// all threads (float4 loads, zero past T and past Dqk / Dv; rows padded to
-// 260 floats so that the lanes' K reads hit distinct banks). Each warp owns
-// 8 q rows: lane l scores key l of the tile against its 8 rows (Q read by
-// broadcast), the online softmax takes its max over the warp, and P V
-// accumulates columns l + 32 j (j < 8) of the 8 rows, P's entries passed by
-// shuffles. Bound: the causal flops over the CUDA cores' 67 TFLOP/s. Each
-// row's result depends on its q, its keys and its position only, so batched
-// and isolated prefills agree bit for bit.
+// float32 at D = 256: flash_tf32x3_d256_kernel, the same three TF32
+// products per product. flash_tf32x3_kernel's layout does not fit at this
+// width (Q's hi and lo planes alone are 128 KB for 64 rows, a 32-key stage
+// of K and V planes 128 KB more), so Q stays as float32 and is split in
+// registers. One CTA of two warpgroups per (q-tile of 64 rows, head, batch
+// row), the q-tiles with the most keys first; 197,664 bytes of shared
+// memory: Q as float32 (64 KB), one stage of K and V^T hi and lo planes for
+// a 32-key tile (4 x 32 KB), four mbarriers. The producer warpgroup loads
+// tile j + 1's float32 K and V rows from global memory into registers (keys
+// past T, columns past Dqk / Dv zero) while the consumer reads tile j, and
+// splits them straight into the planes (no staging tile); K and V have a
+// full and an empty barrier each, so K(j + 1) is written under softmax(j)
+// and P V(j), and V(j + 1) under S(j + 1). The consumer warpgroup keeps
+// each 32-column block of a Q row in the order 8 t + 2 s + e for column 8 s
+// + 4 e + t (chunks XOR-swizzled by row), so one 16-byte load gives a
+// thread its A entries of two k slices; for S = Q K^T it loads and splits
+// two k slices at a time into hi / lo A registers and starts their six
+// m64n32k8 wgmmas (B the K planes) as one group, with two groups in flight
+// (wgmma.wait_group 1 before a group's registers are written again); the
+// softmax is flash_tf32x3_kernel's, and P V is 12 m64n256k8 wgmmas per tile
+// into the 128-float accumulator. Registers: 255 a thread at 256 threads,
+// no spill. The ring's hand-overs follow the rules above: each producer
+// thread fences its plane stores to the async proxy before it arrives on
+// full; lane 0 of each consumer warp arrives on empty after its warp's
+// wgmma.wait_group 0; tile j waits for parity j & 1 on full, its complement
+// on empty. Each row's result depends on its q, its keys and its position
+// only, so batched and isolated prefills agree bit for bit.
 //
 // The tensor maps, tiles and barriers are tma.cuh's (shared with the SSD
 // scan's tensor-core kernel); the library links against the CUDA runtime
@@ -197,6 +210,104 @@ struct Layout {
 template <int D>
 constexpr size_t smem_bytes() {   // 1 KB of slack for the 1024-byte align
   return 1024 + Layout<D>::bytes;
+}
+
+// The consumer warpgroups' shared steps. Fragments: s[4 jj + 2 hh + e] is
+// row row0 + 8 hh, key k0 + 8 jj + 2 t + e of a key tile; acc[4 jj + 2 hh +
+// e] is row row0 + 8 hh, column 8 jj + 2 t + e.
+
+// The online softmax of one tile of KN keys for the 64 rows qw ... qw + 63:
+// masks the keys past T, above the causal diagonal and below the window
+// (only in a tile that crosses one of them), takes each row's max and sum
+// over its quad, rescales l and acc by the change of the row max and leaves
+// the tile's P in s
+template <int KN, int D>
+__device__ __forceinline__ void softmax_tile(float (&s)[KN / 2],
+                                             float (&acc)[D / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             int k0, int qw, int row0, int t,
+                                             int T, int q_offset, int window,
+                                             float scale_log2) {
+  const bool edge =
+      k0 + KN > T || k0 + KN - 1 > q_offset + qw ||
+      (window > 0 && k0 <= q_offset + qw + kRows - 1 - window);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qpos = q_offset + row0 + 8 * hh;
+    const int kmax = min(qpos, T - 1) - k0 - 2 * t;
+    const int kmin = (window > 0 ? qpos - window + 1 : 0) - k0 - 2 * t;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < KN / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * jj + 2 * hh + e];
+        if (edge && (8 * jj + e > kmax || 8 * jj + e < kmin)) x = -INFINITY;
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[hh], mx);
+    // a row that has seen no key yet keeps p = 0 and l = 0
+    const float m_use = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+    const float corr = ex2(m[hh] * scale_log2 - m_use);
+    m[hh] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < KN / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * jj + 2 * hh + e];
+        x = ex2(fmaf(x, scale_log2, -m_use));
+        sum += x;
+      }
+    l[hh] = l[hh] * corr + sum;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      acc[4 * jj + 2 * hh] *= corr;
+      acc[4 * jj + 2 * hh + 1] *= corr;
+    }
+  }
+}
+
+// P's k slice kk, split, as A registers: columns t and t + 4 are keys 8 kk +
+// 2 t and 8 kk + 2 t + 1, V's positions 8 kk + t and 8 kk + t + 4
+template <int KN>
+__device__ __forceinline__ void split_p(const float (&s)[KN / 2],
+                                        uint32_t (&ph)[KN / 8][4],
+                                        uint32_t (&pl)[KN / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KN / 8; ++kk) {
+    split(s[4 * kk], ph[kk][0], pl[kk][0]);
+    split(s[4 * kk + 2], ph[kk][1], pl[kk][1]);
+    split(s[4 * kk + 1], ph[kk][2], pl[kk][2]);
+    split(s[4 * kk + 3], ph[kk][3], pl[kk][3]);
+  }
+}
+
+// Each row's output, acc over the row's sum; rows past S and the columns
+// past Dv are not stored
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           const float (&l)[2], float* o,
+                                           int b, int S, int H, int h, int Dv,
+                                           int row0, int t) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float den = l[hh];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    den = fmaxf(den, 1e-30f);
+    const int row = row0 + 8 * hh;
+    if (row >= S) continue;
+    float* orow = o + (((size_t)b * S + row) * H + h) * Dv;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      if (8 * jj < Dv)
+        *reinterpret_cast<float2*>(orow + 8 * jj + 2 * t) =
+            make_float2(acc[4 * jj + 2 * hh] / den,
+                        acc[4 * jj + 2 * hh + 1] / den);
+  }
 }
 
 template <int D>
@@ -369,61 +480,11 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
       repro::wgmma_wait_all();
       repro::fence_regs(s);
 
-      // online softmax on the accumulator: s[4 jj + 2 hh + e] is row row0
-      // + 8 hh, key k0 + 8 jj + 2 t + e; a row's max and sum over its quad
-      const bool edge =
-          k0 + KN > T || k0 + KN - 1 > q_offset + qw ||
-          (window > 0 && k0 <= q_offset + qw + kRows - 1 - window);
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int qpos = q_offset + row0 + 8 * hh;
-        const int kmax = min(qpos, T - 1) - k0 - 2 * t;
-        const int kmin = (window > 0 ? qpos - window + 1 : 0) - k0 - 2 * t;
-        float mx = -INFINITY;
-#pragma unroll
-        for (int jj = 0; jj < KN / 8; ++jj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& x = s[4 * jj + 2 * hh + e];
-            if (edge && (8 * jj + e > kmax || 8 * jj + e < kmin))
-              x = -INFINITY;
-            mx = fmaxf(mx, x);
-          }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[hh], mx);
-        // a row that has seen no key yet keeps p = 0 and l = 0
-        const float m_use = m_new == -INFINITY ? 0.f : m_new * scale_log2;
-        const float corr = ex2(m[hh] * scale_log2 - m_use);
-        m[hh] = m_new;
-        float sum = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < KN / 8; ++jj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& x = s[4 * jj + 2 * hh + e];
-            x = ex2(fmaf(x, scale_log2, -m_use));
-            sum += x;
-          }
-        l[hh] = l[hh] * corr + sum;
-#pragma unroll
-        for (int jj = 0; jj < D / 8; ++jj) {
-          acc[4 * jj + 2 * hh] *= corr;
-          acc[4 * jj + 2 * hh + 1] *= corr;
-        }
-      }
-
-      // O += P V: P's k slice kk, split, as A registers: columns t and t +
-      // 4 are keys 8 kk + 2 t and 8 kk + 2 t + 1, V's positions 8 kk + t
-      // and 8 kk + t + 4
+      softmax_tile<KN, D>(s, acc, m, l, k0, qw, row0, t, T, q_offset,
+                          window, scale_log2);
+      // O += P V
       uint32_t ph[KN / 8][4], pl[KN / 8][4];
-#pragma unroll
-      for (int kk = 0; kk < KN / 8; ++kk) {
-        split(s[4 * kk], ph[kk][0], pl[kk][0]);
-        split(s[4 * kk + 2], ph[kk][1], pl[kk][1]);
-        split(s[4 * kk + 1], ph[kk][2], pl[kk][2]);
-        split(s[4 * kk + 3], ph[kk][3], pl[kk][3]);
-      }
+      split_p<KN>(s, ph, pl);
       repro::fence_regs(acc);
       repro::wgmma_fence();
 #pragma unroll
@@ -443,24 +504,7 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (lane == 0) repro::mbar_arrive(empty(st));
   }
 
-  // acc[4 jj + 2 hh + e] is row row0 + 8 hh, column 8 jj + 2 t + e; the
-  // columns past Dv are not stored
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    float den = l[hh];
-    den += __shfl_xor_sync(0xffffffffu, den, 1);
-    den += __shfl_xor_sync(0xffffffffu, den, 2);
-    den = fmaxf(den, 1e-30f);
-    const int row = row0 + 8 * hh;
-    if (row >= S) continue;
-    float* orow = o + (((size_t)b * S + row) * H + h) * Dv;
-#pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj)
-      if (8 * jj < Dv)
-        *reinterpret_cast<float2*>(orow + 8 * jj + 2 * t) =
-            make_float2(acc[4 * jj + 2 * hh] / den,
-                        acc[4 * jj + 2 * hh + 1] / den);
-  }
+  store_rows<D>(acc, l, o, b, S, H, h, Dv, row0, t);
 }
 
 template <int D>
@@ -481,156 +525,288 @@ int launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// ---- D = 256: the CUDA-core kernel ----------------------------------------
+// ---- D = 256: Q as float32, split into A registers a k slice at a time --
 
-namespace cc {
+namespace wide {
 
 constexpr int kD = 256;
-constexpr int kRows = 64;               // q rows per CTA, 8 per warp
-constexpr int kKeys = 32;               // keys per tile, one per lane
-constexpr int kThreads = 256;
-constexpr int kRowsPerWarp = kRows / (kThreads / 32);
-constexpr int kLd = kD + 4;             // padded row of Q and K (floats)
-constexpr int kCh = kD / 4;             // float4 chunks per row
-constexpr size_t kSmem =
-    sizeof(float) * ((size_t)kRows * kLd + (size_t)kKeys * kLd +
-                     (size_t)kKeys * kD);
+constexpr int kKeys = 32;                // keys per tile
+constexpr int kCh = kD / 4;              // 16-byte chunks per row of d
+constexpr int kPairs = kD / 16;          // pairs of k slices of Q K^T
+using KPlane = Plane<kKeys, kD>;         // keys x d
+using VPlane = Plane<kD, kKeys>;         // d x key positions (V transposed)
+// Shared memory: Q as float32 (64 rows of 1 KB), one stage of K and V^T
+// planes (hi, lo), and the full and empty barriers of K and of V
+constexpr uint32_t kQ = 0;
+constexpr uint32_t kKHi = kQ + kRows * kD * 4;
+constexpr uint32_t kKLo = kKHi + KPlane::kBytes;
+constexpr uint32_t kVHi = kKLo + KPlane::kBytes;
+constexpr uint32_t kVLo = kVHi + VPlane::kBytes;
+constexpr uint32_t kBars = kVLo + VPlane::kBytes;
+constexpr size_t kSmem = 1024 + kBars + 8 * 4;   // 1 KB for the align
+static_assert(kSmem == 197664, "wide: 64 + 4 x 32 KB, barriers, slack");
+static_assert(kSmem <= 232448, "wide: a block may have 232,448 bytes");
 
-__global__ void __launch_bounds__(kThreads, 1)
-flash_f32_cc_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o, int S,
-                    int T, int H, int KV, int Dqk, int Dv, int q_offset,
-                    int window, float scale_log2) {
-  extern __shared__ float4 smem4[];
-  float* const q_s = reinterpret_cast<float*>(smem4);
-  float* const k_s = q_s + kRows * kLd;
-  float* const v_s = k_s + kKeys * kLd;
+// Q's float32 row r keeps each 32-column block's column 8 s + 4 e + t at
+// position 8 t + 2 s + e, so that a thread's A entries of four k slices
+// (columns t and t + 4 of each) are two 16-byte chunks, 2 t and 2 t + 1;
+// chunk c of a block sits at c ^ (r % 8), so a quarter-warp's loads hit
+// distinct banks
+__device__ __forceinline__ uint32_t q_chunk(int r, int block, int c) {
+  return kQ + r * (kD * 4) + block * 128 + ((c ^ (r & 7)) << 4);
+}
 
-  // grid (H, B, q-tiles), the q-tiles with the most keys first
+// component i of x (i a constant once unrolled)
+__device__ __forceinline__ float lane_of(const float4& x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
+__global__ void __launch_bounds__(2 * kThreads, 1)
+flash_tf32x3_d256_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         int S, int T, int H, int KV, int Dqk, int Dv,
+                         int q_offset, int window, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const sm = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t k_full = base + kBars, k_empty = k_full + 8;
+  const uint32_t v_full = k_full + 16, v_empty = k_full + 24;
+
+  // grid (H, B, q-tiles of 64 rows), the q-tiles with the most keys first
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int i = tid; i < kRows * kCh; i += kThreads) {
-    const int r = i / kCh, c = i % kCh;
-    float4 x = zero;
-    if (q0 + r < S && 4 * c < Dqk)
-      x = *reinterpret_cast<const float4*>(
-          q + (((size_t)b * S + q0 + r) * H + h) * Dqk + 4 * c);
-    *reinterpret_cast<float4*>(q_s + r * kLd + 4 * c) = x;
-  }
+  const int tw = tid % kThreads;
 
   // keys any row of this q-tile may attend: [k_lo, k_hi)
   const int last_q = q_offset + min(q0 + kRows, S) - 1;
   const int k_hi = min(T, last_q + 1);
-  const int k_lo = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
+  int k_lo = 0;
+  if (window > 0) k_lo = max(0, q_offset + q0 - window + 1);
+  k_lo = (k_lo / kKeys) * kKeys;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kKeys - 1) / kKeys : 0;
 
-  const int r0 = warp * kRowsPerWarp;     // this warp's rows r0 .. r0 + 7
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kD / 32];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;                           // this lane's keys' share
-#pragma unroll
-    for (int j = 0; j < kD / 32; ++j) acc[r][j] = 0.f;
+  if (tid == 0) {
+    repro::mbar_init(k_full, kThreads);   // every producer thread
+    repro::mbar_init(v_full, kThreads);
+    repro::mbar_init(k_empty, 4);         // lane 0 of each consumer warp
+    repro::mbar_init(v_empty, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += kKeys) {
-    __syncthreads();                      // Q stored; the last tile read
-    for (int i = tid; i < kKeys * kCh; i += kThreads) {
-      const int r = i / kCh, c = i % kCh;
-      const int t = k0 + r;
-      const size_t row = ((size_t)b * T + t) * KV + kvh;
-      float4 kx = zero, vx = zero;
-      if (t < T && 4 * c < Dqk)
-        kx = *reinterpret_cast<const float4*>(k + row * Dqk + 4 * c);
-      if (t < T && 4 * c < Dv)
-        vx = *reinterpret_cast<const float4*>(v + row * Dv + 4 * c);
-      *reinterpret_cast<float4*>(k_s + r * kLd + 4 * c) = kx;
-      *reinterpret_cast<float4*>(v_s + r * kD + 4 * c) = vx;
-    }
-    __syncthreads();
-
-    // lane l scores key k0 + l against the warp's 8 rows
-    float s[kRowsPerWarp];
+  if (tid >= kThreads) {
+    // producer: tile j + 1's float32 K (or V) rows load into registers
+    // while the consumer still reads tile j's planes (keys past T and
+    // columns past Dqk / Dv are zeros); once the consumer frees the
+    // planes, each thread splits its registers into them: K as it is, V
+    // transposed with key 8 q + e + 2 m at position 8 q + 4 e + m, the
+    // order in which P's registers hold keys
+    const size_t ld_k = (size_t)KV * Dqk, ld_v = (size_t)KV * Dv;
+    const float* k_bh = k + ((size_t)b * T * KV + kvh) * Dqk;
+    const float* v_bh = v + ((size_t)b * T * KV + kvh) * Dv;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 kx[16], vx[4][4];
+    // K: chunk c of key row r, i = r * 64 + c
+    auto load_k = [&](int k0) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
-    const float* krow = k_s + lane * kLd;
-#pragma unroll 4
-    for (int c = 0; c < kCh; ++c) {
-      const float4 kx = *reinterpret_cast<const float4*>(krow + 4 * c);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qx =
-            *reinterpret_cast<const float4*>(q_s + (r0 + r) * kLd + 4 * c);
-        s[r] = fmaf(qx.x, kx.x, s[r]);
-        s[r] = fmaf(qx.y, kx.y, s[r]);
-        s[r] = fmaf(qx.z, kx.z, s[r]);
-        s[r] = fmaf(qx.w, kx.w, s[r]);
+      for (int n = 0; n < 16; ++n) {
+        const int i = tw + n * kThreads, r = i / kCh, c = i % kCh;
+        kx[n] = k0 + r < T && 4 * c < Dqk
+                    ? *reinterpret_cast<const float4*>(
+                          k_bh + (k0 + r) * ld_k + 4 * c)
+                    : zero;
       }
-    }
-
-    // masked online softmax in the log2 domain; a row that has seen no
-    // key yet keeps p = 0 and l = 0
-    const int kpos = k0 + lane;
-    float p[kRowsPerWarp];
+    };
+    // V: for i = c * 8 + qe, keys 8 (qe / 2) + qe % 2 + 2 m of chunk c
+    auto load_v = [&](int k0) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int qpos = q_offset + q0 + r0 + r;
-      const bool ok = kpos < T && kpos <= qpos &&
-                      (window <= 0 || kpos > qpos - window);
-      const float x = ok ? s[r] * scale_log2 : -INFINITY;
-      const float m_new = fmaxf(m[r], repro::warp_max(x));
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = ex2(m[r] - m_use);
-      m[r] = m_new;
-      p[r] = ex2(x - m_use);
-      l[r] = l[r] * corr + p[r];
+      for (int n = 0; n < 4; ++n) {
+        const int i = tw + n * kThreads, qe = i % 8, c = i / 8;
 #pragma unroll
-      for (int j = 0; j < kD / 32; ++j) acc[r][j] *= corr;
-    }
-
-    // O += P V: key kk's weights from lane kk, columns lane + 32 j
-#pragma unroll 4
-    for (int kk = 0; kk < kKeys; ++kk) {
-      float vx[kD / 32];
-#pragma unroll
-      for (int j = 0; j < kD / 32; ++j) vx[j] = v_s[kk * kD + lane + 32 * j];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float pk = __shfl_sync(0xffffffffu, p[r], kk);
-#pragma unroll
-        for (int j = 0; j < kD / 32; ++j) acc[r][j] = fmaf(pk, vx[j], acc[r][j]);
+        for (int m = 0; m < 4; ++m) {
+          const int r = 8 * (qe >> 1) + (qe & 1) + 2 * m;
+          vx[n][m] = k0 + r < T && 4 * c < Dv
+                         ? *reinterpret_cast<const float4*>(
+                               v_bh + (k0 + r) * ld_v + 4 * c)
+                         : zero;
+        }
       }
+    };
+    if (n_tiles > 0) {
+      load_k(k_lo);
+      load_v(k_lo);
     }
+    for (int j = 0; j < n_tiles; ++j) {
+      // the planes are free once every consumer warp has arrived on them
+      // after its wgmma reads of tile j - 1 completed
+      const int free_parity = (j & 1) ^ 1;
+      repro::mbar_wait(k_empty, free_parity);
+      jitter(1);
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const int i = tw + n * kThreads, r = i / kCh, c = i % kCh;
+        const float xs[4] = {kx[n].x, kx[n].y, kx[n].z, kx[n].w};
+        uint4 hi, lo;
+        split4(xs, hi, lo);
+        *reinterpret_cast<uint4*>(sm + kKHi + KPlane::chunk(r, c)) = hi;
+        *reinterpret_cast<uint4*>(sm + kKLo + KPlane::chunk(r, c)) = lo;
+      }
+      jitter(2);
+      // written by the generic proxy, read by wgmma's async proxy: each
+      // thread fences its own stores before its arrival (full counts all
+      // 128)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      repro::mbar_arrive(k_full);
+      const int k_next = k_lo + (j + 1) * kKeys;
+      if (j + 1 < n_tiles) load_k(k_next);
+
+      repro::mbar_wait(v_empty, free_parity);
+      jitter(3);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int i = tw + n * kThreads, qe = i % 8, c = i / 8;
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd) {
+          // column 4 c + dd of the chunk's four keys, in position order
+          const float xs[4] = {lane_of(vx[n][0], dd), lane_of(vx[n][1], dd),
+                               lane_of(vx[n][2], dd), lane_of(vx[n][3], dd)};
+          uint4 hi, lo;
+          split4(xs, hi, lo);
+          const uint32_t at = VPlane::chunk(4 * c + dd, qe);
+          *reinterpret_cast<uint4*>(sm + kVHi + at) = hi;
+          *reinterpret_cast<uint4*>(sm + kVLo + at) = lo;
+        }
+      }
+      jitter(4);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      repro::mbar_arrive(v_full);
+      if (j + 1 < n_tiles) load_v(k_next);
+    }
+    return;
   }
 
+  // consumer: rows q0 ... q0 + 63, 16 per warp
+  const int warp = tw >> 5, lane = tw & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;          // rows r0 and r0 + 8 of the tile
+  const int row0 = q0 + r0;
+  // Q once, as float32 in the permuted order (rows past S and columns
+  // past Dqk are zeros); read back with plain loads, so the consumer's own
+  // barrier orders it
+  for (int i = tw; i < kRows * kCh; i += kThreads) {
+    const int r = i / kCh, c = i % kCh;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < S && 4 * c < Dqk)
+      x = *reinterpret_cast<const float4*>(
+          q + (((size_t)b * S + q0 + r) * H + h) * Dqk + 4 * c);
+    // columns 4 c + t' of the block: s = (c % 8) / 2, e = c % 2
+    const int blk = c / 8, s2 = (c % 8) >> 1, e = c & 1;
+    const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const float den = fmaxf(repro::warp_sum(l[r]), 1e-30f);
-    const int row = q0 + r0 + r;
-    if (row >= S) continue;
-    float* orow = o + (((size_t)b * S + row) * H + h) * Dv;
-#pragma unroll
-    for (int j = 0; j < kD / 32; ++j)
-      if (lane + 32 * j < Dv) orow[lane + 32 * j] = acc[r][j] / den;
+    for (int tt = 0; tt < 4; ++tt)
+      *reinterpret_cast<float*>(sm + q_chunk(r, blk, 2 * tt + (s2 >> 1)) +
+                                4 * (2 * (s2 & 1) + e)) = xs[tt];
   }
+  jitter(5);
+  named_sync(1, kThreads);
+
+  float acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = k_lo + j * kKeys;
+    const int parity = j & 1;
+    repro::mbar_wait(k_full, parity);
+    jitter(6);
+
+    // S = Q K^T, three TF32 products per product (lo hi, hi lo, hi hi).
+    // Pair p of k slices (2 p, 2 p + 1; block p / 2, chunk 2 t + p % 2)
+    // loads rows r0 and r0 + 8, splits them into A registers and starts
+    // its six wgmmas as one group; the registers of pair p are written
+    // again for pair p + 2, after wgmma.wait_group 1 has seen pair p done
+    float s[kKeys / 2];
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.f;
+    uint32_t ah[2][2][4], al[2][2][4];   // [pair % 2][slice][register]
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      const int blk = p >> 1, c = 2 * t + (p & 1);
+      const float4 xa = *reinterpret_cast<const float4*>(
+          sm + q_chunk(r0, blk, c));
+      const float4 xb = *reinterpret_cast<const float4*>(
+          sm + q_chunk(r0 + 8, blk, c));
+      if (p >= 2) repro::wgmma_wait<1>();
+      // slice sl: (r0, t), (r0 + 8, t), (r0, t + 4), (r0 + 8, t + 4)
+      const float xs[2][4] = {{xa.x, xb.x, xa.y, xb.y},
+                              {xa.z, xb.z, xa.w, xb.w}};
+#pragma unroll
+      for (int sl = 0; sl < 2; ++sl)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split(xs[sl][i], ah[p & 1][sl][i], al[p & 1][sl][i]);
+      repro::wgmma_fence();
+#pragma unroll
+      for (int sl = 0; sl < 2; ++sl) {
+        const int kk = 2 * p + sl;
+        const uint64_t kh = KPlane::desc(base + kKHi, kk);
+        const uint64_t kl = KPlane::desc(base + kKLo, kk);
+        repro::wgmma_tf32_rs<kKeys>(s, al[p & 1][sl], kh);
+        repro::wgmma_tf32_rs<kKeys>(s, ah[p & 1][sl], kl);
+        repro::wgmma_tf32_rs<kKeys>(s, ah[p & 1][sl], kh);
+      }
+      repro::wgmma_commit();
+    }
+    repro::wgmma_wait_all();   // this warp's reads of the K planes are done
+    repro::fence_regs(s);
+    jitter(7);
+    __syncwarp();
+    if (lane == 0) repro::mbar_arrive(k_empty);
+
+    softmax_tile<kKeys, kD>(s, acc, m, l, k0, q0, row0, t, T, q_offset,
+                            window, scale_log2);
+    // O += P V
+    uint32_t ph[kKeys / 8][4], pl[kKeys / 8][4];
+    split_p<kKeys>(s, ph, pl);
+    repro::mbar_wait(v_full, parity);
+    jitter(8);
+    repro::fence_regs(acc);
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 8; ++kk) {
+      const uint64_t vh = VPlane::desc(base + kVHi, kk);
+      const uint64_t vl = VPlane::desc(base + kVLo, kk);
+      repro::wgmma_tf32_rs<kD>(acc, pl[kk], vh);
+      repro::wgmma_tf32_rs<kD>(acc, ph[kk], vl);
+      repro::wgmma_tf32_rs<kD>(acc, ph[kk], vh);
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();   // this warp's reads of the V planes are done
+    repro::fence_regs(acc);
+    jitter(9);
+    __syncwarp();
+    if (lane == 0) repro::mbar_arrive(v_empty);
+  }
+
+  store_rows<kD>(acc, l, o, b, S, H, h, Dv, row0, t);
 }
 
-}  // namespace cc
+}  // namespace wide
 
-int launch_cc(const void* q, const void* k, const void* v, void* o,
-              const Shape& sh, cudaStream_t stream) {
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                const Shape& sh, cudaStream_t stream) {
   static int granted = 48 * 1024;
-  cudaError_t err =
-      repro::allow_smem(cc::flash_f32_cc_kernel, cc::kSmem, &granted);
+  cudaError_t err = repro::allow_smem(wide::flash_tf32x3_d256_kernel,
+                                      wide::kSmem, &granted);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(sh.H, sh.B, (sh.S + cc::kRows - 1) / cc::kRows);
-  cc::flash_f32_cc_kernel<<<grid, cc::kThreads, cc::kSmem, stream>>>(
+  dim3 grid(sh.H, sh.B, (sh.S + kRows - 1) / kRows);
+  wide::flash_tf32x3_d256_kernel<<<grid, 2 * kThreads, wide::kSmem,
+                                   stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), sh.S, sh.T, sh.H,
       sh.KV, sh.Dqk, sh.Dv, sh.q_offset, sh.window, sh.scale_log2);
@@ -647,7 +823,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     case 128:
       return launch<128>(q, k, v, o, sh, stream);
     case 256:
-      return launch_cc(q, k, v, o, sh, stream);
+      return launch_wide(q, k, v, o, sh, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -90,10 +90,10 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
 
     A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor
     launches the kernel on the current stream or raises: bfloat16 on the
-    tensor cores (wgmma, TMA); float32 up to width 128 on the tensor cores
-    too, as three TF32 products per product (lo*hi + hi*lo + hi*hi,
-    wgmma), which keeps float32 accuracy, and at width 256 on the CUDA
-    cores. The kernels do not read
+    tensor cores (wgmma, TMA); float32 on the tensor cores too, as three
+    TF32 products per product (lo*hi + hi*lo + hi*hi, wgmma), which keeps
+    float32 accuracy (at width 256 its own kernel, which splits Q a k
+    slice at a time into registers). The kernels do not read
     ``torch.backends.cuda.matmul.allow_tf32``: with TF32 off they are
     still float32-accurate. With grad mode on and an input requiring
     grad, the call goes through :class:`FlashAttention`."""

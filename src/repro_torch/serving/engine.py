@@ -487,8 +487,10 @@ class TorchEngine(Backend):
                 or self._slotbatch[1] != Bp:
             slots = [self.slot_of(r) for r in reqs]
             slots += [_PAD_SLOT] * (Bp - len(slots))
-            self._slotbatch = (rids, Bp,
-                               self._upload(np.asarray(slots, np.int32)))
+            # slot ids are host ints: an upload, not a sync
+            # reprolint: disable=sync-point
+            ids = self._upload(np.asarray(slots, np.int32))
+            self._slotbatch = (rids, Bp, ids)
         return self._slotbatch[2]
 
     def _node_meta(self, wl, node_id: str):
@@ -659,6 +661,8 @@ class TorchEngine(Backend):
         else:
             # resumed mid-prefill (st.x in flight): per-request span
             for r, st in zip(reqs, sts):
+                # a host slot id, not a device value: no sync
+                # reprolint: disable=sync-point
                 slot = np.asarray([self.slot_of(r)], np.int64)
                 st.x = self._prefill_run(layers[0], layers[-1], False,
                                          st.x, slot)
@@ -718,6 +722,8 @@ class TorchEngine(Backend):
                 if self._posbatch is not None and self._posbatch[0] == bkey:
                     pos0 = self._posbatch[1]      # device-carried positions
                 else:
+                    # host positions: an upload, not a sync
+                    # reprolint: disable=sync-point
                     pos0 = self._upload(np.asarray(
                         [st.pos for st in sts] + [0] * (Bp - B), np.int32))
             pos = pos0 if n_heads == 0 else pos0 + n_heads
@@ -725,10 +731,14 @@ class TorchEngine(Backend):
                 if toks_dev is None and self._tokbatch is not None \
                         and self._tokbatch[0] == bkey:
                     toks_dev = self._tokbatch[1]  # device-carried tokens
-                entry = (toks_dev if toks_dev is not None else
-                         self._upload(np.asarray(
-                             [st.next_token for st in sts] + [0] * (Bp - B),
-                             np.int32)))
+                if toks_dev is not None:
+                    entry = toks_dev
+                else:
+                    # host tokens: an upload, not a sync
+                    # reprolint: disable=sync-point
+                    entry = self._upload(np.asarray(
+                        [st.next_token for st in sts] + [0] * (Bp - B),
+                        np.int32))
             else:
                 entry = x_dev if x_dev is not None \
                     else self._entry_x(reqs, sts, B, Bp)
@@ -748,6 +758,8 @@ class TorchEngine(Backend):
         if host is not None:
             for row in host.numpy():
                 for bi, st in enumerate(sts):
+                    # a numpy row, read after the run's one sync
+                    # reprolint: disable=sync-point
                     st.next_token = int(row[bi])
                     st.generated.append(st.next_token)
                     st.pos += 1

@@ -270,18 +270,21 @@ RGEMMA_FLASH_CASES = [
     (1, 300, 300, 16, 1, 100, 0),        # a binding window
     (1, 190, 253, 16, 1, 64, 63),        # window and a catch-up offset
     (2, 150, 150, 4, 4, 2048, 0),        # MHA, the model's window, unbound
+    (8, 256, 256, 16, 1, 2048, 0),       # hybrid training's shape
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,T,H,KV,window,q_offset", RGEMMA_FLASH_CASES)
-@pytest.mark.parametrize("Dqk,Dv", [(256, 256), (136, 64)])
+@pytest.mark.parametrize("Dqk,Dv", [(256, 256), (256, 128), (136, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_at_head_dim_256(cuda, B, S, T, H, KV, window, q_offset,
                                       Dqk, Dv, dtype):
     """Width 256: bf16 on the tensor cores (four 64-column TMA boxes a row,
-    P V as one m64n256k16 wgmma a k slice), float32 on the CUDA cores;
-    (136, 64) runs at 256 with the columns past each width zero."""
+    P V as one m64n256k16 wgmma a k slice), float32 as split TF32 on the
+    tensor cores (``flash_tf32x3_d256_kernel``: Q split a k slice at a
+    time, 32-key tiles); (256, 128) and (136, 64) run at 256 with the
+    columns past each width zero."""
     _flash_case(cuda, B, S, T, H, KV, Dqk, dtype, window, q_offset, Dv=Dv)
 
 
@@ -336,23 +339,26 @@ def _flash_inputs(cuda, B, S, T, H, KV, D, seed=7, scale=1.0):
 
 
 @pytest.mark.cuda
-def test_flash_f32_kernel_is_batch_invariant(cuda):
-    """llama's heads in float32: row b of a B 4 call equals the same
-    request run at B 1 bit for bit, and a 384-token prompt gives the same
-    rows at S 384 as padded to the 512 bucket (no split over keys depends
-    on the grid)."""
-    q, k, v = _flash_inputs(cuda, 4, 512, 512, 32, 8, 64)
-    batched = K.flash_attention(q, k, v)
+@pytest.mark.parametrize("H,KV,D,window", [(32, 8, 64, None),
+                                           (16, 1, 256, 2048)])
+def test_flash_f32_kernel_is_batch_invariant(cuda, H, KV, D, window):
+    """llama's and recurrentgemma-9b's heads in float32: row b of a B 4
+    call equals the same request run at B 1 bit for bit, and a 384-token
+    prompt gives the same rows at S 384 as padded to the 512 bucket (no
+    split over keys depends on the grid)."""
+    q, k, v = _flash_inputs(cuda, 4, 512, 512, H, KV, D)
+    kw = dict(window=window)
+    batched = K.flash_attention(q, k, v, **kw)
     for b in range(4):
         alone = K.flash_attention(q[b:b + 1].clone(), k[b:b + 1].clone(),
-                                  v[b:b + 1].clone())
+                                  v[b:b + 1].clone(), **kw)
         assert torch.equal(batched[b:b + 1], alone), b
     short = K.flash_attention(q[:, :384].contiguous(),
                               k[:, :384].contiguous(),
-                              v[:, :384].contiguous())
+                              v[:, :384].contiguous(), **kw)
     assert torch.equal(batched[:, :384], short)
     torch.testing.assert_close(short, K.flash_attention_plain(
-        q[:, :384], k[:, :384], v[:, :384]), rtol=2e-5, atol=2e-5)
+        q[:, :384], k[:, :384], v[:, :384], **kw), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.cuda
@@ -391,21 +397,27 @@ def test_flash_f32_kernel_sweep(cuda, D, H, KV, S, T, q_offset, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,T,q_offset,D", [(512, 512, 0, 64),
-                                            (383, 384, 1, 64),
-                                            (383, 384, 1, 128)])
+@pytest.mark.parametrize("S,T,q_offset,H,KV,D,window", [
+    (512, 512, 0, 32, 8, 64, None),
+    (383, 384, 1, 32, 8, 64, None),
+    (383, 384, 1, 32, 8, 128, None),
+    (512, 512, 0, 16, 1, 256, 2048),     # recurrentgemma-9b's prefill
+    (383, 384, 1, 16, 1, 256, 2048),
+    (1024, 1024, 0, 16, 1, 256, 300)])   # a binding window
 def test_flash_f32_kernel_repeat_launches_are_bit_equal(cuda, S, T, q_offset,
-                                                        D):
+                                                        H, KV, D, window):
     """200 launches in a row on one stream give the first launch's output
-    bit for bit: the producer/consumer ring hands every stage over whole,
-    whatever the timing of the warps."""
-    q, k, v = _flash_inputs(cuda, 4, S, T, 32, 8, D, seed=9)
-    first = K.flash_attention(q, k, v, q_offset=q_offset)
-    outs = [K.flash_attention(q, k, v, q_offset=q_offset) for _ in range(200)]
+    bit for bit: the producer/consumer ring (at D 256 the K and V planes
+    and their barriers) hands every tile over whole, whatever the timing
+    of the warps."""
+    q, k, v = _flash_inputs(cuda, 4, S, T, H, KV, D, seed=9)
+    kw = dict(q_offset=q_offset, window=window)
+    first = K.flash_attention(q, k, v, **kw)
+    outs = [K.flash_attention(q, k, v, **kw) for _ in range(200)]
     torch.cuda.synchronize()
     assert [i for i, o in enumerate(outs) if not torch.equal(o, first)] == []
     torch.testing.assert_close(first, K.flash_attention_plain(
-        q, k, v, q_offset=q_offset), rtol=2e-5, atol=2e-5)
+        q, k, v, **kw), rtol=2e-5, atol=2e-5)
 
 
 def _rmsnorm_check(got, want):
@@ -809,6 +821,7 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("B,S,T,H,KV,D,Dv,window,q_offset", [
     (8, 256, 256, 32, 8, 64, 64, None, 0),    # llama's training shape
     (2, 128, 128, 8, 1, 256, 256, 64, 0),     # MQA at D 256, a window
+    (8, 256, 256, 16, 1, 256, 256, 2048, 0),  # hybrid training's shape
     (2, 64, 96, 4, 2, 64, 64, None, 32),      # catch-up chunk: T > S
     (2, 128, 128, 8, 8, 96, 64, None, 0),     # MLA's q/k 96 and v 64
 ])

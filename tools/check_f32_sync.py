@@ -8,7 +8,10 @@ split into TF32 hi and lo planes, to consumer warpgroups through a ring of
 mbarriers and a staging tile guarded by a named barrier:
 
   flash  ``flash_tf32x3_kernel`` (``csrc/flash_attn.cu``, C entry
-         ``repro_flash_attention``): K/V tiles to two consumer warpgroups.
+         ``repro_flash_attention``): K/V tiles to two consumer warpgroups;
+         at D 256 ``flash_tf32x3_d256_kernel``, whose producer splits K
+         and V from registers into one stage of planes with a full and an
+         empty barrier each, for one consumer warpgroup.
   ssd    the SSD scan's split-TF32 route (``csrc/ssd_chunk.cu``, C entry
          ``repro_ssd_chunk_tf32``): ``ssd_scores_tf32_kernel``, then
          ``ssd_intra_tf32_kernel``, whose producer hands each head's x_j^T
@@ -19,9 +22,10 @@ Both by default. Per target, in order, one line per case:
   sanitizer  compute-sanitizer's racecheck, synccheck and memcheck, each on
              this script re-run with ``--target NAME``, which launches only
              the target's C entry at small shapes (inputs made and the plain
-             version run on the host). flash: D 64 and 128, T no multiple
-             of the key tile, one to five key tiles per q-tile, a query
-             offset, a window and GQA. ssd: one, two and four j-tiles, N
+             version run on the host). flash: D 64, 128 and 256, T no
+             multiple of the key tile, one to five key tiles per q-tile, a
+             query offset, a window and GQA; at D 256 also MQA (8 / 1).
+             ssd: one, two and four j-tiles, N
              32, 64 and 128, B 2, and heads that leave a two-head CTA's
              second warpgroup idle. The full logs go to DIR.
   stress     200 launches per case, each into new output buffers: every
@@ -30,7 +34,9 @@ Both by default. Per target, in order, one line per case:
              1e-4 on y and on the final state). flash: llama3.2-1b's
              largest prefill bucket (q (4, 512, 32, 64), kv (4, 512, 8,
              64), causal), S 383 with q_offset 1 at D 64 and 128, D 32 with
-             a window. ssd: mamba2-2.7b's float32 chunks (x (1, 256, 80,
+             a window, recurrentgemma-9b's (q (4, 512, 16, 256), kv (4,
+             512, 1, 256), window 2048) and the same at S 383 with q_offset
+             1. ssd: mamba2-2.7b's float32 chunks (x (1, 256, 80,
              64) chunk 256, (1, 384, 80, 64) chunk 128, (1, 64, 80, 64)
              chunk 64; N 128), each with the heads per CTA the wrapper picks
              and with the other count. Each line gives microseconds per
@@ -110,15 +116,17 @@ def flash_case(torch, label, B, S, T, H, KV, off, win, D, seed, ref_device):
 
 def flash_small(torch):
     # (B, S, T, H, KV, q_offset, window): key tiles per q-tile at D 64 (64
-    # keys, 128-row q-tiles) and D 128 (32 keys, 64-row q-tiles)
-    shapes = ((1, 150, 150, 2, 1, 0, None),   # D 64: 2, 3; D 128: 2, 4, 5
+    # keys, 128-row q-tiles), D 128 and D 256 (32 keys, 64-row q-tiles)
+    shapes = ((1, 150, 150, 2, 1, 0, None),   # D 64: 2, 3; else 2, 4, 5
               (1, 20, 23, 2, 1, 3, None),     # one partial key tile
               (2, 100, 161, 4, 2, 61, 50))    # q_offset, window, GQA 2
+    mqa = ((1, 96, 100, 8, 1, 4, 40),)        # D 256: 3 and 4, MQA
     return [flash_case(torch, f"D {D} B {B} S {S} T {T} H {H} KV {KV} "
                               f"q_offset {off} window {win}",
                        B, S, T, H, KV, off, win, D, 10 + i, "cpu")
-            for D in (64, 128)
-            for i, (B, S, T, H, KV, off, win) in enumerate(shapes)]
+            for D in (64, 128, 256)
+            for i, (B, S, T, H, KV, off, win) in enumerate(
+                shapes + (mqa if D == 256 else ()))]
 
 
 def flash_stress(torch):
@@ -129,7 +137,11 @@ def flash_stress(torch):
                 ("D 128, S 383, q_offset 1",
                  (4, 383, 384, 32, 8, 1, None, 128)),
                 ("D 32, S 300, window 100",
-                 (2, 300, 300, 8, 2, 0, 100, 32)))]
+                 (2, 300, 300, 8, 2, 0, 100, 32)),
+                ("D 256, MQA 16 / 1, S 512, window 2048",
+                 (4, 512, 512, 16, 1, 0, 2048, 256)),
+                ("D 256, MQA 16 / 1, S 383, q_offset 1, window 2048",
+                 (4, 383, 384, 16, 1, 1, 2048, 256)))]
 
 
 # --- ssd --------------------------------------------------------------------
