@@ -136,6 +136,37 @@ Phases, always all of them, in order:
            in float32 (37.6 GB): the float32 flash kernel at D 256 (split
            TF32 on the tensor cores, ``flash_tf32x3_d256_kernel``) and the
            float32 ragged decode at D 256 on both paths.
+  variants  the ``RuntimeFlags`` variants through the ``Model`` API
+           (``prefill`` / ``decode_step`` / ``init_cache``), seed-0
+           weights at full width. window: llama3.2-1b at full depth in
+           bfloat16 with ``window`` 8192 (its ``long_context_window``),
+           ring caches of ``init_cache(4, 524288)`` (8192 rows, 1.07 GB)
+           filled from a seed, 32 greedy decode steps at positions around
+           524288 with two rows wrapping the ring (ms per step; ragged
+           decode and RMSNorm launch). window exact: llama3.2-1b and
+           minicpm3-4b at 2 layers, float32, TF32 off, window 256:
+           prefill 4 x 200 through windowed flash (D 64; MLA's 96 / 64),
+           the prefill cache padded into the ring, 100 decode steps that
+           wrap it (MLA's ring decode in PyTorch ops), the CPU's greedy
+           tokens fed to both: logits card vs CPU within 1e-3 and greedy
+           tokens equal or a near-tie. int8 kv: llama3.2-1b full depth,
+           bfloat16, 8 rows prefilled over prompts 64 / 128 / 256 / 384
+           into an exact and a ``kv_quant`` cache (``init_cache(8,
+           1024)``): cache bytes, layer 0's attention over both within the
+           reference test's bound (rtol 0.1, atol 0.05), 64 greedy steps
+           from each (ms per step, the share of equal tokens, max |d
+           logit|); then 2 layers in float32 card vs CPU: int8 entries at
+           most one level apart (counted), logits within 1e-3 until one
+           is, 2e-2 after. mla absorbed: minicpm3-4b full depth, bfloat16,
+           prefill 4 x 512 with and without ``mla_absorbed`` in turns
+           (times, max |d logit|; flash must not launch on the absorbed
+           path), then 2 layers in float32 card vs CPU without a window
+           and with 256. moe groups: granite-moe-3b-a800m at 2 layers in
+           float32, card vs CPU: a decode step at B 8 in routing groups of
+           4 rows (capacity 1) and prefill 4 x 64 in groups of 2, with the
+           (token, expert) pairs dropped counted; then full depth in
+           bfloat16, one decode step at B 8 in groups of 4, timed. The
+           phase's launches go on its own line, not into the JSON rows.
   launch serve  the port's launcher, ``repro_torch.launch.serve``, in
            process on full-width llama3.2-1b in bfloat16 (20/s for 1.2 s,
            max_batch 8, SLA 10 s) with seeded transient faults (0.02 per
@@ -2158,6 +2189,528 @@ def phase_train_mamba(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the RuntimeFlags variants, through the Model API
+# ---------------------------------------------------------------------------
+
+# float32, TF32 off: the card (kernels) against the CPU (plain versions)
+VARIANT_LOGIT_TOL = 1e-3
+# the same once an int8 entry of the two caches is stored a level apart
+# (the rows to quantize differ in their last bits; one entry moves the
+# logits by about 1e-3); no entry may lie further apart
+INT8_LOGIT_TOL = 2e-2
+# one layer's attention over the int8 cache against the exact cache's:
+# tests/test_perf_variants.py::test_int8_kv_cache_close_to_exact
+INT8_ATTN_TOL = dict(rtol=0.1, atol=0.05)
+LONG_POS = 524288             # the long_500k serve step's depth
+RING_KERNELS = ("ragged_decode_attention", "fused_rmsnorm")
+WINDOW_EXACT = {"llama3.2-1b": LLAMA_KERNELS, "minicpm3-4b": MLA_KERNELS}
+
+
+def _to(tree, device):
+    """A copy of a tree of tensors (dicts, lists, tuples) on ``device``."""
+    from repro_torch.training.tree import map_tree
+    return map_tree(lambda t: t.to(device), tree)
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.training.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _variant_model(torch, arch, dtype, layers=None, **flags):
+    """(config, model at ``flags``, seed-0 parameters on the card) of
+    ``arch`` at full width, cut to ``layers`` layers when given."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, RuntimeFlags
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = Model(cfg, RuntimeFlags(dtype=dtype, **flags))
+    return cfg, model, model.init(
+        torch.Generator(device="cuda").manual_seed(0))
+
+
+def _fill(torch, cache, seed: int):
+    """Seeded N(0, 1) values in every leaf of a cache on the card."""
+    from repro_torch.training.tree import leaves
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for leaf in leaves(cache):
+        leaf.normal_(generator=gen)
+
+
+def _int8_apart(torch, cache, cpu_cache, tag) -> int:
+    """Entries of the int8 leaves that the card and the CPU stored a level
+    apart; fails on any further apart."""
+    from repro_torch.training.tree import flatten_with_paths
+    n = 0
+    for (path, a), (_, b) in zip(flatten_with_paths(cache),
+                                 flatten_with_paths(cpu_cache)):
+        if a.dtype == torch.int8:
+            d = (a.cpu().to(torch.int16) - b.to(torch.int16)).abs()
+            check(int(d.max()) <= 1, f"{tag}: int8 leaf {path} card vs CPU "
+                                     f"{int(d.max())} levels apart")
+            n += int(d.sum())
+    return n
+
+
+def _logits_close(lc, lr, tag, tol) -> float:
+    err = (lc.float().cpu() - lr.float()).abs().max().item()
+    check(err <= tol, f"{tag}: logits card vs CPU max |d| {err:.3e} above "
+                      f"{tol}")
+    return err
+
+
+def _decode_card_vs_cpu(torch, tag, model, params, cpu_params, caches, tok,
+                        pos, steps):
+    """``steps`` decode steps from (card cache, CPU cache), on the card
+    and on the CPU, the CPU's greedy tokens fed to both: logits within
+    VARIANT_LOGIT_TOL each step (INT8_LOGIT_TOL once an int8 entry lies a
+    level apart), the card's greedy token equal to the CPU's or a near-tie
+    (the CPU's top-2 gap below 1e-3). Returns (worst |d logit|, near-ties,
+    int8 entries a level apart at the end)."""
+    cache, cpu_cache = caches
+    worst, ties, apart = 0.0, 0, 0
+    for step in range(steps):
+        lc, _ = model.decode_step(params, cache, tok.cuda(), pos.cuda())
+        lr, _ = model.decode_step(cpu_params, cpu_cache, tok, pos)
+        apart = _int8_apart(torch, cache, cpu_cache, tag)
+        worst = max(worst, _logits_close(
+            lc, lr, f"{tag} step {step}",
+            INT8_LOGIT_TOL if apart else VARIANT_LOGIT_TOL))
+        nxt = lr.argmax(-1)
+        for b in (lc.argmax(-1).cpu() != nxt).nonzero().flatten().tolist():
+            top2 = torch.topk(lr[b].float(), 2).values
+            gap = float(top2[0] - top2[1])
+            check(gap < 1e-3, f"{tag}: step {step} row {b}: the card's "
+                              f"greedy token differs, top-2 gap {gap:.3e} "
+                              f"is no near-tie")
+            ties += 1
+        tok, pos = nxt, pos + 1
+    return worst, ties, apart
+
+
+def _variants_window(torch):
+    """llama3.2-1b, full width and depth, bf16, ``window`` = its
+    ``long_context_window``: ring caches of ``init_cache(4, 524288)``
+    filled from a seed, then 32 greedy decode steps at ragged positions
+    around 524288, rows 0 and 1 wrapping the ring."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    W = get_config("llama3.2-1b").long_context_window
+    cfg, model, params = _variant_model(torch, "llama3.2-1b", torch.bfloat16,
+                                        window=W)
+    cache = model.init_cache(4, LONG_POS, device="cuda")
+    T = cache[0]["k"].shape[2]
+    check(T == W, f"variants window: ring of {T} rows, not {W}")
+    _fill(torch, cache, 5)
+    pos = torch.tensor([LONG_POS - 5, LONG_POS - 20, LONG_POS + 3,
+                        LONG_POS - 100], dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tok = torch.randint(0, cfg.vocab_size, (4,), generator=gen,
+                        device="cuda")
+    steps = 32
+    wrapping = [b for b in range(4) if (int(pos[b]) // T
+                                        != (int(pos[b]) + steps - 1) // T)]
+    K.reset_launch_counts()
+    with torch.no_grad():
+        logits, _ = model.decode_step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps - 1):
+            pos = pos + 1
+            logits, _ = model.decode_step(params, cache, logits.argmax(-1),
+                                          pos)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    counts = K.launch_counts()
+    check(bool(torch.isfinite(logits.float()).all()),
+          "variants window: logits not finite")
+    check_launched(counts, "variants window", RING_KERNELS,
+                   ("flash_attention",))
+    print(f"[variants] window: {cfg.name} full width and depth, bf16, "
+          f"window {W}: ring caches of {T} rows for batch 4 at max_len "
+          f"{LONG_POS} ({_nbytes(cache) / 1e9:.3f} GB, seeded); {steps} "
+          f"greedy decode steps from positions {LONG_POS - 5}, "
+          f"{LONG_POS - 20}, {LONG_POS + 3}, {LONG_POS - 100} (rows "
+          f"{wrapping} wrap the ring): {ms:.3f} ms per step after the "
+          f"first; kernel launches {counts}")
+    return counts
+
+
+def _variants_window_exact(torch, arch, B=4, S=200, window=256, steps=100):
+    """``arch`` at full width, 2 layers, f32 with TF32 off, ``window``
+    256: prefill B 4 x S 200 through windowed flash, each prefill cache
+    padded into a ring (rows below T are ring rows), then 100 greedy
+    decode steps that wrap the ring; the card against the CPU."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag = f"variants window exact ({arch})"
+    cfg, model, params = _variant_model(torch, arch, torch.float32, layers=2,
+                                        window=window)
+    cpu_params = _to(params, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(8))
+    K.reset_launch_counts()
+    with torch.no_grad():
+        lc, pc = model.prefill(params, tokens.cuda())
+        lr, pr = model.prefill(cpu_params, tokens)
+        err = _logits_close(lc, lr, f"{tag} prefill", VARIANT_LOGIT_TOL)
+        rings = []
+        for c, dev in ((pc, "cuda"), (pr, "cpu")):
+            ring = model.init_cache(B, S + steps, device=dev)
+            for k, leaf in ring[0].items():
+                leaf[:, :, :S] = c[0][k]
+            rings.append(ring)
+        T = next(iter(rings[0][0].values())).shape[2]
+        check(T == window and S < T < S + steps,
+              f"{tag}: a ring of {T} rows does not wrap")
+        worst, ties, _ = _decode_card_vs_cpu(
+            torch, tag, model, params, cpu_params, rings, lr.argmax(-1),
+            torch.full((B,), S, dtype=torch.int32), steps)
+    counts = K.launch_counts()
+    mla = cfg.attention == "mla"
+    check_launched(counts, tag, WINDOW_EXACT[arch], MLA_ABSENT if mla else ())
+    print(f"[variants] window exact: {cfg.name} full width, 2 of "
+          f"{get_config(arch).num_layers} layers, f32, TF32 off, window "
+          f"{window}: "
+          f"prefill {B} x {S} max |d logit| card vs CPU {err:.3e}; "
+          f"{steps} decode steps over a ring of {T} rows (positions {S}.."
+          f"{S + steps - 1}) max |d logit| {worst:.3e} (tolerance "
+          f"{VARIANT_LOGIT_TOL}), {ties} near-ties; kernel launches on the "
+          f"card {counts}")
+    return counts
+
+
+def _prefill_into(torch, model, params, prompts, rows_each, caches, seed,
+                  device):
+    """Prefill ``rows_each`` rows of seeded tokens per prompt length on
+    ``device`` into rows of each cache of ``caches`` (an int8 cache takes
+    ``_quantize_rows`` of the rows): the first greedy tokens (B,) and the
+    positions (B,) int32."""
+    from repro_torch.models.layers import _quantize_rows
+    gen = torch.Generator().manual_seed(seed)
+    first, pos = [], []
+    for i, S in enumerate(prompts):
+        rows = slice(i * rows_each, (i + 1) * rows_each)
+        toks = torch.randint(0, model.cfg.vocab_size, (rows_each, S),
+                             generator=gen).to(device)
+        logits, (pc, _) = model.prefill(params, toks)
+        first.append(logits.argmax(-1))
+        pos += [S] * rows_each
+        for cache in caches:
+            for name in ("k", "v"):
+                if "k_scale" in cache[0]:
+                    q, scale = _quantize_rows(pc[name])
+                    cache[0][name][:, rows, :S] = q
+                    cache[0][f"{name}_scale"][:, rows, :S] = scale
+                else:
+                    cache[0][name][:, rows, :S] = pc[name]
+    return torch.cat(first), torch.tensor(pos, dtype=torch.int32,
+                                          device=device)
+
+
+def _greedy(torch, model, params, cache, tok, pos, steps):
+    """(tokens (B, steps), logits (B, steps, V), ms per step) of
+    ``steps`` greedy decode steps."""
+    toks, logs = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, _ = model.decode_step(params, cache, tok, pos)
+        tok, pos = logits.argmax(-1), pos + 1
+        toks.append(tok)
+        logs.append(logits)
+    torch.cuda.synchronize()
+    return (torch.stack(toks, 1), torch.stack(logs, 1),
+            (time.perf_counter() - t0) * 1e3 / steps)
+
+
+def _variants_int8(torch):
+    """llama3.2-1b, full width and depth, bf16: prefill 8 rows over
+    prompts {64, 128, 256, 384} into an exact cache and into an int8 one
+    (``kv_quant``, ``init_cache(8, 1024)``), one layer's attention over
+    each, then 64 greedy decode steps from each. Then 2 layers in f32,
+    TF32 off: the int8 path on the card against the CPU."""
+    import repro_torch.kernels as K
+    from repro_torch.models import Model, RuntimeFlags
+    from repro_torch.models import layers as L
+    bf16 = torch.bfloat16
+    cfg, exact_m, params = _variant_model(torch, "llama3.2-1b", bf16)
+    quant_m = Model(cfg, RuntimeFlags(dtype=bf16, kv_quant=True))
+    exact = exact_m.init_cache(8, 1024, device="cuda")
+    quant = quant_m.init_cache(8, 1024, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    steps = 64
+    K.reset_launch_counts()
+    with torch.no_grad():
+        first, pos = _prefill_into(torch, exact_m, params, (64, 128, 256, 384),
+                                   2, (exact, quant), 9, "cuda")
+        attn = exact_m.layer_params(params)[0]["attn"]
+        x = torch.randn((8, cfg.d_model), generator=gen,
+                        device="cuda").to(bf16)
+        ye, _ = L.apply_attention_decode(
+            attn, x, {k: v[0].clone() for k, v in exact[0].items()}, pos, cfg)
+        yq, _ = L.apply_attention_decode(
+            attn, x, {k: v[0].clone() for k, v in quant[0].items()}, pos, cfg)
+        attn_err = (yq.float() - ye.float()).abs().max().item()
+        check(bool(torch.allclose(yq.float(), ye.float(), **INT8_ATTN_TOL)),
+              f"variants int8 kv: layer 0's attention over the int8 cache "
+              f"is not within {INT8_ATTN_TOL} of the exact cache's (max "
+              f"|d| {attn_err:.3e})")
+        te, le, ms_e = _greedy(torch, exact_m, params, exact, first, pos,
+                               steps)
+        tq, lq, ms_q = _greedy(torch, quant_m, params, quant, first, pos,
+                               steps)
+    counts = K.launch_counts()
+    check_launched(counts, "variants int8 kv", LLAMA_KERNELS)
+    same = (tq == te)
+    # a step's logits compare while the row's tokens so far agree
+    agree = torch.cat([torch.ones_like(same[:, :1]),
+                       same[:, :-1].int().cumprod(1).bool()], 1)
+    d = (lq.float() - le.float()).abs().amax(-1)
+    print(f"[variants] int8 kv: {cfg.name} full width and depth, bf16, "
+          f"prompts 64/128/256/384 x 2 rows, init_cache(8, 1024): cache "
+          f"bytes int8 + scales {_nbytes(quant)} vs bf16 {_nbytes(exact)} "
+          f"({_nbytes(quant) / _nbytes(exact):.4f}); layer 0's attention "
+          f"max |d| {attn_err:.3e} (within {INT8_ATTN_TOL}); {steps} greedy "
+          f"steps: ms per step int8 {ms_q:.3f} vs bf16 {ms_e:.3f}; greedy "
+          f"tokens equal {same.float().mean().item():.4f}; max |d logit| "
+          f"{d[:, 0].max().item():.4f} at the first step, "
+          f"{d[agree].max().item():.4f} while the tokens agree; kernel "
+          f"launches {counts}")
+    del exact, quant, te, le, tq, lq, params
+    torch.cuda.empty_cache()
+    # float32, 2 layers: the card against the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag = "variants int8 kv exact"
+    cfg2, qm, p2 = _variant_model(torch, "llama3.2-1b", torch.float32,
+                                  layers=2, kv_quant=True)
+    plain = Model(cfg2, RuntimeFlags(dtype=torch.float32))
+    cpu_p = _to(p2, "cpu")
+    K.reset_launch_counts()
+    with torch.no_grad():
+        caches = []
+        for params_, dev in ((p2, "cuda"), (cpu_p, "cpu")):
+            cache = qm.init_cache(8, 1024, device=dev)
+            first, pos = _prefill_into(torch, plain, params_, (64, 128),
+                                       4, (cache,), 10, dev)
+            caches.append(cache)
+        prefill_apart = _int8_apart(torch, caches[0], caches[1], tag)
+        worst, ties, apart = _decode_card_vs_cpu(
+            torch, tag, qm, p2, cpu_p, caches, first.cpu(), pos.cpu(), 16)
+    counts2 = K.launch_counts()
+    n_int8 = sum(t.numel() for t in (caches[0][0]["k"], caches[0][0]["v"]))
+    print(f"[variants] int8 kv exact: {cfg2.name} full width, 2 layers, "
+          f"f32, TF32 off, prompts 64/128 x 4 rows, 16 decode steps: int8 "
+          f"entries a level apart card vs CPU {prefill_apart} after the "
+          f"prefill, {apart} after the steps (of {n_int8}; none further); "
+          f"max |d logit| {worst:.3e} (tolerance {VARIANT_LOGIT_TOL}, "
+          f"{INT8_LOGIT_TOL} once an entry is a level apart), {ties} "
+          f"near-ties; kernel launches on the card {counts2}")
+    return {k: counts[k] + counts2[k] for k in counts}
+
+
+def _variants_absorbed(torch):
+    """minicpm3-4b, full width and depth, bf16: prefill 4 x 512 with and
+    without ``mla_absorbed`` (in turns), flash absent on the absorbed path.
+    Then 2 layers in f32, TF32 off: the absorbed prefill on the card
+    against the CPU, without a window and with 256."""
+    import repro_torch.kernels as K
+    from repro_torch.models import Model, RuntimeFlags
+    bf16 = torch.bfloat16
+    cfg, plain_m, params = _variant_model(torch, "minicpm3-4b", bf16)
+    abs_m = Model(cfg, RuntimeFlags(dtype=bf16, mla_absorbed=True))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 512), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(11))
+    times = {"plain": [], "absorbed": []}
+    logits, counts = {}, {}
+    with torch.no_grad():
+        for m, name in ((plain_m, "plain"), (abs_m, "absorbed")):
+            m.prefill(params, tokens)                   # warm
+        for m, name in ((plain_m, "plain"), (abs_m, "absorbed"),
+                        (abs_m, "absorbed"), (plain_m, "plain")):
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[name], _ = m.prefill(params, tokens)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            counts[name] = K.launch_counts()
+    check_launched(counts["absorbed"], "variants mla absorbed",
+                   ("fused_rmsnorm",), ("flash_attention",))
+    check_launched(counts["plain"], "variants mla (flash)", MLA_KERNELS)
+    diff = (logits["absorbed"].float() - logits["plain"].float()).abs()
+    check(bool(torch.isfinite(logits["absorbed"].float()).all()),
+          "variants mla absorbed: logits not finite")
+    print(f"[variants] mla absorbed: {cfg.name} full width and depth, bf16, "
+          f"prefill 4 x 512: absorbed {statistics.mean(times['absorbed']):.2f}"
+          f" ms vs flash {statistics.mean(times['plain']):.2f} ms (host "
+          f"clock, synchronized, in turns flash, absorbed, absorbed, flash: "
+          f"{[round(t, 2) for t in times['plain']]} / "
+          f"{[round(t, 2) for t in times['absorbed']]}); last-token logits "
+          f"max |d| {diff.max().item():.4f}; kernel launches absorbed "
+          f"{counts['absorbed']}, flash path {counts['plain']}")
+    del params, logits
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg2, _, p2 = _variant_model(torch, "minicpm3-4b", torch.float32,
+                                 layers=2)
+    cpu_p = _to(p2, "cpu")
+    tokens = torch.randint(0, cfg2.vocab_size, (2, 512),
+                           generator=torch.Generator().manual_seed(12))
+    all_counts = dict(counts["absorbed"])
+    for window in (None, 256):
+        tag = f"variants mla absorbed exact (window {window})"
+        m = Model(cfg2, RuntimeFlags(dtype=torch.float32, mla_absorbed=True,
+                                     window=window))
+        K.reset_launch_counts()
+        with torch.no_grad():
+            lc, (cc, _) = m.prefill(p2, tokens.cuda())
+            lr, (cr, _) = m.prefill(cpu_p, tokens)
+        wc = K.launch_counts()
+        check_launched(wc, tag, ("fused_rmsnorm",), ("flash_attention",))
+        err = _logits_close(lc, lr, tag, VARIANT_LOGIT_TOL)
+        cerr = max((cc[k].cpu() - cr[k]).abs().max().item() for k in cc)
+        check(cerr <= VARIANT_LOGIT_TOL, f"{tag}: latent cache card vs CPU "
+                                         f"max |d| {cerr:.3e}")
+        all_counts = {k: all_counts[k] + wc[k] for k in all_counts}
+        print(f"[variants] mla absorbed exact: {cfg2.name} full width, 2 "
+              f"layers, f32, TF32 off, prefill 2 x 512, window {window}: "
+              f"max |d logit| card vs CPU {err:.3e}, latent cache {cerr:.3e} "
+              f"(tolerance {VARIANT_LOGIT_TOL}); kernel launches on the card "
+              f"{wc}")
+    return all_counts
+
+
+class _MoEDrops:
+    """Counts the (token, expert) pairs that ``apply_moe`` drops at
+    capacity while the ``with`` block runs, from its routing recomputed
+    on its inputs (the port's own ``apply_moe`` stays free of host
+    syncs)."""
+
+    def __enter__(self):
+        import torch
+        import repro_torch.models.moe as MOE
+        self.mod, self.orig = MOE, MOE.apply_moe
+        self.dropped = self.pairs = 0
+
+        def counted(p, x, cfg, *, with_aux=False, group_rows=1):
+            B, S, d = x.shape
+            g = max(1, min(group_rows, B))
+            xg = x.reshape(B // g, g * S, d)
+            probs = torch.softmax(xg.float() @ p["router"], dim=-1)
+            top_e = torch.topk(probs, cfg.moe.experts_per_token,
+                               dim=-1).indices
+            keep = MOE._dispatch_indices(top_e.reshape(B // g, -1),
+                                         MOE.capacity(cfg, g * S))[3]
+            self.dropped += int((~keep).sum())
+            self.pairs += keep.numel()
+            return self.orig(p, x, cfg, with_aux=with_aux,
+                             group_rows=group_rows)
+
+        MOE.apply_moe = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.apply_moe = self.orig
+        return False
+
+
+def _variants_moe(torch):
+    """granite-moe-3b-a800m at full width. 2 of 32 layers in f32, TF32
+    off, the card against the CPU: a decode step at B 8 in routing groups
+    of 4 rows (capacity 1: pairs drop) over a seeded cache, and prefill 4
+    x 64 in groups of 2. Then full depth in bf16: one decode step at B 8
+    in groups of 4, timed."""
+    import repro_torch.kernels as K
+    from repro_torch.models import Model, RuntimeFlags
+    from repro_torch.models.moe import capacity
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag = "variants moe groups"
+    cfg, m4, p2 = _variant_model(torch, "granite-moe-3b-a800m", torch.float32,
+                                 layers=2, moe_group_rows=4)
+    m2 = Model(cfg, RuntimeFlags(dtype=torch.float32, moe_group_rows=2))
+    cpu_p = _to(p2, "cpu")
+    cache = m4.init_cache(8, 128, device="cuda")
+    _fill(torch, cache, 13)
+    cpu_cache = _to(cache, "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (8,),
+                        generator=torch.Generator().manual_seed(14))
+    pos = torch.tensor([3, 17, 40, 63, 64, 90, 100, 127], dtype=torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64),
+                           generator=torch.Generator().manual_seed(15))
+    K.reset_launch_counts()
+    with torch.no_grad():
+        with _MoEDrops() as dec_drops:
+            lc, _ = m4.decode_step(p2, cache, tok.cuda(), pos.cuda())
+        lr, _ = m4.decode_step(cpu_p, cpu_cache, tok, pos)
+        derr = _logits_close(lc, lr, f"{tag} decode", VARIANT_LOGIT_TOL)
+        with _MoEDrops() as pre_drops:
+            pc, _ = m2.prefill(p2, tokens.cuda())
+        pr, _ = m2.prefill(cpu_p, tokens)
+        perr = _logits_close(pc, pr, f"{tag} prefill", VARIANT_LOGIT_TOL)
+    counts = K.launch_counts()
+    check_launched(counts, tag, LLAMA_KERNELS)
+    check(dec_drops.dropped > 0, f"{tag}: no pair dropped at capacity "
+                                 f"{capacity(cfg, 4)} in the decode step")
+    print(f"[variants] moe groups: {cfg.name} full width, 2 of 32 layers, "
+          f"f32, TF32 off: decode_step B 8 in groups of 4 rows (capacity "
+          f"{capacity(cfg, 4)}): {dec_drops.dropped} of {dec_drops.pairs} "
+          f"(token, expert) pairs dropped, max |d logit| card vs CPU "
+          f"{derr:.3e}; prefill 4 x 64 in groups of 2 rows (capacity "
+          f"{capacity(cfg, 128)}): {pre_drops.dropped} of {pre_drops.pairs} "
+          f"dropped, max |d logit| {perr:.3e} (tolerance "
+          f"{VARIANT_LOGIT_TOL}); kernel launches on the card {counts}")
+    del p2, cache
+    torch.cuda.empty_cache()
+    cfg, model, params = _variant_model(torch, "granite-moe-3b-a800m",
+                                        torch.bfloat16, moe_group_rows=4)
+    cache = model.init_cache(8, 256, device="cuda")
+    _fill(torch, cache, 16)
+    tok, pos = tok.cuda(), pos.cuda()
+    K.reset_launch_counts()
+    with torch.no_grad():
+        model.decode_step(params, cache, tok, pos)        # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.decode_step(params, cache, tok, pos + 1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    full = K.launch_counts()
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{tag}: full-depth logits not finite")
+    check_launched(full, f"{tag} (full depth)", RING_KERNELS,
+                   ("flash_attention",))
+    print(f"[variants] moe groups: {cfg.name} full width and depth, bf16: "
+          f"one decode_step at B 8 in groups of 4 rows {ms:.3f} ms (after "
+          f"one warm step); kernel launches {full}")
+    return {k: counts[k] + full[k] for k in counts}
+
+
+def phase_variants(torch):
+    """The port's ``RuntimeFlags`` variants through the ``Model`` API at
+    full width: ``window`` (ring caches; windowed flash at D 64 and at
+    MLA's 96 / 64; the MLA ring decode), ``kv_quant``, ``mla_absorbed``
+    and ``moe_group_rows``; every float32 part against the port on the
+    CPU (plain versions)."""
+    parts = [_variants_window(torch)]
+    parts += [_variants_window_exact(torch, arch) for arch in WINDOW_EXACT]
+    parts += [_variants_int8(torch), _variants_absorbed(torch),
+              _variants_moe(torch)]
+    total = {k: sum(c[k] for c in parts) for k in parts[0]}
+    print(f"[variants] kernel launches in this phase (card runs only): "
+          f"{total}")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2204,6 +2757,9 @@ def main() -> int:
                    LLAMA_KERNELS, (64, 128, 256, 384))
     rx_counts = run(phase_exact, torch, "recurrentgemma-9b", "rgemma exact",
                     LLAMA_KERNELS, (64, 128, 256, 384))
+    # the RuntimeFlags variants through the Model API; their launches stay
+    # on the phase's own line
+    run(phase_variants, torch)
     # the port's entry points: the launcher (faults, then two tenants) and
     # the HTTP/SSE gateway
     run(phase_launch_serve, torch)
@@ -2217,7 +2773,8 @@ def main() -> int:
     PHASE[0] = "result"
     print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact, "
           f"nemo serve, nemo exact, minicpm serve, minicpm exact, granite "
-          f"serve, granite exact, rgemma serve, rgemma exact, launch serve, "
+          f"serve, granite exact, rgemma serve, rgemma exact, variants, "
+          f"launch serve, "
           f"launch tenants, gateway, train, train exact, train mamba in "
           f"{time.perf_counter() - t_all:.1f} s")
     counts["ssd_chunked"] = m_counts["ssd_chunked"]

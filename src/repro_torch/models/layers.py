@@ -1,5 +1,6 @@
 """Core transformer layers of the port: RMSNorm, RoPE, SwiGLU MLP, GQA
-(with an optional sliding window) and MLA attention.
+(with an optional sliding window and an optional int8 K/V cache) and MLA
+attention (with a window, absorbed prefill in the latent space).
 
 ``repro.models.layers`` in PyTorch. Layers are plain functions over
 parameter dicts laid out exactly as the JAX package lays them out —
@@ -22,6 +23,7 @@ from typing import Optional
 import torch
 
 from ..kernels import flash_attention, fused_rmsnorm, ragged_decode_attention
+from ..kernels.flash_attn import pick_chunk
 from ..kernels.rmsnorm import row_stride
 
 # ---------------------------------------------------------------------------
@@ -189,12 +191,20 @@ def apply_attention_decode(p: dict, x: torch.Tensor, cache: dict,
     as int32) are the same for every layer of a step: a span passes them
     in once, and they are computed here when absent.
 
-    ``window`` (the hybrid's local attention, without ``slots`` only): the
-    cache is a ring buffer of T time rows, as the JAX model's — the token
-    goes to row ``pos % T`` and rows ``[0, min(pos + 1, T))`` are read.
-    The slot arena is never a ring: the JAX engine builds it at
-    ``max_len`` and its decode then reads every earlier token, and so does
-    this one (``lengths`` stay ``pos + 1``)."""
+    ``window`` (without ``slots`` only): the cache is a ring buffer of T
+    time rows, as the JAX model's — the token goes to row ``pos % T`` and
+    rows ``[0, min(pos + 1, T))`` are read. The slot arena is never a
+    ring: the JAX engine builds it at ``max_len`` and its decode then
+    reads every earlier token, and so does this one (``lengths`` stay
+    ``pos + 1``).
+
+    An int8 cache (``"k_scale"`` in it, ``init_attention_cache(quant=
+    True)``) takes the new row through :func:`_quantize_rows` and its
+    scale, under the same ring and ``slots`` rules. The rows read (the
+    gathered arena rows, only ``ctx`` of them, with ``slots``) are then
+    dequantized into the model dtype, ``int8 * scale`` with the scale cast
+    first, as the reference does, and attended by the same kernel: its
+    plain version is the reference's gathered decode."""
     B, d = x.shape
     ring = window is not None and slots is None
     T = cache["k"].shape[1]
@@ -209,19 +219,58 @@ def apply_attention_decode(p: dict, x: torch.Tensor, cache: dict,
                else torch.arange(B, device=x.device))[:n]
     t_idx = (pos % T if ring else pos)[:n]
     ck, cv = cache["k"], cache["v"]
-    ck[row_idx, t_idx] = k[:n].to(ck.dtype)
-    cv[row_idx, t_idx] = v[:n].to(cv.dtype)
-    out = ragged_decode_attention(q.contiguous(), ck, cv, lengths,
-                                  slots=slots, ctx=ctx)
+    if "k_scale" not in cache:
+        ck[row_idx, t_idx] = k[:n].to(ck.dtype)
+        cv[row_idx, t_idx] = v[:n].to(cv.dtype)
+        out = ragged_decode_attention(q.contiguous(), ck, cv, lengths,
+                                      slots=slots, ctx=ctx)
+        return _out_proj(out, p["wo"]), cache
+    for name, new in (("k", k), ("v", v)):
+        vals, scale = _quantize_rows(new[:n])
+        cache[name][row_idx, t_idx] = vals
+        cache[f"{name}_scale"][row_idx, t_idx] = scale
+    rows = (slice(None) if slots is None
+            else torch.clamp(slots, max=ck.shape[0] - 1))
+    span = T if ctx is None or slots is None else min(ctx, T)
+    ck, cv = (cache[name][rows, :span].to(x.dtype)
+              * cache[f"{name}_scale"][rows, :span, :, None].to(x.dtype)
+              for name in ("k", "v"))
+    out = ragged_decode_attention(q.contiguous(), ck.contiguous(),
+                                  cv.contiguous(), lengths)
     return _out_proj(out, p["wo"]), cache
 
 
+def _quantize_rows(x: torch.Tensor):
+    """x (..., D) -> (int8 values, float32 scale (...,)): the reference's
+    symmetric quantization op for op — max |x| / 127 in float32, floored
+    at 1e-8, then ``round(x / scale)`` (half to even, as ``jnp.round``)
+    clipped to ±127."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def init_attention_cache(cfg, batch: int, max_len: int, dtype,
-                         device, window: Optional[int] = None) -> dict:
+                         device, window: Optional[int] = None,
+                         quant: bool = False) -> dict:
     """Zeroed K/V of ``min(max_len, window)`` time rows (a ring buffer
-    with a ``window``, as the JAX model's)."""
+    with a ``window``, as the JAX model's); with ``quant`` int8 K/V and a
+    float32 scale per (row, time, kv head), ``"k_scale"`` and
+    ``"v_scale"``."""
     T = min(max_len, window) if window else max_len
     kv, hd = cfg.num_kv_heads, cfg.head_dim
+    if quant:
+        return {
+            "k": torch.zeros((batch, T, kv, hd), dtype=torch.int8,
+                             device=device),
+            "v": torch.zeros((batch, T, kv, hd), dtype=torch.int8,
+                             device=device),
+            "k_scale": torch.zeros((batch, T, kv), dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros((batch, T, kv), dtype=torch.float32,
+                                   device=device),
+        }
     return {
         "k": torch.zeros((batch, T, kv, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, T, kv, hd), dtype=dtype, device=device),
@@ -278,35 +327,83 @@ def _mla_latent(p: dict, x: torch.Tensor, cfg, rope):
     return ckv, rotate(kv[..., None, R:], rope)[..., 0, :]
 
 
-def apply_mla_dense(p: dict, x: torch.Tensor, cfg, *, rope=None):
-    """Full-sequence MLA (prefill), non-absorbed: per-head keys and values
+def apply_mla_dense(p: dict, x: torch.Tensor, cfg, *, rope=None,
+                    window: Optional[int] = None, absorbed: bool = False,
+                    chunk: int = 2048):
+    """Full-sequence MLA (prefill). Non-absorbed: per-head keys and values
     expanded from the latent through ``wkv_b``, then causal attention
     through the flash kernel with q and k at nope + rope columns and v at
     ``v_head_dim`` (MiniCPM3: 96 and 64), scaled by 1 / sqrt(nope +
-    rope). ``rope``: the ``mla_rope_tables`` of the positions, by default
-    those of 0..S-1. Returns (out, {"ckv": (B, S, kv_lora), "krope": (B,
-    S, rope)})."""
+    rope). ``absorbed``: attention in the latent space instead
+    (:func:`_mla_absorbed_attention`, PyTorch ops, no flash, in query
+    chunks of ``pick_chunk(S, chunk)``). ``window``: a sliding window
+    (query i attends keys > i - window). ``rope``: the
+    ``mla_rope_tables`` of the positions, by default those of 0..S-1.
+    Returns (out, {"ckv": (B, S, kv_lora), "krope": (B, S, rope)})."""
     m = cfg.mla
     if rope is None:
         rope = mla_rope_tables(
             torch.arange(x.shape[1], device=x.device)[None, :], cfg)
     q_nope, q_rope = _mla_q(p, x, cfg, rope)
     ckv, k_rope = _mla_latent(p, x, cfg, rope)
+    if absorbed:
+        out = _mla_absorbed_attention(p, q_nope, q_rope, ckv, k_rope, cfg,
+                                      window, chunk)
+        return _out_proj(out, p["wo"]), {"ckv": ckv, "krope": k_rope}
     kvb = _proj(ckv, p["wkv_b"])
     k_nope = kvb[..., :m.qk_nope_head_dim]
     value = kvb[..., m.qk_nope_head_dim:]
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         *k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
-    out = flash_attention(q, k, value.contiguous())
+    out = flash_attention(q, k, value.contiguous(), window=window)
     return _out_proj(out, p["wo"]), {"ckv": ckv, "krope": k_rope}
+
+
+def _mla_absorbed_attention(p: dict, q_nope, q_rope, ckv, k_rope, cfg,
+                            window: Optional[int], chunk: int):
+    """The reference's latent-space MLA prefill: q_nope absorbed through
+    ``wkv_b``'s key half into the latent (B, S, H, kv_lora), then one pass
+    per query chunk (``pick_chunk(S, chunk)``; the model passes 2048, the
+    JAX model's default ``attn_chunk``) over the keys it can see, with its
+    dtype sequence — the two score products in the model dtype and their
+    sum, float32 scale, mask and softmax, probabilities in the model dtype
+    — and the context taken back out through ``wkv_b``'s value half.
+    Returns (B, S, H, v_head_dim)."""
+    m = cfg.mla
+    S = q_nope.shape[1]
+    wkv_b_k = p["wkv_b"][..., :m.qk_nope_head_dim]          # (R, H, nope)
+    wkv_b_v = p["wkv_b"][..., m.qk_nope_head_dim:]          # (R, H, v)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wkv_b_k)
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    c = pick_chunk(S, chunk)
+    outs = []
+    for i in range(S // c):
+        hi = (i + 1) * c
+        lo = 0 if window is None else max(0, hi - c - window)
+        ckv_i = ckv[:, lo:hi]
+        scores = (torch.einsum("bshr,btr->bhst", q_lat[:, i * c:hi], ckv_i)
+                  + torch.einsum("bshp,btp->bhst", q_rope[:, i * c:hi],
+                                 k_rope[:, lo:hi]))
+        scores = scores.to(torch.float32) * scale
+        qpos = i * c + torch.arange(c, device=ckv.device)
+        kpos = lo + torch.arange(hi - lo, device=ckv.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        probs = torch.softmax(scores, dim=-1).to(ckv.dtype)
+        ctx = torch.einsum("bhst,btr->bshr", probs, ckv_i)
+        outs.append(torch.einsum("bshr,rhv->bshv", ctx, wkv_b_v))
+    return torch.cat(outs, dim=1)
 
 
 def apply_mla_decode(p: dict, x: torch.Tensor, cache: dict,
                      pos: torch.Tensor, cfg, *,
                      slots: Optional[torch.Tensor] = None,
                      ctx: Optional[int] = None,
-                     live: Optional[int] = None, rope=None):
+                     live: Optional[int] = None, rope=None,
+                     window: Optional[int] = None):
     """Absorbed-matmul MLA decode over the latent cache, in PyTorch ops
     (the JAX model computes it with jnp outside any Pallas kernel).
 
@@ -316,12 +413,16 @@ def apply_mla_decode(p: dict, x: torch.Tensor, cache: dict,
     the first ``live`` rows (padding rows past them carry an out-of-range
     slot: their writes are skipped, their reads clamped). ``ctx`` (with
     ``slots``, below T) bounds the scored time rows to a context bucket,
-    as in the JAX model. The dtype sequence is the reference's: the two
-    score products in the model dtype, their sum, then float32 for the
-    softmax. ``rope``: the ``mla_rope_tables`` of ``pos``."""
+    as in the JAX model. ``window`` (without ``slots`` only, as in
+    :func:`apply_attention_decode`): the cache is a ring of T rows, the
+    latent row goes to ``pos % T`` and rows ``[0, min(pos + 1, T))`` are
+    scored. The dtype sequence is the reference's: the two score products
+    in the model dtype, their sum, then float32 for the softmax.
+    ``rope``: the ``mla_rope_tables`` of ``pos``."""
     m = cfg.mla
     B, d = x.shape
     T = cache["ckv"].shape[1]
+    ring = window is not None and slots is None
     if ctx is not None and (slots is None or ctx >= T):
         ctx = None
     if rope is None:
@@ -332,8 +433,9 @@ def apply_mla_decode(p: dict, x: torch.Tensor, cache: dict,
     row_idx = (slots if slots is not None
                else torch.arange(B, device=x.device))[:n]
     ckv_full, krope_full = cache["ckv"], cache["krope"]
-    ckv_full[row_idx, pos[:n]] = ckv_t[:n].to(ckv_full.dtype)
-    krope_full[row_idx, pos[:n]] = krope_t[:n].to(krope_full.dtype)
+    t_idx = (pos % T if ring else pos)[:n]
+    ckv_full[row_idx, t_idx] = ckv_t[:n].to(ckv_full.dtype)
+    krope_full[row_idx, t_idx] = krope_t[:n].to(krope_full.dtype)
     if slots is None:
         ckv, krope = ckv_full, krope_full
     else:
@@ -349,7 +451,8 @@ def apply_mla_decode(p: dict, x: torch.Tensor, cache: dict,
               + torch.einsum("bhp,btp->bht", q_rope, krope)
               ).to(torch.float32) * scale
     t_idx = torch.arange(ckv.shape[1], device=x.device)[None, :]
-    valid = t_idx <= pos[:, None]
+    valid = (t_idx < torch.clamp(pos[:, None] + 1, max=T) if ring
+             else t_idx <= pos[:, None])
     scores = torch.where(valid[:, None, :], scores,
                          torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
@@ -358,11 +461,15 @@ def apply_mla_decode(p: dict, x: torch.Tensor, cache: dict,
     return _out_proj(out, p["wo"]), cache
 
 
-def init_mla_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
+def init_mla_cache(cfg, batch: int, max_len: int, dtype, device,
+                   window: Optional[int] = None) -> dict:
+    """Zeroed latent cache of ``min(max_len, window)`` time rows (a ring
+    with a ``window``)."""
     m = cfg.mla
+    T = min(max_len, window) if window else max_len
     return {
-        "ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+        "ckv": torch.zeros((batch, T, m.kv_lora_rank), dtype=dtype,
                            device=device),
-        "krope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+        "krope": torch.zeros((batch, T, m.qk_rope_head_dim),
                              dtype=dtype, device=device),
     }

@@ -27,11 +27,14 @@ last whole group as a tail: ``params["blocks"]`` holds one entry
 ``params["tail"]`` the tail's blocks, stacked — the JAX layout. The JAX
 package scans homogeneous layer stacks with ``lax.scan``; here a span is
 a Python loop over per-layer parameter views, and the flat slot arena is
-updated in place. The ``RuntimeFlags`` variants of the JAX model are not
-ported yet.
+updated in place. The ``RuntimeFlags`` variants that change what the JAX
+model computes — ``window``, ``kv_quant``, ``mla_absorbed`` and
+``moe_group_rows`` — are ported, and only the ``Model`` API reaches them:
+the engine builds its model with ``dtype`` alone, as ``JaxEngine`` does.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
@@ -48,7 +51,32 @@ from . import ssm as SSM
 
 @dataclass(frozen=True)
 class RuntimeFlags:
+    """The JAX ``RuntimeFlags`` that change the model's arithmetic, with
+    their defaults:
+
+      * ``window``: a sliding window for dense, MoE and MLA stacks —
+        prefill attends keys > i - window, decode caches are rings of
+        ``min(max_len, window)`` rows (the ``long_500k`` serve step). A
+        hybrid keeps its ``local_window`` and ignores it, and ``loss``
+        passes no window, as in JAX;
+      * ``kv_quant``: int8 K/V caches for GQA blocks (dense, MoE and the
+        hybrid's local attention) with a float32 scale per (token, kv
+        head); a prefill cache stays unquantized;
+      * ``mla_absorbed``: MLA prefill (and ``loss``) in the latent space;
+      * ``moe_group_rows``: batch rows per MoE routing group.
+
+    The JAX fields with no counterpart: ``grouped_decode`` and
+    ``pallas_decode`` (this decode never repeats K/V heads and always
+    takes the ragged-decode kernel on the card), ``attn_chunk`` (flash
+    computes the same function unchunked; the absorbed MLA loop chunks at
+    the JAX default 2048), ``use_scan`` and ``scan_unroll`` (XLA compile
+    settings), ``remat`` and ``remat_policy`` (not ported: they go with
+    the sharded trainer)."""
     dtype: torch.dtype = torch.bfloat16
+    window: Optional[int] = None
+    kv_quant: bool = False
+    mla_absorbed: bool = False
+    moe_group_rows: int = 1
 
 
 def _stack_into(stacked, tree, i: int, n: int):
@@ -225,8 +253,13 @@ class Model:
 
     def _window(self, kind: str) -> Optional[int]:
         """The sliding window of ``kind``'s attention: the hybrid's
-        ``local_window`` for its ``"attn"`` blocks, else none."""
-        return self.cfg.hybrid.local_window if kind == "attn" else None
+        ``local_window`` for its ``"attn"`` blocks, ``flags.window`` for
+        dense, MoE and MLA blocks, none for SSM and RG-LRU blocks."""
+        if kind == "attn":
+            return self.cfg.hybrid.local_window
+        if kind in ("dense", "moe", "mla"):
+            return self.flags.window
+        return None
 
     # ------------------------------------------------------------------
     # Single-block application
@@ -242,16 +275,20 @@ class Model:
 
     def _ffn(self, bp: dict, x, aux: Optional[list] = None):
         """ln2 and the block's FFN: the MoE on (B, S, d) rows (a decode
-        row (B, d) is a group of one token), else the SwiGLU MLP. With an
+        row (B, d) is one token of S 1), routed in groups of
+        ``flags.moe_group_rows`` rows, else the SwiGLU MLP. With an
         ``aux`` list, the MoE appends its load-balance loss to it."""
         h = L.rms_norm(x, bp["ln2"], self.cfg.norm_eps)
         if "moe" not in bp:
             return L.apply_mlp(bp["mlp"], h)
+        rows = self.flags.moe_group_rows
         if h.dim() == 2:
-            return MOE.apply_moe(bp["moe"], h[:, None, :], self.cfg)[:, 0]
+            return MOE.apply_moe(bp["moe"], h[:, None, :], self.cfg,
+                                 group_rows=rows)[:, 0]
         if aux is None:
-            return MOE.apply_moe(bp["moe"], h, self.cfg)
-        y, a = MOE.apply_moe(bp["moe"], h, self.cfg, with_aux=True)
+            return MOE.apply_moe(bp["moe"], h, self.cfg, group_rows=rows)
+        y, a = MOE.apply_moe(bp["moe"], h, self.cfg, with_aux=True,
+                             group_rows=rows)
         aux.append(a)
         return y
 
@@ -261,7 +298,9 @@ class Model:
         """One prefill block of ``kind``; ``rope``: the RoPE tables of
         the positions (``_rope``), by default those of 0..S-1 (attention
         blocks only); ``aux``: a list that collects an MoE block's
-        load-balance loss (training)."""
+        load-balance loss (training). Attention takes ``_window(kind)``,
+        MLA ``flags.mla_absorbed``."""
+        window = self._window(kind)
         cfg = self.cfg
         if kind == "ssm":
             h, cache = SSM.apply_ssm_dense(
@@ -271,10 +310,12 @@ class Model:
         if kind == "rec":
             h, cache = RG.apply_rglru_dense(bp["rec"], xn, cfg)
         elif kind == "mla":
-            h, cache = L.apply_mla_dense(bp["attn"], xn, cfg, rope=rope)
+            h, cache = L.apply_mla_dense(bp["attn"], xn, cfg, rope=rope,
+                                         window=window,
+                                         absorbed=self.flags.mla_absorbed)
         else:
             h, kv = L.apply_attention_dense(bp["attn"], xn, cfg, rope=rope,
-                                            window=self._window(kind))
+                                            window=window)
             cache = {"k": kv[0], "v": kv[1]}
         x = x + h
         x = x + self._ffn(bp, x, aux)
@@ -287,8 +328,8 @@ class Model:
         place. ``live`` counts the real (non-padding) rows; for attention,
         ``ctx`` bounds plain-version reads to a context bucket and
         ``rope``/``lengths`` carry the step's per-position tensors — see
-        ``layers.apply_attention_decode`` (an ``"attn"`` block's cache is a
-        ring of its window without ``slots``; the arena is not). SSM and
+        ``layers.apply_attention_decode`` (an attention cache is a ring of
+        its ``_window`` without ``slots``; the arena is not). SSM and
         RG-LRU blocks gather their rows, step the recurrence and write the
         live rows back."""
         cfg = self.cfg
@@ -310,7 +351,7 @@ class Model:
         if kind == "mla":
             h, cache = L.apply_mla_decode(
                 bp["attn"], xn, cache, pos, cfg, slots=slots, ctx=ctx,
-                live=live, rope=rope)
+                live=live, rope=rope, window=self._window(kind))
         else:
             h, cache = L.apply_attention_decode(
                 bp["attn"], xn, cache, pos, cfg, slots=slots, ctx=ctx,
@@ -425,12 +466,16 @@ class Model:
         and dropped before the head; float32 logits; ``ce`` the mean
         token cross-entropy, ``aux`` the MoE blocks' load-balance losses
         summed over layers (0 for other stacks); loss = ce + 0.01 * aux.
-        No decode cache is built."""
+        No decode cache is built. ``flags.window`` does not apply (the
+        JAX loss passes none); ``mla_absorbed`` and ``moe_group_rows``
+        do."""
         cfg = self.cfg
         prefix = batch.get("prefix")
         x = self._embed_with_prefix(params, batch["tokens"], prefix)
         auxs = []
-        x, _ = self._run_dense(params, x, return_cache=False, aux=auxs)
+        run = self if self.flags.window is None else Model(
+            cfg, dataclasses.replace(self.flags, window=None))
+        x, _ = run._run_dense(params, x, return_cache=False, aux=auxs)
         if prefix is not None:
             x = x[:, prefix.shape[1]:]
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -452,9 +497,10 @@ class Model:
         ``({"b{i}_{kind}": the layer cache stacked over the groups, ...},
         [the tail's layer caches])`` — RG-LRU ``{"state": (B, w), "conv":
         (B, W-1, w)}``, local attention ``{"k": (B, S, KV, hd), "v": ...}``
-        (every prompt row, as the JAX model keeps them). ``prefix`` (B, P,
-        d): embeddings before the tokens, as in :meth:`loss`; the cache
-        then covers P + S positions."""
+        (every prompt row, as the JAX model keeps them; so does a
+        ``flags.window`` stack, whose attention is windowed). ``prefix``
+        (B, P, d): embeddings before the tokens, as in :meth:`loss`; the
+        cache then covers P + S positions."""
         cfg = self.cfg
         x = self._embed_with_prefix(params, tokens, prefix)
         x, caches = self._run_dense(params, x, return_cache=True)
@@ -469,14 +515,16 @@ class Model:
 
     def decode_step(self, params, cache, token, pos):
         """token: (B,) int; pos: (B,) int ragged positions. Returns
-        (logits (B, V), cache) — the cache is updated in place. A hybrid's
-        local attention reads its cache as a ring of its time rows, as the
-        JAX model does."""
+        (logits (B, V), cache) — the cache is updated in place. A windowed
+        attention cache (a hybrid's local attention, or any attention
+        stack under ``flags.window``) is read as a ring of its time rows,
+        as the JAX model does; an int8 cache (``flags.kv_quant``) is
+        quantized on write and dequantized on read."""
         cfg = self.cfg
         x = self.embed(params, token)
         kinds = self.layer_kinds()
-        # the ring's lengths depend on its size: attention computes them
-        tables = {k: (self._step_tables(k, pos) if k != "attn"
+        # a ring's lengths depend on its size: attention computes them
+        tables = {k: (self._step_tables(k, pos) if self._window(k) is None
                       else (self._rope(k, pos), None)) for k in set(kinds)}
         for bp, c, kind in zip(self.layer_params(params),
                                self._layer_caches(cache), kinds):
@@ -492,7 +540,9 @@ class Model:
     def _init_layer_cache(self, kind: str, batch: int, max_len: int, *,
                           device, window: Optional[int] = None):
         """One layer's zeroed cache; ``window`` sizes an attention cache
-        as a ring (the slot arena passes none)."""
+        as a ring (the slot arena passes none). A GQA cache is int8 with
+        scales under ``flags.kv_quant``; MLA's latent cache never is, as
+        in JAX."""
         dtype = self.flags.dtype
         if kind == "ssm":
             return SSM.init_ssm_cache(self.cfg, batch, dtype, device=device)
@@ -500,15 +550,16 @@ class Model:
             return RG.init_rglru_cache(self.cfg, batch, dtype, device=device)
         if kind == "mla":
             return L.init_mla_cache(self.cfg, batch, max_len, dtype,
-                                    device=device)
+                                    device=device, window=window)
         return L.init_attention_cache(self.cfg, batch, max_len, dtype,
-                                      device=device, window=window)
+                                      device=device, window=window,
+                                      quant=self.flags.kv_quant)
 
     def init_cache(self, batch: int, max_len: int, *, device):
         """Zeroed decode caches of every layer on ``device`` (required:
         nothing lands on the CPU unless asked), in the JAX layout of
-        :meth:`prefill`; a hybrid's local attention gets a ring of
-        ``min(max_len, local_window)`` rows."""
+        :meth:`prefill`; a windowed attention cache (``_window``) gets a
+        ring of ``min(max_len, window)`` rows."""
         def stacked(kind, n):
             one = self._init_layer_cache(kind, batch, max_len, device=device,
                                          window=self._window(kind))

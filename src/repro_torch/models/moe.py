@@ -1,9 +1,11 @@
 """Top-k Mixture-of-Experts FFN of the port, with sort-based dispatch.
 
-The port of ``repro.models.moe`` (serving path): each batch row is one
-routing group (the JAX model's ``group_rows = 1``, which its serving
-uses), so a batch-bucket padding row is a group of its own and takes no
-capacity from a live row. Per group of t tokens:
+The port of ``repro.models.moe``. By default each batch row is one
+routing group (the JAX model's ``group_rows = 1``, which its serving uses
+and so does the port's engine), so a batch-bucket padding row is a group
+of its own and takes no capacity from a live row; ``group_rows = g``
+routes g rows together (``RuntimeFlags.moe_group_rows``). Per group of t
+tokens:
 
   1. route: float32 router logits, softmax, top-k experts per token
      (``torch.topk``), weights renormalised over the k chosen,
@@ -73,15 +75,24 @@ def _dispatch_indices(expert_ids: torch.Tensor, capacity: int):
     return order, sorted_eid, slot, keep
 
 
-def apply_moe(p: dict, x: torch.Tensor, cfg, *, with_aux: bool = False):
-    """x: (B, S, d) -> y (B, S, d); each batch row routes on its own.
-    With ``with_aux`` returns (y, aux): the reference's load-balance loss
-    ``E * sum(frac_tokens * frac_probs)``, float32, with ``frac_tokens``
-    the share of tokens whose first choice is each expert and
-    ``frac_probs`` the mean router probability, both over (groups,
-    tokens)."""
+def apply_moe(p: dict, x: torch.Tensor, cfg, *, with_aux: bool = False,
+              group_rows: int = 1):
+    """x: (B, S, d) -> y (B, S, d). ``max(1, min(group_rows, B))`` batch
+    rows form one routing group, whose token count sets the capacity; a B
+    that this group size does not divide raises ``ValueError`` (the JAX
+    model's reshape fails there too). With ``with_aux`` returns (y, aux):
+    the reference's load-balance loss ``E * sum(frac_tokens *
+    frac_probs)``, float32, with ``frac_tokens`` the share of tokens whose
+    first choice is each expert and ``frac_probs`` the mean router
+    probability, both over every token."""
     m = cfg.moe
-    G, t, d = x.shape
+    B, S, d = x.shape
+    per_group = max(1, min(group_rows, B))
+    if B % per_group:
+        raise ValueError(f"apply_moe: {B} batch rows do not split into "
+                         f"routing groups of {per_group}")
+    x = x.reshape(B // per_group, per_group * S, d)
+    G, t = x.shape[:2]
     e, k = m.num_experts, m.experts_per_token
     cap = capacity(cfg, t)
     logits = x.to(torch.float32) @ p["router"]             # (G, t, E)
@@ -108,6 +119,7 @@ def apply_moe(p: dict, x: torch.Tensor, cfg, *, with_aux: bool = False):
                             order).to(out_buf.dtype)
     y = out_buf.new_zeros((G, t, d))
     y.index_put_((g, src), vals * w_sorted[..., None], accumulate=True)
+    y = y.reshape(B, S, d)
     if not with_aux:
         return y
     frac_tokens = torch.mean(F.one_hot(top_e[..., 0], e).to(torch.float32),

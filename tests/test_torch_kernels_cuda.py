@@ -253,7 +253,9 @@ def test_ragged_decode_kernel_at_the_gqa_archs_heads(cuda, H, KV, D, dtype):
     (2, 317, 317, 40, 0, None),          # minicpm3-4b's 40 heads
     (1, 190, 253, 4, 63, None),          # a catch-up chunk
     (2, 200, 200, 6, 0, 77),             # a sliding window
-    (4, 512, 512, 40, 0, None)])         # the smoke's prefill shape
+    (4, 512, 512, 40, 0, None),          # the smoke's prefill shape
+    (4, 200, 200, 40, 0, 256),           # RuntimeFlags.window, unbound
+    (2, 512, 512, 40, 0, 256)])          # and binding
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_at_mla_widths(cuda, B, S, T, H, q_offset, window, Dqk,
                                     Dv, dtype):
@@ -310,6 +312,94 @@ def test_ragged_decode_kernel_at_head_dim_256(cuda, split_t, dtype):
     want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# RuntimeFlags.window's decode: a ring of T rows; a row past T has wrapped
+# and reads all T rows (lengths min(pos + 1, T))
+RING_CASES = [
+    (4, 32, 8, 64, 8192, [8196, 8172, 524292, 4]),   # llama, window 8192
+    (4, 24, 8, 64, 256, [300, 255, 256, 17]),        # granite, window 256
+    (2, 32, 8, 128, 8, [11, 8]),                     # nemo, window 8
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,D,T,pos", RING_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_decode_kernel_over_a_wrapped_ring(cuda, B, H, KV, D, T, pos,
+                                                  dtype):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn((B, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
+    lengths = torch.clamp(torch.tensor(pos, device=cuda) + 1,
+                          max=T).to(torch.int32)
+    assert int(lengths.max()) == T
+    got = K.ragged_decode_attention(q, k, v, lengths)
+    want = K.ragged_decode_attention_plain(q, k, v, lengths)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", [(32, 8, 64), (32, 8, 128), (24, 8, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_decode_kernel_over_a_dequantized_int8_cache(cuda, H, KV, D,
+                                                            dtype):
+    """RuntimeFlags.kv_quant's decode: int8 K/V with a float32 scale per
+    (token, kv head), dequantized into the model dtype (scale cast first)
+    and read by the kernel, against the plain version on the same copy."""
+    from repro_torch.models.layers import _quantize_rows
+    q, k, v, lengths, slots = _decode_case(cuda, 8, H, KV, D, 1024, dtype,
+                                           seed=9)
+    k8, ks = _quantize_rows(k)
+    v8, vs = _quantize_rows(v)
+    rows = torch.clamp(slots, max=k.shape[0] - 1)
+    ck = k8[rows].to(dtype) * ks[rows, ..., None].to(dtype)
+    cv = v8[rows].to(dtype) * vs[rows, ..., None].to(dtype)
+    got = K.ragged_decode_attention(q, ck, cv, lengths)
+    want = K.ragged_decode_attention_plain(q, ck, cv, lengths)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [False, True])
+def test_int8_decode_layer_on_card_matches_the_cpu(cuda, slots):
+    """``apply_attention_decode`` over an int8 cache (a per-row cache, or a
+    slot arena with a padding row), float32 with TF32 off: the card's
+    output and cache against the same call on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), d_model=256)
+    g = torch.Generator().manual_seed(10)
+    p = {n: torch.randn(shape, generator=g) / 16 for n, shape in
+         (("wq", (256, 32, 64)), ("wk", (256, 8, 64)), ("wv", (256, 8, 64)),
+          ("wo", (32, 64, 256)))}
+    N, T = 5, 96
+    k8, ks = L._quantize_rows(torch.randn((N, T, 8, 64), generator=g))
+    v8, vs = L._quantize_rows(torch.randn((N, T, 8, 64), generator=g))
+    cache = {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
+    if slots:
+        sl = torch.tensor([3, 0, _PAD_SLOT], dtype=torch.int32)
+        pos = torch.tensor([40, 95, 0], dtype=torch.int32)
+        kw, n = dict(slots=sl, live=2, ctx=96), 2
+    else:
+        pos = torch.tensor([0, 17, 50, 94, 95], dtype=torch.int32)
+        kw, n = {}, N
+    x = torch.randn((len(pos), 256), generator=g)
+    on = {k: v.to(cuda) for k, v in cache.items()}
+    y, on = L.apply_attention_decode(
+        {k: v.to(cuda) for k, v in p.items()}, x.to(cuda), on, pos.to(cuda),
+        cfg, **{k: (v.to(cuda) if torch.is_tensor(v) else v)
+                for k, v in kw.items()})
+    want, cache = L.apply_attention_decode(p, x, cache, pos, cfg, **kw)
+    torch.testing.assert_close(y.cpu()[:n], want[:n], rtol=1e-4, atol=1e-4)
+    for key in cache:
+        diff = (on[key].cpu().double() - cache[key].double()).abs()
+        assert float(diff.max()) <= (1 if key in ("k", "v") else 1e-6), key
 
 
 @pytest.mark.cuda
