@@ -21,8 +21,11 @@ Phases, always all of them, in order:
            and at recurrentgemma-9b's, 16 q heads over one kv head of 256
            with its window of 2048, at S 512 and at S 4096 where the window
            binds; ragged decode at llama's, nemo's, granite's and
-           recurrentgemma-9b's heads (G 16, D 256); RMSNorm at llama's
-           width 2048, mamba's 2560 and 5120 and recurrentgemma-9b's 4096;
+           recurrentgemma-9b's heads (G 16, D 256), and without slots
+           over a contiguous (B, 256) stack at B 3 and 7, the legacy
+           engine's decode, at llama's heads and at G 16 / D 256; RMSNorm
+           at llama's width 2048, mamba's 2560 and 5120 and
+           recurrentgemma-9b's 4096;
            the SSD scan at
            chunks 256, 128
            and 64, which take its tensor-core route in bfloat16 and its
@@ -167,6 +170,29 @@ Phases, always all of them, in order:
            (token, expert) pairs dropped counted; then full depth in
            bfloat16, one decode step at B 8 in groups of 4, timed. The
            phase's launches go on its own line, not into the JSON rows.
+  legacy   ``TorchEngine(cache_mode="legacy")`` (per-request caches,
+           restacked at every decode node, B unpadded, no slots) beside
+           the arena: full-width llama3.2-1b in legacy, arena (node by
+           node) and fused mode as ``benchmarks/engine_decode_bench.py``
+           runs them (batch 8, max_len 256, prompt 16, 24 merged decode
+           cycles, a warmup pass over an identical batch, then a fresh
+           same-seed batch timed on the same engine), one set of seed-0
+           weights: in float32 with TF32 off the tokens of the three
+           must be equal; in bfloat16 the median ms per cycle of each
+           (host clock, beside the card's name and power limit), the
+           arena-vs-legacy and fused-vs-arena ratios, the tokens that
+           agree with legacy's, the timed pass's new shape keys (none
+           allowed), host syncs and nodes, and one request's legacy
+           cache bytes; flash, ragged decode and RMSNorm must launch in
+           legacy mode in both types. Then mamba2-2.7b, minicpm3-4b,
+           granite-moe-3b-a800m (2 layers each) and recurrentgemma-9b (4:
+           rec, rec, attn, rec) at full width, depth the only cut, in
+           float32 with TF32 off: prompts 64 / 128 / 256 / 384 x 16
+           tokens through ServingSession + LazyBatching in arena mode
+           (fused runs) and in legacy mode on the same weights, tokens
+           equal or a printed near-tie, each family's kernels launched in
+           legacy mode (the SSD scan in mamba's; ragged decode not in
+           minicpm3's). Launches go on the phase's own line.
   launch serve  the port's launcher, ``repro_torch.launch.serve``, in
            process on full-width llama3.2-1b in bfloat16 (20/s for 1.2 s,
            max_batch 8, SLA 10 s) with seeded transient faults (0.02 per
@@ -785,29 +811,38 @@ DECODE_CASES = (
 )
 
 
+# the legacy engine's decode: no slots, B no power of two, max_len 256
+SLOTLESS_LENS = ((1, 256, 133), (1, 256, 17, 133, 255, 64, 200))
+
+
 def kernel_decode(torch, K, dtype, lens, slots, ctx, H=32, KV=8, D=64,
-                  n_slots=32, layer=5, row=None):
-    B, T, L = len(lens), 1024, 16
+                  n_slots=32, layer=5, row=None, T=1024):
+    """Ragged decode over layer ``layer`` of a flat slot arena of 16 layers
+    (``slots``), or without slots over a contiguous (B, T) stack, the
+    legacy engine's decode (``slots`` None)."""
+    B, L = len(lens), 16
     g = torch.Generator(device="cuda").manual_seed(1)
-    N = L * n_slots
+    N = B if slots is None else L * n_slots
     q = torch.randn((B, H, D), generator=g, device="cuda").to(dtype)
     k = torch.randn((N, T, KV, D), generator=g, device="cuda").to(dtype)
     v = torch.randn((N, T, KV, D), generator=g, device="cuda").to(dtype)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    rows = torch.tensor(slots, dtype=torch.int32, device="cuda") \
-        + layer * n_slots
+    rows = None if slots is None else torch.tensor(
+        slots, dtype=torch.int32, device="cuda") + layer * n_slots
     out = K.ragged_decode_attention(q, k, v, lengths, slots=rows, ctx=ctx)
     ref = K.ragged_decode_attention_plain(q, k, v, lengths, slots=rows,
                                           ctx=ctx)
     torch.cuda.synchronize()
-    res = {"shape": f"q{tuple(q.shape)} arena{tuple(k.shape)} "
+    cache = "arena" if slots is not None else "stack, no slots, "
+    res = {"shape": f"q{tuple(q.shape)} {cache}{tuple(k.shape)} "
                     f"lengths{list(lens)} ctx {ctx}", "out": out, "ref": ref,
            "row": row or (None if B != 8 or ctx is not None else ROWS.get(
                ("ragged_decode_attention", dtype_name(dtype), D))),
            "symbols": COUNTER_SYMBOLS["ragged_decode_attention"]}
     # library yardstick: SDPA over the gathered, head-repeated rows
     span = T if ctx is None else ctx
-    grow = torch.clamp(rows.long(), max=N - 1)
+    grow = (torch.arange(B, device="cuda") if rows is None
+            else torch.clamp(rows.long(), max=N - 1))
     kg = k[grow, :span].transpose(1, 2).repeat_interleave(H // KV, dim=1)
     vg = v[grow, :span].transpose(1, 2).repeat_interleave(H // KV, dim=1)
     mask = (torch.arange(span, device="cuda")[None, :]
@@ -1146,6 +1181,14 @@ def phase_kernels(torch):
         cases.append(("ragged_decode_attention", dt,
                       lambda dt=dt: kernel_decode(torch, K, dt, lens, slots,
                                                   None, H=16, KV=1, D=256)))
+        # the legacy engine's decode: no slot vector, a contiguous (B, 256)
+        # stack at B 3 and 7, at llama's heads and recurrentgemma-9b's
+        for stack_lens in SLOTLESS_LENS:
+            for H, KV, D in ((32, 8, 64), (16, 1, 256)):
+                cases.append(("ragged_decode_attention", dt,
+                              lambda dt=dt, a=stack_lens, H=H, KV=KV, D=D:
+                              kernel_decode(torch, K, dt, a, None, None, H=H,
+                                            KV=KV, D=D, T=256)))
         for shape in ((8, 4096), (1, 384, 4096)):
             cases.append(("fused_rmsnorm", dt,
                           lambda dt=dt, s=shape: kernel_rmsnorm(torch, K, dt,
@@ -1529,6 +1572,21 @@ def _isolated(engine, wl, prompt, n_tokens):
     return engine.states[req.rid].generated[:n_tokens]
 
 
+def near_tie(torch, model, params, prompt, got, ref, what):
+    """(j, gap) of the first token where ``got`` leaves ``ref``: the
+    reference's top-2 logit gap after ``prompt`` and ``ref[:j]``, which
+    must be a near-tie (below 1e-3)."""
+    j = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
+    seq = [int(t) for t in prompt] + ref[:j]
+    with torch.no_grad():
+        logits, _ = model.prefill(params, torch.tensor([seq], device="cuda"))
+    top2 = torch.topk(logits[0].float(), 2).values
+    gap = float(top2[0] - top2[1])
+    check(gap < 1e-3, f"{what} diverges at token {j} ({got[j]} vs "
+                      f"{ref[j]}), top-2 gap {gap:.3e} is no near-tie")
+    return j, gap
+
+
 def phase_exact(torch, arch, tag, kernels, prompts, absent=()):
     """Full-width ``arch`` in f32, TF32 off, at all its layers: one request
     per prompt length batched (fused runs), then each alone node by node;
@@ -1579,16 +1637,8 @@ def phase_exact(torch, arch, tag, kernels, prompts, absent=()):
         if got == ref:
             n_equal += 1
             continue
-        j = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
-        seq = [int(t) for t in st.prompt_np] + ref[:j]
-        with torch.no_grad():
-            logits, _ = engine.model.prefill(
-                engine.params, torch.tensor([seq], device="cuda"))
-        top2 = torch.topk(logits[0].float(), 2).values
-        gap = float(top2[0] - top2[1])
-        check(gap < 1e-3, f"{tag}: rid {r.rid} diverges at token {j} "
-                          f"({got[j]} vs isolated {ref[j]}), top-2 gap "
-                          f"{gap:.3e} is no near-tie")
+        j, gap = near_tie(torch, engine.model, engine.params, st.prompt_np,
+                          got, ref, f"{tag}: rid {r.rid}")
         n_ties += 1
         print(f"[{tag}] rid {r.rid}: near-tie at token {j} (top-2 gap "
               f"{gap:.3e}); batched {got[j]} vs isolated {ref[j]}")
@@ -2711,6 +2761,238 @@ def phase_variants(torch):
     return total
 
 
+# the legacy phase's full-width llama, as benchmarks/engine_decode_bench.py
+# runs its modes: batch 8, max_len 256, prompts of 16, 24 decode cycles
+LEGACY_MODES = ("legacy", "arena", "fused")
+LEGACY_BATCH, LEGACY_MAX_LEN, LEGACY_PROMPT, LEGACY_TOKENS = 8, 256, 16, 24
+# the other families at full width, depth cut to layers that keep every
+# block kind: (arch, layers, kernels that must launch, that must not)
+LEGACY_FAMILIES = (
+    ("mamba2-2.7b", 2, ("ssd_chunked", "fused_rmsnorm"), ()),
+    ("minicpm3-4b", 2, MLA_KERNELS, MLA_ABSENT),
+    ("granite-moe-3b-a800m", 2, LLAMA_KERNELS, ()),
+    # one (rec, rec, attn) group and a rec layer of the tail
+    ("recurrentgemma-9b", 4, LLAMA_KERNELS, ()),
+)
+LEGACY_PROMPTS = (64, 128, 256, 384)
+
+
+def _legacy_batch(engine, wl, cfg, seed=0):
+    """``LEGACY_BATCH`` requests of ``LEGACY_PROMPT`` seeded tokens and
+    ``LEGACY_TOKENS`` decode cycles: the bench's ``_build_batch``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(LEGACY_BATCH):
+        r = wl.sample_request(rng, 0.0)
+        r.sequence, r.prefix_len, r.cycle_len = wl.build_sequence(
+            LEGACY_PROMPT, LEGACY_TOKENS)
+        r.prompt_len, r.decode_len = LEGACY_PROMPT, LEGACY_TOKENS
+        engine.register(r, rng.integers(2, cfg.vocab_size,
+                                        size=LEGACY_PROMPT))
+        reqs.append(r)
+    return reqs
+
+
+def _legacy_drive(engine, wl, reqs, mode):
+    """The bench's ``_drive``: each request prefills alone (one committed
+    run in ``fused`` mode, node by node otherwise), then the batch decodes
+    ``LEGACY_TOKENS`` merged cycles; wall seconds per cycle. Every dispatch
+    ends in a host sync (per node, or at the run boundary), so a cycle's
+    wall time covers its work on the card."""
+    from repro_torch.core.request import SubBatch
+    for r in reqs:
+        sb = SubBatch([r])
+        if mode == "fused":
+            run = sb.run_nodes(stop_before={"D0"})
+            engine.execute_run("m", sb, run)
+            sb.advance_n(len(run), 0.0)
+        else:
+            for _ in range(1 + len(engine.kinds)):
+                engine.execute("m", sb, r.next_node_id)
+                sb.advance(0.0)
+    sb = SubBatch(list(reqs))
+    per_token = []
+    for _ in range(LEGACY_TOKENS):
+        t0 = time.perf_counter()
+        if mode == "fused":
+            run = sb.run_nodes(stop_after={"head"})
+            engine.execute_run("m", sb, run)
+            sb.advance_n(len(run), 0.0)
+        else:
+            for _ in range(len(wl.cycle_ids())):
+                engine.execute("m", sb, sb.node_id)
+                sb.advance(0.0)
+        per_token.append(time.perf_counter() - t0)
+    return per_token
+
+
+def _legacy_modes(torch, dtype):
+    """Full-width llama3.2-1b in the three modes on one set of seed-0
+    weights: per mode a warmup pass over an identical batch, then a fresh
+    same-seed batch timed on the same engine. Returns per mode its tokens,
+    ms per token (median, mean, min), launches, new shape keys, host
+    syncs, runs and nodes of the timed pass, and the bytes of one
+    request's caches."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.serving import LengthDist, TorchEngine, from_model_config
+    cfg = get_config("llama3.2-1b")
+    wl = from_model_config(cfg, prompt_dist=LengthDist((LEGACY_PROMPT,), (1.0,)),
+                           decode_dist=LengthDist((4,), (1.0,)))
+    params, out = None, {}
+    for mode in LEGACY_MODES:
+        engine = TorchEngine(
+            cfg, max_len=LEGACY_MAX_LEN, dtype=dtype, seed=0,
+            n_slots=LEGACY_BATCH, params=params, fused=mode == "fused",
+            cache_mode="legacy" if mode == "legacy" else "arena")
+        params = engine.params
+        _legacy_drive(engine, wl, _legacy_batch(engine, wl, cfg), mode)
+        s0, keys0, nodes0 = (engine.sanitizer_stats(), engine.shape_keys(),
+                             engine.nodes_executed)
+        reqs = _legacy_batch(engine, wl, cfg)
+        K.reset_launch_counts()
+        secs = _legacy_drive(engine, wl, reqs, mode)
+        counts = K.launch_counts()
+        s1 = engine.sanitizer_stats()
+        caches = engine.states[reqs[0].rid].caches
+        out[mode] = {
+            "tokens": [list(engine.states[r.rid].generated) for r in reqs],
+            "ms": [statistics.median(secs) * 1e3,
+                   statistics.mean(secs) * 1e3, min(secs) * 1e3],
+            "counts": counts,
+            "new_keys": sorted(engine.shape_keys() - keys0, key=str),
+            "syncs": s1.host_syncs - s0.host_syncs,
+            "runs": s1.runs - s0.runs,
+            "nodes": engine.nodes_executed - nodes0,
+            "cache_bytes": sum(_nbytes(c) for c in caches.values()),
+            "resident": engine.memory_stats().bytes_resident}
+        if mode == "legacy":
+            check_launched(counts, f"legacy {dtype_name(dtype)} (legacy "
+                                   f"mode, timed pass)", LLAMA_KERNELS)
+        check(not out[mode]["new_keys"],
+              f"legacy: {mode} {dtype_name(dtype)}: new shape keys in the "
+              f"timed pass after the warmup: {out[mode]['new_keys']}")
+        del engine, reqs, caches
+        gc.collect()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _legacy_family(torch, arch, layers, kernels, absent):
+    """``arch`` at full width cut to ``layers`` layers, float32 with TF32
+    off: prompts ``LEGACY_PROMPTS`` x 16 tokens served through
+    ServingSession + LazyBatching in arena mode (fused runs), then in
+    legacy mode on the same weights; tokens equal or a printed near-tie
+    (the arena's top-2 logit gap below 1e-3). Returns the legacy serve's
+    launches."""
+    import dataclasses
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.serving import HandleState, TorchEngine
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    fixed = [(p, 16) for p in LEGACY_PROMPTS]
+    params, toks, prompts, counts = None, {}, {}, {}
+    for mode in ("arena", "legacy"):
+        engine = TorchEngine(cfg, max_len=512, dtype=torch.float32, seed=0,
+                             cache_mode=mode, params=params)
+        params = engine.params
+        K.reset_launch_counts()
+        _, _, handles, _, _, _ = _serve(
+            torch, engine, cfg, n=len(fixed), seed=7, rate=0.0,
+            prompts=LEGACY_PROMPTS, decodes=(16,), max_batch=4, sla=10.0,
+            fixed=fixed)
+        counts[mode] = K.launch_counts()
+        check(all(h.state is HandleState.DONE for h in handles),
+              f"legacy {arch}: {mode}: not every request finished")
+        toks[mode] = [engine.states[h.request.rid].generated[:16]
+                      for h in handles]
+        prompts[mode] = [engine.states[h.request.rid].prompt_np
+                         for h in handles]
+        model = engine.model
+        del engine, handles
+        gc.collect()
+    check_launched(counts["legacy"], f"legacy {arch} (legacy mode)", kernels,
+                   absent)
+    check(all((a == b).all() for a, b in zip(*prompts.values())),
+          f"legacy {arch}: the two serves drew different prompts")
+    n_equal, ties = 0, []
+    for i, (got, ref) in enumerate(zip(toks["legacy"], toks["arena"])):
+        if got == ref:
+            n_equal += 1
+            continue
+        j, gap = near_tie(torch, model, params, prompts["arena"][i], got,
+                          ref, f"legacy {arch}: request {i} (legacy vs arena)")
+        ties.append(f"request {i} token {j} gap {gap:.3e}")
+    kinds = model.layer_kinds()
+    print(f"[legacy] {arch}: full width, {layers} of "
+          f"{get_config(arch).num_layers} layers ({', '.join(kinds)}; the "
+          f"depth is the only cut), f32, TF32 off, max_len 512: prompts "
+          f"{list(LEGACY_PROMPTS)} x 16 tokens through ServingSession + "
+          f"LazyBatching(max_batch=4): legacy tokens equal the arena's "
+          f"(fused runs) for {n_equal}/{len(fixed)} requests, near-ties: "
+          f"{ties or 'none'}; kernel launches legacy {counts['legacy']}, "
+          f"arena {counts['arena']}")
+    del params, model
+    torch.cuda.empty_cache()
+    return counts["legacy"]
+
+
+def phase_legacy(torch):
+    """``TorchEngine(cache_mode="legacy")`` beside the arena, node by node
+    and fused: full-width llama3.2-1b in float32 (tokens equal across the
+    three modes) and bfloat16 (times); then the other four families
+    legacy vs arena in float32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exact = _legacy_modes(torch, torch.float32)
+    n_tok = LEGACY_BATCH * LEGACY_TOKENS
+    check(exact["legacy"]["tokens"] == exact["arena"]["tokens"]
+          == exact["fused"]["tokens"],
+          "legacy: f32 tokens differ across legacy / arena / fused")
+    print(f"[legacy] llama3.2-1b full width and depth, batch "
+          f"{LEGACY_BATCH}, max_len {LEGACY_MAX_LEN}, prompt {LEGACY_PROMPT},"
+          f" {LEGACY_TOKENS} merged decode cycles after a warmup pass over "
+          f"an identical batch: f32, TF32 off: the {n_tok} generated tokens "
+          f"are equal across legacy / arena / fused")
+    timed = _legacy_modes(torch, torch.bfloat16)
+    ms = {m: timed[m]["ms"][0] for m in LEGACY_MODES}
+    agree = {m: sum(a == b for ra, rb in zip(timed[m]["tokens"],
+                                             timed["legacy"]["tokens"])
+                    for a, b in zip(ra, rb)) for m in ("arena", "fused")}
+    print(f"[legacy] bf16 ms per token, median (mean, min) over "
+          f"{LEGACY_TOKENS} cycles of the timed pass, host clock: " +
+          ", ".join(f"{m} {timed[m]['ms'][0]:.3f} ({timed[m]['ms'][1]:.3f}, "
+                    f"{timed[m]['ms'][2]:.3f})" for m in LEGACY_MODES) +
+          f" | arena vs legacy {ms['legacy'] / ms['arena']:.2f}x, fused vs "
+          f"arena {ms['arena'] / ms['fused']:.2f}x | tokens equal to "
+          f"legacy's: arena {agree['arena']}/{n_tok}, fused "
+          f"{agree['fused']}/{n_tok} | {smi_line()}")
+    for m in LEGACY_MODES:
+        t = timed[m]
+        print(f"[legacy] bf16 {m} timed pass: {t['nodes']} nodes, "
+              f"{t['runs']} fused runs, {t['syncs']} host syncs "
+              f"({t['syncs'] / LEGACY_TOKENS:.1f} per token), new shape keys "
+              f"{t['new_keys']}; memory_stats bytes_resident {t['resident']};"
+              f" kernel launches {t['counts']}")
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3.2-1b")
+    print(f"[legacy] one request's legacy caches: "
+          f"{timed['legacy']['cache_bytes']} bytes in bf16, "
+          f"{exact['legacy']['cache_bytes']} in f32 ({cfg.num_layers} layers "
+          f"x K and V of {LEGACY_MAX_LEN} rows x {cfg.num_kv_heads} kv heads "
+          f"x {cfg.head_dim})")
+    total = {k: exact["legacy"]["counts"][k] + timed["legacy"]["counts"][k]
+             for k in exact["legacy"]["counts"]}
+    for arch, layers, kernels, absent in LEGACY_FAMILIES:
+        counts = _legacy_family(torch, arch, layers, kernels, absent)
+        total = {k: total[k] + counts[k] for k in total}
+    print(f"[legacy] kernel launches in this phase's legacy-mode runs (timed "
+          f"passes and serves): {total}")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2760,6 +3042,9 @@ def main() -> int:
     # the RuntimeFlags variants through the Model API; their launches stay
     # on the phase's own line
     run(phase_variants, torch)
+    # the legacy cache mode beside the arena, node by node and fused; its
+    # launches stay on the phase's own line
+    run(phase_legacy, torch)
     # the port's entry points: the launcher (faults, then two tenants) and
     # the HTTP/SSE gateway
     run(phase_launch_serve, torch)
@@ -2774,7 +3059,7 @@ def main() -> int:
     print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact, "
           f"nemo serve, nemo exact, minicpm serve, minicpm exact, granite "
           f"serve, granite exact, rgemma serve, rgemma exact, variants, "
-          f"launch serve, "
+          f"legacy, launch serve, "
           f"launch tenants, gateway, train, train exact, train mamba in "
           f"{time.perf_counter() - t_all:.1f} s")
     counts["ssd_chunked"] = m_counts["ssd_chunked"]

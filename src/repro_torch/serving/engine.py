@@ -59,10 +59,26 @@ tests run it) they take their plain versions. MLA decode over the latent
 cache, the MoE FFN and the RG-LRU are PyTorch ops, as the JAX model
 computes them with jnp.
 
+Legacy mode (``cache_mode="legacy"``): the seed's restacking path, kept
+as the exactness reference and as the baseline the arena is timed
+against. No arena is built; each request keeps its own caches
+(``EngineState.caches``, layer -> cache), every dispatch goes node by
+node whatever ``fused`` says, prefill runs each request alone at its
+exact length and pads its time leaves (K/V, ``ckv``, ``krope``) to
+``max_len``, and a decode node stacks the B members' caches of its
+layer, steps them without slots or batch padding (B exactly), and
+copies each row back into storage of the request's own. A hybrid's
+local-attention cache is then a ring of ``max_len`` rows, as in
+``JaxEngine``'s legacy mode, which never wraps. ``JaxEngine`` runs no
+Pallas kernel in this mode; this one has no such switch, so on a CUDA
+device its legacy decode goes through the ragged decode kernel (at any
+B, over the contiguous stack) and its prefill through flash and RMSNorm,
+and on the CPU through their plain versions.
+
 Token semantics are exact: prefill covers ``prompt[:-1]`` and the prompt's
 last token is the first decode input, so every token is processed once.
-Not ported yet: ``cache_mode="legacy"`` and the ``RuntimeFlags``
-variants.
+The ``RuntimeFlags`` variants are reached through the ``Model`` API alone:
+the engine builds its model with ``dtype``, as ``JaxEngine`` does.
 """
 from __future__ import annotations
 
@@ -116,6 +132,7 @@ class EngineState:
         self.generated: List[int] = []
         self.next_token: int = int(prompt_tokens[-1])
         self.pos: int = self.prefill_len          # next KV slot to write
+        self.caches: Dict[int, dict] = {}         # legacy mode: layer -> cache
 
 
 class TorchEngine(Backend):
@@ -130,8 +147,12 @@ class TorchEngine(Backend):
     ``params``: a parameter dict in the port's layout (e.g. JAX weights
     through ``models.convert.params_from_jax``); by default the model is
     initialised from a ``torch.Generator`` seeded with ``seed``.
-    ``fused``: fuse committed multi-node runs (default on); ``False``
-    dispatches node by node, the exactness reference.
+    ``cache_mode``: ``"arena"`` (default) keeps every request's caches in
+    the slot arena; ``"legacy"`` keeps per-request caches and restacks
+    them at every decode dispatch (see the module docstring).
+    ``fused``: fuse committed multi-node runs (by default on in arena
+    mode); ``False`` dispatches node by node, the exactness reference.
+    Legacy mode always dispatches node by node.
     """
 
     def __init__(self, cfg: ModelConfig, *, max_len: int = 512, seed: int = 0,
@@ -140,12 +161,11 @@ class TorchEngine(Backend):
                  max_slots: Optional[int] = None,
                  min_slots: Optional[int] = None,
                  auto_shrink: Optional[bool] = None,
-                 cache_mode: str = "arena", fused: bool = True,
+                 cache_mode: str = "arena", fused: Optional[bool] = None,
                  params: Optional[dict] = None):
-        if cache_mode != "arena":
-            raise ValueError(
-                f"TorchEngine: cache_mode={cache_mode!r} is not ported yet "
-                f"— only the slot arena ('arena') runs in this slice")
+        if cache_mode not in ("arena", "legacy"):
+            raise ValueError(f"cache_mode must be 'arena' or 'legacy', "
+                             f"got {cache_mode!r}")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -179,7 +199,8 @@ class TorchEngine(Backend):
         self._layers = self.model.layer_params(self.params)
         self.kinds = _layer_kinds(cfg)
         self.max_len = max_len
-        self.fused = fused
+        self.cache_mode = cache_mode
+        self.fused = (cache_mode == "arena") if fused is None else fused
         self.states: Dict[int, EngineState] = {}
         self.nodes_executed = 0
         self.runs_executed = 0
@@ -213,7 +234,7 @@ class TorchEngine(Backend):
                            for si, (_, lo, hi) in enumerate(spans)
                            for i in range(lo, hi + 1)}
         self.arenas: List[dict] = []
-        for (kind, lo, hi) in spans:
+        for (kind, lo, hi) in (spans if cache_mode == "arena" else ()):
             one = self.model._init_layer_cache(kind, n_slots, max_len,
                                                device=self.device)
             span_len = hi - lo + 1
@@ -374,7 +395,9 @@ class TorchEngine(Backend):
 
     def memory_stats(self, model=None):
         """Arena accounting: slots live/free at current capacity and the
-        device-resident bytes of every span arena tensor."""
+        device-resident bytes of every span arena tensor. Legacy mode has
+        no arena and reports 0 bytes, as ``JaxEngine`` does: its
+        per-request caches are not counted."""
         total_bytes = sum(l.numel() * l.element_size()
                           for span in self.arenas for l in span.values())
         return MemoryStats(
@@ -428,13 +451,14 @@ class TorchEngine(Backend):
         st = self.states.get(rid)
         if st is not None:
             st.x = None
+            st.caches = {}
             st.generated = []
             st.next_token = int(st.prompt_np[-1])
             st.pos = st.prefill_len
 
     def release_request(self, model, req: Request) -> None:
-        """Drop the request's host-side state once the caller is done
-        with its results (``ServingSession.release``)."""
+        """Drop the request's state, its legacy-mode caches with it, once
+        the caller is done with its results (``ServingSession.release``)."""
         self.release_slot(req)
         self.states.pop(req.rid, None)
 
@@ -672,8 +696,9 @@ class TorchEngine(Backend):
     @torch.no_grad()
     def execute_run(self, model, sb: SubBatch, node_ids: Sequence[str]):
         """Execute a committed run; returns ``(latency, None)`` — per-node
-        latency is unobservable inside a fused run, by design."""
-        if not self.fused or len(node_ids) == 1:
+        latency is unobservable inside a fused run, by design. Legacy
+        mode always goes node by node."""
+        if self.cache_mode != "arena" or not self.fused or len(node_ids) == 1:
             s0 = self._san_host_syncs
             out = super().execute_run(model, sb, node_ids)
             self._san_max_syncs_per_run = max(
@@ -796,6 +821,8 @@ class TorchEngine(Backend):
                 st = self.state(r)
                 st.x = self.model.embed(self.params, self._upload(
                     st.prompt_np[None, :st.prefill_len]))
+        elif self.cache_mode == "legacy" and phase in ("prefill", "decode"):
+            self._legacy_node(reqs, phase, i)
         elif phase == "prefill":
             si, k = self._layer_loc[i]
             last = i == len(self.kinds) - 1
@@ -830,8 +857,11 @@ class TorchEngine(Backend):
             self._xbatch = (rids, x)
         elif phase == "head":
             sts = [self.state(r) for r in reqs]
-            rids, x = self._batched_x(reqs, sts)
-            self._xbatch = (rids, x)
+            if self.cache_mode == "arena":
+                rids, x = self._batched_x(reqs, sts)
+                self._xbatch = (rids, x)
+            else:
+                x = torch.stack([st.x for st in sts])
             self._note_key(("head_node", len(reqs)))
             toks = self._head(x).cpu().numpy()
             for bi, st in enumerate(sts):
@@ -850,3 +880,61 @@ class TorchEngine(Backend):
         self._release_slots([r for r in reqs
                              if r.idx == len(r.sequence) - 1])
         return time.perf_counter() - t0
+
+    # ------------------------------------------------------------------
+    # Legacy mode: per-request caches, restacked at every decode dispatch
+    # ------------------------------------------------------------------
+    def _legacy_node(self, reqs, phase: str, i: int):
+        """A prefill or decode node of layer ``i`` in legacy mode. Prefill
+        runs each request alone at its exact length and keeps its padded
+        cache; decode stacks the members' layer-``i`` caches, steps them
+        without slots at B exactly, and gives each member a copy of its
+        row (a view would keep the whole stack alive)."""
+        sts = [self.state(r) for r in reqs]
+        kind, bp = self.kinds[i], self._layers[i]
+        if phase == "prefill":
+            last = i == len(self.kinds) - 1
+            for st in sts:
+                self._note_key(("legacy_prefill", i, st.x.shape[1]))
+                st.x, cache = self.model.apply_block_dense(
+                    bp, st.x, return_cache=True, kind=kind)
+                st.caches[i] = self._pad_cache(cache)
+                if last:
+                    st.x = None
+            return
+        if i == 0:
+            fresh = self.model.embed(self.params, self._upload(
+                np.asarray([st.next_token for st in sts], np.int32)))
+            for st, row in zip(sts, fresh):
+                st.x = row
+        pos = self._upload(np.asarray([st.pos for st in sts], np.int32))
+        x = torch.stack([st.x for st in sts])
+        cache = {k: torch.stack([st.caches[i][k] for st in sts])
+                 for k in sts[0].caches[i]}
+        self._note_key(("legacy_decode", i, len(sts)))
+        self.decode_layer_steps += 1
+        x, cache = self.model.apply_block_decode(bp, x, cache, pos, kind=kind)
+        for bi, st in enumerate(sts):
+            st.caches[i] = {k: leaf[bi].clone() for k, leaf in cache.items()}
+            st.x = x[bi]
+
+    def _pad_cache(self, cache: dict) -> dict:
+        """One request's prefill cache without its batch axis, in storage
+        of its own: the time leaves (``_TIME_AXIS_KEYS``) zero-padded to
+        ``max_len`` so that merged decode batches stack one shape, the
+        state and conv leaves as they are."""
+        out = {}
+        for key, leaf in cache.items():
+            leaf = leaf[0]
+            if key in _TIME_AXIS_KEYS:
+                pad_n = self.max_len - leaf.shape[0]
+                if pad_n < 0:
+                    raise ValueError(
+                        f"cache leaf time-dim {tuple(leaf.shape)} exceeds "
+                        f"engine max_len {self.max_len}")
+                leaf = torch.nn.functional.pad(
+                    leaf, (0, 0) * (leaf.dim() - 1) + (0, pad_n))
+            else:
+                leaf = leaf.clone(memory_format=torch.contiguous_format)
+            out[key] = leaf
+        return out

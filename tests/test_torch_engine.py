@@ -414,5 +414,11 @@ def test_multibackend_routes_to_torch_engines(jax_run):
 
 
 def test_constructor_rejects_unported_modes():
-    with pytest.raises(ValueError, match="not ported"):
-        TorchEngine(_tiny(), device="cpu", cache_mode="legacy")
+    """Both of JaxEngine's cache modes are ported; any other raises with
+    its message, and ``fused`` defaults to on in arena mode alone."""
+    with pytest.raises(ValueError, match="cache_mode must be 'arena' or "
+                                         "'legacy', got 'paged'"):
+        TorchEngine(_tiny(), device="cpu", cache_mode="paged")
+    assert TorchEngine(_tiny(), device="cpu").fused is True
+    legacy = TorchEngine(_tiny(), device="cpu", cache_mode="legacy")
+    assert legacy.fused is False and legacy.arenas == []

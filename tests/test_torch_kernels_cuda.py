@@ -15,7 +15,9 @@ sliding windows, query offsets and tails that are no multiple of a tile —
 in float32 (tolerance 2e-5) and bfloat16 (2e-2); the SSD scan over its
 shapes, full width and chunks 1 … 256 in float32 (1e-4) and bfloat16
 (5e-2 on y, 1e-4 on the float32 states), on each of its four routes;
-and tiny engines of every family on the card against the CPU engine.
+ragged decode without slots at batches 3 and 7 (the legacy engine's
+decode), and tiny engines of every family on the card against the CPU
+engine, in arena and in legacy mode.
 """
 import pytest
 
@@ -120,6 +122,30 @@ def test_ragged_decode_kernel_on_card(cuda, B, H, KV, D, T, dtype):
     got = K.ragged_decode_attention(q, k, v, lengths, slots=slots)
     want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
     assert K.ragged_decode_attention.launches == n0 + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 7])
+@pytest.mark.parametrize("H,KV,D", [(32, 8, 64), (16, 1, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_decode_kernel_without_slots(cuda, B, H, KV, D, dtype):
+    """The legacy engine's decode: no slot vector, row b of a contiguous
+    (B, max_len) stack at a B that is no power of two, lengths up to
+    max_len 256; llama3.2-1b's heads and recurrentgemma-9b's (G 16, D
+    256)."""
+    T = 256
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((B, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
+    lengths = torch.tensor([1, T, 17, 133, T - 1, 64, 200][:B],
+                           dtype=torch.int32, device=cuda)
+    n0 = K.ragged_decode_attention.launches
+    got = K.ragged_decode_attention(q, k, v, lengths)
+    assert K.ragged_decode_attention.launches == n0 + 1
+    want = K.ragged_decode_attention_plain(q, k, v, lengths)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
@@ -737,11 +763,11 @@ def test_ssd_kernel_rejects_unsupported_shapes(cuda):
         K.ssd_chunked(x[..., :32].contiguous(), dt, A, bc, bc, 3)
 
 
-def _engine_on_card_vs_cpu(cuda, arch, prompts, kernels):
-    """A tiny ``arch`` through TorchEngine on the card generates the CPU
-    engine's tokens (the kernels' plain versions), in float32 with TF32
-    off, under ServingSession + LazyBatching; every kernel of ``kernels``
-    ran on the card."""
+def _engine_on_card_vs_cpu(cuda, arch, prompts, kernels, **engine_kw):
+    """A tiny ``arch`` through TorchEngine (``engine_kw``: e.g. its cache
+    mode) on the card generates the CPU engine's tokens (the kernels'
+    plain versions), in float32 with TF32 off, under ServingSession +
+    LazyBatching; every kernel of ``kernels`` ran on the card."""
     import dataclasses
 
     import numpy as np
@@ -763,7 +789,8 @@ def _engine_on_card_vs_cpu(cuda, arch, prompts, kernels):
     tokens = {}
     K.reset_launch_counts()
     for device in ("cpu", cuda):
-        engine = TorchEngine(cfg, max_len=64, device=device, params=params)
+        engine = TorchEngine(cfg, max_len=64, device=device, params=params,
+                             **engine_kw)
         params = engine.params
         pred = SlackPredictor.build([wl], NPUPerfModel(H100_SXM), 60.0)
         session = ServingSession(LazyBatching(pred, max_batch=3), engine,
@@ -819,6 +846,21 @@ def test_moe_engine_on_card_matches_cpu_engine(cuda):
     kernels, the MoE FFN in PyTorch ops."""
     _engine_on_card_vs_cpu(cuda, "granite-moe-3b-a800m", (5, 9, 20),
                            LLAMA_KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,prompts,kernels", [
+    ("llama3.2-1b", (5, 9, 20), LLAMA_KERNELS),
+    ("minicpm3-4b", (5, 9, 20), ("fused_rmsnorm", "flash_attention")),
+    ("granite-moe-3b-a800m", (5, 9, 20), LLAMA_KERNELS),
+    ("mamba2-2.7b", (5, 9, 33, 34), MAMBA_KERNELS),
+    ("recurrentgemma-9b", (2, 3, 9, 20), LLAMA_KERNELS),
+])
+def test_legacy_engine_on_card_matches_cpu_engine(cuda, arch, prompts,
+                                                  kernels):
+    """Legacy mode (per-request caches restacked at each decode node, B
+    unpadded): the same kernels as the arena path, without slots."""
+    _engine_on_card_vs_cpu(cuda, arch, prompts, kernels, cache_mode="legacy")
 
 
 def _no_hidden_sync(cuda, arch):
