@@ -221,8 +221,10 @@ Phases, always all of them, in order:
            are printed, not gated.
   train    ``repro_torch.launch.train`` (``--arch llama3.2-1b --steps 30
            --batch 8 --seq 256 --checkpoint build/train_llama.npz``) run
-           through its ``train``, in float32 with TF32 as the earlier
-           phases left it (off): every parameter leaf has a finite,
+           through its ``train`` (its mesh path: a 1-rank NCCL ``data``
+           mesh, DTensor state, the train rules; the group is ended after
+           the phase), in float32 with TF32 as the earlier phases left it
+           (off): every parameter leaf has a finite,
            nonzero gradient at step 0 (the launcher's weights and first
            batch), the launcher exits 0 with a falling loss, flash and
            RMSNorm launch and ragged decode does not, the checkpoint
@@ -246,6 +248,21 @@ Phases, always all of them, in order:
            chunk 64, the split-TF32 route): the loss and every leaf's
            gradient on the card against the CPU, at ``train exact``'s
            tolerances.
+  sharding  full-width llama3.2-1b, float32, TF32 off, 8 x 256, seed 0:
+           ``repro_torch.launch.train`` (10 steps) through its mesh path
+           (a 1-rank NCCL ``data`` mesh: the card is one H100) against
+           ``train_loop`` on plain tensors from the same weights and
+           batches: every logged loss within rtol 1e-6 (bit-equality
+           printed), flash and RMSNorm launched inside the mesh run, and
+           seconds per step of both, a step of each in turns (median of
+           6); then ``RuntimeFlags.remat`` off / "full" / "dots" on one
+           forward and backward of the same model and batch: the loss
+           equal and every leaf's gradient bit-equal or within ||dg|| /
+           ||g|| <= 1e-6 of remat off, and flash / RMSNorm launches twice
+           the blocks' (the final norm once); then one train step of each
+           mode in turns (off, full, dots, dots, full, off): seconds and
+           peak memory allocated. Each number line carries the card's name
+           and power limit.
 
 Each serve's profile window must show every hand-written kernel whose
 launch counter moved in its traced serve; a window whose trace still
@@ -2012,6 +2029,7 @@ def phase_train(torch):
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.launch import train as launch_train
     from repro_torch.models.cost import model_flops
+    from repro_torch.sharding import make_rules, use_rules
     from repro_torch.training import (checkpoint, init_state,
                                       make_train_step, value_and_grad)
     from repro_torch.training.trainer import to_device
@@ -2063,25 +2081,30 @@ def phase_train(torch):
           f"the f32 peak of {F32_CUDA_CORE_FLOPS / 1e12:.0f} TFLOP/s")
     print(f"[train] kernel launches on the main path: {counts}")
     restored, step = checkpoint.restore(str(ck), state.params)
-    same = all(torch.equal(a, b.detach()) for a, b in zip(
+    same = all(torch.equal(_whole(a), _whole(b).detach()) for a, b in zip(
         leaves(restored), leaves(state.params)))
     check(same and step == args.steps,
           f"train: the checkpoint does not restore bit for bit (step {step})")
     print(f"[train] checkpoint {ck.name} ({ck.stat().st_size / 1e9:.2f} GB) "
           f"restores bit for bit at step {step}")
     del restored
-    # where the time goes: 3 more steps of the same state, traced
+    # where the time goes: 3 more steps of the same state (DTensors on the
+    # launcher's 1-rank mesh), under its rules, traced
     step_fn = make_train_step(model, opt_cfg)
+    mesh = leaves(state.params)[0].device_mesh
+    rules = make_rules(mesh, "train")
     more = iter(TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                          seq_len=args.seq,
                                          batch_size=args.batch, seed=1)))
-    batches = [to_device(next(more), "cuda") for _ in range(3)]
+    with use_rules(rules):
+        batches = [to_device(next(more), "cuda", mesh) for _ in range(3)]
     span = {}
 
     def three():
         t = time.perf_counter()
-        for b in batches:
-            step_fn(state, b)
+        with use_rules(rules):
+            for b in batches:
+                step_fn(state, b)
         torch.cuda.synchronize()
         span["wall"] = time.perf_counter() - t
 
@@ -2104,7 +2127,21 @@ def phase_train(torch):
             print(f"[train profile] {label}: {100 * t / busy:.2f}% of device "
                   f"time, {t * 1e3:.3f} ms over "
                   f"{sum(e.count for e in hits)} launches")
+    del state, batches
+    _end_process_group()
     return counts
+
+
+def _whole(t):
+    """A DTensor read whole (its ``full_tensor``), a tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _end_process_group():
+    """End the process group the launcher made (a 1-rank NCCL group)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def card_vs_cpu_grads(torch, model, params, batch, tag, kernels):
@@ -2236,6 +2273,195 @@ def phase_train_mamba(torch):
           f"64")
     card_vs_cpu_grads(torch, model, fresh.params, batch, "train mamba exact",
                       TRAIN_MAMBA_KERNELS)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# sharding: the launcher's mesh path and the remat flags
+# ---------------------------------------------------------------------------
+
+SHARD_ARGV = ["--arch", "llama3.2-1b", "--steps", "10", "--batch", "8",
+              "--seq", "256", "--log-every", "1"]
+SHARD_LOSS_RTOL = 1e-6
+REMAT_GRAD_REL = 1e-6           # ||g - g_off|| / ||g_off|| per leaf
+SHARD_ROUNDS = 6                # timed steps of each path, in turns
+
+
+def _step_s(torch, fn) -> float:
+    """Wall seconds of ``fn()`` between two synchronizes."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def phase_sharding(torch):
+    """(a) ``repro_torch.launch.train`` through its mesh path (a 1-rank
+    NCCL ``data`` mesh, DTensor state, the train rules) on full-width
+    llama3.2-1b in float32 with TF32 off, 10 steps of 8 x 256, seed 0:
+    every logged loss against ``train_loop`` on plain tensors from the
+    same weights and batches (rtol 1e-6; bit-equality printed), flash and
+    RMSNorm launched inside the mesh run; then seconds per step of both
+    paths, a step of each in turns. (b) ``RuntimeFlags.remat`` off /
+    "full" / "dots" on the same model and first batch: the loss and every
+    leaf's gradient against remat off (bit-equal or ||dg|| / ||g|| <=
+    1e-6), and the flash / RMSNorm launches of one forward and backward:
+    the blocks' kernels run twice under remat (the final norm once); then
+    one train step per mode in turns: seconds and peak memory."""
+    import repro_torch.kernels as K
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model, RuntimeFlags
+    from repro_torch.sharding import make_rules, use_rules
+    from repro_torch.training import (TrainState, init_adamw, init_state,
+                                      make_train_step, train_loop,
+                                      value_and_grad)
+    from repro_torch.training.trainer import to_device
+    from repro_torch.training.tree import flatten_with_paths, keystr, leaves
+    smi = smi_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = launch_train.parse_args(SHARD_ARGV)
+    print(f"[sharding] python -m repro_torch.launch.train "
+          f"{' '.join(SHARD_ARGV)}: its mesh path, float32, TF32 off")
+    K.reset_launch_counts()
+    state_m, log_m, code = launch_train.train(args)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check(code == 0, f"sharding: the launcher exited {code}")
+    check_launched(counts, "sharding (mesh path)", TRAIN_KERNELS,
+                   TRAIN_ABSENT)
+    first = leaves(state_m.params)[0]
+    mesh = first.device_mesh
+    print(f"[sharding] mesh {mesh.mesh_dim_names} x {tuple(mesh.shape)} on "
+          f"the {torch.distributed.get_backend()} backend; parameters "
+          f"{type(first).__name__} {tuple(first.placements)}; kernel "
+          f"launches in the mesh run {counts}")
+    model, opt_cfg, data, gen = launch_train.build(args)
+    state_u, log_u = train_loop(model, opt_cfg, iter(data), args.steps,
+                                generator=gen, log_every=1, verbose=False)
+    check(log_m.steps == log_u.steps, f"sharding: logged steps differ "
+                                      f"({log_m.steps} vs {log_u.steps})")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(log_m.losses,
+                                                    log_u.losses))
+    check(worst <= SHARD_LOSS_RTOL,
+          f"sharding: mesh losses {log_m.losses} vs unsharded "
+          f"{log_u.losses} (worst rel {worst:.3e}, rtol {SHARD_LOSS_RTOL})")
+    bit = log_m.losses == log_u.losses
+    print(f"[sharding] losses mesh {log_m.losses}")
+    print(f"[sharding] losses unsharded {log_u.losses}")
+    print(f"[sharding] {len(log_m.losses)} logged losses agree: worst rel "
+          f"{worst:.3e} (rtol {SHARD_LOSS_RTOL}); bit-equal: {bit}")
+
+    # seconds per step, one step of each path in turns, on their states
+    rules = make_rules(mesh, "train")
+    step_fn = make_train_step(model, opt_cfg)
+    batch_np = next(iter(data))
+    with use_rules(rules):
+        b_mesh = to_device(batch_np, "cuda", mesh)
+    b_plain = to_device(batch_np, "cuda")
+
+    def mesh_step():
+        with use_rules(rules):
+            step_fn(state_m, b_mesh)
+
+    times = {"mesh": [], "unsharded": []}
+    for _ in range(2):                        # warm both
+        mesh_step()
+        step_fn(state_u, b_plain)
+    for i in range(SHARD_ROUNDS):
+        order = ("mesh", "unsharded") if i % 2 == 0 else ("unsharded",
+                                                          "mesh")
+        for which in order:
+            times[which].append(_step_s(torch, mesh_step if which == "mesh"
+                                        else lambda: step_fn(state_u,
+                                                             b_plain)))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"[sharding] s per step (median of {SHARD_ROUNDS}, in turns): "
+          f"mesh {med['mesh']:.4f}, unsharded {med['unsharded']:.4f}, gap "
+          f"{med['mesh'] - med['unsharded']:+.4f} s "
+          f"({100 * (med['mesh'] / med['unsharded'] - 1):+.2f}%); all "
+          f"{times} [{smi}]")
+    del state_m, state_u, b_mesh, b_plain
+    _end_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) remat off / full / dots on the same weights and first batch
+    cfg = model.cfg
+    params = init_state(model, torch.Generator(device="cuda").manual_seed(0)
+                        ).params
+    batch = to_device(batch_np, "cuda")
+    modes = {"off": Model(cfg, RuntimeFlags(dtype=torch.float32)),
+             "full": Model(cfg, RuntimeFlags(dtype=torch.float32, remat=True,
+                                             remat_policy="full")),
+             "dots": Model(cfg, RuntimeFlags(dtype=torch.float32, remat=True,
+                                             remat_policy="dots"))}
+    # the loss, every leaf's gradient and the launches of one forward and
+    # backward per mode, on the same weights
+    res = {}
+    ref = None
+    for name in ("off", "full", "dots"):
+        K.reset_launch_counts()
+        (loss, _), grads = value_and_grad(modes[name], params, batch)
+        torch.cuda.synchronize()
+        r = res[name] = dict(counts=K.launch_counts(),
+                             loss=float(loss.detach()), bit=True, rel=0.0)
+        flat = [(keystr(p), g.detach()) for p, g in
+                flatten_with_paths(grads)]
+        del grads, loss
+        if ref is None:
+            ref = flat
+            continue
+        rels = {k: float((g - g0).norm() / g0.norm())
+                for (k, g), (_, g0) in zip(flat, ref)}
+        r["bit"] = all(torch.equal(g, g0) for (_, g), (_, g0) in zip(flat,
+                                                                      ref))
+        r["worst"] = max(rels, key=rels.get)
+        r["rel"] = rels[r["worst"]]
+        del flat
+        check(r["loss"] == res["off"]["loss"],
+              f"sharding: remat {name} loss {r['loss']} vs "
+              f"{res['off']['loss']} without remat")
+        check(r["bit"] or r["rel"] <= REMAT_GRAD_REL,
+              f"sharding: remat {name} gradient of {r['worst']} differs "
+              f"by {r['rel']:.3e} (tolerance {REMAT_GRAD_REL})")
+    del ref
+    off = res["off"]["counts"]
+    for name in ("full", "dots"):
+        c = res[name]["counts"]
+        # every block's flash and RMSNorms run again in the backward pass;
+        # the final norm, outside the blocks, once
+        want = {"flash_attention": 2 * off["flash_attention"],
+                "fused_rmsnorm": 2 * off["fused_rmsnorm"] - 1}
+        check(all(c[k] == v for k, v in want.items()),
+              f"sharding: remat {name} launched {c} (expected {want})")
+    # one train step (AdamW included) per mode in turns, on one state:
+    # seconds, and the peak allocated over each step
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = TrainState(params, init_adamw(params))
+    steps = {k: make_train_step(m, opt_cfg) for k, m in modes.items()}
+    resident = torch.cuda.memory_allocated()
+    times = {k: [] for k in modes}
+    peaks = {k: 0 for k in modes}
+    for name in ("off", "full", "dots", "dots", "full", "off"):
+        torch.cuda.reset_peak_memory_stats()
+        times[name].append(_step_s(torch, lambda: steps[name](state, batch)))
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
+    for name, r in res.items():
+        agree = ("bit-equal to remat off" if r["bit"] else
+                 f"within {r['rel']:.3e} of remat off (||dg|| / ||g|| at "
+                 f"{r['worst']})")
+        print(f"[sharding] remat {name}: train step "
+              f"{statistics.mean(times[name]):.4f} s (mean of 2, in turns: "
+              f"{times[name]}); peak {peaks[name] / 1e9:.2f} GB allocated, "
+              f"{(peaks[name] - resident) / 1e9:.2f} GB above the "
+              f"{resident / 1e9:.2f} GB of weights and moments; loss "
+              f"{r['loss']!r}; gradients {agree}; flash "
+              f"{r['counts']['flash_attention']}, RMSNorm "
+              f"{r['counts']['fused_rmsnorm']} launches in one forward and "
+              f"backward [{smi}]")
     return counts
 
 
@@ -3055,12 +3281,15 @@ def main() -> int:
     t_counts = run(phase_train, torch)
     run(phase_train_exact, torch)
     tm_counts = run(phase_train_mamba, torch)
+    # the launcher's mesh path against the unsharded one; remat
+    run(phase_sharding, torch)
     PHASE[0] = "result"
     print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact, "
           f"nemo serve, nemo exact, minicpm serve, minicpm exact, granite "
           f"serve, granite exact, rgemma serve, rgemma exact, variants, "
           f"legacy, launch serve, "
-          f"launch tenants, gateway, train, train exact, train mamba in "
+          f"launch tenants, gateway, train, train exact, train mamba, "
+          f"sharding in "
           f"{time.perf_counter() - t_all:.1f} s")
     counts["ssd_chunked"] = m_counts["ssd_chunked"]
     # the split-TF32 route: its launches in mamba exact, batched and isolated

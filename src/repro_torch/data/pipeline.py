@@ -4,8 +4,9 @@ Deterministic, seedable, host-side generation: sequences are drawn from a
 Zipfian unigram model with EOS-delimited documents of exponential length.
 For one ``DataConfig`` the batches equal the JAX package's bit for bit (the
 same numpy generator, drawn in the same order); that module imports JAX,
-so this is the port's own copy. ``make_batch_specs`` (JAX shape stand-ins
-for the dry run) belongs to the sharding tools and is not ported.
+so this is the port's own copy. ``make_batch_specs`` gives one phase's
+inputs as meta tensors, the ``jax.ShapeDtypeStruct`` stand-ins of the JAX
+package (the spec derivation reads them; nothing is allocated).
 """
 from __future__ import annotations
 
@@ -13,6 +14,9 @@ from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
+import torch
+
+from ..configs.base import InputShape, ModelConfig
 
 
 @dataclass(frozen=True)
@@ -72,3 +76,23 @@ class TokenPipeline:
         ``dec_timesteps``."""
         return np.maximum(
             1, self.rng.exponential(self.cfg.doc_len_mean, size=n).astype(int))
+
+
+def make_batch_specs(cfg: ModelConfig, shape: InputShape,
+                     dtype=torch.bfloat16) -> dict:
+    """Meta tensors of one phase's inputs: train {"tokens", "targets"} and
+    prefill {"tokens"} (B, S) int32, with a (B, P, d) ``dtype`` "prefix"
+    for a model with prefix embeddings; decode {"token", "pos"} (B,)
+    int32 (one new token per row, ragged positions within [0, S))."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda shp, dt=torch.int32: torch.empty(shp, dtype=dt,
+                                                   device="meta")
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": meta((B, S))}
+        if shape.kind == "train":
+            specs["targets"] = meta((B, S))
+        if cfg.modality is not None and cfg.num_prefix_embeddings:
+            specs["prefix"] = meta((B, cfg.num_prefix_embeddings,
+                                    cfg.d_model), dtype)
+        return specs
+    return {"token": meta((B,)), "pos": meta((B,))}

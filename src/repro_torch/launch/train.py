@@ -5,8 +5,20 @@ Trains ``--arch`` in float32 on synthetic Zipfian tokens
 (``TokenPipeline``) from weights drawn with seed 0, with the hand-written
 kernels in every forward pass; the TF32 settings are left as they are.
 ``--device cuda`` (the default) raises when no CUDA device is present;
-``--device cpu`` runs the kernels' plain versions. There is no mesh or
-sharding here (one device). Exits nonzero when the loss does not fall.
+``--device cpu`` runs the kernels' plain versions. Exits nonzero when the
+loss does not fall.
+
+The step runs on a mesh, as ``repro.launch.train`` runs the JAX step on
+its host mesh: ``make_host_mesh()`` (a 1-D ``data`` mesh over the ranks
+of the process group) and ``make_rules(mesh, "train")``, the training
+inside ``use_rules``. Under ``torchrun`` the process group comes from the
+environment (NCCL on ``--device cuda``, one card per rank by
+``LOCAL_RANK``; gloo on ``--device cpu``); alone, the launcher makes a
+group of one rank, so one code path serves both. Every rank draws the
+same seed-0 weights and the same global batches; the parameters and the
+AdamW moments are DTensors replicated over ``data`` (as the JAX launcher
+leaves them), and each batch is split over ``data``, every rank taking its
+rows. Rank 0 prints and writes the checkpoint (whole tensors).
 
 An SSM or hybrid family wants ``--seq`` a multiple of 64: the scan's chunk
 is halved until it divides the sequence, and below chunk 64 its backward
@@ -16,6 +28,8 @@ layer (at an odd ``--seq``, one step per token).
   python -m repro_torch.launch.train --arch llama3.2-1b --steps 30 \\
       --batch 8 --seq 256
   python -m repro_torch.launch.train --device cpu --reduced --steps 20
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \\
+      --reduced --steps 20
 """
 from __future__ import annotations
 
@@ -26,7 +40,12 @@ import torch
 from ..configs import ARCHITECTURES, get_config
 from ..data.pipeline import DataConfig, TokenPipeline
 from ..models.model import Model, RuntimeFlags
-from ..training import OptimizerConfig, train_loop
+from ..sharding import make_rules, use_rules
+from ..training import OptimizerConfig, init_state, train_loop
+from ..training.optimizer import init_adamw
+from ..training.trainer import TrainState
+from .mesh import (distribute, init_process_group, make_host_mesh,
+                   param_pspecs)
 
 
 def parse_args(argv=None):
@@ -74,22 +93,45 @@ def build(args):
     return model, opt_cfg, data, gen
 
 
+def mesh_state(model, gen, mesh) -> TrainState:
+    """The seeded state as DTensors on ``mesh``: the parameters placed by
+    ``param_pspecs(fsdp=False)`` (replicated over a ``data`` mesh), leaves
+    that require grad, and AdamW moments of their placements."""
+    params = init_state(model, gen).params
+    params = distribute(params, param_pspecs(params, mesh=mesh, fsdp=False),
+                        mesh, requires_grad=True)
+    return TrainState(params=params, opt=init_adamw(params))
+
+
 def train(args):
-    """Run the flags: (final state, TrainLog, exit code), 1 when the loss
-    did not fall."""
+    """Run the flags on the host mesh: (final state, TrainLog, exit code),
+    1 when the loss did not fall. A process group this call had to make
+    (one rank) stays up for the returned DTensors; :func:`main` ends
+    it."""
+    import torch.distributed as dist
     model, opt_cfg, data, gen = build(args)
     cfg = model.cfg
-    print(f"training {cfg.name} ({'reduced' if args.reduced else 'full'}) "
-          f"on {args.device}: {cfg.param_count() / 1e6:.1f}M params, "
-          f"{args.steps} steps of {args.batch}x{args.seq}")
-    state, log = train_loop(model, opt_cfg, iter(data), args.steps,
-                            generator=gen,
-                            checkpoint_path=args.checkpoint,
-                            log_every=args.log_every)
+    init_process_group(torch.device(args.device).type)
+    mesh = make_host_mesh(torch.device(args.device).type)
+    rank = dist.get_rank()
+    if rank == 0:
+        print(f"training {cfg.name} "
+              f"({'reduced' if args.reduced else 'full'}) on {args.device}: "
+              f"{cfg.param_count() / 1e6:.1f}M params, {args.steps} steps "
+              f"of {args.batch}x{args.seq} on a (data={mesh.size()}) mesh")
+    with use_rules(make_rules(mesh, "train")):
+        state = mesh_state(model, gen, mesh)
+        state, log = train_loop(model, opt_cfg, iter(data), args.steps,
+                                state=state,
+                                checkpoint_path=(args.checkpoint if rank == 0
+                                                 else None),
+                                log_every=args.log_every,
+                                verbose=rank == 0)
     first, last = log.losses[0], log.losses[-1]
-    print(f"loss {first:.4f} -> {last:.4f} "
-          f"({(first - last) / first * 100:.1f}% reduction) "
-          f"in {log.wall[-1]:.1f}s")
+    if rank == 0:
+        print(f"loss {first:.4f} -> {last:.4f} "
+              f"({(first - last) / first * 100:.1f}% reduction) "
+              f"in {log.wall[-1]:.1f}s")
     if not last < first:
         print(f"training smoke FAILED: loss did not decrease "
               f"({first:.4f} -> {last:.4f} over {args.steps} steps)",
@@ -99,7 +141,12 @@ def train(args):
 
 
 def main(argv=None) -> int:
-    return train(parse_args(argv))[2]
+    import torch.distributed as dist
+    try:
+        return train(parse_args(argv))[2]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

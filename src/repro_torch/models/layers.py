@@ -25,6 +25,8 @@ import torch
 from ..kernels import flash_attention, fused_rmsnorm, ragged_decode_attention
 from ..kernels.flash_attn import pick_chunk
 from ..kernels.rmsnorm import row_stride
+from ..sharding import is_dtensor, shard
+from ..sharding import local as SL
 
 # ---------------------------------------------------------------------------
 # RMSNorm
@@ -39,6 +41,8 @@ def rms_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
     """Row RMSNorm through the fused kernel (its plain version on CPU).
     Rows at one stride with a contiguous last axis (the prefill's
     ``x[:, -1]``) go in as they are; any other layout is copied first."""
+    if is_dtensor(x):
+        return SL.rms_norm(x, p["scale"], eps, fused_rmsnorm)
     if not x.is_contiguous() and row_stride(x) is None:
         x = x.contiguous()
     return fused_rmsnorm(x, p["scale"], eps)
@@ -94,6 +98,8 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, dtype, device) -> dict:
 
 def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    if h.dim() == 3:
+        h = shard(h, "batch", "seq", "ffn")
     return h @ p["w_down"]
 
 
@@ -127,6 +133,8 @@ def init_attention(gen: torch.Generator, cfg, dtype, device) -> dict:
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (d, heads, hd) -> (..., heads, hd)."""
     d, nh, hd = w.shape
+    if is_dtensor(w):
+        w = SL.merge_ready(w, (2,))
     return (x @ w.reshape(d, nh * hd)).unflatten(-1, (nh, hd))
 
 
@@ -136,12 +144,18 @@ def _qkv(p: dict, x: torch.Tensor, cfg, rope):
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return rotate(q, rope), rotate(k, rope), v
+    q = rotate(q, rope)
+    if q.dim() == 4:
+        q = shard(q, "batch", "seq", "heads", None)
+    return q, rotate(k, rope), v
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """out (..., H, hd) @ wo (H, hd, d) -> (..., d)."""
     h, hd, d = wo.shape
+    if is_dtensor(wo):
+        wo = SL.merge_ready(wo, (1,))
+        out = SL.merge_ready(out, (out.ndim - 1,))
     return out.flatten(-2) @ wo.reshape(h * hd, d)
 
 
@@ -157,9 +171,14 @@ def apply_attention_dense(p: dict, x: torch.Tensor, cfg, *, rope=None,
         rope = rope_tables(torch.arange(x.shape[1], device=x.device)[None, :],
                            cfg.head_dim, cfg.rope_theta)
     q, k, v = _qkv(p, x, cfg, rope)
-    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          window=window)
-    return _out_proj(out, p["wo"]), (k, v)
+    if is_dtensor(q):
+        out = SL.flash_attention(q, k, v, window=window,
+                                 kernel=flash_attention)
+    else:
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              window=window)
+    y = _out_proj(out, p["wo"])
+    return shard(y, "batch", "act_seq", "embed"), (k, v)
 
 
 def apply_attention_decode(p: dict, x: torch.Tensor, cache: dict,
@@ -349,15 +368,22 @@ def apply_mla_dense(p: dict, x: torch.Tensor, cfg, *, rope=None,
     if absorbed:
         out = _mla_absorbed_attention(p, q_nope, q_rope, ckv, k_rope, cfg,
                                       window, chunk)
-        return _out_proj(out, p["wo"]), {"ckv": ckv, "krope": k_rope}
+        y = _out_proj(out, p["wo"])
+        return (shard(y, "batch", "act_seq", "embed"),
+                {"ckv": ckv, "krope": k_rope})
     kvb = _proj(ckv, p["wkv_b"])
     k_nope = kvb[..., :m.qk_nope_head_dim]
     value = kvb[..., m.qk_nope_head_dim:]
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         *k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
-    out = flash_attention(q, k, value.contiguous(), window=window)
-    return _out_proj(out, p["wo"]), {"ckv": ckv, "krope": k_rope}
+    if is_dtensor(q):
+        out = SL.flash_attention(q, k, value, window=window,
+                                 kernel=flash_attention)
+    else:
+        out = flash_attention(q, k, value.contiguous(), window=window)
+    y = _out_proj(out, p["wo"])
+    return shard(y, "batch", "act_seq", "embed"), {"ckv": ckv, "krope": k_rope}
 
 
 def _mla_absorbed_attention(p: dict, q_nope, q_rope, ckv, k_rope, cfg,

@@ -42,6 +42,8 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..configs.base import ModelConfig
+from ..sharding import is_dtensor, shard
+from ..sharding import local as SL
 from . import layers as L
 from . import moe as MOE
 from .cost import _layer_kinds
@@ -63,20 +65,42 @@ class RuntimeFlags:
         hybrid's local attention) with a float32 scale per (token, kv
         head); a prefill cache stays unquantized;
       * ``mla_absorbed``: MLA prefill (and ``loss``) in the latent space;
-      * ``moe_group_rows``: batch rows per MoE routing group.
+      * ``moe_group_rows``: batch rows per MoE routing group;
+      * ``remat`` / ``remat_policy``: rematerialise each block (each
+        hybrid group) in the backward pass with
+        ``torch.utils.checkpoint`` where the JAX model applies
+        ``jax.checkpoint``: "full" recomputes everything, "dots" saves the
+        matrix products' outputs (``checkpoint_dots``). Only a pass with
+        grad enabled is affected.
 
     The JAX fields with no counterpart: ``grouped_decode`` and
     ``pallas_decode`` (this decode never repeats K/V heads and always
     takes the ragged-decode kernel on the card), ``attn_chunk`` (flash
     computes the same function unchunked; the absorbed MLA loop chunks at
     the JAX default 2048), ``use_scan`` and ``scan_unroll`` (XLA compile
-    settings), ``remat`` and ``remat_policy`` (not ported: they go with
-    the sharded trainer)."""
+    settings)."""
     dtype: torch.dtype = torch.bfloat16
     window: Optional[int] = None
     kv_quant: bool = False
     mla_absorbed: bool = False
     moe_group_rows: int = 1
+    remat: bool = False
+    remat_policy: str = "full"
+
+
+# the ATen matrix products that ``x @ w``, ``torch.einsum`` and
+# ``torch.matmul`` lower to
+_DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat_policy="dots"``: save
+    every matrix product's output, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _stack_into(stacked, tree, i: int, n: int):
@@ -172,8 +196,9 @@ class Model:
     # ------------------------------------------------------------------
     # Parameters
     # ------------------------------------------------------------------
-    def _init_block(self, gen: torch.Generator, kind: str) -> dict:
-        cfg, dtype, dev = self.cfg, self.flags.dtype, gen.device
+    def _init_block(self, gen: Optional[torch.Generator], kind: str,
+                    dev) -> dict:
+        cfg, dtype = self.cfg, self.flags.dtype
         d = cfg.d_model
         if kind == "ssm":
             return {"ln1": L.init_rmsnorm(d, dev),
@@ -190,40 +215,51 @@ class Model:
         return {"ln1": L.init_rmsnorm(d, dev), "attn": attn,
                 "ln2": L.init_rmsnorm(d, dev), **ffn}
 
-    def init(self, gen: torch.Generator) -> dict:
+    def init(self, gen: Optional[torch.Generator] = None, *,
+             device=None) -> dict:
         """Seeded parameters on ``gen.device``: the shapes and scales of the
         JAX ``Model.init`` (normal draws in float32 cast to the model dtype,
         norm scales float32 ones). The numbers differ from JAX's: a torch
         generator is not a JAX key — load JAX weights through
-        :func:`repro_torch.models.convert.params_from_jax` to match them."""
+        :func:`repro_torch.models.convert.params_from_jax` to match them.
+        ``init(device="meta")`` without a generator gives the same tree of
+        shapes and dtypes and allocates nothing (``jax.eval_shape`` of the
+        JAX init: the spec derivation reads it)."""
+        if gen is None:
+            dev = torch.device("meta" if device is None else device)
+            if dev.type != "meta":
+                raise ValueError("Model.init: a generator is needed for "
+                                 "weights on a real device")
+        else:
+            dev = gen.device
         cfg, dtype = self.cfg, self.flags.dtype
         d = cfg.d_model
         params = {
             "embed": {"tok": L._normal(gen, (cfg.vocab_size, d),
-                                       1.0 / math.sqrt(d), dtype, gen.device)},
-            "final_norm": L.init_rmsnorm(d, gen.device),
+                                       1.0 / math.sqrt(d), dtype, dev)},
+            "final_norm": L.init_rmsnorm(d, dev),
         }
         if not cfg.tie_embeddings:
             params["unembed"] = L._normal(gen, (d, cfg.vocab_size),
-                                          1.0 / math.sqrt(d), dtype,
-                                          gen.device)
+                                          1.0 / math.sqrt(d), dtype, dev)
         if cfg.hybrid is not None:
             pat = cfg.hybrid.block_pattern
             blocks, tail = None, None
             for g in range(self.n_groups):
-                group = {f"b{i}_{kind}": self._init_block(gen, kind)
+                group = {f"b{i}_{kind}": self._init_block(gen, kind, dev)
                          for i, kind in enumerate(pat)}
                 blocks = _stack_into(blocks, group, g, self.n_groups)
             for i in range(self.n_tail):
-                tail = _stack_into(tail, self._init_block(gen, pat[i]), i,
-                                   self.n_tail)
+                tail = _stack_into(tail, self._init_block(gen, pat[i], dev),
+                                   i, self.n_tail)
             params["blocks"] = blocks
             if self.n_tail:
                 params["tail"] = tail
             return params
         blocks = None
         for i in range(cfg.num_layers):
-            blocks = _stack_into(blocks, self._init_block(gen, self.block_kind),
+            blocks = _stack_into(blocks,
+                                 self._init_block(gen, self.block_kind, dev),
                                  i, cfg.num_layers)
         params["blocks"] = blocks
         return params
@@ -304,8 +340,9 @@ class Model:
         cfg = self.cfg
         if kind == "ssm":
             h, cache = SSM.apply_ssm_dense(
-                bp["ssm"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg)
-            return x + h, (cache if return_cache else None)
+                bp["ssm"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg,
+                with_cache=return_cache)
+            return x + h, cache
         xn = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
         if kind == "rec":
             h, cache = RG.apply_rglru_dense(bp["rec"], xn, cfg)
@@ -412,13 +449,20 @@ class Model:
     # Embedding / head
     # ------------------------------------------------------------------
     def embed(self, params, tokens):
-        return params["embed"]["tok"][tokens].to(self.flags.dtype)
+        table = params["embed"]["tok"]
+        if is_dtensor(table):
+            return SL.embedding(tokens, table).to(self.flags.dtype)
+        return table[tokens].to(self.flags.dtype)
 
     def unembed(self, params, x):
-        """x: (..., d) -> logits (..., V)."""
+        """x: (..., d) -> logits (..., V), sharded over vocab under rules."""
         if self.cfg.tie_embeddings:
-            return x @ params["embed"]["tok"].T
-        return x @ params["unembed"]
+            table = shard(params["embed"]["tok"], "vocab", None)
+            return x @ table.T
+        logits = x @ params["unembed"]
+        if logits.dim() == 3:
+            logits = shard(logits, "batch", "seq", "vocab")
+        return logits
 
     # ------------------------------------------------------------------
     # Public steps
@@ -451,13 +495,55 @@ class Model:
         ``return_cache``)."""
         kinds = self.layer_kinds()
         ropes = {k: self._prefill_rope(k, x) for k in set(kinds)}
+        layers = self.layer_params(params)
+        remat = self.flags.remat and torch.is_grad_enabled()
         caches = []
-        for bp, kind in zip(self.layer_params(params), kinds):
-            x, c = self.apply_block_dense(bp, x, kind=kind,
-                                          return_cache=return_cache,
-                                          rope=ropes[kind], aux=aux)
-            caches.append(c)
+        for lo, hi, rematted in self._remat_units():
+
+            def run(x, lo=lo, hi=hi):
+                cs, auxs = [], []
+                for i in range(lo, hi):
+                    x, c = self.apply_block_dense(
+                        layers[i], x, kind=kinds[i],
+                        return_cache=return_cache, rope=ropes[kinds[i]],
+                        aux=auxs)
+                    cs.append(c)
+                return x, cs, auxs
+
+            x, cs, auxs = (self._remat(run, x) if remat and rematted
+                           else run(x))
+            caches.extend(cs)
+            if aux is not None:
+                aux.extend(auxs)
         return x, caches
+
+    def _remat_units(self) -> List[tuple]:
+        """The layers as (first, end, rematerialised) runs, where the JAX
+        model's ``_scan_blocks`` applies ``jax.checkpoint`` to its scan
+        body: each block of a homogeneous stack; each whole pattern group
+        of a hybrid, whose tail blocks run outside the scan without it."""
+        if self.cfg.hybrid is None:
+            return [(i, i + 1, True) for i in range(self.cfg.num_layers)]
+        P = len(self.cfg.hybrid.block_pattern)
+        n = self.n_groups * P
+        return ([(g * P, (g + 1) * P, True) for g in range(self.n_groups)]
+                + [(i, i + 1, False) for i in range(n, n + self.n_tail)])
+
+    def _remat(self, fn, *args):
+        """``fn(*args)`` rematerialised in the backward pass:
+        ``remat_policy`` "dots" saves the outputs of the matrix products
+        and recomputes the rest (``checkpoint_dots``), any other policy
+        recomputes everything (JAX's ``jax.checkpoint`` without a
+        policy)."""
+        from torch.utils.checkpoint import checkpoint
+        if self.flags.remat_policy == "dots":
+            from torch.utils.checkpoint import (
+                create_selective_checkpoint_contexts)
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=lambda:
+                              create_selective_checkpoint_contexts(
+                                  _save_dots))
+        return checkpoint(fn, *args, use_reentrant=False)
 
     def loss(self, params, batch) -> tuple:
         """batch: {"tokens": (B, S), "targets": (B, S) int, optionally
@@ -472,6 +558,7 @@ class Model:
         cfg = self.cfg
         prefix = batch.get("prefix")
         x = self._embed_with_prefix(params, batch["tokens"], prefix)
+        x = shard(x, "batch", "act_seq", "embed")
         auxs = []
         run = self if self.flags.window is None else Model(
             cfg, dataclasses.replace(self.flags, window=None))
@@ -479,13 +566,17 @@ class Model:
         if prefix is not None:
             x = x[:, prefix.shape[1]:]
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = self.unembed(params, x).to(torch.float32)
+        # the targets' gather takes whole rows of the vocab
+        logits = shard(self.unembed(params, x).to(torch.float32),
+                       "batch", "seq", None)
         lse = torch.logsumexp(logits, dim=-1)
         tgt = torch.gather(logits, -1,
                            batch["targets"].to(torch.int64)[..., None])[..., 0]
         ce = torch.mean(lse - tgt)
         aux = (torch.stack(auxs).sum() if auxs else
                torch.zeros((), dtype=torch.float32, device=ce.device))
+        # under rules both scalars whole on every rank (sums done)
+        ce, aux = shard(ce), shard(aux)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, tokens, prefix=None):
@@ -503,6 +594,7 @@ class Model:
         cache then covers P + S positions."""
         cfg = self.cfg
         x = self._embed_with_prefix(params, tokens, prefix)
+        x = shard(x, "batch", "act_seq", "embed")
         x, caches = self._run_dense(params, x, return_cache=True)
         x = L.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
         stack = lambda cs: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
@@ -521,7 +613,7 @@ class Model:
         as the JAX model does; an int8 cache (``flags.kv_quant``) is
         quantized on write and dequantized on read."""
         cfg = self.cfg
-        x = self.embed(params, token)
+        x = shard(self.embed(params, token), "batch", "embed")
         kinds = self.layer_kinds()
         # a ring's lengths depend on its size: attention computes them
         tables = {k: (self._step_tables(k, pos) if self._window(k) is None

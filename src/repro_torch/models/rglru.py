@@ -26,6 +26,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..sharding import is_dtensor, shard
+from ..sharding import local as SL
 from .layers import _normal
 from .ssm import _softplus
 
@@ -60,8 +62,13 @@ def init_rglru_block(gen: torch.Generator, cfg, dtype, device) -> dict:
 
 def _gates(p: dict, x: torch.Tensor):
     """x: (..., w) conv output -> (log_a, gated input), both float32."""
-    r = torch.sigmoid((x @ p["w_r"]).to(torch.float32))
-    i = torch.sigmoid((x @ p["w_i"]).to(torch.float32))
+    # under rules the products read x whole over its width and the gating
+    # keeps its split: each use's gradient then returns to x's own
+    # placements before the two are summed (DTensor cannot always sum a
+    # split gradient into a pending sum)
+    xm = shard(x, "batch", "seq", None) if x.dim() == 3 else x
+    r = torch.sigmoid((xm @ p["w_r"]).to(torch.float32))
+    i = torch.sigmoid((xm @ p["w_i"]).to(torch.float32))
     log_a = -_C * _softplus(p["lambda"]) * r
     a2 = torch.exp(2 * log_a)
     gated = torch.sqrt(torch.clamp(1 - a2, min=1e-6)) * i \
@@ -72,7 +79,9 @@ def _gates(p: dict, x: torch.Tensor):
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     """Depthwise causal conv along the sequence axis, as a sum of shifted
     copies in the reference's order (``x * w[-1]`` first, the bias last).
-    x: (B, S, w); w: (W, w)."""
+    x: (B, S, w); w: (W, w). On a DTensor x, on local shards."""
+    if is_dtensor(x):
+        return SL.channelwise(_causal_conv, x, w, b)
     W = w.shape[0]
     out = x * w[-1]
     for i in range(1, W):
@@ -105,6 +114,7 @@ def apply_rglru_dense(p: dict, x_in: torch.Tensor, cfg):
     gate = F.gelu(x_in @ p["w_gate_branch"], approximate="tanh")
     rec_in = x_in @ p["w_rec_branch"]
     rec = _causal_conv(rec_in, p["conv_w"], p["conv_b"])
+    rec = shard(rec, "batch", "seq", "lru")
     log_a, gated = _gates(p, rec)
     h = linear_scan(log_a, gated)
     y = (h.to(x_in.dtype) * gate) @ p["w_out"]
@@ -112,7 +122,8 @@ def apply_rglru_dense(p: dict, x_in: torch.Tensor, cfg):
     conv = rec_in[:, -(W - 1):]
     if conv.shape[1] < W - 1:
         conv = F.pad(conv, (0, 0, W - 1 - conv.shape[1], 0))
-    return y, {"state": h[:, -1], "conv": conv}
+    return shard(y, "batch", "act_seq", "embed"), {"state": h[:, -1],
+                                                   "conv": conv}
 
 
 def apply_rglru_decode(p: dict, x_in: torch.Tensor, cache: dict, cfg):

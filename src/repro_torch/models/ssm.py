@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ssd_chunked
+from ..sharding import is_dtensor, shard
+from ..sharding import local as SL
 from .layers import _normal, init_rmsnorm, rms_norm
 
 
@@ -65,7 +67,9 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     """Depthwise causal conv along the sequence axis, as a sum of shifted
-    copies. x: (B, S, C); w: (W, C)."""
+    copies. x: (B, S, C); w: (W, C). On a DTensor x, on local shards."""
+    if is_dtensor(x):
+        return SL.channelwise(_causal_conv, x, w, b)
     W = w.shape[0]
     out = x * w[-1]
     for i in range(1, W):
@@ -82,8 +86,10 @@ def _chunk_for(S: int, chunk: int) -> int:
     return chunk
 
 
-def apply_ssm_dense(p: dict, x_in: torch.Tensor, cfg, *, chunk=None):
-    """Full-sequence Mamba-2 mixer. x_in: (B, S, d) -> (out, cache)."""
+def apply_ssm_dense(p: dict, x_in: torch.Tensor, cfg, *, chunk=None,
+                    with_cache: bool = True):
+    """Full-sequence Mamba-2 mixer. x_in: (B, S, d) -> (out, cache); the
+    cache is None without ``with_cache`` (training)."""
     s = cfg.ssm
     B, S, d = x_in.shape
     chunk = _chunk_for(S, chunk or s.chunk_size)
@@ -97,17 +103,29 @@ def apply_ssm_dense(p: dict, x_in: torch.Tensor, cfg, *, chunk=None):
     dt = x_in @ p["w_dt"]
     xs = _causal_conv(x_raw, p["conv_x"], p["conv_bias_x"])
     bc = _causal_conv(bc_raw, p["conv_bc"], p["conv_bias_bc"])
-    xs = xs.reshape(B, S, nh, s.head_dim)
+    xs = shard(xs.reshape(B, S, nh, s.head_dim),
+               "batch", "seq", "ssm_heads", None)
     Bs, Cs = bc[..., :N].contiguous(), bc[..., N:].contiguous()
+    # dt's pending sum settled before the bias joins it (DTensor cannot
+    # always turn the split bias into a pending sum)
+    dt = shard(dt, "batch", "seq", "ssm_heads")
     dtv = _softplus(dt.to(torch.float32) + p["dt_bias"])
+    dtv = shard(dtv, "batch", "seq", "ssm_heads")
     A = -torch.exp(p["A_log"])
 
-    y, final_state = ssd_chunked(xs, dtv, A, Bs, Cs, chunk)
+    if is_dtensor(xs):
+        y, final_state = SL.ssd_chunked(xs, dtv, A, Bs, Cs, chunk,
+                                        kernel=ssd_chunked)
+    else:
+        y, final_state = ssd_chunked(xs, dtv, A, Bs, Cs, chunk)
     y = y + xs * p["D"][None, None, :, None].to(x_in.dtype)
     y = y.reshape(B, S, di)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"]
 
+    out = shard(out, "batch", "act_seq", "embed")
+    if not with_cache:
+        return out, None
     W = s.conv_width
     conv = torch.cat([x_raw, bc_raw], dim=-1)[:, -(W - 1):]
     if conv.shape[1] < W - 1:

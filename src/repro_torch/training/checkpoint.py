@@ -5,7 +5,9 @@ A tree is flattened into one ``.npz`` whose keys are the leaves' JAX
 file and renamed into place. bfloat16 leaves widen to float32 (lossless);
 ``restore`` casts each leaf back to the target's dtype and device and
 raises on a missing key or a wrong shape. A checkpoint written by either
-package restores into the other (``repro.training.checkpoint``).
+package restores into the other (``repro.training.checkpoint``). A DTensor
+leaf (a mesh's state) is saved whole, so a checkpoint from a mesh loads on
+one device, and restores into a DTensor of the target leaf's placements.
 """
 from __future__ import annotations
 
@@ -16,11 +18,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..sharding import is_dtensor
 from .tree import flatten_with_paths, keystr, unflatten_like
 
 
 def _to_numpy(leaf) -> np.ndarray:
-    t = leaf.detach().cpu()
+    t = leaf.detach()
+    if is_dtensor(t):
+        t = t.full_tensor()
+    t = t.cpu()
     if t.dtype == torch.bfloat16:          # numpy has no bf16: widen
         t = t.to(torch.float32)
     return t.numpy()
@@ -58,7 +64,12 @@ def restore(path: str, like):
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                                  f"model {tuple(leaf.shape)}")
-            out.append(torch.from_numpy(np.ascontiguousarray(arr)).to(
-                device=leaf.device, dtype=leaf.dtype))
+            t = torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device=leaf.device, dtype=leaf.dtype)
+            if is_dtensor(leaf):
+                from torch.distributed.tensor import distribute_tensor
+                t = distribute_tensor(t, leaf.device_mesh, leaf.placements,
+                                      src_data_rank=None)
+            out.append(t)
         step = int(data["__step__"]) if "__step__" in data else None
     return unflatten_like(like, out), step

@@ -7,6 +7,11 @@ them (not in Python float64), so nothing reaches the host during a step.
 Where JAX returns new trees (and the trainer donates the old ones), the
 update here writes the parameters and both moments in place: at
 llama3.2-1b's full width a second copy of the three would be 15 GB.
+
+On a mesh the parameters, gradients and moments are DTensors: the moments
+take each parameter's placements, each update works on the local shards,
+and the global norm sums every leaf whole (DTensor reductions over a split
+leaf sum all of its shards), so every rank clips by the same scale.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..sharding import is_dtensor, mesh_context
 from .tree import flatten_with_paths, leaves, map_tree
 
 
@@ -50,17 +56,24 @@ def cosine_lr(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_adamw(params) -> AdamWState:
-    """Zero moments in float32 and step 0, on the parameters' device."""
-    zeros = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    """Zero moments in float32 and step 0, on the parameters' device (a
+    DTensor parameter's moments are DTensors of its placements)."""
+    zeros = map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     device = leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       mu=zeros, nu=map_tree(torch.clone, zeros))
 
 
+def _sum_squares(leaf) -> torch.Tensor:
+    """The sum of a leaf's squares over the whole leaf: a plain scalar
+    tensor, the same on every rank for a DTensor."""
+    s = torch.sum(torch.square(leaf.to(torch.float32)))
+    return s.full_tensor() if is_dtensor(s) else s
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                          for leaf in leaves(tree)))
+    return torch.sqrt(sum(_sum_squares(leaf) for leaf in leaves(tree)))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -72,7 +85,8 @@ def clip_by_global_norm(grads, max_norm: float):
     ``max_norm``, their norm before)."""
     norm = global_norm(grads)
     scale = _clip_scale(norm, max_norm)
-    return map_tree(lambda g: g.to(torch.float32) * scale, grads), norm
+    with mesh_context(leaves(grads)[0]):
+        return map_tree(lambda g: g.to(torch.float32) * scale, grads), norm
 
 
 _NO_DECAY = ("scale", "bias", "A_log", "D", "dt_bias", "a_param")
@@ -100,14 +114,16 @@ def adamw_update(cfg: OptimizerConfig, params, grads, state: AdamWState):
     f32 = dict(dtype=torch.float32, device=stepf.device)
     bc1 = 1.0 - torch.pow(torch.tensor(b1, **f32), stepf)
     bc2 = 1.0 - torch.pow(torch.tensor(b2, **f32), stepf)
-    for (path, p), g, m, v in zip(flatten_with_paths(params), leaves(grads),
-                                  leaves(state.mu), leaves(state.nu)):
-        g = g.to(torch.float32) * scale
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * torch.square(g))
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if _decay_mask(path):
-            delta = delta + cfg.weight_decay * p.to(torch.float32)
-        p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
+    flat = flatten_with_paths(params)
+    with mesh_context(flat[0][1]):
+        for (path, p), g, m, v in zip(flat, leaves(grads), leaves(state.mu),
+                                      leaves(state.nu)):
+            g = g.to(torch.float32) * scale
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * torch.square(g))
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            if _decay_mask(path):
+                delta = delta + cfg.weight_decay * p.to(torch.float32)
+            p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
     return params, AdamWState(step, state.mu, state.nu), {
         "lr": lr, "grad_norm": gnorm}

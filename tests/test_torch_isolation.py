@@ -22,7 +22,9 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "check_f32_sync.py",
     REPO / "tools" / "flash_ab.py",
     REPO / "tests" / "test_torch_kernels_cuda.py",
-    REPO / "examples" / "serve_real_model_torch.py"]
+    REPO / "examples" / "serve_real_model_torch.py",
+    REPO / "examples" / "train_small_torch.py",
+    REPO / "tools" / "mesh_step.py"]
 
 # modules kept as verbatim copies of the JAX package's pure-Python layer
 COPIES = ["configs/base.py", "configs/llama3_2_1b.py",

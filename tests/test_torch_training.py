@@ -155,6 +155,54 @@ def test_loss_and_every_gradient_match_jax(family):
         assert rel <= GRAD_REL, f"{keystr(path)}: {rel:.2e}"
 
 
+REMAT_FAMILIES = ("dense", "mla", "moe", "ssm_chunk8", "hybrid_tail")
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("family", REMAT_FAMILIES)
+def test_remat_keeps_the_loss_and_gradients(family, policy, monkeypatch):
+    """``remat`` around every block (every hybrid group; the tail runs
+    without it): the loss equals remat off exactly and every leaf's
+    gradient to ``||dg|| / ||g|| <= 1e-6`` (recomputed and saved values
+    sum in another order); both equal JAX's remat loss (rtol 1e-5) and
+    ``jax.grad`` (1e-5 per leaf). The blocks' RMSNorm runs again in the
+    backward pass."""
+    arch, kw, B, S = FAMILIES[family]
+    jcfg, tcfg = _pair(arch, **dict(kw))
+    jm = JaxModel(jcfg, JaxFlags(dtype=jnp.float32, attn_chunk=8,
+                                 remat=True, remat_policy=policy))
+    jp = jm.init(jax.random.key(0))
+    batch = _batch(jcfg, B, S)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm.loss(p, jb), has_aux=True))(jp)
+    tp = _grad_leaves(params_from_jax(jax.tree.map(np.asarray, jp),
+                                      device="cpu"))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    from repro_torch.kernels import rmsnorm as RMS
+    calls = []
+    plain = RMS.fused_rmsnorm_plain
+    monkeypatch.setattr(RMS, "fused_rmsnorm_plain",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    runs = {}
+    for remat in (False, True):
+        calls.clear()
+        model = Model(tcfg, RuntimeFlags(dtype=torch.float32, remat=remat,
+                                         remat_policy=policy))
+        (loss, _), grads = value_and_grad(model, tp, tb)
+        runs[remat] = (float(loss.detach()), flatten_with_paths(grads),
+                       len(calls))
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][2] > runs[False][2]
+    np.testing.assert_allclose(runs[True][0], float(jloss), rtol=LOSS_RTOL)
+    jg = _jax_paths(jgrads)
+    for (path, g), (_, g0) in zip(runs[True][1], runs[False][1]):
+        key = keystr(path)
+        assert float((g - g0).norm() / g0.norm()) <= 1e-6, key
+        rel = np.linalg.norm(_np(g) - jg[key]) / np.linalg.norm(jg[key])
+        assert rel <= 1e-5, f"{key}: {rel:.2e}"
+
+
 def test_prefill_takes_a_prefix_like_jax():
     jcfg, tcfg = _pair("internvl2-26b")
     jm = JaxModel(jcfg, JaxFlags(dtype=jnp.float32, attn_chunk=8))
@@ -408,6 +456,18 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "training llama3.2-1b (reduced) on cpu" in out
     assert "% reduction" in out and os.path.exists(ck)
+
+
+def test_train_small_example_drops_the_loss_on_the_cpu(capsys):
+    """``examples/train_small_torch.py``: the JAX example's flags and gate
+    (the loss falls by more than 0.5)."""
+    sys.path.insert(0, str(REPO / "examples"))
+    try:
+        import train_small_torch
+    finally:
+        sys.path.remove(str(REPO / "examples"))
+    assert train_small_torch.main(["--device", "cpu", "--steps", "30"]) == 0
+    assert "training example OK" in capsys.readouterr().out
 
 
 def test_launcher_takes_the_jax_launchers_flags():
