@@ -263,6 +263,32 @@ Phases, always all of them, in order:
            mode in turns (off, full, dots, dots, full, off): seconds and
            peak memory allocated. Each number line carries the card's name
            and power limit.
+  roofline  the dry-run tools (last). (a) ``python -m
+           repro_torch.launch.dryrun --all`` in a process of its own (a
+           fake group of 256 ranks, the (data 16, model 16) mesh, 7 worker
+           processes, its own time limit) under this machine's torch: all
+           40 combinations must trace; prints how many did and the slowest.
+           (b) four serve steps of ``launch.steps.build_combo`` on a 1-rank
+           NCCL (data 1, model 1) mesh at full width, seed-0 bf16 weights,
+           at ``num_layers`` base and 2 x base (base 3 for the hybrid, else
+           1): llama3.2-1b decode_32k (B 128 over a 32768-row cache, every
+           position 32767: ragged decode), llama3.2-1b prefill_32k (B 32 x
+           32768: flash and RMSNorm), mamba2-2.7b prefill_32k (the SSD
+           scan's tensor-core route at chunk 256) and recurrentgemma-9b
+           decode_32k (ragged decode at D 256, G 16): the mesh step's logits
+           against the same step on plain tensors (bf16 tolerance 2e-2;
+           bit-equality printed), each kernel of the path launched, and
+           per layer (t(2 x base) - t(base)) / base by CUDA events of both
+           (the faster of two turns, each the median of 3 calls; the plain
+           step runs on a copy of a decode's cache);
+           beside them the roofline's per-layer terms of the same
+           combination on a (1, 1) mesh (``python -m
+           repro_torch.launch.roofline --mesh 1x1``, computed from the H100
+           constants), the analytic bound (``analytic_bytes`` / 3.35 TB/s
+           or ``model_flops`` / 989 TFLOP/s, the larger) and each kernel's
+           device time per layer (profiler) beside its bound. A measured
+           layer under 0.95 x its analytic bound fails: the counts would
+           be wrong.
 
 Each serve's profile window must show every hand-written kernel whose
 launch counter moved in its traced serve; a window whose trace still
@@ -2466,6 +2492,240 @@ def phase_sharding(torch):
 
 
 # ---------------------------------------------------------------------------
+# the dry-run tools: the sweep under this torch, the roofline on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_JOBS = 7                 # the sweep's worker processes (8 cores)
+DRYRUN_LIMIT_S = 420            # the sweep's own time limit
+ROOFLINE_LIMIT_S = 300          # the (1, 1) roofline probes' own limit
+# (arch, shape, the kernels its step must launch, their profiler symbols)
+ROOFLINE_PROBES = (
+    ("llama3.2-1b", "decode_32k", ("ragged_decode_attention",
+                                   "fused_rmsnorm")),
+    ("llama3.2-1b", "prefill_32k", ("flash_attention", "fused_rmsnorm")),
+    ("mamba2-2.7b", "prefill_32k", ("ssd_chunked", "ssd_chunked_tc",
+                                    "fused_rmsnorm")),
+    ("recurrentgemma-9b", "decode_32k", ("ragged_decode_attention",
+                                         "fused_rmsnorm")),
+)
+KERNEL_SYMBOL = {"ragged_decode_attention": "ragged_decode_split_kernel",
+                 "flash_attention": "flash_tc_kernel",
+                 "fused_rmsnorm": "rmsnorm_kernel", "ssd_chunked": "ssd_"}
+BOUND_FLOOR = 0.95      # a measured layer under this share of its bound fails
+ROOFLINE_REPS = 3
+
+
+def _run_module(argv, limit_s: float, log: Path):
+    """``python -m argv`` from the repo in a session of its own, stdout
+    and stderr to ``log``; (exit code, the log's text). Past ``limit_s``
+    the whole session (the sweep's workers too) is killed and the phase
+    fails."""
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    log.parent.mkdir(parents=True, exist_ok=True)
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT,
+                                env=env, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=limit_s)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise SmokeFailure(f"{' '.join(argv)} outlived its {limit_s} s "
+                               f"(log {log})") from None
+    return rc, log.read_text()
+
+
+def _probe_inputs(torch, combo):
+    """Seed-0 weights and seeded inputs of a serve combo at its shape, on
+    the card: prefill tokens; decode a cache of normal entries (0.5) with
+    every row's position at its last row."""
+    model, shape = combo.model, combo.shape
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    B, S, V = shape.global_batch, shape.seq_len, combo.cfg.vocab_size
+    tok = lambda *shp: torch.randint(2, V, shp, generator=g, device="cuda",
+                                     dtype=torch.int32)
+    if shape.kind == "prefill":
+        return params, {"tokens": tok(B, S)}
+    from repro_torch.training.tree import leaves
+    cache = model.init_cache(B, S, device="cuda")
+    for leaf in leaves(cache):
+        leaf.normal_(0.0, 0.5, generator=g)
+    return (params, cache, tok(B),
+            torch.full((B,), S - 1, dtype=torch.int32, device="cuda"))
+
+
+def _roofline_step(torch, arch, shape, L, B, mesh, rules, kernels, smi):
+    """One probe depth at global batch ``B``: the mesh step against the
+    plain one, the launches, both times (in turns), and the kernels'
+    device time of a traced mesh step."""
+    import repro_torch.kernels as K
+    from repro_torch.launch.steps import build_combo
+    from repro_torch.sharding import use_rules
+    from repro_torch.training.tree import map_tree
+    combo = build_combo(arch, shape, mesh, cfg_overrides={"num_layers": L},
+                        batch=B)
+    args = _probe_inputs(torch, combo)
+    # the plain step on a copy of a decode's cache: a recurrent state
+    # (the hybrid's) is advanced in place by each step
+    plain_args = (args if len(args) == 2 else
+                  (args[0], map_tree(torch.clone, args[1]), *args[2:]))
+    with torch.no_grad():
+        plain = combo.fn(*plain_args)[0].clone()
+    placed = combo.place(args)
+
+    def mesh_step():
+        with use_rules(rules):
+            return combo.fn(*placed)
+
+    K.reset_launch_counts()
+    got = mesh_step()[0]
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    what = f"roofline {arch} x {shape} at {L} layers"
+    check_launched(counts, what, kernels)
+    logits = _whole(got)
+    check(tuple(logits.shape) == tuple(plain.shape)
+          and bool(torch.isfinite(logits).all()),
+          f"{what}: logits {tuple(logits.shape)} not finite or not "
+          f"{tuple(plain.shape)}")
+    err = compare(torch, logits, plain, "bfloat16", f"{what} (mesh vs plain)")
+    bit = bool(torch.equal(logits, plain))
+    del got, logits, plain
+    times = {"mesh": [], "plain": []}
+    for which in ("mesh", "plain", "plain", "mesh"):
+        fn = mesh_step if which == "mesh" else lambda: combo.fn(*plain_args)
+        times[which].append(cuda_ms(torch, fn, reps=ROOFLINE_REPS,
+                                    warmup=1))
+    syms = [KERNEL_SYMBOL[k] for k in kernels if k in KERNEL_SYMBOL]
+    _, dev, _, missing = traced_device_s(torch, mesh_step, what, syms)
+    check(not missing, f"{what}: the trace lacks {missing}")
+    dev_us = {k: sum(e.self_device_time_total for e in dev
+                     if KERNEL_SYMBOL[k] in e.key)
+              for k in kernels if k in KERNEL_SYMBOL}
+    launched = {k: counts[k] for k in kernels}
+    print(f"[roofline] {arch} x {shape}, {L} layers, B {B}: mesh vs plain "
+          f"logits "
+          f"max |err| {err:.3e} (bit-equal {bit}); launches {launched}; "
+          f"ms mesh {times['mesh']}, plain {times['plain']} [{smi}]")
+    del args, plain_args, placed, combo
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the faster turn of each (a turn is a median of ROOFLINE_REPS calls;
+    # a host stall in one turn is not the step's time)
+    return {"mesh": min(times["mesh"]), "plain": min(times["plain"]),
+            "dev_us": dev_us, "counts": launched}
+
+
+def phase_roofline(torch):
+    """(a) the dry-run sweep in a process of its own; (b) the four serve
+    steps on a 1-rank mesh against the roofline's per-layer terms and the
+    analytic bound (see the module docstring)."""
+    import re
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.roofline import analytic_per_layer
+    from repro_torch.sharding import make_rules
+    smi = smi_line()
+    build = ROOT / "build"
+    rc, out = _run_module(["repro_torch.launch.dryrun", "--all", "--jobs",
+                           str(DRYRUN_JOBS), "--out", str(build / "dryrun")],
+                          DRYRUN_LIMIT_S, build / "dryrun.log")
+    m = re.search(r"(\d+)/(\d+) combinations traced OK in ([\d.]+) s"
+                  r"(?:; slowest (\S+) × (\S+) ([\d.]+) s)?", out)
+    check(m is not None, f"roofline: the dry run printed no summary (exit "
+                         f"{rc}; log build/dryrun.log): {out[-1500:]}")
+    n_ok, n = int(m.group(1)), int(m.group(2))
+    print(f"[roofline] dry run --all, (data 16, model 16) over a fake group "
+          f"of 256 ranks, torch {torch.__version__}: {n_ok} / {n} traced in "
+          f"{m.group(3)} s ({DRYRUN_JOBS} processes); slowest {m.group(4)} x "
+          f"{m.group(5)} {m.group(6)} s")
+    failed = [ln for ln in out.splitlines() if ln.startswith("FAILED")]
+    check(rc == 0 and n_ok == n == 40,
+          f"roofline: {n_ok} / {n} combinations traced (exit {rc}): "
+          f"{failed[:5]}")
+
+    M.init_process_group("cuda")
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    rules = make_rules(mesh, "serve")
+    runs = {}
+    for arch, shape, kernels in ROOFLINE_PROBES:
+        cfg = get_config(arch)
+        base = len(cfg.hybrid.block_pattern) if cfg.hybrid else 1
+        B = get_shape(shape).global_batch
+        while True:       # the deeper probe first: it needs the most memory
+            try:
+                res = {L: _roofline_step(torch, arch, shape, L, B, mesh,
+                                         rules, kernels, smi)
+                       for L in (2 * base, base)}
+                break
+            except torch.cuda.OutOfMemoryError:
+                pass
+            # out of the handler, the failed probe's frames are gone
+            gc.collect()
+            torch.cuda.empty_cache()
+            check(B >= 8, f"roofline: {arch} x {shape} does not fit at B {B}")
+            print(f"[roofline] {arch} x {shape}: B {B} does not fit the card "
+                  f"(out of memory): cut to B {B // 2}")
+            B //= 2
+        runs[(arch, shape)] = (B, base, res)
+    _end_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the roofline's terms of the same combinations, at the batch run
+    rc, out = _run_module(
+        ["repro_torch.launch.roofline", "--mesh", "1x1", "--out",
+         str(build / "roofline_1x1")]
+        + [f"--combo={a}:{s}:{runs[(a, s)][0]}"
+           for a, s, _ in ROOFLINE_PROBES],
+        ROOFLINE_LIMIT_S, build / "roofline_1x1.log")
+    check(rc == 0, f"roofline: the (1, 1) probes exited {rc}: {out[-1500:]}")
+    for arch, shape, kernels in ROOFLINE_PROBES:
+        B, base, res = runs[(arch, shape)]
+        with open(build / "roofline_1x1" / f"{arch}__{shape}__mesh1x1.json") \
+                as f:
+            terms = json.load(f)
+        check(terms.get("batch", B) == B and terms["base"] == base,
+              f"roofline: {arch} x {shape} terms at another batch or base")
+        per = {w: (res[2 * base][w] - res[base][w]) / base
+               for w in ("mesh", "plain")}
+        t_flops = terms["flops_per_layer"] / M.PEAK_FLOPS * 1e3
+        t_bytes = terms["bytes_per_layer"] / M.HBM_BW * 1e3
+        largest = max(t_flops, t_bytes)
+        ana = analytic_per_layer(arch, shape, 1, batch=B)
+        a_ms = ana["bound_s"] * 1e3
+        print(f"[roofline] {arch} x {shape} (B {B}) per layer: measured mesh "
+              f"{per['mesh']:.4f} ms, plain {per['plain']:.4f} ms; roofline "
+              f"terms (computed, H100 constants) compute {t_flops:.4f} ms, "
+              f"memory {t_bytes:.4f} ms -> measured / largest "
+              f"{per['mesh'] / largest:.3f}; analytic bound {a_ms:.4f} ms "
+              f"({ana['bound_by']}: {ana['bytes'] / 1e9:.4f} GB, "
+              f"{ana['flops'] / 1e12:.4f} TFLOP) -> measured / bound "
+              f"{per['mesh'] / a_ms:.3f} (plain {per['plain'] / a_ms:.3f}) "
+              f"[{smi}]")
+        for k, us in res[base]["dev_us"].items():
+            d_ms = (res[2 * base]["dev_us"][k] - us) / base / 1e3
+            kt = terms["kernels_per_layer"].get(k)
+            if kt is None:
+                continue
+            b_ms = max(kt["bytes"] / M.HBM_BW,
+                       kt["flops"] / M.PEAK_FLOPS) * 1e3
+            print(f"[roofline]   {k}: device {d_ms:.4f} ms per layer over "
+                  f"{kt['count']:g} launches, bound {b_ms:.4f} ms "
+                  f"({kt['bytes'] / 1e9:.4f} GB, {kt['flops'] / 1e12:.4f} "
+                  f"TFLOP) -> {d_ms / b_ms if b_ms else float('nan'):.3f}x")
+        for w in ("mesh", "plain"):
+            check(per[w] >= BOUND_FLOOR * a_ms,
+                  f"roofline: {arch} x {shape} {w} step {per[w]:.4f} ms per "
+                  f"layer under {BOUND_FLOOR} x its analytic bound "
+                  f"{a_ms:.4f} ms: the counts are wrong")
+
+
+# ---------------------------------------------------------------------------
 # the RuntimeFlags variants, through the Model API
 # ---------------------------------------------------------------------------
 
@@ -3283,13 +3543,16 @@ def main() -> int:
     tm_counts = run(phase_train_mamba, torch)
     # the launcher's mesh path against the unsharded one; remat
     run(phase_sharding, torch)
+    # the dry-run sweep under this torch; serve steps on a 1-rank mesh
+    # against the roofline
+    run(phase_roofline, torch)
     PHASE[0] = "result"
     print(f"[done] build, kernels, serve, exact, mamba serve, mamba exact, "
           f"nemo serve, nemo exact, minicpm serve, minicpm exact, granite "
           f"serve, granite exact, rgemma serve, rgemma exact, variants, "
           f"legacy, launch serve, "
           f"launch tenants, gateway, train, train exact, train mamba, "
-          f"sharding in "
+          f"sharding, roofline in "
           f"{time.perf_counter() - t_all:.1f} s")
     counts["ssd_chunked"] = m_counts["ssd_chunked"]
     # the split-TF32 route: its launches in mamba exact, batched and isolated

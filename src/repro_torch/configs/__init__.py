@@ -46,7 +46,14 @@ def get_config(name: str) -> ModelConfig:
             f"unknown architecture {name!r}; available: {sorted(ARCHITECTURES)}")
 
 
+def get_shape(name: str) -> InputShape:
+    try:
+        return INPUT_SHAPES[name]
+    except KeyError:
+        raise KeyError(f"unknown input shape {name!r}; available: {sorted(INPUT_SHAPES)}")
+
+
 __all__ = [
     "ARCHITECTURES", "INPUT_SHAPES", "ModelConfig", "InputShape", "MoEConfig",
-    "MLAConfig", "SSMConfig", "HybridConfig", "get_config",
+    "MLAConfig", "SSMConfig", "HybridConfig", "get_config", "get_shape",
 ]

@@ -9,6 +9,10 @@ with grad mode on and an input that requires grad they go through a
 ``torch.autograd.Function`` (``FlashAttention``, ``FusedRMSNorm``,
 ``SSDChunked``) whose forward is the same launch and whose backward is
 PyTorch ops. ``ragged_decode_attention`` raises there instead.
+
+On fake or meta inputs (a dry run's trace) each wrapper takes a
+shape-only path instead (``_shape.py``): empty outputs of the right
+shapes, the kernel's flops and bytes handed to the trace, no launch.
 """
 from .flash_attn import FlashAttention, flash_attention, flash_attention_plain
 from .ragged_decode_attn import (ragged_decode_attention,

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._shape import causal_pairs, record, shape_only
 from ._vjp import plain_vjp
 
 
@@ -103,8 +104,24 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
     return _forward(q, k, v, window, q_offset)
 
 
+def flash_cost(q, k, v, window: Optional[int] = None, q_offset: int = 0):
+    """(flops, bytes) of one call: q, k, v read once and the output
+    written once; Q Kᵀ over Dqk columns and P V over Dv on the (query,
+    key) pairs the causal mask and ``window`` keep."""
+    B, S, H, D = q.shape
+    Dv = v.shape[3]
+    nbytes = (q.numel() + k.numel() + v.numel() + B * S * H * Dv) \
+        * q.element_size()
+    pairs = causal_pairs(S, k.shape[1], q_offset, window)
+    return 2 * B * H * (D + Dv) * pairs, nbytes
+
+
 def _forward(q, k, v, window: Optional[int], q_offset: int):
-    """The plain version on the CPU, else one launch of the kernel."""
+    """The shape-only path on fake or meta tensors, the plain version on
+    the CPU, else one launch of the kernel."""
+    if shape_only(q, k, v):
+        record("flash_attention", *flash_cost(q, k, v, window, q_offset))
+        return q.new_empty(q.shape[:3] + v.shape[3:])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window,
                                      q_offset=q_offset)

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._shape import record, shape_only
 
 
 def ragged_decode_attention_plain(q, k, v, lengths, *, slots=None,
@@ -47,6 +48,19 @@ def ragged_decode_attention_plain(q, k, v, lengths, *, slots=None,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, rv.to(torch.float32))
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def ragged_decode_cost(q, k, ctx: Optional[int] = None):
+    """(flops, bytes) of one call at its static bound: every query row
+    reads ``ctx`` (T without it) cached K and V rows once — the lengths
+    are data, which a shape-only trace cannot read — q read and the output
+    written once, lengths and slots as int32."""
+    B, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    span = T if ctx is None else min(ctx, T)
+    elt = q.element_size()
+    return (4 * H * D * B * span,
+            2 * q.numel() * elt + 2 * B * span * KV * D * elt + 8 * B)
 
 
 def _check(q, k, v, lengths, slots):
@@ -172,6 +186,10 @@ def ragged_decode_attention(q, k, v, lengths, *,
         raise RuntimeError(
             "ragged_decode_attention: decode attention has no gradient; "
             "an input requires grad — run decode under torch.no_grad()")
+    if shape_only(q, k, v, lengths, slots):
+        record("ragged_decode_attention",
+               *ragged_decode_cost(q, k, ctx))
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return ragged_decode_attention_plain(q, k, v, lengths, slots=slots,
                                              ctx=ctx)

@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._shape import record, shape_only
 
 # (x dtype, scale dtype) -> the C entry's dtype flags (bit 1: x bf16,
 # bit 2: scale bf16); bit 0, the 16-byte-slot path, is added per call
@@ -88,9 +89,21 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return _forward(x, scale, eps)
 
 
+def rmsnorm_cost(x: torch.Tensor, scale: torch.Tensor):
+    """(flops, bytes) of one call: x read and y written once, the scale
+    read once; four operations an element."""
+    return (4 * x.numel(),
+            2 * x.numel() * x.element_size()
+            + scale.numel() * scale.element_size())
+
+
 def _forward(x: torch.Tensor, scale: torch.Tensor,
              eps: float) -> torch.Tensor:
-    """The plain version on the CPU, else one launch of the kernel."""
+    """The shape-only path on fake or meta tensors, the plain version on
+    the CPU, else one launch of the kernel."""
+    if shape_only(x, scale):
+        record("fused_rmsnorm", *rmsnorm_cost(x, scale))
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
     if not x.is_cuda:
         if x.device.type == "cpu":
             return fused_rmsnorm_plain(x, scale, eps)

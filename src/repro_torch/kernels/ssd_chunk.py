@@ -25,6 +25,7 @@ import functools
 import torch
 
 from . import _build
+from ._shape import record, shape_only
 from ._vjp import plain_vjp
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -254,8 +255,31 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
     return _forward(x, dt, A, B_ssm, C_ssm, chunk)
 
 
+def ssd_cost(x, B_ssm, chunk: int):
+    """(flops, bytes) of one call: x, dt, A, B and C read once, y and the
+    final float32 state written once; C·Bᵀ once for all heads over each
+    chunk's causal half, W·x and the chunk states per head, the state
+    pass, and ``y_inter`` for the chunks after the first."""
+    Bb, S, nh, hd = x.shape
+    N = B_ssm.shape[-1]
+    nc, tri = S // chunk, chunk * (chunk + 1) // 2
+    nbytes = ((2 * x.numel() + 2 * Bb * S * N) * x.element_size()
+              + 4 * (Bb * S * nh + nh) + 4 * Bb * nh * hd * N)
+    flops = Bb * (2 * nc * tri * N + 2 * nc * nh * tri * hd
+                  + 2 * S * nh * hd * N + 2 * nc * nh * hd * N
+                  + 2 * (nc - 1) * chunk * nh * hd * N)
+    return flops, nbytes
+
+
 def _forward(x, dt, A, B_ssm, C_ssm, chunk: int):
-    """The plain version on the CPU, else the kernels of the route."""
+    """The shape-only path on fake or meta tensors, the plain version on
+    the CPU, else the kernels of the route."""
+    if shape_only(x, dt, A, B_ssm, C_ssm):
+        record("ssd_chunked", *ssd_cost(x, B_ssm, chunk))
+        Bb, _, nh, hd = x.shape
+        return (torch.empty_like(x),
+                x.new_empty((Bb, nh, hd, B_ssm.shape[-1]),
+                            dtype=torch.float32))
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, A, B_ssm, C_ssm, chunk)
     if x.device.type != "cuda":

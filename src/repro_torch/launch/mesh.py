@@ -86,6 +86,26 @@ def init_process_group(device_type: str, *, timeout_s: float = 600.0):
                             rank=0, world_size=1, timeout=timeout)
 
 
+def init_fake_group(world_size: int) -> None:
+    """Make this process rank 0 of a fake process group of ``world_size``
+    ranks (the dry run's 256 or 512 GPUs): its collectives return at once
+    and move nothing, so a step traced on fake tensors sees the
+    collectives that rank 0 would issue. A fake group of another size is
+    replaced; a real one raises."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        if dist.get_world_size() == world_size and \
+                dist.get_backend() == "fake":
+            return
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"init_fake_group: a {dist.get_backend()} "
+                               f"process group is up already")
+        dist.destroy_process_group()
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
 # ---------------------------------------------------------------------------
 # Hardware constants (NVIDIA H100 SXM) for the roofline terms
 # ---------------------------------------------------------------------------
@@ -96,8 +116,12 @@ PEAK_FLOPS = 989e12       # bf16 FLOP/s per GPU
 # the same data sheet: HBM3 bandwidth of the 80 GB SXM card
 HBM_BW = 3.35e12          # bytes/s per GPU
 # the same data sheet: NVLink 4, 900 GB/s per GPU (18 links, both
-# directions summed)
+# directions summed), among the 8 GPUs of one node
 NVLINK_BW = 900e9         # bytes/s per GPU
+# NVIDIA DGX H100 data sheet: 8 single-port ConnectX-7 adapters of 400
+# Gb/s (InfiniBand), one per GPU: 50 GB/s each way, 100 GB/s both
+# directions summed (as NVLINK_BW), for a collective between nodes
+NETWORK_BW = 100e9        # bytes/s per GPU
 
 
 # ---------------------------------------------------------------------------

@@ -70,7 +70,10 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
 
 
 def rotate(x: torch.Tensor, rope) -> torch.Tensor:
-    """Split-halves rotation of x (..., H, D) by ``rope_tables``' output."""
+    """Split-halves rotation of x (..., H, D) by ``rope_tables``' output.
+    Under a mesh D is made whole first (its halves are split apart)."""
+    if is_dtensor(x):
+        x = SL.merge_ready(x, (x.ndim - 1,))
     cos, sin = rope
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -96,11 +99,20 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, dtype, device) -> dict:
     }
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; under a mesh with x's sequence split (sequence
+    parallelism) on local shards (``sharding.local.linear``)."""
+    if is_dtensor(x) and SL.seq_split(x):
+        return SL.linear(x, w)
+    return x @ w
+
+
 def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = torch.nn.functional.silu(matmul(x, p["w_gate"])) \
+        * matmul(x, p["w_up"])
     if h.dim() == 3:
         h = shard(h, "batch", "seq", "ffn")
-    return h @ p["w_down"]
+    return matmul(h, p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +147,7 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     d, nh, hd = w.shape
     if is_dtensor(w):
         w = SL.merge_ready(w, (2,))
-    return (x @ w.reshape(d, nh * hd)).unflatten(-1, (nh, hd))
+    return matmul(x, w.reshape(d, nh * hd)).unflatten(-1, (nh, hd))
 
 
 def _qkv(p: dict, x: torch.Tensor, cfg, rope):
@@ -143,7 +155,12 @@ def _qkv(p: dict, x: torch.Tensor, cfg, rope):
     positions; k/v keep their KV heads (attention reads them by h // G)."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        bq, bk, bv = p["bq"], p["bk"], p["bv"]
+        if is_dtensor(bq):
+            # whole biases: a split of head_dim would reach q and k through
+            # the add, and RoPE's backward through it
+            bq, bk, bv = (SL.merge_ready(b, (0, 1)) for b in (bq, bk, bv))
+        q, k, v = q + bq, k + bk, v + bv
     q = rotate(q, rope)
     if q.dim() == 4:
         q = shard(q, "batch", "seq", "heads", None)
@@ -155,8 +172,8 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     h, hd, d = wo.shape
     if is_dtensor(wo):
         wo = SL.merge_ready(wo, (1,))
-        out = SL.merge_ready(out, (out.ndim - 1,))
-    return out.flatten(-2) @ wo.reshape(h * hd, d)
+        out = SL.merge_ready(SL.settle(out), (out.ndim - 1,))
+    return matmul(out.flatten(-2), wo.reshape(h * hd, d))
 
 
 def apply_attention_dense(p: dict, x: torch.Tensor, cfg, *, rope=None,
@@ -239,24 +256,44 @@ def apply_attention_decode(p: dict, x: torch.Tensor, cache: dict,
     t_idx = (pos % T if ring else pos)[:n]
     ck, cv = cache["k"], cache["v"]
     if "k_scale" not in cache:
-        ck[row_idx, t_idx] = k[:n].to(ck.dtype)
-        cv[row_idx, t_idx] = v[:n].to(cv.dtype)
-        out = ragged_decode_attention(q.contiguous(), ck, cv, lengths,
-                                      slots=slots, ctx=ctx)
+        write_rows(ck, row_idx, t_idx, k[:n])
+        write_rows(cv, row_idx, t_idx, v[:n])
+        out = _decode_attention(q, ck, cv, lengths, slots=slots, ctx=ctx)
         return _out_proj(out, p["wo"]), cache
     for name, new in (("k", k), ("v", v)):
         vals, scale = _quantize_rows(new[:n])
-        cache[name][row_idx, t_idx] = vals
-        cache[f"{name}_scale"][row_idx, t_idx] = scale
+        write_rows(cache[name], row_idx, t_idx, vals)
+        write_rows(cache[f"{name}_scale"], row_idx, t_idx, scale)
     rows = (slice(None) if slots is None
             else torch.clamp(slots, max=ck.shape[0] - 1))
     span = T if ctx is None or slots is None else min(ctx, T)
     ck, cv = (cache[name][rows, :span].to(x.dtype)
               * cache[f"{name}_scale"][rows, :span, :, None].to(x.dtype)
               for name in ("k", "v"))
-    out = ragged_decode_attention(q.contiguous(), ck.contiguous(),
-                                  cv.contiguous(), lengths)
+    out = _decode_attention(q, ck.contiguous(), cv.contiguous(), lengths)
     return _out_proj(out, p["wo"]), cache
+
+
+def write_rows(dest: torch.Tensor, row_idx: torch.Tensor,
+               t_idx: torch.Tensor, values: torch.Tensor) -> None:
+    """``dest[row_idx, t_idx] = values`` in place, in dest's dtype. A
+    DTensor cache (batch row i at cache row i: no slot arena under a
+    mesh) is written on each rank's shard (``sharding.local.write_rows``),
+    so the write never replicates the cache."""
+    if is_dtensor(dest):
+        SL.write_rows(dest, t_idx, values)
+    else:
+        dest[row_idx, t_idx] = values.to(dest.dtype)
+
+
+def _decode_attention(q, k, v, lengths, *, slots=None, ctx=None):
+    """The ragged decode kernel; under a mesh (a DTensor q, no slots) on
+    each rank's local rows and heads."""
+    if is_dtensor(q):
+        return SL.ragged_decode_attention(q, k, v, lengths,
+                                          kernel=ragged_decode_attention)
+    return ragged_decode_attention(q.contiguous(), k, v, lengths,
+                                   slots=slots, ctx=ctx)
 
 
 def _quantize_rows(x: torch.Tensor):
@@ -331,7 +368,7 @@ def _mla_q(p: dict, x: torch.Tensor, cfg, rope):
     """(q_nope, q_rope) of x (..., d): (..., H, nope) and (..., H, rope),
     the latter rotated by ``mla_rope_tables``' output."""
     m = cfg.mla
-    ql = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    ql = rms_norm(matmul(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
     q = _proj(ql, p["wq_b"])
     return q[..., :m.qk_nope_head_dim], rotate(q[..., m.qk_nope_head_dim:],
                                                rope)
@@ -341,7 +378,7 @@ def _mla_latent(p: dict, x: torch.Tensor, cfg, rope):
     """The cached latent of x (..., d): the normed ``ckv`` (..., kv_lora)
     and the rotated shared key part ``krope`` (..., rope)."""
     R = cfg.mla.kv_lora_rank
-    kv = x @ p["wkv_a"]
+    kv = matmul(x, p["wkv_a"])
     ckv = rms_norm(kv[..., :R], p["kv_norm"], cfg.norm_eps)
     return ckv, rotate(kv[..., None, R:], rope)[..., 0, :]
 
@@ -400,7 +437,18 @@ def _mla_absorbed_attention(p: dict, q_nope, q_rope, ckv, k_rope, cfg,
     S = q_nope.shape[1]
     wkv_b_k = p["wkv_b"][..., :m.qk_nope_head_dim]          # (R, H, nope)
     wkv_b_v = p["wkv_b"][..., m.qk_nope_head_dim:]          # (R, H, v)
+    # under a mesh the einsums reshape their operands: no pending sum, no
+    # uneven split of the 40 heads; under sequence parallelism each query
+    # chunk reads every key before it and the einsums merge the heads with
+    # the sequence, so each rank takes its batch rows whole
+    seqpar = is_dtensor(q_nope) and SL.seq_split(q_nope)
+    if seqpar:
+        q_nope = SL.batch_only(q_nope)
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wkv_b_k)
+    if is_dtensor(q_lat):
+        settle = SL.batch_only if seqpar else SL.settle
+        q_lat, q_rope, ckv, k_rope = (settle(t) for t in (q_lat, q_rope,
+                                                          ckv, k_rope))
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     c = pick_chunk(S, chunk)
     outs = []
@@ -460,8 +508,8 @@ def apply_mla_decode(p: dict, x: torch.Tensor, cache: dict,
                else torch.arange(B, device=x.device))[:n]
     ckv_full, krope_full = cache["ckv"], cache["krope"]
     t_idx = (pos % T if ring else pos)[:n]
-    ckv_full[row_idx, t_idx] = ckv_t[:n].to(ckv_full.dtype)
-    krope_full[row_idx, t_idx] = krope_t[:n].to(krope_full.dtype)
+    write_rows(ckv_full, row_idx, t_idx, ckv_t[:n])
+    write_rows(krope_full, row_idx, t_idx, krope_t[:n])
     if slots is None:
         ckv, krope = ckv_full, krope_full
     else:

@@ -458,8 +458,8 @@ class Model:
         """x: (..., d) -> logits (..., V), sharded over vocab under rules."""
         if self.cfg.tie_embeddings:
             table = shard(params["embed"]["tok"], "vocab", None)
-            return x @ table.T
-        logits = x @ params["unembed"]
+            return L.matmul(x, table.T)
+        logits = L.matmul(x, params["unembed"])
         if logits.dim() == 3:
             logits = shard(logits, "batch", "seq", "vocab")
         return logits

@@ -180,6 +180,10 @@ def apply_moe(p: dict, x: torch.Tensor, cfg, *, with_aux: bool = False,
     h = F.silu(torch.einsum("gecd,edf->gecf", buf, w_gate))
     h = h * torch.einsum("gecd,edf->gecf", buf, w_up)
     h = shard(h, "batch_nopod", "experts", None, "expert_ffn")
+    if sharded:
+        # a redistribution can leave the local shard strided; einsum views
+        # its operands
+        h = h.contiguous()
     out_buf = torch.einsum("gecf,efd->gecd", h, w_down)
     out_buf = shard(out_buf, "batch_nopod", "experts", None, "moe_out")
 

@@ -156,6 +156,9 @@ def apply_ssm_decode(p: dict, x_in: torch.Tensor, cache: dict, cfg):
                 + p["conv_bias_bc"])
     xs = xs.reshape(B, nh, s.head_dim)
     Bs, Cs = bc[:, :N], bc[:, N:]
+    # settled before the bias, as in apply_ssm_dense (a pending sum beside
+    # a batch split has no rule for the add in every torch release)
+    dt = shard(dt, "batch", "ssm_heads")
     dtv = _softplus(dt.to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
@@ -164,9 +167,18 @@ def apply_ssm_decode(p: dict, x_in: torch.Tensor, cache: dict, cfg):
     contrib = (dtv[..., None, None] * xs.to(torch.float32)[..., None]
                * Bs.to(torch.float32)[:, None, None, :])
     h = h * decay[..., None, None] + contrib
-    y = torch.einsum("bhpn,bn->bhp", h,
-                     Cs.to(torch.float32)).to(x_in.dtype)
+    if is_dtensor(h):
+        # the product and sum over the state, elementwise: DTensor's einsum
+        # flattens (h, p) into one dim, which a split head_dim forbids in
+        # some torch releases
+        y = (h * Cs.to(torch.float32)[:, None, None, :]).sum(-1).to(
+            x_in.dtype)
+    else:
+        y = torch.einsum("bhpn,bn->bhp", h,
+                         Cs.to(torch.float32)).to(x_in.dtype)
     y = y + xs * p["D"][None, :, None].to(x_in.dtype)
+    if is_dtensor(y):
+        y = SL.merge_ready(y, (2,))     # (heads, head_dim) merge below
     y = y.reshape(B, di)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"]

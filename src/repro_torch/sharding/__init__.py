@@ -51,13 +51,16 @@ def pspec(*entries) -> tuple:
 def placements_of(mesh, spec: Sequence) -> tuple:
     """One DTensor placement per mesh dim of ``mesh`` for ``spec``: Shard
     of the tensor dim whose entry names that mesh axis, else Replicate.
-    Axes the mesh lacks are ignored (replicated)."""
+    Axes the mesh lacks are ignored (replicated), and so are axes of one
+    rank: a split over one rank is no split, and DTensor's view rules
+    refuse to merge a dim "split" so."""
     from torch.distributed.tensor import Replicate, Shard
     names = tuple(mesh.mesh_dim_names)
+    sizes = tuple(mesh.shape)
     out = [Replicate()] * len(names)
     for d, entry in enumerate(spec):
         for ax in axis_names(entry):
-            if ax in names:
+            if ax in names and sizes[names.index(ax)] > 1:
                 out[names.index(ax)] = Shard(d)
     return tuple(out)
 
@@ -121,7 +124,8 @@ def shard(x, *logical: Optional[str]):
     """Redistribute a DTensor to the installed rules' placements for
     ``logical`` (JAX's ``with_sharding_constraint``). Without rules it
     returns ``x`` itself; a plain tensor under rules (one rank's local
-    data, a serve) is returned as it is."""
+    data, a serve) is returned as it is. A dim that the mesh axis does not
+    divide stays whole over it, where JAX would pad it."""
     rules = current_rules()
     if rules is None:
         return x
@@ -130,7 +134,14 @@ def shard(x, *logical: Optional[str]):
                          f"{logical}")
     if not is_dtensor(x):
         return x
-    return redistribute(x, rules.placements(logical))
+    # a split that does not divide its dim stays whole (JAX pads it;
+    # DTensor's rules for uneven splits are partial)
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    pl = tuple(p if not p.is_shard() or x.shape[p.dim] % mesh.size(i) == 0
+               else Replicate()
+               for i, p in enumerate(rules.placements(logical)))
+    return redistribute(x, pl)
 
 
 def mesh_context(x):

@@ -18,7 +18,15 @@ the outputs back as DTensors:
     beside split q would pair the wrong heads);
   * the SSD scan needs batch and ``ssm_heads`` local and the sequence and
     the state dim whole; B and C (shared by every head) are gathered over
-    the heads' split.
+    the heads' split;
+  * ragged decode needs ``head_dim`` and the cache's time axis whole; q
+    and the cache rows keep their batch split, the K/V heads follow q's
+    heads as in attention. A cache split along ``head_dim`` (the baseline
+    ``cache_pspecs(prefer="trailing")``) is gathered for it.
+
+A decode step's cache writes (``write_rows``) also run on local shards:
+each rank writes its own rows into its own shard, the new rows moved to
+the cache's split, never the cache to theirs.
 
 The embedding lookup runs on local shards too (DTensor's own rules for
 ``table[tokens]`` and ``F.embedding`` fail on a split batch beside a
@@ -45,6 +53,27 @@ def _placements():
     return Partial, Replicate, Shard
 
 
+def _even(t, pl, i: int, dims=(0,)) -> bool:
+    """Whether placement ``pl`` of DTensor ``t`` on mesh dim ``i`` splits
+    one of ``dims`` into equal parts. A kernel keeps only such splits: a
+    local shard of an uneven one would come back (``DTensor.from_local``)
+    with a wrong global shape."""
+    from torch.distributed.tensor import Shard
+    return (isinstance(pl, Shard) and pl.dim in dims
+            and t.shape[pl.dim] % t.device_mesh.size(i) == 0)
+
+
+def settle(x):
+    """A DTensor with every pending sum done and every split that does
+    not divide its dim made whole (JAX pads such a split; DTensor's rules
+    for an uneven split are partial: a reshape that merges it, for one,
+    raises, and a reshape of a pending sum may split it unevenly)."""
+    pl = tuple(p if p.is_replicate() or (p.is_shard()
+                                         and _even(x, p, i, (p.dim,)))
+               else _placements()[1]() for i, p in enumerate(x.placements))
+    return redistribute(x, pl)
+
+
 def local_call(fn: Callable, args: Sequence, in_placements: Sequence,
                grad_placements: Sequence, out_placements: Sequence, mesh):
     """``fn`` on the local shards of ``args`` redistributed to
@@ -58,13 +87,31 @@ def local_call(fn: Callable, args: Sequence, in_placements: Sequence,
             local.append(a)
             continue
         a = redistribute(a, pl)
-        local.append(a.to_local(grad_placements=gpl))
+        a = a.to_local(grad_placements=gpl)
+        if a.requires_grad and torch.is_grad_enabled():
+            # a kernel's backward may hand back a strided gradient, which
+            # DTensor's view rules then read as if it were contiguous
+            a = _MapGrad.apply(a, torch.Tensor.contiguous)
+        local.append(a)
     outs = fn(*local)
     single = not isinstance(outs, tuple)
     outs = (outs,) if single else outs
     wrapped = tuple(DTensor.from_local(o, mesh, pl, run_check=False)
                     for o, pl in zip(outs, out_placements))
     return wrapped[0] if single else wrapped
+
+
+class _MapGrad(torch.autograd.Function):
+    """The identity, whose backward hands on ``fn(gradient)``."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fn(g), None
 
 
 def _as_dtensor(t, mesh):
@@ -82,8 +129,8 @@ def rms_norm(x, scale, eps: float, kernel: Callable):
     Partial, Replicate, Shard = _placements()
     mesh = x.device_mesh
     # rows keep their split; the last axis and pending sums go whole
-    x_pl = tuple(pl if isinstance(pl, Shard) and pl.dim < x.ndim - 1
-                 else Replicate() for pl in x.placements)
+    x_pl = tuple(pl if _even(x, pl, i, range(x.ndim - 1))
+                 else Replicate() for i, pl in enumerate(x.placements))
     rep = (Replicate(),) * mesh.ndim
     s_grad = tuple(Partial() if isinstance(pl, Shard) else Replicate()
                    for pl in x_pl)
@@ -104,7 +151,7 @@ def embedding(tokens, table):
     t_pl, w_pl, w_grad, out_pl = [], [], [], []
     vocab_dim = None
     for i, (tp, wp) in enumerate(zip(tokens.placements, table.placements)):
-        if isinstance(tp, Shard) and tp.dim == 0:
+        if _even(tokens, tp, i):
             t_pl.append(tp)
             w_pl.append(Replicate())
             w_grad.append(Partial())
@@ -142,6 +189,52 @@ def embedding(tokens, table):
                       (None, tuple(w_grad)), (tuple(out_pl),), mesh)
 
 
+def seq_split(x) -> bool:
+    """Whether DTensor x (B, S, ..., K) is split along a dim between its
+    first and its last (sequence parallelism's split of S)."""
+    return x.ndim >= 3 and any(p.is_shard() and 0 < p.dim < x.ndim - 1
+                               for p in x.placements)
+
+
+def batch_only(x):
+    """DTensor x with an even split of its first dim kept and every other
+    mesh dim whole."""
+    Partial, Replicate, Shard = _placements()
+    return redistribute(x, tuple(p if _even(x, p, i) else Replicate()
+                                 for i, p in enumerate(x.placements)))
+
+
+def linear(x, w):
+    """``x @ w`` (x (..., K), w (K, N)) on local shards. DTensor's matrix
+    product merges x's leading dims into one; with the batch split over
+    one mesh axis and the sequence over another (sequence parallelism)
+    that dim is split twice, a strided split its rules do not follow.
+    Per mesh dim: x's even split of a leading dim stays and w is gathered
+    whole (its gradient a pending sum); else a split of w's output
+    features stays and x is whole (x's gradient a pending sum); else a
+    split of the contraction stays on both and the output is a pending
+    sum; else both are whole."""
+    Partial, Replicate, Shard = _placements()
+    mesh = x.device_mesh
+    w = _as_dtensor(w, mesh)
+    last = x.ndim - 1
+    x_pl, w_pl, x_g, w_g, o_pl = [], [], [], [], []
+    for i, (xp, wp) in enumerate(zip(x.placements, w.placements)):
+        if _even(x, xp, i, range(last)):
+            plan = (xp, Replicate(), xp, Partial(), xp)
+        elif _even(w, wp, i, (1,)):
+            plan = (Replicate(), wp, Partial(), wp, Shard(last))
+        elif _even(w, wp, i, (0,)) and x.shape[last] % mesh.size(i) == 0:
+            plan = (Shard(last), wp, Shard(last), wp, Partial())
+        else:
+            plan = (Replicate(),) * 5
+        for lst, p in zip((x_pl, w_pl, x_g, w_g, o_pl), plan):
+            lst.append(p)
+    x_pl, w_pl = tuple(x_pl), tuple(w_pl)
+    return local_call(lambda a, b: a @ b, (x, w), (x_pl, w_pl),
+                      (tuple(x_g), tuple(w_g)), (tuple(o_pl),), mesh)
+
+
 def merge_ready(w, dims: Sequence[int]):
     """A DTensor weight with every split of ``dims`` (the inner dims of a
     reshape that merges them into the one before) made whole, so that
@@ -162,8 +255,8 @@ def channelwise(fn: Callable, x, *params):
     mesh = x.device_mesh
     c = x.ndim - 1
     x_pl, chan = [], []
-    for pl in x.placements:
-        keep = isinstance(pl, Shard) and pl.dim in (0, c)
+    for i, pl in enumerate(x.placements):
+        keep = _even(x, pl, i, (0, c))
         x_pl.append(pl if keep else Replicate())
         chan.append(keep and pl.dim == c)
     params = [_as_dtensor(p, mesh) for p in params]
@@ -208,7 +301,7 @@ def flash_attention(q, k, v, *, window, kernel: Callable):
     H, KV = q.shape[2], k.shape[2]
     q_pl, kv_pl, kv_grad, slices = [], [], [], []
     for i, pl in enumerate(q.placements):
-        if isinstance(pl, Shard) and pl.dim == 0:
+        if _even(q, pl, i):
             q_pl.append(pl)
             kv_pl.append(pl)
             kv_grad.append(pl)
@@ -239,9 +332,108 @@ def flash_attention(q, k, v, *, window, kernel: Callable):
         return kernel(ql.contiguous(), kl.contiguous(), vl.contiguous(),
                       window=window)
 
+    if slices and torch.is_grad_enabled():
+        # the sliced K/V's gradient is a pending sum over the heads' mesh
+        # dim: sum it where it arrives, before the projection's backward
+        # (DTensor would split the pending sum along the merged tokens,
+        # already split over the batch, a split its rules cannot follow)
+        k, v = _MapGrad.apply(k, settle), _MapGrad.apply(v, settle)
+
     q_pl, kv_pl, kv_grad = tuple(q_pl), tuple(kv_pl), tuple(kv_grad)
     return local_call(run, (q, k, v), (q_pl, kv_pl, kv_pl),
                       (q_pl, kv_grad, kv_grad), (q_pl,), mesh)
+
+
+def ragged_decode_attention(q, k, v, lengths, *, kernel: Callable):
+    """``kernel(q, k, v, lengths)`` (ragged decode, GQA, no slots) on the
+    local batch rows and query heads. q: (B, H, D); k, v: (B, T, KV, D)
+    DTensors (a cache, row i of the batch at cache row i); lengths: (B,).
+    The kernel needs ``head_dim`` and the time axis whole: a cache split
+    there is gathered (or, over the heads' mesh dim, moved to the K/V
+    heads' split), and the dry run counts that collective."""
+    Partial, Replicate, Shard = _placements()
+    mesh = q.device_mesh
+    H, KV = q.shape[1], k.shape[2]
+    q_pl, kv_pl, len_pl, slices = [], [], [], []
+    for i, pl in enumerate(q.placements):
+        if _even(q, pl, i):
+            q_pl.append(pl)
+            kv_pl.append(pl)
+            len_pl.append(pl)
+            continue
+        len_pl.append(Replicate())
+        group = (_kv_group(mesh, i, H, KV)
+                 if isinstance(pl, Shard) and pl.dim == 1 else None)
+        if group is None:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+        elif group[0] == "shard":
+            q_pl.append(Shard(1))
+            kv_pl.append(Shard(2))
+        else:
+            q_pl.append(Shard(1))
+            kv_pl.append(Replicate())
+            slices.append(group[1])
+    if len(slices) > 1:
+        raise ValueError("ragged_decode_attention under a mesh: query heads "
+                         "split over more than one mesh dim with K/V sliced")
+
+    def run(ql, kl, vl, ll):
+        if slices:
+            lo, hi = slices[0]
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        return kernel(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                      ll.to(torch.int32).contiguous())
+
+    q_pl, kv_pl, len_pl = tuple(q_pl), tuple(kv_pl), tuple(len_pl)
+    return local_call(run, (q, k, v, _as_dtensor(lengths, mesh)),
+                      (q_pl, kv_pl, kv_pl, len_pl),
+                      (None, None, None, None), (q_pl,), mesh)
+
+
+def write_rows(dest, t_idx, values):
+    """``dest[i, t_idx[i]] = values[i]`` for every batch row i, in place,
+    each rank writing into its own shard of ``dest`` (a decode cache leaf
+    (B, T, ...) DTensor, row i of the batch at cache row i): ``values``
+    (B, ...) and ``t_idx`` (B,) are moved to the cache's split — the
+    batch's split, the split of a trailing dim — and never the cache to
+    theirs, so a write moves no cache-sized collective. A cache split over
+    its time axis takes, on each rank, the rows whose time falls in its
+    span."""
+    Partial, Replicate, Shard = _placements()
+    mesh = dest.device_mesh
+    v_pl, t_pl, time_dims = [], [], []
+    for i, pl in enumerate(dest.placements):
+        if isinstance(pl, Shard) and pl.dim == 0:
+            v_pl.append(Shard(0))
+            t_pl.append(Shard(0))
+            continue
+        t_pl.append(Replicate())
+        if isinstance(pl, Shard) and pl.dim == 1:
+            time_dims.append(i)
+        v_pl.append(Shard(pl.dim - 1) if isinstance(pl, Shard)
+                    and pl.dim > 1 else Replicate())
+    vals = redistribute(_as_dtensor(values, mesh), tuple(v_pl)).to_local()
+    t = redistribute(_as_dtensor(t_idx, mesh), tuple(t_pl)).to_local()
+    local = dest.to_local()
+    rows = torch.arange(local.shape[0], device=local.device)
+    vals = vals.to(local.dtype)
+    if not time_dims:
+        local[rows, t] = vals
+        return dest
+    # this rank's span of the time axis: DTensor's chunks, outer mesh dim
+    # first
+    lo, n = 0, dest.shape[1]
+    for i in time_dims:
+        size = -(-n // mesh.size(i))
+        lo += mesh.get_local_rank(i) * size
+        n = min(size, max(0, n - mesh.get_local_rank(i) * size))
+    rel = t.to(torch.int64) - lo
+    hit = (rel >= 0) & (rel < local.shape[1])
+    rel = torch.where(hit, rel, torch.zeros_like(rel))
+    keep = hit.reshape((-1,) + (1,) * (vals.dim() - 1))
+    local[rows, rel] = torch.where(keep, vals, local[rows, rel])
+    return dest
 
 
 def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int, kernel: Callable):
@@ -253,7 +445,7 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int, kernel: Callable):
     nh = x.shape[2]
     x_pl, a_pl, a_grad, bc_pl, bc_grad, st_pl = [], [], [], [], [], []
     for i, pl in enumerate(x.placements):
-        if isinstance(pl, Shard) and pl.dim == 0:
+        if _even(x, pl, i):
             x_pl.append(pl)
             a_pl.append(Replicate())
             a_grad.append(Partial())

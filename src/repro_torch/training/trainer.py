@@ -71,10 +71,13 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig) -> Callable:
     return train_step
 
 
-def init_state(model: Model, generator: torch.Generator) -> TrainState:
+def init_state(model: Model, generator: Optional[torch.Generator] = None,
+               *, device=None) -> TrainState:
     """Seeded parameters on the generator's device, each a leaf that
-    requires grad, and a fresh AdamW state."""
-    params = model.init(generator)
+    requires grad, and a fresh AdamW state. Without a generator,
+    ``device="meta"`` gives the state's shapes and dtypes and allocates
+    nothing (``jax.eval_shape`` of the JAX ``init_state``)."""
+    params = model.init(generator, device=device)
     for p in leaves(params):
         p.requires_grad_(True)
     return TrainState(params=params, opt=init_adamw(params))

@@ -16,12 +16,21 @@
   a 60 s group timeout and a 150 s limit on every rank's wait): reduced llama
   replicated on (data 2); on (data 2, model 2) with the state split by
   ``param_pspecs(fsdp=True)``, reduced llama at one K/V head (the query
-  heads split over ``model``, the K/V heads sliced to each rank's group)
-  and reduced granite MoE. From JAX weights (``params_from_jax``), the
+  heads split over ``model``, the K/V heads sliced to each rank's group),
+  reduced llama under sequence parallelism (``act_seq`` over ``model``:
+  the products of sequence-split activations on local shards) and
+  reduced granite MoE. From JAX weights (``params_from_jax``), the
   loss equals the port's single-process loss and JAX's ``make_train_step``
   loss to rtol 1e-5, every leaf's whole gradient the single process's to
   ``||dg|| / ||g|| <= 1e-5``, the whole updated parameters to 1e-5; every
   rank holds its leaves at their global shape divided along their spec.
+* Serve steps (``launch.steps``' prefill_step and serve_step) on the same
+  (data 2, model 2) gloo mesh, all in one run of four processes: reduced
+  llama, mamba2, minicpm3, granite and recurrentgemma, prefill and decode
+  under both cache specs, llama's decode over a ring (``window``) and over
+  an int8 cache, from JAX weights and seeded small inputs; the logits and
+  every updated cache leaf equal the port's single process and JAX's
+  ``combo.fn`` on a 1-device mesh (rtol 1e-5).
 """
 import dataclasses
 import sys
@@ -255,12 +264,16 @@ MESH_CASES = {
                      (("data", 2), ("model", 2)), True),
     "tp_granite_moe": ("granite-moe-3b-a800m", {},
                        (("data", 2), ("model", 2)), True),
+    # sequence parallelism (the hillclimb's act_seq rule): the matrix
+    # products of sequence-split activations run on local shards
+    "sp_llama": ("llama3.2-1b", {}, (("data", 2), ("model", 2)), True,
+                 {"act_seq": "model"}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(MESH_CASES))
 def test_mesh_train_step_equals_one_process_and_jax(case, tmp_path):
-    arch, kw, axes, fsdp = MESH_CASES[case]
+    arch, kw, axes, fsdp, *rules = MESH_CASES[case]
     jcfg, tcfg = _pair(arch, **kw)
     jm = JaxModel(jcfg, JaxFlags(dtype=jnp.float32))
     jstate = JT.init_state(jm, jax.random.key(0))
@@ -273,7 +286,8 @@ def test_mesh_train_step_equals_one_process_and_jax(case, tmp_path):
                              device="cpu")
 
     outs = mesh_step.run_ranks(dict(cfg=tcfg, mesh=list(axes), fsdp=fsdp,
-                                    params=params, batch=batch),
+                                    params=params, batch=batch,
+                                    rules=rules[0] if rules else {}),
                                int(np.prod([s for _, s in axes])), tmp_path)
     loss, grads, new = mesh_step.one_process(tcfg, params, batch)
 
@@ -300,3 +314,101 @@ def test_mesh_train_step_equals_one_process_and_jax(case, tmp_path):
         assert outs[0]["local"]["['blocks']['attn']['wq']"][2][2] == "model"
         assert "model" not in (outs[0]["local"]
                                ["['blocks']['attn']['wk']"][2][2] or ())
+
+
+# ---------------------------------------------------------------------------
+# serve steps (launch.steps' prefill_step and serve_step) on gloo meshes
+# ---------------------------------------------------------------------------
+
+SERVE_CASES = {c[0]: c for c in mesh_step.serve_cases()}
+
+
+@pytest.fixture(scope="module")
+def serve_run(tmp_path_factory):
+    """Every serve case once on the (data 2, model 2) mesh of four gloo
+    processes, from JAX's seed-0 weights of each reduced family."""
+    archs = mesh_step.SERVE_FAMILIES
+    pairs = {a: _pair(a) for a in archs}
+    jparams = {a: JaxModel(pairs[a][0], JaxFlags(dtype=jnp.float32)).init(
+        jax.random.key(0)) for a in archs}
+    params = {a: params_from_jax(jax.tree.map(np.asarray, jparams[a]),
+                                 device="cpu") for a in archs}
+    cfgs = {a: pairs[a][1] for a in archs}
+    inputs = {n: mesh_step.serve_inputs(cfgs[c[1]], c[2], c[3])
+              for n, c in SERVE_CASES.items()}
+    outs = mesh_step.run_serve(list(SERVE_CASES.values()), cfgs, params,
+                               inputs, tmp_path_factory.mktemp("serve"))
+    return dict(pairs=pairs, jparams=jparams, params=params, inputs=inputs,
+                outs=outs)
+
+
+def _jax_serve(case, jcfg, jparams, inputs):
+    """JAX's ``combo.fn`` of the case on a 1-device mesh: {"logits",
+    "cache" by path}."""
+    from repro.launch.steps import build_combo as jax_build_combo
+    _, arch, shape, flags, prefer = case
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                             ("data", "model"))
+    combo = jax_build_combo(
+        arch, shape, mesh,
+        cfg_overrides={f.name: getattr(jcfg, f.name)
+                       for f in dataclasses.fields(jcfg)},
+        flag_overrides=dict(flags, dtype=jnp.float32), cache_prefer=prefer)
+    args = jax.tree.map(jnp.asarray, inputs)
+    with mesh, JS.use_rules(JS.make_rules(mesh, "serve")):
+        logits, cache = combo.fn(jparams, *args)
+    return {"logits": np.asarray(logits),
+            "cache": {"".join(f"[{k!r}]" for k in p): np.asarray(v)
+                      for p, v in flatten_with_paths(
+                          jax.tree.map(np.asarray, cache))}}
+
+
+def _close(got, ref, what):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    scale = float(np.abs(ref).max()) or 1.0
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * scale,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("name", sorted(SERVE_CASES))
+def test_mesh_serve_step_equals_one_process_and_jax(name, serve_run):
+    """The logits and every updated cache leaf of a prefill or decode step
+    on (data 2, model 2) equal the port's step in one process and JAX's
+    ``build_combo`` step on a 1-device mesh (rtol 1e-5, atol 1e-5 of the
+    leaf's largest entry); every placed input leaf is split as its spec.
+    An int8 cache's new row may hold an entry a level apart from JAX's
+    (at most 8; the logits then to 1e-2, as tests/test_torch_variants.py
+    holds int8 decode)."""
+    case = SERVE_CASES[name]
+    arch = case[1]
+    jcfg, tcfg = serve_run["pairs"][arch]
+    inputs = serve_run["inputs"][name]
+    one = mesh_step.serve_step(
+        mesh_step.serve_combo(case, tcfg, mesh_step.standin_mesh()),
+        serve_run["params"][arch], inputs)
+    ref = _jax_serve(case, jcfg, serve_run["jparams"][arch], inputs)
+    got = serve_run["outs"][0][name]
+    _close(got["logits"], one["logits"], f"{name} logits vs one process")
+    assert sorted(got["cache"]) == sorted(ref["cache"]), name
+    apart = 0
+    for key, r in ref["cache"].items():
+        _close(got["cache"][key], one["cache"][key], f"{name} {key}")
+        if r.dtype == np.int8:
+            # the new row's levels: a product rounded apart in XLA and
+            # PyTorch may round one entry to the next level (as in
+            # tests/test_torch_variants.py)
+            d = np.abs(got["cache"][key].numpy().astype(np.int32) - r)
+            assert d.max() <= 1, f"{name} {key}: {d.max()} levels apart"
+            apart += int(d.sum())
+        else:
+            _close(got["cache"][key], r, f"{name} {key} vs JAX")
+    assert apart <= 8, f"{name}: {apart} int8 entries a level apart"
+    if apart:
+        np.testing.assert_allclose(got["logits"], ref["logits"], rtol=1e-2,
+                                   atol=1e-2, err_msg=f"{name} vs JAX")
+    else:
+        _close(got["logits"], ref["logits"], f"{name} logits vs JAX")
+    sizes = dict(mesh_step.MESH)
+    for o in serve_run["outs"]:
+        for key, (shape, local, spec) in o[name]["local"].items():
+            assert local == mesh_step.local_shape(shape, spec, sizes), key

@@ -159,11 +159,18 @@ def test_chunk_halving_rule():
         [256, 128, 64, 32, 1, 1, 1]
 
 
-def test_ssd_wrapper_rejects_unsupported_devices():
+def test_ssd_wrapper_rejects_unsupported_devices(monkeypatch):
+    """A device that is neither the CPU nor CUDA raises. Meta tensors take
+    the shape-only path of a dry run's trace (``kernels/_shape.py``), so
+    the check is reached here with that path switched off."""
+    from repro_torch.kernels import ssd_chunk
     x = torch.zeros((1, 4, 2, 16), device="meta")
+    args = (x, x[..., 0], x[0, 0, :, 0], x[..., 0, :8], x[..., 0, :8], 4)
+    y, final = K.ssd_chunked(*args)
+    assert y.device.type == "meta" and tuple(final.shape) == (1, 2, 16, 8)
+    monkeypatch.setattr(ssd_chunk, "shape_only", lambda *t: False)
     with pytest.raises(ValueError, match="unsupported device"):
-        K.ssd_chunked(x, x[..., 0], x[0, 0, :, 0], x[..., 0, :8],
-                      x[..., 0, :8], 4)
+        K.ssd_chunked(*args)
 
 
 # ---------------------------------------------------------------------------
