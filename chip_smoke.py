@@ -7,9 +7,12 @@ Phases, always all of them, in order:
 
   build    compile every CUDA source of ``src/repro_torch/csrc`` with nvcc
            (one process per source, all started together); print seconds
-           and what ptxas reports per kernel; fail when the RMSNorm kernel,
-           the float32 flash kernel at D 64, a flash or ragged decode kernel
-           at D 256 or a kernel of the SSD scan's split-TF32 route spills,
+           and what ptxas reports per kernel, then the bf16 flash kernel's
+           instantiation at each served shape (registers, spill bytes, CTAs
+           an SM holds); fail when the RMSNorm kernel, the float32 flash
+           kernel at D 64, any instantiation of the bf16 flash kernel, a
+           flash or ragged decode kernel at D 256 or a kernel of the SSD
+           scan's split-TF32 route spills,
            when ptxas serializes the float32 flash kernel's wgmmas at D 256
            (its 255 registers a thread leave no room), when the flash or
            SSD library holds no
@@ -772,11 +775,21 @@ def compare(torch, got, ref, dtype_name: str, what: str, tols=None) -> float:
 # phases
 # ---------------------------------------------------------------------------
 
-# the f32 flash kernel at D 64 (llama's head dim), the flash kernels at
-# D 256 (recurrentgemma-9b's), the ragged decode kernel at D 256 and the
-# SSD scan's split-TF32 kernels, as ptxas names them
+# the f32 flash kernel at D 64 (llama's head dim) and at D 256
+# (recurrentgemma-9b's), every instantiation of the bf16 flash kernel, the
+# ragged decode kernel at D 256 and the SSD scan's split-TF32 kernels, as
+# ptxas names them
 F32_FLASH_D64 = "flash_tf32x3_kernelILi64E"
-FLASH_D256 = ("flash_tc_kernelILi256E", "flash_tf32x3_d256_kernel")
+F32_FLASH_D256 = "flash_tf32x3_d256_kernel"
+FLASH_TC = "flash_tc_kernel"
+# the bf16 kernel's instantiations on the served paths, by the shape a
+# launch gives them: (what, B, S, H, KV, Dqk, Dv)
+FLASH_TC_SHAPES = (("llama prefill", 4, 512, 32, 8, 64, 64),
+                   ("nemo prefill", 4, 512, 32, 8, 128, 128),
+                   ("minicpm3 prefill", 4, 512, 40, 40, 96, 64),
+                   ("granite prefill", 4, 512, 24, 8, 64, 64),
+                   ("rgemma prefill", 4, 512, 16, 1, 256, 256))
+
 DECODE_D256 = "Li256E"
 SSD_TF32 = ("ssd_intra_tf32_kernel", "ssd_scores_tf32_kernel")
 
@@ -801,25 +814,34 @@ def phase_build():
                 # every wgmma
                 print(f"[build] {name}: {line.strip()}")
                 check(not (name == "flash_attn"
-                           and FLASH_D256[1] in line),
+                           and F32_FLASH_D256 in line),
                       f"{name}: ptxas serializes the wgmmas of "
-                      f"{FLASH_D256[1]}")
+                      f"{F32_FLASH_D256}")
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name} {kernel}: {line.strip()}")
                 spilled = [int(b) for b in re.findall(
                     r"(\d+) bytes spill (?:stores|loads)", line)]
                 # RMSNorm, the f32 flash kernel at llama's head dim, the
-                # D-256 flash and decode kernels and the SSD scan's
-                # split-TF32 kernels
+                # D-256 flash and decode kernels, every instantiation of
+                # the bf16 flash kernel and the SSD scan's split-TF32
+                # kernels
                 no_spill = name == "rmsnorm" or (
                     name == "flash_attn" and any(
-                        k in kernel for k in (F32_FLASH_D64, *FLASH_D256))) or (
+                        k in kernel for k in (F32_FLASH_D64, F32_FLASH_D256,
+                                              FLASH_TC))) or (
                     name == "ragged_decode_attn" and DECODE_D256 in kernel) or (
                     name == "ssd_chunk" and any(k in kernel
                                                 for k in SSD_TF32))
                 check(not (no_spill and any(spilled)),
                       f"{name}: ptxas reports spills in {kernel}: "
                       f"{line.strip()}")
+    # the bf16 flash kernel's instantiation at each served shape: its
+    # registers and local (spill) bytes a thread, CTAs an SM holds
+    import repro_torch.kernels as K
+    for what, B, S, H, KV, D, Dv in FLASH_TC_SHAPES:
+        print(f"[build] flash_tc_kernel at {what} (B {B}, S {S}, H {H}, KV "
+              f"{KV}, q/k {D}, v {Dv}): "
+              f"{K.flash_attn.tc_info(B, S, S, H, KV, D, Dv)}")
     # the bf16 flash kernel and the SSD scan's tensor-core route run on the
     # tensor cores: their SASS holds HGMMA (wgmma) instructions; the f32
     # flash kernel's and the f32 SSD route's split products are TF32 ones

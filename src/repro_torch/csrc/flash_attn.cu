@@ -10,15 +10,19 @@
 // head h / (H / KV), so the engine passes un-repeated GQA heads and no
 // repeat_kv copy is ever materialized (KV == H is the TPU kernel's case).
 //
-// Head widths: each kernel is compiled at D = 32, 64, 128 and 256, and runs
-// at the smallest D that holds Dqk (Dv <= Dqk, both multiples of 8).
-// Columns past Dqk of q and k and past Dv of v load as zeros, so they add
-// nothing to a score or to the output, and only Dv columns are stored. GQA
-// passes Dqk == Dv == D; MLA's non-absorbed prefill (MiniCPM3: q and k 96
-// wide, v 64) runs at D 128 with a third of its score columns and half of
-// its output columns zero (the work of D 128, not of 96 and 64);
-// recurrentgemma-9b's local attention (16 q heads over 1 kv head of 256,
-// window 2048) runs at D 256.
+// Head widths: each kernel is compiled at D = 32, 64, 128 and 256 for q
+// and k, and runs at the smallest D that holds Dqk (Dv <= Dqk, both
+// multiples of 8). Columns past Dqk of q and k and past Dv of v load as
+// zeros, so they add nothing to a score or to the output, and only Dv
+// columns are stored. The bf16 kernel also has a V width of its own, DV,
+// the smallest of the same widths that holds Dv, and a compile-time count
+// of Q K^T k slices: GQA passes Dqk == Dv == D (D / 16 slices); MLA's
+// non-absorbed prefill (MiniCPM3: q and k 96 wide, v 64) runs the pair
+// (128, 64) with 6 k slices of Q K^T and P V at N 64 into a 32-float
+// accumulator, the work of 96 and 64 (its reduced() widths 48 / 32 run
+// (64, 32) with 3); recurrentgemma-9b's local attention (16 q heads over 1
+// kv head of 256, window 2048) runs (256, 256). The float32 kernels run V
+// at the q/k width.
 //
 // Bound on the H100: at the serve's prefill buckets (S <= 512, D = 64) the
 // bytes of q, k, v and the output; the causal half's 4 * B * H * D * S^2 / 2
@@ -28,36 +32,46 @@
 //
 // One C entry point, three kernels chosen by dtype and width:
 //
-// bfloat16 (what the serve runs): flash_tc_kernel, on the tensor cores.
-// One CTA per (q-tile of 64 rows, NC heads of a KV group, batch row) runs
-// one consumer warpgroup per head (NC is 4 for D <= 64, 2 for D = 128 and
-// 1 for D = 256, by registers: at D = 256 two consumers get 168 registers a
-// thread and spill, one gets 208 and does not; a group of G > NC heads
-// takes (G + NC - 1) / NC CTAs side by side, each loading the group's K/V
-// tiles, mostly from L2), so
-// each K/V tile is loaded once per NC heads instead of once per head. A
-// producer warp streams K and V tiles by TMA (cp.async.bulk.tensor through
-// 4-D tensor maps (B, T, KV, width) with a box of (1, 64, 1, <= 64
-// columns: two boxes per row of a tile at D = 128, four at D = 256), so
-// rows t >= T of a batch row and columns past a head's width read as
-// zeros) into a ring of 3-4 stages (three 64 KB ones at D = 256) with
-// mbarrier completion: tile j + 1 loads while tile j computes. Each
-// consumer warpgroup loads its Q tile by TMA, forms S = Q K^T
+// bfloat16 (what the serve runs): flash_tc_kernel<D, DV, KS, NC>, on the
+// tensor cores, instantiated at the pairs (D, DV) = (32, 32), (64, 64), (128,
+// 128), (256, 256), (128, 64), (64, 32), (256, 128) and (256, 64); any other
+// pair is refused. One CTA per (q-tile of 64 rows, NC heads of a KV group,
+// batch row) runs one consumer warpgroup per head, and every consumer reads
+// each K/V tile the producer loads, so a tile serves NC * 64 query rows. NC
+// is 4 at D = DV <= 64 (2 for G 2 and 3, 1 for G 1) and 1 at D = 128 (two
+// heads a CTA lost in turns to one head with two CTAs an SM), at D = 256
+// (registers: two consumers get 168 registers a thread and spill, one gets
+// 208 and does not) and at the MLA pairs (two or four q-row tiles of one
+// head a CTA lost in turns to one row tile with three CTAs an SM: the (128,
+// 64) pair's CTA holds 66,600 bytes of shared memory and 160 threads); a
+// group of G > NC heads takes (G + NC - 1) / NC CTAs side by side, each
+// loading the group's K/V tiles, mostly from L2. A producer warp streams K
+// and V tiles by TMA (cp.async.bulk.tensor through 4-D tensor maps (B, T,
+// KV, width) with a box of (1, 64, 1, <= 64 columns: two boxes per row of a
+// tile at D = 128, four at D = 256), so rows t >= T of a batch row and
+// columns past a head's width read as zeros; V's map is DV wide) into a
+// ring of 2-4 stages with mbarrier completion: tile j + 1 loads while tile j
+// computes. Each consumer warpgroup loads its Q tile by TMA, forms S = Q K^T
 // with wgmma m64n64k16 (both operands K-major from shared memory, 128-byte
-// swizzle for D = 64 and two or four 64-column atoms for D = 128 and 256,
-// 64-byte swizzle for D = 32, the same swizzle in the tensor map and the
-// descriptor), runs
-// the online softmax on the float32 accumulator fragment (row max and sum
-// over the four lanes that share a row), re-packs P as bf16 A-operand
-// registers and adds P V with a second wgmma whose B operand is the V tile
-// read MN-major (the transposed-B form; one m64n256k16 per k slice at
-// D = 256, whose accumulator is 128 floats a thread). Tiles above the
-// causal diagonal and below the window are never loaded; only the tiles
-// that cross a bound or the T tail are masked. Output rows past S are not stored. The grid
-// runs the q-tiles with the most keys first, so the longest CTAs start in
-// the first wave. Overlapping one tile's softmax with the next tile's
-// products inside a warpgroup, with or without the warpgroups taking turns
-// at the tensor cores, was tried and lost time at the serve's shapes.
+// swizzle for 64-column atoms (two at D = 128, four at 256), 64-byte
+// swizzle for D = 32, the same swizzle in the tensor map and the
+// descriptor), runs the online softmax on the float32 accumulator fragment
+// (row max and sum over the four lanes that share a row), re-packs P as
+// bf16 A-operand registers and adds P V with a second wgmma m64nDVk16 whose
+// B operand is the V tile read MN-major (the transposed-B form). Tiles above
+// the causal diagonal and below the window are never loaded; only the tiles
+// that cross a bound or the T tail are masked. Output rows past S and
+// columns past Dv are not stored. Each row's result depends on its q, its
+// keys and its position only (no split over keys), so batched and isolated
+// prefills agree bit for bit. The grid runs the q-tiles with the most keys
+// first, so the longest CTAs start in the first wave. Tried and lost at the
+// serve's shapes: overlapping one tile's softmax with the next tile's
+// products inside a warpgroup (at D 64 with four consumers, with or without
+// the warpgroups taking turns at the tensor cores; at D 128 and MLA, where
+// ptxas then serialized the wgmmas), and rescaling l and acc only when a
+// row's max grew by more than 2^8. K/V tiles are not multicast across a
+// cluster (PERF.md: what the K/V loads cost at D 128, by
+// tools/flash_ab.py --probe no-kv-loads).
 //
 // float32 at D <= 128 (the exact checks, training): flash_tf32x3_kernel,
 // on the tensor cores at
@@ -159,9 +173,9 @@ __device__ __forceinline__ float ex2(float x) {   // 2^x; ex2(-inf) = 0
 }
 
 // A launch's sizes: width is the compiled D (32, 64, 128 or 256) that holds
-// Dqk
+// Dqk, v_width the one that holds Dv (the bf16 kernel's V tile width)
 struct Shape {
-  int B, S, T, H, KV, width, Dqk, Dv, q_offset, window;
+  int B, S, T, H, KV, width, v_width, Dqk, Dv, q_offset, window;
   float scale_log2;   // the scores' scale times log2(e)
 };
 
@@ -849,36 +863,49 @@ using repro::tma_head_tile;
 
 constexpr int kRows = repro::kTileRows;   // q rows and keys per tile
 
-// K/V ring depth: four 16 KB stages (K and V) at D <= 64, three 32 KB ones
-// at D = 128, three 64 KB ones at D = 256 (beside its one 32 KB Q tile:
-// 230,456 bytes of the 232,448 a block may have)
+// K/V ring depth: four stages at D <= 64 (16 KB of K and V), two at D =
+// 128 (24 KB at DV 64, 32 KB at DV 128: three CTAs of the MLA pair fit an
+// SM, where three stages left two and lost in turns) and three at D = 256
+// (up to 64 KB beside its one 32 KB Q tile: 230,456 bytes of the 232,448 a
+// block may have)
 template <int D>
-__host__ __device__ constexpr int stages() { return D >= 128 ? 3 : 4; }
-
-template <int D, int NC>
-constexpr size_t smem_bytes() {
-  // 1 KB of slack to align the tiles to the 1024-byte swizzle period
-  return 1024 + (size_t)(NC + 2 * stages<D>()) * Tile<D>::kBytes +
-         8 * (2 * stages<D>() + NC);
+__host__ __device__ constexpr int stages() {
+  return D == 128 ? 2 : D > 128 ? 3 : 4;
 }
 
-template <int D, int NC>
+// Q/K tiles are D wide and V tiles DV wide (DV the compiled width that
+// holds Dv), NC consumers' Q tiles beside the ring
+template <int D, int DV, int NC>
+constexpr size_t smem_bytes() {
+  // 1 KB of slack to align the tiles to the 1024-byte swizzle period
+  return 1024 + (size_t)(NC + stages<D>()) * Tile<D>::kBytes +
+         (size_t)stages<D>() * Tile<DV>::kBytes + 8 * (2 * stages<D>() + NC);
+}
+
+// One CTA: one q tile of 64 rows of NC heads of a KV group, one consumer
+// warpgroup per head, and a producer warp. Every consumer reads each K/V
+// tile the producer loads, so a tile serves NC * 64 query rows. Q K^T runs
+// KS k slices of 16 columns: a count known at compile time (a k-slice loop
+// with a run-time bound made ptxas serialize every wgmma of the kernel).
+template <int D, int DV, int KS, int NC>
 __global__ void __launch_bounds__(NC * 128 + 32, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, int S, int T, int H, int KV,
                 int Dv, int q_offset, int window, float scale_log2) {
-  using L = Tile<D>;
+  static_assert(KS >= 1 && KS <= D / 16, "flash_tc_kernel: k slices");
+  using LQ = Tile<D>;                    // Q and K tiles
+  using LV = Tile<DV>;                   // V tiles
   constexpr int kStages = stages<D>();
-  constexpr int kOut = D / 2;            // accumulator floats per thread
+  constexpr int kOut = DV / 2;           // accumulator floats per thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t q_s = base;                              // NC tiles
-  const uint32_t k_s = q_s + NC * L::kBytes;              // kStages tiles
-  const uint32_t v_s = k_s + kStages * L::kBytes;         // kStages tiles
-  const uint32_t bars = v_s + kStages * L::kBytes;
+  const uint32_t k_s = q_s + NC * LQ::kBytes;             // kStages tiles
+  const uint32_t v_s = k_s + kStages * LQ::kBytes;        // kStages tiles
+  const uint32_t bars = v_s + kStages * LV::kBytes;
   auto full = [&](int st) { return bars + 8 * st; };
   auto empty = [&](int st) { return bars + 8 * (kStages + st); };
   auto qbar = [&](int w) { return bars + 8 * (2 * kStages + w); };
@@ -915,16 +942,18 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (warp == NC * 4) {
-    // producer: the K and V tiles through the ring
-    if (lane == 0) {
-      for (int j = 0; j < n_tiles; ++j) {
-        const int st = j % kStages;
-        mbar_wait(empty(st), ((j / kStages) & 1) ^ 1);
-        mbar_expect_tx(full(st), 2 * L::kBytes);
+    // producer: the K and V tiles through the ring, issued by lane 0
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      mbar_wait(empty(st), ((j / kStages) & 1) ^ 1);
+      repro::jitter(1);
+      if (lane == 0) {
+        mbar_expect_tx(full(st), LQ::kBytes + LV::kBytes);
         const int k0 = k_lo + j * kRows;
-        tma_head_tile<D>(k_s + st * L::kBytes, &tk, full(st), kvh, k0, b);
-        tma_head_tile<D>(v_s + st * L::kBytes, &tv, full(st), kvh, k0, b);
+        tma_head_tile<D>(k_s + st * LQ::kBytes, &tk, full(st), kvh, k0, b);
+        tma_head_tile<DV>(v_s + st * LV::kBytes, &tv, full(st), kvh, k0, b);
       }
+      __syncwarp();
     }
     return;
   }
@@ -932,13 +961,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = warp >> 2;              // consumer warpgroup = head slot
   const int wl = warp & 3;               // warp within the warpgroup
   const int t = tid & 127;
-  const uint32_t my_q = q_s + wg * L::kBytes;
+  const uint32_t my_q = q_s + wg * LQ::kBytes;
   const int hg = pass * NC + wg;
   const bool active = hg < G;
   const int head = kvh * G + hg;
   if (active) {
     if (t == 0) {
-      mbar_expect_tx(qbar(wg), L::kBytes);
+      mbar_expect_tx(qbar(wg), LQ::kBytes);
       tma_head_tile<D>(my_q, &tq, qbar(wg), head, q0, b);
     }
     mbar_wait(qbar(wg), 0);
@@ -951,15 +980,17 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j % kStages;
+    const int k0 = k_lo + j * kRows;
     mbar_wait(full(st), (j / kStages) & 1);
+    repro::jitter(6);
     if (active) {
-      const int k0 = k_lo + j * kRows;
+      // S = Q K^T over the KS k slices that hold columns of q and k
       float s[32];
       repro::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        repro::wgmma_ss_n64(s, L::kmajor(my_q, kk),
-                            L::kmajor(k_s + st * L::kBytes, kk), kk > 0);
+      for (int kk = 0; kk < KS; ++kk)
+        repro::wgmma_ss_n64(s, LQ::kmajor(my_q, kk),
+                            LQ::kmajor(k_s + st * LQ::kBytes, kk), kk > 0);
       repro::wgmma_commit();
       repro::wgmma_wait_all();
       repro::fence_regs(s);
@@ -1003,7 +1034,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
           }
         l[h] = l[h] * corr + sum;
 #pragma unroll
-        for (int jj = 0; jj < D / 8; ++jj) {
+        for (int jj = 0; jj < DV / 8; ++jj) {
           acc[4 * jj + 2 * h] *= corr;
           acc[4 * jj + 2 * h + 1] *= corr;
         }
@@ -1015,16 +1046,21 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
         for (int r = 0; r < 4; ++r)
           pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 
+      // O += P V at the V tile's width DV
       repro::fence_regs(acc);
       repro::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        repro::wgmma_rs<D>(acc, pa[kk],
-                              L::mnmajor(v_s + st * L::kBytes, kk));
+        repro::wgmma_rs<DV>(acc, pa[kk],
+                            LV::mnmajor(v_s + st * LV::kBytes, kk));
       repro::wgmma_commit();
       repro::wgmma_wait_all();
       repro::fence_regs(acc);
     }
+    // every consumer frees every stage, an inactive one too: the producer
+    // refills a stage only after all NC of them (its full wait orders the
+    // arrival after the previous round's)
+    repro::jitter(7);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(st));
   }
@@ -1040,7 +1076,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (row >= S) continue;
     __nv_bfloat16* orow = o + (((size_t)b * S + row) * H + head) * Dv;
 #pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj) {
+    for (int jj = 0; jj < DV / 8; ++jj) {
       if (8 * jj >= Dv) continue;        // columns past Dv are not stored
       const __nv_bfloat162 v = __floats2bfloat162_rn(
           acc[4 * jj + 2 * h] * inv, acc[4 * jj + 2 * h + 1] * inv);
@@ -1050,81 +1086,149 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D, int NC>
+// One launch; with info, no launch: the instantiation's registers a
+// thread, local (spill) bytes a thread, CTAs an SM holds, shared memory
+// bytes and NC, in info[0 ... 4]
+template <int D, int DV, int KS, int NC>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
-              const Shape& sh, cudaStream_t stream) {
+              const Shape& sh, cudaStream_t stream, int* info) {
   static int granted = 48 * 1024;
+  constexpr size_t smem = smem_bytes<D, DV, NC>();
+  constexpr int threads = NC * 128 + 32;
+  auto kernel = flash_tc_kernel<D, DV, KS, NC>;
+  cudaError_t err = repro::allow_smem(kernel, smem, &granted);
+  if (err != cudaSuccess) return (int)err;
+  if (info != nullptr) {
+    cudaFuncAttributes a{};
+    err = cudaFuncGetAttributes(&a, kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel,
+                                                          threads, smem);
+    info[0] = a.numRegs;
+    info[1] = (int)a.localSizeBytes;
+    info[3] = (int)smem;
+    info[4] = NC;
+    return (int)err;
+  }
   CUtensorMap tq, tk, tv;
   if (!head_tensor_map<D>(&tq, q, sh.B, sh.S, sh.H, sh.Dqk) ||
       !head_tensor_map<D>(&tk, k, sh.B, sh.T, sh.KV, sh.Dqk) ||
-      !head_tensor_map<D>(&tv, v, sh.B, sh.T, sh.KV, sh.Dv))
+      !head_tensor_map<DV>(&tv, v, sh.B, sh.T, sh.KV, sh.Dv))
     return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = smem_bytes<D, NC>();
-  cudaError_t err = repro::allow_smem(flash_tc_kernel<D, NC>, smem, &granted);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid(sh.KV * ((sh.H / sh.KV + NC - 1) / NC), sh.B,
             (sh.S + kRows - 1) / kRows);
-  flash_tc_kernel<D, NC><<<grid, NC * 128 + 32, smem, stream>>>(
+  flash_tc_kernel<D, DV, KS, NC><<<grid, threads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), sh.S, sh.T, sh.H, sh.KV,
       sh.Dv, sh.q_offset, sh.window, sh.scale_log2);
   return (int)cudaGetLastError();
 }
 
-// NC consumer warpgroups: 4 at D <= 64, 2 at D = 128, 1 at D = 256
-// (registers), never more than the G heads of a group
-template <int D>
-int dispatch_nc(const void* q, const void* k, const void* v, void* o,
-                const Shape& sh, cudaStream_t stream) {
+// NC consumer warpgroups by the pair (D, DV) and the group G: at DV = D <=
+// 64, 4, 2 or 1 heads of a group (registers: four accumulators of 64
+// columns fit); one at D = DV = 128 (two heads a CTA, each K/V tile read by
+// both consumers, lost in turns at mistral-nemo-12b's G 4 to one head with
+// two CTAs an SM), at D = 256 (registers) and at the MLA pairs (more q-row
+// tiles of one head a CTA lost in turns to more, smaller CTAs). Q K^T runs
+// D / 16 k slices, and at the MLA pairs 3 D / 64 where Dqk <= 3 D / 4
+// (MiniCPM3's 96 of 128: 6; its reduced 48 of 64: 3).
+template <int D, int DV>
+int dispatch_pair(const void* q, const void* k, const void* v, void* o,
+                  const Shape& sh, cudaStream_t stream, int* info) {
+  constexpr int kAll = D / 16;
   if constexpr (D == 256) {
-    return launch_tc<D, 1>(q, k, v, o, sh, stream);
+    return launch_tc<D, DV, kAll, 1>(q, k, v, o, sh, stream, info);
+  } else if constexpr (DV < D) {
+    constexpr int kMla = 3 * D / 64;
+    if ((sh.Dqk + 15) / 16 <= kMla)
+      return launch_tc<D, DV, kMla, 1>(q, k, v, o, sh, stream, info);
+    return launch_tc<D, DV, kAll, 1>(q, k, v, o, sh, stream, info);
+  } else if constexpr (D == 128) {
+    return launch_tc<D, DV, kAll, 1>(q, k, v, o, sh, stream, info);
   } else {
     const int G = sh.H / sh.KV;
-    const int nc_max = D == 128 ? 2 : 4;
-    const int nc = G >= nc_max ? nc_max : (G >= 2 ? 2 : 1);
-    if (nc == 4)
-      return launch_tc<D, (D == 128 ? 2 : 4)>(q, k, v, o, sh, stream);
-    if (nc == 2) return launch_tc<D, 2>(q, k, v, o, sh, stream);
-    return launch_tc<D, 1>(q, k, v, o, sh, stream);
+    if (G >= 4) return launch_tc<D, DV, kAll, 4>(q, k, v, o, sh, stream, info);
+    if (G >= 2) return launch_tc<D, DV, kAll, 2>(q, k, v, o, sh, stream, info);
+    return launch_tc<D, DV, kAll, 1>(q, k, v, o, sh, stream, info);
   }
 }
 
+// The pairs (width, v_width) instantiated: D = DV at 32, 64, 128 and 256;
+// MLA's (128, 64) (MiniCPM3's 96 / 64) and (64, 32) (its reduced 48 / 32);
+// (256, 128) and (256, 64). Any other pair is refused with
+// cudaErrorNotSupported.
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             const Shape& sh, cudaStream_t stream) {
-  switch (sh.width) {
-    case 32:
-      return dispatch_nc<32>(q, k, v, o, sh, stream);
-    case 64:
-      return dispatch_nc<64>(q, k, v, o, sh, stream);
-    case 128:
-      return dispatch_nc<128>(q, k, v, o, sh, stream);
-    case 256:
-      return dispatch_nc<256>(q, k, v, o, sh, stream);
+             const Shape& sh, cudaStream_t stream, int* info) {
+  switch (sh.width * 1000 + sh.v_width) {
+    case 32032:
+      return dispatch_pair<32, 32>(q, k, v, o, sh, stream, info);
+    case 64064:
+      return dispatch_pair<64, 64>(q, k, v, o, sh, stream, info);
+    case 64032:
+      return dispatch_pair<64, 32>(q, k, v, o, sh, stream, info);
+    case 128128:
+      return dispatch_pair<128, 128>(q, k, v, o, sh, stream, info);
+    case 128064:
+      return dispatch_pair<128, 64>(q, k, v, o, sh, stream, info);
+    case 256256:
+      return dispatch_pair<256, 256>(q, k, v, o, sh, stream, info);
+    case 256128:
+      return dispatch_pair<256, 128>(q, k, v, o, sh, stream, info);
+    case 256064:
+      return dispatch_pair<256, 64>(q, k, v, o, sh, stream, info);
     default:
-      return (int)cudaErrorInvalidValue;
+      return (int)cudaErrorNotSupported;
   }
 }
 
 }  // namespace tc
+
+// The launch's sizes, or false when the C entries refuse them: width is
+// the compiled D that holds Dqk, v_width the one that holds Dv
+bool make_shape(int B, int S, int T, int H, int KV, int width, int Dqk,
+                int Dv, int q_offset, int window, float scale, Shape* sh) {
+  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || Dqk % 8 || Dv % 8 ||
+      Dv <= 0 || Dv > Dqk || Dqk > width)
+    return false;
+  const int v_width = Dv <= 32 ? 32 : Dv <= 64 ? 64 : Dv <= 128 ? 128 : 256;
+  *sh = Shape{B, S, T, H, KV, width, v_width, Dqk, Dv, q_offset, window,
+              (float)(1.4426950408889634 * (double)scale)};
+  return true;
+}
 
 }  // namespace
 
 // q (B, S, H, Dqk), k (B, T, KV, Dqk), v (B, T, KV, Dv), o (B, S, H, Dv);
 // width: the compiled D (32, 64, 128 or 256) that holds Dqk; Dqk and Dv
 // multiples of 8 with Dv <= Dqk; scale: the scores' scale; window <= 0
-// means no sliding window.
+// means no sliding window. bfloat16 takes the pairs of width and the width
+// that holds Dv that tc::dispatch lists, and returns cudaErrorNotSupported
+// for any other.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int S,
                                      int T, int H, int KV, int width,
                                      int Dqk, int Dv, int q_offset,
                                      int window, float scale, int dtype,
                                      void* stream) {
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || Dqk % 8 || Dv % 8 ||
-      Dv <= 0 || Dv > Dqk || Dqk > width)
+  Shape sh;
+  if (!make_shape(B, S, T, H, KV, width, Dqk, Dv, q_offset, window, scale,
+                  &sh))
     return (int)cudaErrorInvalidValue;
-  const Shape sh{B, S, T, H, KV, width, Dqk, Dv, q_offset, window,
-                 (float)(1.4426950408889634 * (double)scale)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32) return f32::dispatch(q, k, v, o, sh, s);
-  if (dtype == repro::kBFloat16) return tc::dispatch(q, k, v, o, sh, s);
+  if (dtype == repro::kBFloat16)
+    return tc::dispatch(q, k, v, o, sh, s, nullptr);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 kernel instantiation that a launch of these sizes runs, without
+// launching it: info[0 ... 4] = registers a thread, local (spill) bytes a
+// thread, CTAs an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// shared memory bytes a CTA, heads NC a CTA. The same return codes as
+// repro_flash_attention's.
+extern "C" int repro_flash_tc_info(int B, int S, int T, int H, int KV,
+                                   int width, int Dqk, int Dv, int* info) {
+  Shape sh;
+  if (!make_shape(B, S, T, H, KV, width, Dqk, Dv, 0, -1, 1.f, &sh))
+    return (int)cudaErrorInvalidValue;
+  return tc::dispatch(nullptr, nullptr, nullptr, nullptr, sh, nullptr, info);
 }

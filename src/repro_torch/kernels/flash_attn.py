@@ -67,6 +67,12 @@ def flash_attention_plain(q, k, v, *, window: Optional[int] = None,
     return torch.cat(outs, dim=1).reshape(B, S, H, Dv).to(q.dtype)
 
 
+# what the C entries return for a (q/k, v) width pair that the bf16 kernel
+# is not compiled for (cudaErrorNotSupported; csrc/flash_attn.cu's
+# tc::dispatch lists the pairs it is)
+NOT_COMPILED = 801
+
+
 def kernel_width(D: int, Dv: int) -> Optional[int]:
     """The kernel's compiled width (32, 64, 128 or 256) for q/k head dim
     ``D`` and v head dim ``Dv``: the smallest that holds D; None for a pair
@@ -74,6 +80,33 @@ def kernel_width(D: int, Dv: int) -> Optional[int]:
     if D % 8 or Dv % 8 or not 0 < Dv <= D:
         return None
     return next((w for w in (32, 64, 128, 256) if D <= w), None)
+
+
+def _not_compiled(what: str, D: int, Dv: int) -> ValueError:
+    return ValueError(f"{what}: head dims q/k {D}, v {Dv}: the bf16 kernel "
+                      f"is not compiled for the pair of widths that holds "
+                      f"them")
+
+
+def tc_info(B: int, S: int, T: int, H: int, KV: int, D: int, Dv: int):
+    """The bf16 kernel instantiation a launch of these sizes runs, read on
+    the card without launching it: {"regs", "spill_bytes", "ctas_per_sm",
+    "smem", "heads"} (registers and local bytes a thread, by
+    ``cudaFuncGetAttributes``; resident CTAs by
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+    width = kernel_width(D, Dv)
+    if width is None:
+        raise ValueError(f"tc_info: head dims q/k {D}, v {Dv}")
+    info = (ctypes.c_int * 5)()
+    fn = _build.function("flash_attn", "repro_flash_tc_info")
+    err = fn(B, S, T, H, KV, width, D, Dv, ctypes.addressof(info))
+    if err == NOT_COMPILED:
+        raise _not_compiled("tc_info", D, Dv)
+    if err:
+        raise RuntimeError(f"tc_info: CUDA error {err}")
+    return dict(zip(("regs", "spill_bytes", "ctas_per_sm", "smem", "heads"),
+                    info))
 
 
 def flash_attention(q, k, v, *, window: Optional[int] = None,
@@ -86,8 +119,10 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
     The kernel takes Dqk and Dv that are multiples of 8 with Dv <= Dqk <=
     256: it runs at the smallest of its widths 32, 64, 128 and 256 that
     holds Dqk, and the columns past Dqk (q, k) and past Dv (v) load as
-    zeros (MiniCPM3's MLA prefill, (96, 64), runs at 128). Any other shape
-    raises.
+    zeros. In bfloat16 V has a width of its own, the smallest that holds
+    Dv, and the bf16 kernel is compiled for some pairs of the two widths
+    only (MiniCPM3's MLA prefill, (96, 64), runs (128, 64): 6 k slices of
+    Q·Kᵀ, P·V at 64). Any other shape raises.
 
     A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor
     launches the kernel on the current stream or raises: bfloat16 on the
@@ -156,6 +191,8 @@ def _forward(q, k, v, window: Optional[int], q_offset: int):
              -1 if window is None else window, 1.0 / math.sqrt(D),
              _build.dtype_code(q.dtype),
              torch.cuda.current_stream(q.device).cuda_stream)
+    if err == NOT_COMPILED:
+        raise _not_compiled("flash_attention", D, Dv)
     if err:
         raise RuntimeError(f"flash_attention: CUDA error {err} at launch "
                            f"(B={B}, S={S}, T={T}, H={H}, KV={KV}, D={D}, "

@@ -56,16 +56,25 @@ def _decay_terms(dtc, A, chunk: int):
     L (B, nc, i, j, nh) = exp(cum_i - cum_j) where j <= i, else 0. The
     mask is applied before the exp: above the diagonal cum_i - cum_j > 0
     can overflow to inf (at mamba2-2.7b's widths it does), and a masked
-    inf would make the gradient NaN (0 * inf); exp(-inf) is the same 0."""
+    inf would make the gradient NaN (0 * inf); exp(-inf) is the same 0.
+
+    On the CPU the exp of a float32 L is taken in float64 and rounded
+    once: there ``torch.exp`` of float32 calls MKL's vector math on
+    several threads, and on an AVX-512 host it has returned about 1,840
+    of the 32,768 entries of a fresh process's L at (2, 4, 32, 32, 4)
+    about 1e-4 off, none with ``MKL_NUM_THREADS=1``
+    (``tools/cpu_exp_check.py``)."""
     cum = torch.cumsum(dtc * A[None, None, None, :], dim=2)
     total = cum[:, :, -1]
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=dtc.device))
-    L = torch.exp(torch.where(mask[None, None, :, :, None], diff,
-                              torch.full((), -torch.inf, dtype=diff.dtype,
-                                         device=diff.device)))
-    return cum, total, L
+    masked = torch.where(mask[None, None, :, :, None], diff,
+                         torch.full((), -torch.inf, dtype=diff.dtype,
+                                    device=diff.device))
+    if masked.device.type == "cpu" and masked.dtype == torch.float32:
+        return cum, total, torch.exp(masked.double()).to(torch.float32)
+    return cum, total, torch.exp(masked)
 
 
 def ssd_chunk_intra_plain(x, dt, A, B_ssm, C_ssm, chunk: int):

@@ -272,11 +272,13 @@ def test_flash_plain_takes_mla_widths_like_jax_chunked(Dqk, Dv, dtype):
                                         (48, 32, 64), (40, 40, 64),
                                         (256, 256, 256), (136, 64, 256),
                                         (64, 96, None), (60, 60, None),
-                                        (264, 64, None)])
+                                        (264, 64, None), (128, 32, 128)])
 def test_flash_kernel_width(D, Dv, width):
     """The kernel's compiled width for q/k width D and v width Dv: the
     smallest of 32, 64, 128 and 256 that holds D; None for what it does
-    not take (Dv > D, widths no multiple of 8, D above 256)."""
+    not take (Dv > D, widths no multiple of 8, D above 256). The V width
+    is the C entry's to choose (the bf16 kernel runs (96, 64) at (128, 64)
+    and refuses (128, 32), for which it has no instantiation)."""
     assert K.flash_attn.kernel_width(D, Dv) == width
 
 

@@ -250,11 +250,16 @@ GQA_ARCH_HEADS = [(40, 8, 128), (48, 8, 128), (32, 8, 128), (32, 32, 64),
 @pytest.mark.parametrize("H,KV,D", GQA_ARCH_HEADS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_at_the_gqa_archs_heads(cuda, H, KV, D, dtype):
-    """Each dense architecture's head shape: causal prefill at S 317 and a
-    catch-up chunk (S 190 at q_offset 63, T 253), tails of no multiple of
-    64 on both axes."""
+    """Each dense architecture's head shape: causal prefill at S 317, S 65
+    and 129 (a last q tile of one row) and a catch-up chunk (S 190 at
+    q_offset 63, T 253), tails of no multiple of 64 on both axes; and a
+    window of 100 that cuts whole key tiles below a catch-up chunk (S 200
+    at q_offset 60, T 260)."""
     _flash_case(cuda, 2, 317, 317, H, KV, D, dtype, None, 0)
+    _flash_case(cuda, 2, 65, 65, H, KV, D, dtype, None, 0)
+    _flash_case(cuda, 2, 129, 129, H, KV, D, dtype, None, 0)
     _flash_case(cuda, 1, 190, 253, H, KV, D, dtype, None, 63)
+    _flash_case(cuda, 2, 200, 260, H, KV, D, dtype, 100, 60)
 
 
 @pytest.mark.cuda
@@ -281,15 +286,59 @@ def test_ragged_decode_kernel_at_the_gqa_archs_heads(cuda, H, KV, D, dtype):
     (2, 200, 200, 6, 0, 77),             # a sliding window
     (4, 512, 512, 40, 0, None),          # the smoke's prefill shape
     (4, 200, 200, 40, 0, 256),           # RuntimeFlags.window, unbound
-    (2, 512, 512, 40, 0, 256)])          # and binding
+    (2, 512, 512, 40, 0, 256),           # and binding
+    (2, 65, 65, 4, 0, None),             # last q tiles of one row
+    (2, 129, 129, 4, 0, None),
+    (2, 128, 128, 4, 0, 100),            # a window inside the second tile
+    (2, 200, 260, 4, 60, 100)])          # a window cutting tiles below
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_at_mla_widths(cuda, B, S, T, H, q_offset, window, Dqk,
                                     Dv, dtype):
     """MLA's non-absorbed prefill: q and k at Dqk, v at Dv, KV == H
-    (MiniCPM3's (96, 64) runs at the kernel's width 128, reduced()'s (48,
-    32) at 64, with the columns past each width loaded as zeros); the
-    output is (B, S, H, Dv)."""
+    (MiniCPM3's (96, 64) runs at the kernel's widths (128, 64), reduced()'s
+    (48, 32) at (64, 32), with the columns past each width loaded as
+    zeros); the output is (B, S, H, Dv). Tails of one row past a q tile,
+    catch-up chunks and windows that bind inside a tile or cut whole key
+    tiles below it."""
     _flash_case(cuda, B, S, T, H, H, Dqk, dtype, window, q_offset, Dv=Dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,Dqk,Dv", [(40, 40, 96, 64), (32, 8, 128, 128)])
+def test_flash_bf16_kernel_is_batch_invariant(cuda, H, KV, Dqk, Dv):
+    """minicpm3-4b's MLA prefill and mistral-nemo-12b's heads in bfloat16:
+    row b of a B 4 call equals the same request run at B 1 bit for bit, and
+    a 384-token prompt gives the same rows at S 384 as padded to the 512
+    bucket."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((4, 512, H, Dqk), generator=g, device=cuda).bfloat16()
+    k = torch.randn((4, 512, KV, Dqk), generator=g, device=cuda).bfloat16()
+    v = torch.randn((4, 512, KV, Dv), generator=g, device=cuda).bfloat16()
+    batched = K.flash_attention(q, k, v)
+    for b in range(4):
+        alone = K.flash_attention(q[b:b + 1].clone(), k[b:b + 1].clone(),
+                                  v[b:b + 1].clone())
+        assert torch.equal(batched[b:b + 1], alone), b
+    short = K.flash_attention(q[:, :384].contiguous(),
+                              k[:, :384].contiguous(),
+                              v[:, :384].contiguous())
+    assert torch.equal(batched[:, :384], short)
+    torch.testing.assert_close(
+        short.float(), K.flash_attention_plain(
+            q[:, :384], k[:, :384], v[:, :384]).float(), rtol=2e-2,
+        atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_raises_on_pairs_it_is_not_compiled_for(cuda):
+    """(128, 32) fits the kernel's rule for widths but no instantiation:
+    the bf16 call raises rather than run a wider V tile."""
+    q = torch.zeros((1, 64, 2, 128), device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros((1, 64, 2, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not compiled"):
+        K.flash_attention(q, q, v)
+    assert K.flash_attention(q.float(), q.float(), v.float()).shape == (
+        1, 64, 2, 32)
 
 
 # recurrentgemma-9b's local attention: 16 q heads over 1 kv head of 256

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Check the synchronization of the float32 split-TF32 kernels on one card.
+"""Check the synchronization of the float32 split-TF32 kernels, and of the
+bf16 flash kernel's ring, on one card.
 
     python3 tools/check_f32_sync.py [flash] [ssd] [--out DIR] [--no-sanitizer]
 
@@ -9,6 +10,9 @@ mbarriers and a staging tile guarded by a named barrier:
 
   flash  ``flash_tf32x3_kernel`` (``csrc/flash_attn.cu``, C entry
          ``repro_flash_attention``): K/V tiles to two consumer warpgroups;
+         (the flash target's stress also runs the bf16
+         ``flash_tc_kernel``, whose producer warp fills a ring of TMA
+         stages for consumers that may skip a tile's products);
          at D 256 ``flash_tf32x3_d256_kernel``, whose producer splits K
          and V from registers into one stage of planes with a full and an
          empty barrier each, for one consumer warpgroup.
@@ -36,7 +40,10 @@ Both by default. Per target, in order, one line per case:
              64), causal), S 383 with q_offset 1 at D 64 and 128, D 32 with
              a window, recurrentgemma-9b's (q (4, 512, 16, 256), kv (4,
              512, 1, 256), window 2048) and the same at S 383 with q_offset
-             1. ssd: mamba2-2.7b's float32 chunks (x (1, 256, 80,
+             1, and the bf16 kernel (``flash_tc_kernel``, within 2e-2) at
+             minicpm3-4b's MLA prefill (q, k (4, 512, 40, 96), v 64 wide)
+             and mistral-nemo-12b's heads (D 128, 32 / 8), each also at S
+             383 with q_offset 1. ssd: mamba2-2.7b's float32 chunks (x (1, 256, 80,
              64) chunk 256, (1, 384, 80, 64) chunk 128, (1, 64, 80, 64)
              chunk 64; N 128), each with the heads per CTA the wrapper picks
              and with the other count. Each line gives microseconds per
@@ -76,6 +83,7 @@ class Case(NamedTuple):
     label: str
     launch: Callable     # (C entry) -> tuple of the outputs on the card
     error: Callable      # (outputs) -> max |err| against the plain version
+    tol: float = 0.0     # its own tolerance (0: the target's)
 
 
 class Target(NamedTuple):
@@ -92,26 +100,36 @@ def _stream(torch):
 
 # --- flash ------------------------------------------------------------------
 
-def flash_case(torch, label, B, S, T, H, KV, off, win, D, seed, ref_device):
+def flash_case(torch, label, B, S, T, H, KV, off, win, D, seed, ref_device,
+               Dv=None, bf16=False):
+    """Inputs of a launch at q/k width D and v width Dv (D by default), in
+    float32 or, with ``bf16``, rounded to bfloat16 (the bf16
+    ``flash_tc_kernel``, held to 2e-2)."""
     import repro_torch.kernels as K
+    Dv = Dv or D
+    dtype = torch.bfloat16 if bf16 else torch.float32
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(shape, generator=g).to(ref_device)
-               for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D)))
-    want = K.flash_attention_plain(q, k, v, window=win, q_offset=off)
+    q, k, v = (torch.randn(shape, generator=g).to(ref_device).to(dtype)
+               for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, Dv)))
+    want = K.flash_attention_plain(q, k, v, window=win,
+                                   q_offset=off).float()
     q, k, v = (t.cuda() for t in (q, k, v))
+    width = K.flash_attn.kernel_width(D, Dv)
 
     def launch(fn):
-        o = torch.empty_like(q)
-        # width, Dqk and Dv all D; the scores' scale 1 / sqrt(D)
+        o = q.new_empty((B, S, H, Dv))
+        # the scores' scale 1 / sqrt(Dqk)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
-                 S, T, H, KV, D, D, D, off, -1 if win is None else win,
-                 D ** -0.5, 0, _stream(torch))
+                 S, T, H, KV, width, D, Dv, off, -1 if win is None else win,
+                 D ** -0.5, int(bf16), _stream(torch))
         if err:
             raise RuntimeError(f"flash_attention: CUDA error {err} at launch")
         return (o,)
 
     return Case(label, launch,
-                lambda outs: (outs[0].to(ref_device) - want).abs().max().item())
+                lambda outs: (outs[0].to(ref_device).float()
+                              - want).abs().max().item(),
+                2e-2 if bf16 else 0.0)
 
 
 def flash_small(torch):
@@ -141,7 +159,19 @@ def flash_stress(torch):
                 ("D 256, MQA 16 / 1, S 512, window 2048",
                  (4, 512, 512, 16, 1, 0, 2048, 256)),
                 ("D 256, MQA 16 / 1, S 383, q_offset 1, window 2048",
-                 (4, 383, 384, 16, 1, 1, 2048, 256)))]
+                 (4, 383, 384, 16, 1, 1, 2048, 256)))] + [
+        # the bf16 kernel (no split planes; K/V by TMA through its mbarrier
+        # ring) at minicpm3-4b's MLA prefill and mistral-nemo-12b's heads
+        flash_case(torch, label, *shape, 3, "cuda", Dv=Dv, bf16=True)
+        for label, shape, Dv in (
+            ("bf16 MLA 96 / 64, S 512", (4, 512, 512, 40, 40, 0, None, 96),
+             64),
+            ("bf16 MLA 96 / 64, S 383, q_offset 1",
+             (4, 383, 384, 40, 40, 1, None, 96), 64),
+            ("bf16 D 128, G 4, S 512", (4, 512, 512, 32, 8, 0, None, 128),
+             None),
+            ("bf16 D 128, G 4, S 383, q_offset 1",
+             (4, 383, 384, 32, 8, 1, None, 128), None))]
 
 
 # --- ssd --------------------------------------------------------------------
@@ -352,7 +382,7 @@ def stress(name: str) -> bool:
                 del outs
             secs = time.perf_counter() - t0
             err = case.error(first)
-            good = n_diff == 0 and err <= t.tol
+            good = n_diff == 0 and err <= (case.tol or t.tol)
             extra = ""
             if normal is None:
                 normal = first
