@@ -11,8 +11,10 @@ Phases, always all of them, in order:
            instantiation at each served shape (registers, spill bytes, CTAs
            an SM holds); fail when the RMSNorm kernel, the float32 flash
            kernel at D 64, any instantiation of the bf16 flash kernel, a
-           flash or ragged decode kernel at D 256 or a kernel of the SSD
-           scan's split-TF32 route spills,
+           flash or ragged decode kernel at D 256, a kernel of the SSD
+           scan's split-TF32 route or its tensor-core scan spills (the
+           scan's registers, spill bytes and CTAs an SM are printed at
+           each state size),
            when ptxas serializes the float32 flash kernel's wgmmas at D 256
            (its 255 registers a thread leave no room), when the flash or
            SSD library holds no
@@ -33,11 +35,14 @@ Phases, always all of them, in order:
            chunks 256, 128
            and 64, which take its tensor-core route in bfloat16 and its
            split-TF32 route in float32, at 1, 2 and 32, which take the
-           recurrent route, and at 200, which takes the CUDA-core route;
+           tensor-core scan in bfloat16 and the recurrent route in
+           float32, and at 200, which takes the CUDA-core route;
            the route of each case is printed and checked, with its device
-           time by kernel; the split-TF32 cases are also held and timed
-           against the CUDA-core pair they replaced, on the same inputs,
-           and fail when their device time is the longer), in float32
+           time by kernel; the split-TF32 cases and the bfloat16 cases at
+           chunks 1, 2 and 32 are also held and timed against the pair
+           they replaced (the CUDA-core pair; the recurrent pair) on the same
+           inputs, device time in turns too, and fail when their device
+           time is the longer), in float32
            (tolerance 2e-5; the SSD scan 1e-4) and bfloat16 (2e-2; the SSD
            scan 5e-2 on y, 1e-4 on its float32 final state, and in both
            types every head's ||y - y_ref|| / ||y_ref|| below 1e-2; the
@@ -97,8 +102,9 @@ Phases, always all of them, in order:
            (prefill lengths 127, 256, 258 and 383: SSD chunks 1, 256, 2
            and 1, as uniform prompt lengths give half chunk 1, a quarter
            chunk 2), after a warmup over every prompt length; RMSNorm and
-           the SSD scan, on its tensor-core and recurrent routes, must
-           launch.
+           the SSD scan, on its tensor-core route (chunk 256) and its
+           tensor-core scan (chunks 1 and 2), must launch, and its
+           recurrent route must not.
   mamba exact  as exact, on full-width mamba2-2.7b in float32, with prompts
            of 34, 97, 257 and 385 tokens: SSD chunks 1 and 32 (the
            recurrent route), 256 and 128 (the split-TF32 route), each
@@ -303,10 +309,12 @@ or incomplete. Any failure exits 1 and prints ``[fail] <phase>:
 <type>: <message>`` on stdout and on stderr, with the last frames of the
 traceback for anything but a failed check. The last lines are the card's
 name and power limit, one JSON line of per-kernel numbers (bfloat16 at the
-serves' main shapes, the float32 SSD scan's split-TF32 route at chunk
-256, whose launches are those of ``mamba exact``'s batched and isolated
-paths together, and flash and ragged decode at head_dim 128 in bfloat16,
-launched in ``nemo serve``, and float32, in ``nemo exact``; flash at
+serves' main shapes, the bfloat16 SSD scan's tensor-core scan at chunk
+1, S 383, launched in ``mamba serve``, the float32 SSD scan's split-TF32
+route at chunk 256, whose launches are those of ``mamba exact``'s batched
+and isolated paths together, and flash and ragged decode at head_dim 128
+in bfloat16, launched in ``nemo serve``, and float32, in ``nemo exact``;
+flash at
 MiniCPM3's widths in bfloat16, launched in ``minicpm serve``, and
 float32, in ``minicpm exact``; ragged decode at granite's G 3 in
 bfloat16, launched in ``granite serve``; flash and ragged decode at
@@ -354,6 +362,7 @@ REPLACES = {
     "flash_attention": FLASH_TPU,
     "ssd_chunked": "src/repro/kernels/ssd_chunk.py:64",
     "ssd_chunked_tf32": "src/repro/kernels/ssd_chunk.py:64",
+    "ssd_chunked_tc_scan": "src/repro/kernels/ssd_chunk.py:64",
     "ragged_decode_attention_d128": DECODE_TPU,
     "ragged_decode_attention_f32_d128": DECODE_TPU,
     "flash_attention_d128": FLASH_TPU,
@@ -378,6 +387,7 @@ SOURCES = {
     "flash_attention": FLASH_CU,
     "ssd_chunked": ("cuda", "src/repro_torch/csrc/ssd_chunk.cu"),
     "ssd_chunked_tf32": ("cuda", "src/repro_torch/csrc/ssd_chunk.cu"),
+    "ssd_chunked_tc_scan": ("cuda", "src/repro_torch/csrc/ssd_chunk.cu"),
     "ragged_decode_attention_d128": DECODE_CU,
     "ragged_decode_attention_f32_d128": DECODE_CU,
     "flash_attention_d128": FLASH_CU,
@@ -433,6 +443,7 @@ SSD_ROUTE_SYMBOLS = {
              "ssd_state_pass_kernel"),
     "tc": ("ssd_intra_tc_kernel", "ssd_state_pass_kernel"),
     "cuda_cores": ("ssd_intra_kernel", "ssd_state_pass_kernel"),
+    "tc_scan": ("ssd_tc_scan_kernel",),
 }
 COUNTER_SYMBOLS = {
     "ragged_decode_attention": ("ragged_decode_split_kernel",),
@@ -442,12 +453,14 @@ COUNTER_SYMBOLS = {
        for route, syms in SSD_ROUTE_SYMBOLS.items() if route != "cuda_cores"},
 }
 # the kernels each serving path must launch; the bf16 mamba serve runs the
-# SSD scan's tensor-core route (ssd_chunked_tc counts it) and its recurrent
-# route (ssd_chunked_recurrent), its float32 exact check the recurrent
-# route and the split-TF32 route (ssd_chunked_tf32)
+# SSD scan's tensor-core route (ssd_chunked_tc counts it) and its
+# tensor-core scan (ssd_chunked_tc_scan), not its recurrent route; its
+# float32 exact check the recurrent route and the split-TF32 route
+# (ssd_chunked_tf32)
 LLAMA_KERNELS = ("ragged_decode_attention", "fused_rmsnorm", "flash_attention")
-MAMBA_KERNELS = ("ssd_chunked", "ssd_chunked_tc", "ssd_chunked_recurrent",
+MAMBA_KERNELS = ("ssd_chunked", "ssd_chunked_tc", "ssd_chunked_tc_scan",
                  "fused_rmsnorm")
+MAMBA_ABSENT = ("ssd_chunked_recurrent",)
 MAMBA_EXACT_KERNELS = ("ssd_chunked", "ssd_chunked_recurrent",
                        "ssd_chunked_tf32", "fused_rmsnorm")
 # recurrentgemma-9b's local attention runs the llama kernels at D 256 (the
@@ -792,6 +805,7 @@ FLASH_TC_SHAPES = (("llama prefill", 4, 512, 32, 8, 64, 64),
 
 DECODE_D256 = "Li256E"
 SSD_TF32 = ("ssd_intra_tf32_kernel", "ssd_scores_tf32_kernel")
+SSD_TC_SCAN = "ssd_tc_scan_kernel"
 
 
 def phase_build():
@@ -830,8 +844,8 @@ def phase_build():
                         k in kernel for k in (F32_FLASH_D64, F32_FLASH_D256,
                                               FLASH_TC))) or (
                     name == "ragged_decode_attn" and DECODE_D256 in kernel) or (
-                    name == "ssd_chunk" and any(k in kernel
-                                                for k in SSD_TF32))
+                    name == "ssd_chunk" and any(k in kernel for k in (
+                        *SSD_TF32, SSD_TC_SCAN)))
                 check(not (no_spill and any(spilled)),
                       f"{name}: ptxas reports spills in {kernel}: "
                       f"{line.strip()}")
@@ -842,6 +856,10 @@ def phase_build():
         print(f"[build] flash_tc_kernel at {what} (B {B}, S {S}, H {H}, KV "
               f"{KV}, q/k {D}, v {Dv}): "
               f"{K.flash_attn.tc_info(B, S, S, H, KV, D, Dv)}")
+    # the SSD scan's tensor-core scan at each state size (mamba2-2.7b: 128)
+    for N in K.ssd_chunk.TC_STATES:
+        print(f"[build] {SSD_TC_SCAN}<{N}>: "
+              f"{K.ssd_chunk.tc_scan_info(N)}")
     # the bf16 flash kernel and the SSD scan's tensor-core route run on the
     # tensor cores: their SASS holds HGMMA (wgmma) instructions; the f32
     # flash kernel's and the f32 SSD route's split products are TF32 ones
@@ -1017,6 +1035,7 @@ def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128, B=1,
     small on the heads with a large |A| and a small dt, each head's
     ||y - y_ref|| / ||y_ref|| must also stay below SSD_HEAD_REL_TOL."""
     import math
+    from repro_torch.kernels import ssd_chunk
     g = torch.Generator(device="cuda").manual_seed(4)
     F = torch.nn.functional
     x = torch.randn((B, S, nh, hd), generator=g, device="cuda").to(dtype)
@@ -1030,7 +1049,7 @@ def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128, B=1,
     route = K.ssd_route(dtype, chunk, hd, N)
     # every route moves ``launches`` and its own counter; cuda_cores has
     # none of its own, so it moves ``launches`` alone
-    counters = ("", "tc_", "tf32_", "recurrent_")
+    counters = ("", "tc_", "tf32_", "recurrent_", "tc_scan_")
     before = [getattr(K.ssd_chunked, f"{c}launches") for c in counters]
     y, st = K.ssd_chunked(x, dt, A, Bm, Cm, chunk)
     y_ref, st_ref = K.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk)
@@ -1055,19 +1074,30 @@ def kernel_ssd(torch, K, dtype, S, chunk, nh=80, hd=64, N=128, B=1,
     return {"shape": shape, "out": (y, st), "ref": (y_ref, st_ref),
             "tols": (ytol, 1e-4), "by_kernel": True,
             "symbols": SSD_ROUTE_SYMBOLS[route],
-            # the JSON rows: bf16 at the serve's chunk 256, and the f32
-            # split-TF32 route at mamba exact's chunk 256
-            "row": row or (None if chunk != 256 or B != 1 else "ssd_chunked"
-                           if dtype == torch.bfloat16
-                           else "ssd_chunked_tf32"),
+            # the JSON rows: bf16 at the serve's chunk 256 and its chunk 1
+            # at S 383 (the tensor-core scan), and the f32 split-TF32 route
+            # at mamba exact's chunk 256
+            "row": row or (
+                "ssd_chunked_tc_scan" if route == "tc_scan" and S == 383
+                and B == 1 else None if chunk != 256 or B != 1
+                else "ssd_chunked" if dtype == torch.bfloat16
+                else "ssd_chunked_tf32"),
             "grad": None if not grad else (
                 lambda *a: K.ssd_chunked(*a, chunk),
                 lambda *a: K.ssd_chunked_plain(*a, chunk),
                 (x, dt, A, Bm, Cm)),
-            # the split-TF32 route against the CUDA-core pair it replaced
-            "before": (None if route != "tf32" or B != 1 else
-                       lambda: ssd_cuda_cores(torch, x, dt, A, Bm, Cm,
-                                              chunk)),
+            # the split-TF32 route against the CUDA-core pair it replaced,
+            # the tensor-core scan against the recurrent pair, called
+            # directly on the same inputs (no launch counted)
+            "before": (None if B != 1 else
+                       (lambda: ssd_cuda_cores(torch, x, dt, A, Bm, Cm,
+                                               chunk),
+                        SSD_ROUTE_SYMBOLS["cuda_cores"])
+                       if route == "tf32" else
+                       (lambda: ssd_chunk._launch_recurrent(x, dt, A, Bm, Cm,
+                                                            chunk),
+                        SSD_ROUTE_SYMBOLS["recurrent"])
+                       if route == "tc_scan" else None),
             "repeats": dtype == torch.float32 and chunk == 256 and B == 1,
             "note": f"median |y_ref| {rf.abs().median().item():.3e}, worst "
                     f"head ||y - y_ref|| / ||y_ref|| {rel:.3e}",
@@ -1110,28 +1140,46 @@ def ssd_cuda_cores(torch, x, dt, A, Bm, Cm, chunk):
     return y + _y_inter(Cm, cum_exp, h_prev, chunk, x.dtype), final
 
 
-def before_vs(torch, r, kernel_fn, dev_ms, dname, what):
-    """The kernel against the kernel it replaced (``r["before"]``), on the
-    same inputs in one run: both held to the plain version, events and
-    host time in turns (before, kernel, kernel, before), device time from
-    the profiler; fails when the kernel's device time is the longer."""
-    before = r["before"]
+def before_vs(torch, r, kernel_fn, dname, what):
+    """The kernel against the kernels it replaced (``r["before"]``: their
+    call and their profiler symbols), on the same inputs in one run: both
+    held to the plain version; events, host time and device time from the
+    profiler in turns (before, kernel, kernel, before), the replaced pair's
+    device time by kernel; fails when the kernel's device time is the
+    longer. Returns the replaced pair's numbers for the case's JSON row."""
+    before, symbols = r["before"]
     err = compare(torch, before(), r["ref"], dname,
                   f"{what}, the kernel it replaced", r.get("tols"))
     ev, ev_b, _ = in_turns(lambda f: cuda_ms(torch, f), kernel_fn, before)
     host, host_b, _ = in_turns(lambda f: host_us(torch, f), kernel_fn,
                                before)
-    dev_b, _, missing = device_ms(torch, before,
-                                  f"the kernel it replaced, {what}",
-                                  symbols=SSD_ROUTE_SYMBOLS["cuda_cores"])
-    check_trace(dev_b, missing, f"{what}, the kernel it replaced")
-    check(dev_ms <= dev_b, f"{what}: device time {dev_ms:.4f} ms, longer "
-                           f"than the {dev_b:.4f} ms of the kernel it "
-                           f"replaced")
+    turns = []
+    for fn, syms, who in ((before, symbols, "the kernel it replaced"),
+                          (kernel_fn, r["symbols"], "the kernel"),
+                          (kernel_fn, r["symbols"], "the kernel"),
+                          (before, symbols, "the kernel it replaced")):
+        ms, _, missing = device_ms(torch, fn, f"{who}, {what}",
+                                   symbols=syms)
+        check_trace(ms, missing, f"{what}, {who}")
+        turns.append(ms)
+    dev, dev_b = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    _, by_kernel, _, _ = traced_device_s(torch, before,
+                                         f"{what}, the kernel it replaced, "
+                                         f"by kernel", symbols)
+    check(dev <= dev_b, f"{what}: device time {dev:.4f} ms, longer than "
+                        f"the {dev_b:.4f} ms of the kernel it replaced")
     print(f"[kernels] {what}: against the kernel it replaced, same inputs "
           f"(its max|err| {err:.3e}): events {ev:.4f} vs {ev_b:.4f} ms, host "
-          f"{host:.2f} vs {host_b:.2f} us per call, device {dev_ms:.4f} vs "
-          f"{dev_b:.4f} ms")
+          f"{host:.2f} vs {host_b:.2f} us per call, device in turns "
+          f"(replaced, kernel, kernel, replaced) "
+          f"{', '.join(f'{m:.4f}' for m in turns)} ms: {dev:.4f} vs "
+          f"{dev_b:.4f} ms ({dev_b / dev:.2f}x) | the replaced pair's device "
+          f"time by kernel: " + ", ".join(
+              f"{short_name(e.key)} {e.self_device_time_total:.2f} us"
+              for e in sorted(by_kernel,
+                              key=lambda e: -e.self_device_time_total)[:4]))
+    return {"replaced_device_ms": dev_b, "replaced_ms": ev_b,
+            "replaced_host_us": host_b, "device_ms_in_turns": dev}
 
 
 def grad_check(torch, r, dname, what):
@@ -1362,9 +1410,10 @@ def phase_kernels(torch):
               f"{b_ms * 1e3:.2f} us ({b_by}), kernel device at {share} of "
               f"it{vs_lib}{note}")
         print(f"[kernels] {name} {dname} {r['shape']}: {host_line}")
+        replaced = None
         if r.get("before") is not None:
-            before_vs(torch, r, kernel_fn, dev_ms, dname,
-                      f"{name} {dname} {r['shape']}")
+            replaced = before_vs(torch, r, kernel_fn, dname,
+                                 f"{name} {dname} {r['shape']}")
         bwd = (None if r.get("grad") is None
                else grad_check(torch, r, dname, f"{name} {dname} "
                                                 f"{r['shape']}"))
@@ -1381,6 +1430,8 @@ def phase_kernels(torch):
                          "shape": f"{dname} {r['shape']}"}
             if bwd is not None:
                 rows[key].update(bwd)
+            if replaced is not None:
+                rows[key].update(replaced)
         del r
         torch.cuda.empty_cache()
     return rows
@@ -3524,7 +3575,7 @@ def main() -> int:
     run(phase_exact, torch, "llama3.2-1b", "exact", LLAMA_KERNELS,
         (64, 128, 256, 384))
     m_counts = run(phase_serve, torch, "mamba2-2.7b", "mamba serve",
-                   MAMBA_KERNELS, (128, 257, 259, 384))
+                   MAMBA_KERNELS, (128, 257, 259, 384), MAMBA_ABSENT)
     x_counts = run(phase_exact, torch, "mamba2-2.7b", "mamba exact",
                    MAMBA_EXACT_KERNELS, (34, 97, 257, 385))
     # mistral-nemo-12b: head_dim 128, 4 q heads per kv head, an untied head
@@ -3577,6 +3628,8 @@ def main() -> int:
           f"sharding, roofline in "
           f"{time.perf_counter() - t_all:.1f} s")
     counts["ssd_chunked"] = m_counts["ssd_chunked"]
+    # the tensor-core scan: its launches in mamba serve (chunks 1 and 2)
+    counts["ssd_chunked_tc_scan"] = m_counts["ssd_chunked_tc_scan"]
     # the split-TF32 route: its launches in mamba exact, batched and isolated
     counts["ssd_chunked_tf32"] = x_counts["ssd_chunked_tf32"]
     # the D 128 rows: bf16 launches in nemo serve, f32 in nemo exact

@@ -25,17 +25,35 @@
 // writes y and the final state (~5.2 MB): ~2.4 us at 3.35 TB/s, against
 // ~0.7 GFLOP (~0.7 us on the bf16 tensor cores).
 //
-// Four C entry points, one per route; the wrapper picks the route by
+// Five C entry points, one per route; the wrapper picks the route by
 // dtype and shape alone (kernels/ssd_chunk.py, ssd_route):
 //
-//   chunk < 64 (any dtype, hd a multiple of 16, N <= 256): recurrent
+//   bf16, chunk < 64 dividing 64, hd 64, N 32 / 64 / 128: tensor-core scan
+//   every other chunk < 64 (hd a multiple of 16, N <= 256): recurrent
 //   bf16, chunk a multiple of 64, hd 64, N 32 / 64 / 128: tensor cores
 //   f32, the same shapes: tensor cores as split TF32
 //   everything else (long odd chunks, other hd and N): CUDA cores
 //
-// repro_ssd_chunk_recurrent, every chunk below 64 (63 of every 64 prefill
-// lengths under the reference's halving rule; chunk 1 at every odd one):
-// ssd_scores_kernel, then ssd_recurrent_kernel, writing y and the final
+// repro_ssd_chunk_tc_scan, bfloat16 at chunks below 64 that divide 64 (the
+// halving rule from 256 gives no others: chunk 1 at every odd prefill
+// length, 2 at 258, ...): ssd_tc_scan_kernel. The function does not depend
+// on the chunk; the chunk only decides which pairs the reference rounds as
+// T(W) . x (those inside one chunk) and which it carries through the f32
+// state (those across chunks). So the sequence goes by 64-row tiles on the
+// tensor cores: per tile the block diagonal of chunk x chunk blocks,
+// rounded as the reference rounds it, the strictly lower rest and the
+// state entering the tile kept float32-accurate (operands split into three
+// bf16 terms), and the state handed to the next tile. The serial chain is
+// S / 64 tiles, not S rows. Bound on the H100 at (1, 383, 80, 64, N 128),
+// chunk 1: bytes, as the intra-chunk routes' (~3.2 us). The products this
+// kernel issues are ~5.2 MFLOP a CTA and tile, 5.0 GFLOP there (5.1 us at
+// the bf16 peak: the three-term operands triple the state's, Y's and the
+// cross terms', and each of the 160 CTAs forms C . B^T itself). Layout,
+// schedule and numerics: see scan::ssd_tc_scan_kernel.
+//
+// repro_ssd_chunk_recurrent, every other chunk below 64 (float32, chunk
+// 63, other hd or N): ssd_scores_kernel, then ssd_recurrent_kernel, writing
+// y and the final
 // state only. The first forms the intra-chunk scores T(C_i . B_j), j <= i,
 // once for all heads (n_groups is 1), summed in float64 so that their
 // rounding to bf16 does not depend on an order of summation; the second
@@ -45,10 +63,12 @@
 // the state entering the chunk adds T((C_i exp(cum_i)) . h^T), and at the
 // chunk's end h = h * exp(total) + S_c (a multiply, then an add, as the
 // state pass). At chunk 1 that is h_t = h_{t-1} exp(dt_t A) + dt_t x_t
-// B_t^T. The work is rank-1 f32 updates (~1.5 GFLOP at chunk 1, S 383,
-// x 80 heads of 64, N 128): no matrix product for the tensor cores, so
-// its floor is the f32 CUDA-core rate (22.5 us there), not the bytes.
-// Per-CTA layout and schedule: see rec::ssd_recurrent_kernel.
+// B_t^T. This kernel's work is rank-1 f32 updates (~1.5 GFLOP at chunk 1,
+// S 383, x 80 heads of 64, N 128) whose floor on the CUDA cores is 22.5
+// us there: that is this design's floor, not the function's bound, which
+// is the bytes (~3.2 us at that shape; the tensor-core scan above takes
+// that shape in bf16). Per-CTA layout and schedule: see
+// rec::ssd_recurrent_kernel.
 //
 // The other three routes end with the same state pass and write the
 // per-chunk states, cumsum exponentials and decays for the wrapper's
@@ -1149,6 +1169,576 @@ int dispatch_n(const void* x, const void* dt, const void* A, const void* Bm,
 }  // namespace rec
 
 // ---------------------------------------------------------------------------
+// bfloat16 at chunks below 64 that divide 64: the tensor-core scan
+// ---------------------------------------------------------------------------
+
+namespace scan {
+
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::pack_bf16;
+using repro::smem_addr;
+using repro::tensor_map;
+using repro::Tile;
+using repro::tma_tile;
+
+constexpr int kRows = repro::kTileRows;   // sequence rows of a tile
+constexpr int kHD = 64;                   // the head dim it takes
+constexpr int kPS = 32;                   // head-dim columns of a CTA
+constexpr int kThreads = 128;             // one warpgroup
+constexpr int kStages = 2;                // the ring of C, B and x tiles
+// x's tile of the CTA's 32 columns; h^T's planes (N rows of the same 32
+// columns) are laid out alike
+using LX = Tile<kPS>;
+
+// bf16 rounding to nearest even of a finite float, on the integer pipe:
+// its bits with the low 16 cleared (a single-value conversion goes through
+// the pipe of the exponentials, and cost the pair weights most of their
+// time)
+__device__ __forceinline__ uint32_t rne_bits(float v) {
+  const uint32_t b = __float_as_uint(v);
+  return (b + 0x7fffu + ((b >> 16) & 1u)) & 0xffff0000u;
+}
+__device__ __forceinline__ float rne(float v) {
+  return __uint_as_float(rne_bits(v));
+}
+// the high halves of two floats' bits as a bf16 pair, the first low
+__device__ __forceinline__ uint32_t pack_hi(uint32_t b0, uint32_t b1) {
+  return __byte_perm(b0, b1, 0x7632);
+}
+
+// (v0, v1) as three bf16 pairs, hi + mid + lo, whose sum keeps ~2^-24 of
+// each value: the reference's f32 terms enter the bf16 tensor cores at f32
+// accuracy. Paired conversions: one instruction per two values.
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float r0 = v0 - __low2float(h), r1 = v1 - __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = pack_bf16(r0 - __low2float(m), r1 - __high2float(m));
+}
+
+// Shared memory from a 1024-byte aligned base: kStages stages of (C, B, x)
+// tiles; h^T's three bf16 planes (N rows of 32 columns); (u x)'s three
+// (64 rows of 32); the tile's scalars (7 arrays of 64 and G_end); then the
+// barriers. Under 113 KB at N 128: two CTAs an SM.
+template <int N>
+struct Layout {
+  static constexpr uint32_t kStage = 2 * Tile<N>::kBytes + LX::kBytes;
+  static constexpr uint32_t kPlane = N * LX::kRowBytes;
+  static constexpr uint32_t planes = kStages * kStage;
+  static constexpr uint32_t ux = planes + 3 * kPlane;
+  static constexpr uint32_t scal = ux + 3 * LX::kBytes;
+  static constexpr int kScalFloats = 7 * kRows + 4;
+  static constexpr uint32_t bars = scal + 4 * kScalFloats;
+  static constexpr uint32_t bytes = bars + 8 * kStages;
+};
+
+// One CTA (one warpgroup) per (32 head-dim columns, head, batch row): 160
+// CTAs at mamba2-2.7b's 80 heads of 64, two an SM. y[:, p] and h[p, :]
+// depend on their own column p only, so the two halves of a head run
+// apart; C . B^T does not depend on the head (n_groups is 1) and each CTA
+// forms it itself. The sequence goes by 64-row tiles, the float32 state h
+// (hd x N) carried from tile to tile in registers as h^T (rows n, columns
+// p: the accumulator of an m64n32 product, N / 64 of them). Thread 0 keeps
+// the next tile's C, B and x tiles in flight by TMA through a two-stage
+// mbarrier ring (zero-filled past S; the padding rows get dt 0, so u 0
+// and decay 1, and change nothing). Per tile:
+//  - batch A of products: S = C . B^T (m64n64k16 over N) and Y = C . h^T
+//    (m64n32k16 over N, h^T from three bf16 planes in shared memory);
+//  - meanwhile warp 0 takes the decay terms by shuffles (decay_terms):
+//    each chunk's cumsum in torch's order; G_i, the sum of dt A from the
+//    tile's start to i; for the state u_j = exp(R_j) dt_j, R_j the sum
+//    after j. Every dt A is <= 0, so a sum of them keeps its own
+//    precision and a difference of two long ones does not (at |A| 80,
+//    G_i - G_j lost ~1e-3 of the exponent): the decay between rows j < i
+//    of two 8-row groups is exp(F_i + M[g_i][g_j]) exp(Bk_j) (F the sum
+//    from i's group start, M the groups between, Bk the sum from j + 1 to
+//    j's group end: factors <= 1 that cannot overflow), inside one group
+//    exp(F_i - F_j), or the reference's exp(cum_i - cum_j) in one chunk;
+//  - (u x)_j as three bf16 planes; batch B: h^T = h^T exp(G_end) + B^T .
+//    (u x) (m64n32k16 over j, B's tile read as an M-major A operand);
+//  - while B runs, the pair weights on S's registers, without a branch so
+//    that a thread's 32 entries interleave: the pairs in one chunk W_d =
+//    T(T(S) decay dt_j) (T the bf16 rounding), as the reference rounds
+//    them; the pairs across chunks W_x = S decay dt_j in float32, as three
+//    bf16 terms; only the 4 pairs a thread holds in its row's own 8-row
+//    group take an exponential (masked before the exp: above the diagonal
+//    it would overflow), the others a product of a row factor and cd_j;
+//  - batch C: y_intra = W_d . x; y_inter = exp(G_i) Y + W_x . x. These are
+//    the reference's float32 terms: one bf16 rounding of an operand would
+//    cost ~2^-9 of each term, hi + lo ~2^-17, which made T(y_inter) round
+//    the other way often enough to put y a bf16 ulp of |y_inter| (0.0625
+//    at 8) off where y_intra cancels it; hi + mid + lo keeps ~2^-24
+//    (split3);
+//  - y = T(T(y_intra) + T(y_inter)), the reference's add in bf16; h^T's
+//    new planes for the next tile.
+// The serial chain is S / 64 tiles instead of S rows. No atomics: repeated
+// launches are bit-equal. tools/ssd_scan_ab.py --probe reads the cycles of
+// each phase.
+template <int N>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_tc_scan_kernel(const __grid_constant__ CUtensorMap tmx,
+                   const __grid_constant__ CUtensorMap tmb,
+                   const __grid_constant__ CUtensorMap tmc,
+                   const float* __restrict__ dt, const float* __restrict__ A,
+                   __nv_bfloat16* __restrict__ y,
+                   float* __restrict__ final_state, int S, int nh, int lc) {
+  using L = Layout<N>;
+  using LB = Tile<N>;
+  constexpr int MB = N < 64 ? 1 : N / 64;   // m64 blocks of h^T's rows
+  const int ps = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t4 = lane & 3;
+  const int r_lo = 16 * warp + (lane >> 2);   // accumulator rows r_lo, +8
+  const int chunk = 1 << lc;
+  const int n_tiles = (S + kRows - 1) / kRows;
+  const size_t row0 = (size_t)b * S;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const sbase = smem_raw + (base - raw);
+  float* const dts = reinterpret_cast<float*>(sbase + L::scal);
+  float* const cum = dts + kRows;   // each chunk's own cumsum
+  float* const F = cum + kRows;     // sum of dt A from the row's group start
+  float* const cd = F + kRows;      // exp(Bk_j) dt_j, Bk_j the sum from the
+                                    // next row to the group's end
+  float* const u = cd + kRows;      // exp(R_j) dt_j
+  float* const eG = u + kRows;      // exp(G_i)
+  float* const M = eG + kRows;      // [g][g']: the groups strictly between
+  float* const gend = M + kRows;    // the tile's G_end
+  auto full = [&](int st) { return base + L::bars + 8 * st; };
+  auto c_tile = [&](int st) { return base + st * L::kStage; };
+  auto b_tile = [&](int st) { return c_tile(st) + LB::kBytes; };
+  auto x_tile = [&](int st) { return c_tile(st) + 2 * LB::kBytes; };
+
+  // h = 0 entering the sequence: zero planes, read by wgmma's async proxy
+  for (int i = tid; i < 3 * (int)L::kPlane / 16; i += kThreads)
+    reinterpret_cast<uint4*>(sbase + L::planes)[i] = make_uint4(0, 0, 0, 0);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(full(st), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto load = [&](int t) {
+    const int st = t % kStages;
+    mbar_expect_tx(full(st), 2 * LB::kBytes + LX::kBytes);
+    tma_tile<N>(c_tile(st), &tmc, full(st), 0, t * kRows, b);
+    tma_tile<N>(b_tile(st), &tmb, full(st), 0, t * kRows, b);
+    tma_tile<kPS>(x_tile(st), &tmx, full(st), (h * (kHD / kPS) + ps) * kPS,
+                  t * kRows, b);
+  };
+  if (tid == 0) load(0);
+  const float a = A[h];
+  // warp 0 takes the decay terms, rows 2 lane and 2 lane + 1 of a tile
+  auto dt_at = [&](int r) { return r < S ? dt[(row0 + r) * nh + h] : 0.f; };
+  float dn0 = 0.f, dn1 = 0.f;
+  if (warp == 0) {
+    dn0 = dt_at(2 * lane);
+    dn1 = dt_at(2 * lane + 1);
+  }
+  // ---- tile t's decay terms, in warp 0 by shuffles: lane l holds rows 2 l
+  // and 2 l + 1. Every dt A is <= 0, so a sum of them keeps its own
+  // precision, and a difference of two long ones does not ------------------
+  auto decay_terms = [&](int t) {
+    const float d0 = dn0, d1 = dn1;
+    dn0 = dt_at((t + 1) * kRows + 2 * lane);   // the next tile's, ahead
+    dn1 = dt_at((t + 1) * kRows + 2 * lane + 1);
+    const float v0 = d0 * a, v1 = d1 * a;
+    // each chunk's cumsum in torch's order: a chunk of c >= 2 rows is c /
+    // 2 lanes, each adding its two rows to its left neighbour's sum
+    float c0 = v0, c1 = v0 + v1;
+    if (chunk == 1) c1 = v1;
+    for (int k = 1; k < chunk / 2; ++k) {
+      const float prev = __shfl_up_sync(0xffffffffu, c1, 1);
+      if ((lane & (chunk / 2 - 1)) == k) {
+        c0 = prev + v0;
+        c1 = c0 + v1;
+      }
+    }
+    const float pair = v0 + v1;
+    // F (from the 8-row group's start, inclusive) over its 4 lanes; the
+    // group's total at its last lane
+    float gin = pair;
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, gin, off);
+      if ((lane & 3) >= off) gin += o;
+    }
+    float gex = __shfl_up_sync(0xffffffffu, gin, 1);
+    if ((lane & 3) == 0) gex = 0.f;
+    // Bk (from the next row to the group's end)
+    float gsuf = pair;
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float o = __shfl_down_sync(0xffffffffu, gsuf, off);
+      if ((lane & 3) + off < 4) gsuf += o;
+    }
+    float gsx = __shfl_down_sync(0xffffffffu, gsuf, 1);
+    if ((lane & 3) == 3) gsx = 0.f;
+    // G (from the tile's start, inclusive) and R (from the next row to
+    // the tile's end), over the warp
+    float tin = pair;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, tin, off);
+      if (lane >= off) tin += o;
+    }
+    float tex = __shfl_up_sync(0xffffffffu, tin, 1);
+    if (lane == 0) tex = 0.f;
+    float tsuf = pair;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_down_sync(0xffffffffu, tsuf, off);
+      if (lane + off < 32) tsuf += o;
+    }
+    float tsx = __shfl_down_sync(0xffffffffu, tsuf, 1);
+    if (lane == 31) tsx = 0.f;
+    // M[g][g'] = the totals of the groups strictly between, g > g'
+    float gt[8];
+#pragma unroll
+    for (int g = 0; g < 8; ++g)
+      gt[g] = __shfl_sync(0xffffffffu, gin, 4 * g + 3);
+#pragma unroll
+    for (int e = lane; e < 64; e += 32) {
+      const int g = e >> 3, g1 = e & 7;
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 1; k < 7; ++k)
+        if (k > g1 && k < g) acc += gt[k];
+      M[e] = acc;
+    }
+    const int i = 2 * lane;
+    dts[i] = d0;
+    dts[i + 1] = d1;
+    cum[i] = c0;
+    cum[i + 1] = c1;
+    F[i] = gex + v0;
+    F[i + 1] = gin;
+    cd[i] = expf(gsx + v1) * d0;
+    cd[i + 1] = expf(gsx) * d1;
+    eG[i] = expf(tex + v0);
+    eG[i + 1] = expf(tin);
+    u[i] = expf(tsx + v1) * d0;
+    u[i + 1] = expf(tsx) * d1;
+    if (lane == 31) *gend = tin;
+  };
+  float hs[MB][kPS / 2];   // h^T[n = 64 mb + r_lo + 8 hh][p = 8 jj + 2 t4 + e]
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int k = 0; k < kPS / 2; ++k) hs[mb][k] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    const int r0 = t * kRows;
+    // ---- batch A: S = C . B^T (64 x 64) and Y = C . h^T (64 x 32), in
+    // flight while warp 0 takes the decay terms ----------------------------
+    const uint32_t xs = x_tile(st);
+    mbar_wait(full(st), (t / kStages) & 1);
+    float s[32], yx[kPS / 2], yi[kPS / 2];
+#pragma unroll
+    for (int k = 0; k < kPS / 2; ++k) yx[k] = yi[k] = 0.f;
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      repro::wgmma_ss_n64(s, LB::kmajor(c_tile(st), kk),
+                          LB::kmajor(b_tile(st), kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint64_t dc = LB::kmajor(c_tile(st), kk);
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        repro::wgmma_ss_n32_tb(
+            yx, dc, LX::mnmajor(base + L::planes + q * L::kPlane, kk), 1);
+    }
+    repro::wgmma_commit();
+
+    // the stage of tile t + 1 was last read in tile t - 1, whose end every
+    // thread has passed
+    if (tid == 0 && t + 1 < n_tiles) load(t + 1);
+    if (warp == 0) decay_terms(t);
+    __syncthreads();
+
+    // ---- (u x)_j as three bf16 planes; batch B: h^T = h^T exp(G_end) +
+    // B^T . (u x) (N x 32), in flight while the pair weights are formed -
+#pragma unroll
+    for (int c = tid; c < kRows * kPS / 8; c += kThreads) {   // 16-byte units
+      const int j = c >> 2;
+      const uint32_t off = LX::elem(j, 8 * (c & 3));
+      const uint4 raw = *reinterpret_cast<const uint4*>(sbase + (xs - base) +
+                                                        off);
+      const __nv_bfloat162* const xv =
+          reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float uj = u[j];
+      uint4 q[3];
+      uint32_t* const q0 = &q[0].x;
+      uint32_t* const q1 = &q[1].x;
+      uint32_t* const q2 = &q[2].x;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = __bfloat1622float2(xv[k]);
+        split3(f.x * uj, f.y * uj, q0[k], q1[k], q2[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        *reinterpret_cast<uint4*>(sbase + L::ux + k * LX::kBytes + off) = q[k];
+    }
+    const float decay = expf(*gend);
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int k = 0; k < kPS / 2; ++k) hs[mb][k] *= decay;
+    // written by the generic proxy, read by wgmma's async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+        // rows n = 64 mb ... of B^T: B's tile read M-major (N 32: rows 32
+        // ... 63 read past the tile and are never used)
+        const uint64_t da = LB::mnmajor(b_tile(st) + mb * LB::kAtomBytes, kk);
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          repro::wgmma_ss_n32_tt(hs[mb], da,
+                                 LX::mnmajor(base + L::ux + q * LX::kBytes,
+                                             kk));
+      }
+    repro::wgmma_commit();
+    repro::wgmma_wait<1>();   // batch A is done
+    repro::fence_regs(s);
+    repro::fence_regs(yx);
+
+    // ---- pair weights on S's registers: row il = r_lo + 8 hh (8-row group
+    // g_i = 2 warp + hh), column jl = 8 jj + 2 t4 + e (group jj). W_d (one
+    // chunk) into s, rounded as the reference; W_x (across chunks) in
+    // float32 into wx. Only the diagonal group's 4 pairs a thread take an
+    // exponent, masked before the exp (above the diagonal it would
+    // overflow): the reference's cum_i - cum_j in one chunk, F_i - F_j
+    // across. The groups before it take exp(F_i + M[g_i][g_j]) exp(Bk_j)
+    // dt_j (a row factor and cd_j, both <= 1; pairs in one chunk alike, at
+    // chunks of 16 and 32, as the tensor-core route factors below its
+    // diagonal tile). No branch, so the 32 entries interleave. --------------
+    float wx[32];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int il = r_lo + 8 * hh, gi = 2 * warp + hh;
+      const int ki = il >> lc;
+      const float ci = cum[il], fi = F[il], egi = eG[il];
+#pragma unroll
+      for (int jj = 0; jj < kPS / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) yx[4 * jj + 2 * hh + e] *= egi;
+      // the diagonal group: S, the exponent and W_d per pair (s's register
+      // of group g_i picked by warp)
+      float exd[2], wdd[2];
+      bool sd_same[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int jl = 8 * gi + 2 * t4 + e;
+        sd_same[e] = (jl >> lc) == ki;
+        const float in_chunk = ci - cum[jl], in_group = fi - F[jl];
+        exd[e] = expf(jl > il ? -INFINITY : sd_same[e] ? in_chunk
+                                                       : in_group);
+        const int k = 2 * hh + e;
+        const float sd = warp == 0 ? s[4 * hh + k]
+                         : warp == 1 ? s[4 * (2 + hh) + k]
+                         : warp == 2 ? s[4 * (4 + hh) + k]
+                                     : s[4 * (6 + hh) + k];
+        wdd[e] = rne(rne(sd) * exd[e] * dts[jl]);
+      }
+      float rf[8];   // exp(F_i + M[g_i][g]) before g_i, else 0
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float m = M[8 * gi + jj];
+        rf[jj] = expf(jj < gi ? fi + m : -INFINITY);
+      }
+      if (lc <= 3) {   // chunks of 8 and below: one chunk, one group
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int jl = 8 * jj + 2 * t4 + e;
+            const bool diag = jj == gi;
+            const float f = diag ? (sd_same[e] ? 0.f : exd[e] * dts[jl])
+                                 : rf[jj] * cd[jl];
+            float& w = s[4 * jj + 2 * hh + e];
+            wx[4 * jj + 2 * hh + e] = w * f;
+            w = diag && sd_same[e] ? wdd[e] : 0.f;
+          }
+      } else {         // chunks of 16 and 32 span groups
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int jl = 8 * jj + 2 * t4 + e;
+            const bool diag = jj == gi;
+            const bool same = (jl >> lc) == ki;
+            float& w = s[4 * jj + 2 * hh + e];
+            const float f = diag ? exd[e] * dts[jl] : rf[jj] * cd[jl];
+            wx[4 * jj + 2 * hh + e] = same ? 0.f : w * f;
+            w = !same ? 0.f : diag ? wdd[e] : rne(rne(w) * rf[jj] * cd[jl]);
+          }
+      }
+    }
+    // as A fragments: k slice kk is columns 16 kk ... 16 kk + 15
+    uint32_t wd[4][4], w3[3][4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        wd[kk][r] = pack_hi(__float_as_uint(s[8 * kk + 2 * r]),
+                            __float_as_uint(s[8 * kk + 2 * r + 1]));
+        split3(wx[8 * kk + 2 * r], wx[8 * kk + 2 * r + 1], w3[0][kk][r],
+               w3[1][kk][r], w3[2][kk][r]);
+      }
+
+    // ---- batch C: y_intra = W_d . x, y_inter = exp(G_i) Y + W_x . x -------
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dx = LX::mnmajor(xs, kk);
+      repro::wgmma_rs<kPS>(yi, wd[kk], dx);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) repro::wgmma_rs<kPS>(yx, w3[q][kk], dx);
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait_all();   // batches B and C
+    repro::fence_regs(yi);
+    repro::fence_regs(yx);
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) repro::fence_regs(hs[mb]);
+
+    // ---- y = T(T(y_intra) + T(y_inter)) on the tile's rows below S --------
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = r0 + r_lo + 8 * hh;
+      if (i >= S) continue;
+      __nv_bfloat16* const yrow = y + ((row0 + i) * nh + h) * kHD + ps * kPS;
+#pragma unroll
+      for (int jj = 0; jj < kPS / 8; ++jj) {
+        const int k = 4 * jj + 2 * hh;
+        const __nv_bfloat162 a = __floats2bfloat162_rn(yi[k], yi[k + 1]);
+        const __nv_bfloat162 c = __floats2bfloat162_rn(yx[k], yx[k + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(yrow + 8 * jj + 2 * t4) =
+            __floats2bfloat162_rn(__low2float(a) + __low2float(c),
+                                  __high2float(a) + __high2float(c));
+      }
+    }
+
+    // ---- h^T in three bf16 planes for the next tile's Y -------------------
+    __syncthreads();   // every warp's reads of the planes are over
+    if (t + 1 < n_tiles) {
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int n = 64 * mb + r_lo + 8 * hh;
+          if (n >= N) continue;
+#pragma unroll
+          for (int jj = 0; jj < kPS / 8; ++jj) {
+            uint32_t q3[3];
+            split3(hs[mb][4 * jj + 2 * hh], hs[mb][4 * jj + 2 * hh + 1],
+                   q3[0], q3[1], q3[2]);
+            const uint32_t off = LX::elem(n, 8 * jj + 2 * t4);
+#pragma unroll
+            for (int q = 0; q < 3; ++q)
+              *reinterpret_cast<uint32_t*>(sbase + L::planes +
+                                           q * L::kPlane + off) = q3[q];
+          }
+        }
+      // written by the generic proxy, read by wgmma's async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    // the planes are whole, and this tile's stage and scalars are free
+    __syncthreads();
+  }
+
+  // the final state h[p][n], (B, nh, hd, N)
+  float* const out =
+      final_state + (((size_t)b * nh + h) * kHD + ps * kPS) * N;
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int n = 64 * mb + r_lo + 8 * hh;
+      if (n >= N) continue;
+#pragma unroll
+      for (int jj = 0; jj < kPS / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          out[(size_t)(8 * jj + 2 * t4 + e) * N + n] =
+              hs[mb][4 * jj + 2 * hh + e];
+    }
+}
+
+// One launch; with info, no launch: the kernel's registers a thread, local
+// (spill) bytes a thread, CTAs an SM holds and shared memory bytes a CTA,
+// in info[0 ... 3]
+template <int N>
+int launch(const void* x, const void* dt, const void* A, const void* Bm,
+           const void* Cm, void* y, void* final_state, int B, int S, int nh,
+           int lc, cudaStream_t stream, int* info) {
+  static int granted = 48 * 1024;
+  static bool carved = false;
+  const size_t smem = 1024 + Layout<N>::bytes;
+  auto kernel = ssd_tc_scan_kernel<N>;
+  cudaError_t err = repro::allow_smem(kernel, smem, &granted);
+  // two CTAs of 115 KB an SM need the largest shared-memory carveout
+  if (err == cudaSuccess && !carved) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    carved = err == cudaSuccess;
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (info != nullptr) {
+    cudaFuncAttributes a{};
+    err = cudaFuncGetAttributes(&a, kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel,
+                                                          kThreads, smem);
+    info[0] = a.numRegs;
+    info[1] = (int)a.localSizeBytes;
+    info[3] = (int)smem;
+    return (int)err;
+  }
+  CUtensorMap mx, mb, mc;
+  // x as (B, S, nh * 2 column halves of 32)
+  if (!tensor_map<kPS>(&mx, x, B, S, nh * (kHD / kPS)) ||
+      !tensor_map<N>(&mb, Bm, B, S, 1) || !tensor_map<N>(&mc, Cm, B, S, 1))
+    return (int)cudaErrorInvalidValue;
+  kernel<<<dim3(kHD / kPS, nh, B), kThreads, smem, stream>>>(
+      mx, mb, mc, static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<__nv_bfloat16*>(y), static_cast<float*>(final_state), S, nh,
+      lc);
+  return (int)cudaGetLastError();
+}
+
+template <typename... Args>
+int dispatch_n(int N, Args... args) {
+  switch (N) {
+    case 32:
+      return launch<32>(args...);
+    case 64:
+      return launch<64>(args...);
+    case 128:
+      return launch<128>(args...);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace scan
+
+// ---------------------------------------------------------------------------
 // float32 at chunks that are multiples of 64: split TF32 on the tensor cores
 // ---------------------------------------------------------------------------
 
@@ -1766,6 +2356,33 @@ extern "C" int repro_ssd_chunk_recurrent(const void* x, const void* dt,
                                           final_state, B, S, nh, hd, N, chunk,
                                           s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core scan: bfloat16 x, B and C with hd 64, N 32, 64 or 128 and
+// a chunk below 64 that divides 64. Writes y and `final_state` (B, nh, hd,
+// N) only, as the recurrent route.
+extern "C" int repro_ssd_chunk_tc_scan(const void* x, const void* dt,
+                                       const void* A, const void* Bm,
+                                       const void* Cm, void* y,
+                                       void* final_state, int B, int S,
+                                       int nh, int hd, int N, int chunk,
+                                       void* stream) {
+  if (B <= 0 || S <= 0 || nh <= 0 || hd != scan::kHD || chunk <= 0 ||
+      chunk >= scan::kRows || scan::kRows % chunk != 0 || S % chunk != 0 ||
+      !final_state)
+    return (int)cudaErrorInvalidValue;
+  const int lc = __builtin_ctz((unsigned)chunk);   // chunk divides 64
+  return scan::dispatch_n(N, x, dt, A, Bm, Cm, y, final_state, B, S, nh, lc,
+                          static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The tensor-core scan's kernel at state size N, read without a launch:
+// registers and local (spill) bytes a thread, CTAs an SM holds, shared
+// memory bytes a CTA, in info[0 ... 3].
+extern "C" int repro_ssd_tc_scan_info(int N, int* info) {
+  if (info == nullptr) return (int)cudaErrorInvalidValue;
+  return scan::dispatch_n(N, nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, nullptr, 0, 0, 0, 0, nullptr, info);
 }
 
 // The split-TF32 route: float32 x, B and C with hd 64, N 32, 64 or 128 and

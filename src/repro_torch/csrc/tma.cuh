@@ -45,6 +45,16 @@ struct Tile {
     return wgmma_desc(base + kk * 16 * kRowBytes, kAtomBytes, kGroupBytes,
                       kLayout);
   }
+  // byte offset of element (row r, column c): the 16-byte unit c / 8 of
+  // its atom's row, xor'ed with r % 8 (128-byte swizzle) or r / 2 % 4
+  // (64-byte); a tile one atom wide may hold more than 64 rows, row after
+  // row
+  static __device__ __forceinline__ uint32_t elem(int r, int c) {
+    const int cc = c % kAtomCols;
+    const int sw = kRowBytes == 128 ? (r & 7) : ((r >> 1) & 3);
+    return (c / kAtomCols) * kAtomBytes + r * kRowBytes +
+           (((cc >> 3) ^ sw) << 4) + (cc & 7) * 2;
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

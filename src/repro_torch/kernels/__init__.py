@@ -20,7 +20,7 @@ from .ragged_decode_attn import (ragged_decode_attention,
 from .rmsnorm import FusedRMSNorm, fused_rmsnorm, fused_rmsnorm_plain
 from .ssd_chunk import (SSDChunked, ssd_chunk_intra_plain, ssd_chunked,
                         ssd_chunked_plain, ssd_chunked_recurrent_plain,
-                        ssd_route)
+                        ssd_chunked_tiled_plain, ssd_route)
 
 # the wrappers the serving paths launch
 KERNELS = (ragged_decode_attention, fused_rmsnorm, flash_attention,
@@ -28,12 +28,13 @@ KERNELS = (ragged_decode_attention, fused_rmsnorm, flash_attention,
 
 
 def launch_counts() -> dict:
-    """Launches per wrapper, and of the SSD scan's tensor-core, split-TF32
-    and recurrent routes."""
+    """Launches per wrapper, and of the SSD scan's tensor-core, split-TF32,
+    recurrent and tensor-core scan routes."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts["ssd_chunked_tc"] = ssd_chunked.tc_launches
     counts["ssd_chunked_tf32"] = ssd_chunked.tf32_launches
     counts["ssd_chunked_recurrent"] = ssd_chunked.recurrent_launches
+    counts["ssd_chunked_tc_scan"] = ssd_chunked.tc_scan_launches
     return counts
 
 
@@ -43,6 +44,7 @@ def reset_launch_counts() -> None:
     ssd_chunked.tc_launches = 0
     ssd_chunked.tf32_launches = 0
     ssd_chunked.recurrent_launches = 0
+    ssd_chunked.tc_scan_launches = 0
 
 
 __all__ = [
@@ -50,6 +52,6 @@ __all__ = [
     "flash_attention", "flash_attention_plain", "ragged_decode_attention",
     "ragged_decode_attention_plain", "fused_rmsnorm", "fused_rmsnorm_plain",
     "ssd_chunk_intra_plain", "ssd_chunked", "ssd_chunked_plain",
-    "ssd_chunked_recurrent_plain", "ssd_route",
+    "ssd_chunked_recurrent_plain", "ssd_chunked_tiled_plain", "ssd_route",
     "KERNELS", "launch_counts", "reset_launch_counts",
 ]

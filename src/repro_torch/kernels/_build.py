@@ -50,7 +50,11 @@ SIGNATURES = {
         "repro_ssd_chunk_tf32": [_VP] * 11 + [_I] * 7 + [_VP],
         # x, dt, A, B, C, scores, y, final, B, S, nh, hd, N, chunk, dtype,
         # stream
-        "repro_ssd_chunk_recurrent": [_VP] * 8 + [_I] * 7 + [_VP]},
+        "repro_ssd_chunk_recurrent": [_VP] * 8 + [_I] * 7 + [_VP],
+        # x, dt, A, B, C, y, final, B, S, nh, hd, N, chunk, stream
+        "repro_ssd_chunk_tc_scan": [_VP] * 7 + [_I] * 6 + [_VP],
+        # N, info (four ints out)
+        "repro_ssd_tc_scan_info": [_I, _VP]},
     "rmsnorm": {
         # x, scale, y, rows, D, stride, flags (16-byte slots, x and scale
         # dtypes), eps, device, stream

@@ -5,13 +5,15 @@ Replaces the TPU kernel ``src/repro/kernels/ssd_chunk.py``
 (batch, chunk, head) the within-chunk decay cumsum, the causal decay
 matrix, ``C·Bᵀ``, ``y_intra``, the chunk state, ``exp(cum)`` and
 ``exp(total)``; then the inter-chunk state recurrence and ``y_inter``.
-The SSM prefill of every layer runs it. Four routes, picked by dtype and
-shape alone (:func:`ssd_route`): every chunk below 64 on the recurrent
-kernel; chunks of whole 64-row tiles at head dim 64 and state 32, 64 or
-128 on the tensor cores, in bfloat16 directly and in float32 as split TF32
-(three TF32 products per product); the rest (odd long chunks, other head
-dims and states) on the CUDA cores. Source, bound and design notes:
-``csrc/ssd_chunk.cu``.
+The SSM prefill of every layer runs it. Five routes, picked by dtype and
+shape alone (:func:`ssd_route`): at head dim 64 and state 32, 64 or 128,
+bfloat16 chunks below 64 that divide 64 on the tensor-core scan (64-row
+tiles with the state carried from tile to tile); every other chunk below
+64 on the recurrent kernel; chunks of whole 64-row tiles at head dim 64
+and state 32, 64 or 128 on the tensor cores, in bfloat16 directly and in
+float32 as split TF32 (three TF32 products per product); the rest (odd
+long chunks, other head dims and states) on the CUDA cores. Source, bound
+and design notes: ``csrc/ssd_chunk.cu``.
 
 Under autograd (grad mode on and x, dt, A, B or C requiring grad) the call
 goes through :class:`SSDChunked`: the kernels' forward, and the gradient
@@ -51,19 +53,24 @@ def _chunked(x, dt, B_ssm, C_ssm, chunk: int):
             B_ssm.reshape(Bb, nc, chunk, N), C_ssm.reshape(Bb, nc, chunk, N))
 
 
+def _exp(t):
+    """exp. On the CPU that of a float32 tensor is taken in float64 and
+    rounded once: there ``torch.exp`` of float32 calls MKL's vector math
+    on several threads, and on an AVX-512 host it has returned about 1,840
+    of the 32,768 entries of a fresh process's L at (2, 4, 32, 32, 4)
+    (:func:`_decay_terms`) about 1e-4 off, none with ``MKL_NUM_THREADS=1``
+    (``tools/cpu_exp_check.py``)."""
+    if t.device.type == "cpu" and t.dtype == torch.float32:
+        return torch.exp(t.double()).to(torch.float32)
+    return torch.exp(t)
+
+
 def _decay_terms(dtc, A, chunk: int):
     """cum (B, nc, cs, nh), total (B, nc, nh) and the causal decay matrix
     L (B, nc, i, j, nh) = exp(cum_i - cum_j) where j <= i, else 0. The
     mask is applied before the exp: above the diagonal cum_i - cum_j > 0
     can overflow to inf (at mamba2-2.7b's widths it does), and a masked
-    inf would make the gradient NaN (0 * inf); exp(-inf) is the same 0.
-
-    On the CPU the exp of a float32 L is taken in float64 and rounded
-    once: there ``torch.exp`` of float32 calls MKL's vector math on
-    several threads, and on an AVX-512 host it has returned about 1,840
-    of the 32,768 entries of a fresh process's L at (2, 4, 32, 32, 4)
-    about 1e-4 off, none with ``MKL_NUM_THREADS=1``
-    (``tools/cpu_exp_check.py``)."""
+    inf would make the gradient NaN (0 * inf); exp(-inf) is the same 0."""
     cum = torch.cumsum(dtc * A[None, None, None, :], dim=2)
     total = cum[:, :, -1]
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
@@ -72,9 +79,7 @@ def _decay_terms(dtc, A, chunk: int):
     masked = torch.where(mask[None, None, :, :, None], diff,
                          torch.full((), -torch.inf, dtype=diff.dtype,
                                     device=diff.device))
-    if masked.device.type == "cpu" and masked.dtype == torch.float32:
-        return cum, total, torch.exp(masked.double()).to(torch.float32)
-    return cum, total, torch.exp(masked)
+    return cum, total, _exp(masked)
 
 
 def ssd_chunk_intra_plain(x, dt, A, B_ssm, C_ssm, chunk: int):
@@ -172,6 +177,113 @@ def ssd_chunked_recurrent_plain(x, dt, A, B_ssm, C_ssm, chunk: int):
     return torch.cat(ys, dim=1), h
 
 
+def _group_sums(v):
+    """For v (B, 64, nh), every entry <= 0 (dt·A), the sums the tensor-core
+    scan takes its cross-chunk exponents from, over 8-row groups: F (from
+    the row's group start to the row), Bk (from the next row to its
+    group's end) and M (B, 8, 8, nh), the groups strictly between g > g'.
+    Sums of same-signed terms keep their own precision; the difference of
+    two long ones would not."""
+    Bb, _, nh = v.shape
+    vg = v.reshape(Bb, 8, 8, nh)
+    F = torch.cumsum(vg, dim=2)
+    incl = torch.flip(torch.cumsum(torch.flip(vg, (2,)), dim=2), (2,))
+    Bk = torch.cat([incl[:, :, 1:], torch.zeros_like(incl[:, :, :1])], dim=2)
+    tot = F[:, :, -1]                                           # (B, 8, nh)
+    M = torch.zeros((Bb, 8, 8, nh), dtype=v.dtype, device=v.device)
+    for g in range(2, 8):
+        for g1 in range(g - 1):
+            M[:, g, g1] = tot[:, g1 + 1:g].sum(dim=1)
+    return F.reshape(Bb, 64, nh), Bk.reshape(Bb, 64, nh), M
+
+
+def ssd_chunked_tiled_plain(x, dt, A, B_ssm, C_ssm, chunk: int):
+    """The tensor-core scan's arithmetic in plain PyTorch, for chunks that
+    divide 64: the sequence goes by 64-row tiles (the last padded with
+    rows of dt 0), the float32 state h carried from one to the next. In a
+    tile, with E_ij the sum of dt·A over rows j+1 … i, the decay of a pair
+    j <= i in one 8-row group is taken per pair (exp(cum_i - cum_j), the
+    reference's, in one chunk; exp(F_i - F_j) across), else factored as
+    exp(F_i + M[g_i][g_j]) · exp(Bk_j) dt_j (:func:`_group_sums`). The
+    pairs inside one chunk give T(y_intra), rounded as in
+    :func:`ssd_chunked_plain`, T(T(C_i·B_j) decay dt_j) with T the rounding
+    to x.dtype; the pairs across chunks and the state entering the tile,
+    exp(G_i) C_i·hᵀ with G_i the sum from the tile's start, are summed in
+    float32 and rounded once, T(y_inter); y = T(y_intra) + T(y_inter) in
+    x.dtype. Then h = h exp(G_end) + Σ_j (x_j u_j) ⊗ B_j with u_j =
+    exp(R_j) dt_j, R_j the sum over the tile's rows after j. Same
+    arguments and results as :func:`ssd_chunked_plain`; the tests only."""
+    Bb, S, nh, hd = x.shape
+    N = B_ssm.shape[-1]
+    if S % chunk or TC_ROWS % chunk:
+        raise ValueError(f"ssd: chunk={chunk} must divide S={S} and "
+                         f"{TC_ROWS}")
+    f32, T = torch.float32, TC_ROWS
+    dev = x.device
+    a = A.to(f32)
+    K = T // chunk
+    ids = torch.arange(T, device=dev)
+    lower = ids[None, :] <= ids[:, None]
+    same = (ids[None, :] // chunk) == (ids[:, None] // chunk)
+    inside = (lower & same)[None, :, :, None]
+    across = (lower & ~same)[None, :, :, None]
+    group = ids // 8
+    zero = torch.zeros((), dtype=f32, device=dev)
+    h = torch.zeros((Bb, nh, hd, N), dtype=f32, device=dev)
+    ys = []
+    for t0 in range(0, S, T):
+        rows = min(T, S - t0)
+        pad = lambda z: torch.cat([z, z.new_zeros((Bb, T - rows,
+                                                    *z.shape[2:]))], dim=1)
+        part = slice(t0, t0 + rows)
+        xt, Bt, Ct = (pad(z[:, part]) for z in (x, B_ssm, C_ssm))
+        dtt = pad(dt[:, part].to(f32))
+        v = dtt * a
+        cum = torch.cumsum(v.reshape(Bb, K, chunk, nh), dim=2).reshape(
+            Bb, T, nh)
+        G = torch.cumsum(v, dim=1)            # from the tile's start
+        R = torch.cat([torch.flip(torch.cumsum(torch.flip(v[:, 1:], (1,)),
+                                               dim=1), (1,)),
+                       torch.zeros_like(v[:, :1])], dim=1)   # to its end
+        u = _exp(R) * dtt
+        F, Bk, M = _group_sums(v)
+        # inside one 8-row group the exponent per pair, masked before the
+        # exp (the reference's cum_i - cum_j in one chunk); across groups
+        # exp(F_i + M[g_i][g_j]) and cd_j = exp(Bk_j) dt_j, both <= 1
+        one_group = (group[None, :] == group[:, None])[None, :, :, None]
+        expo = torch.where(inside, cum[:, :, None] - cum[:, None],
+                           torch.where(across, F[:, :, None] - F[:, None],
+                                       torch.full((), -torch.inf, dtype=f32,
+                                                   device=dev)))
+        pe = _exp(torch.where(one_group, expo, zero))
+        rowf = torch.where(lower[None, :, :, None] & ~one_group,
+                           _exp(F[:, :, None] + M[:, group][:, :, group]),
+                           zero)
+        cdj = (_exp(Bk) * dtt)[:, None]                       # (B, 1, j, nh)
+        d_j = dtt[:, None, :, :]
+        scores = torch.einsum("bin,bjn->bij", Ct.to(f32), Bt.to(f32))
+        # T(C_i·B_j) as the reference forms it: a product in x.dtype
+        sb = torch.einsum("bin,bjn->bij", Ct, Bt).to(f32)[..., None]
+        w_d = torch.where(inside, torch.where(one_group, sb * pe * d_j,
+                                              sb * rowf * cdj).to(x.dtype),
+                          zero.to(x.dtype))
+        w_x = torch.where(across, scores[..., None] * torch.where(
+            one_group, pe * d_j, rowf * cdj), zero)
+        # summed in float32 and rounded once, as the kernel (a bf16 product
+        # on the card may reduce in bf16)
+        y_intra = torch.einsum("bijh,bjhp->bihp", w_d.to(f32),
+                               xt.to(f32)).to(x.dtype)
+        y_inter = (torch.einsum("bin,bhpn->bihp", Ct.to(f32), h)
+                   * _exp(G)[..., None]
+                   + torch.einsum("bijh,bjhp->bihp", w_x, xt.to(f32)))
+        ys.append((y_intra + y_inter.to(x.dtype))[:, :rows])
+        g_end = G[:, -1]                                       # (B, nh)
+        xu = xt.to(f32) * u[..., None]
+        h = (h * _exp(g_end)[..., None, None]
+             + torch.einsum("bjhp,bjn->bhpn", xu, Bt.to(f32)))
+    return torch.cat(ys, dim=1), h
+
+
 def _check_inputs(x, dt, A, B_ssm, C_ssm, chunk: int):
     if x.dim() != 4:
         raise ValueError(f"ssd: x must be (B, S, nh, hd), got {tuple(x.shape)}")
@@ -201,16 +313,21 @@ def _check_inputs(x, dt, A, B_ssm, C_ssm, chunk: int):
 
 
 def ssd_route(dtype, chunk: int, hd: int, N: int) -> str:
-    """The kernel a CUDA call takes, by dtype and shape alone:
-    ``"recurrent"`` for every chunk below 64 (the chunks 63 of every 64
-    prefill lengths take under the halving rule); at a chunk that is a
-    multiple of 64, head dim 64 and state size 32, 64 or 128, ``"tc"``
-    (the tensor-core kernel) for bfloat16 and ``"tf32"`` (the split-TF32
-    tensor-core kernel) for float32; else ``"cuda_cores"`` (long chunks of
-    other shapes)."""
+    """The kernel a CUDA call takes, by dtype and shape alone. Below chunk
+    64 (the chunks 63 of every 64 prefill lengths take under the halving
+    rule): ``"tc_scan"`` (the tensor-core scan over 64-row tiles) for
+    bfloat16 at a chunk that divides 64, head dim 64 and state size 32, 64
+    or 128, else ``"recurrent"`` (float32, chunk 63, other shapes). At a
+    chunk that is a multiple of 64, head dim 64 and state size 32, 64 or
+    128, ``"tc"`` (the tensor-core kernel) for bfloat16 and ``"tf32"``
+    (the split-TF32 tensor-core kernel) for float32; else ``"cuda_cores"``
+    (long chunks of other shapes)."""
+    tc_shape = hd == TC_HEAD_DIM and N in TC_STATES
     if chunk < RECURRENT_BELOW:
+        if dtype == torch.bfloat16 and TC_ROWS % chunk == 0 and tc_shape:
+            return "tc_scan"
         return "recurrent"
-    if chunk % TC_ROWS == 0 and hd == TC_HEAD_DIM and N in TC_STATES:
+    if chunk % TC_ROWS == 0 and tc_shape:
         if dtype == torch.bfloat16:
             return "tc"
         if dtype == torch.float32:
@@ -225,6 +342,21 @@ def ssd_tc_heads(Bb: int, S: int, nh: int, chunk: int, n_sm: int) -> int:
     (PERF.md §6, measured for each kernel)."""
     ctas = -(-nh // 2) * Bb * (S // chunk) * (chunk // TC_ROWS)
     return 2 if ctas >= n_sm else 1
+
+
+def tc_scan_info(N: int) -> dict:
+    """The tensor-core scan's kernel at state size ``N``, read on the card
+    without launching it: {"regs", "spill_bytes", "ctas_per_sm", "smem"}
+    (registers and local bytes a thread, by ``cudaFuncGetAttributes``;
+    resident CTAs by ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``;
+    shared memory bytes a CTA)."""
+    import ctypes
+    info = (ctypes.c_int * 4)()
+    err = _build.function("ssd_chunk", "repro_ssd_tc_scan_info")(
+        N, ctypes.addressof(info))
+    if err:
+        raise RuntimeError(f"tc_scan_info: CUDA error {err} (N={N})")
+    return dict(zip(("regs", "spill_bytes", "ctas_per_sm", "smem"), info))
 
 
 @functools.lru_cache(maxsize=None)
@@ -247,10 +379,11 @@ def ssd_chunked(x, dt, A, B_ssm, C_ssm, chunk: int):
 
     A CPU tensor takes :func:`ssd_chunked_plain`; a CUDA tensor launches
     ``csrc/ssd_chunk.cu`` on the current stream, on the route
-    :func:`ssd_route` picks, or raises. The recurrent route forms the
-    intra-chunk scores (B, S, chunk) once for all heads, then carries the
-    state across the sequence and writes y and the final state only. The
-    other three run the intra-chunk kernel (with the JAX model's roundings
+    :func:`ssd_route` picks, or raises. The tensor-core scan carries the
+    state across the sequence by 64-row tiles and writes y and the final
+    state only; so does the recurrent route, after forming the intra-chunk
+    scores (B, S, chunk) once for all heads, row by row. The other three
+    run the intra-chunk kernel (with the JAX model's roundings
     of C·Bᵀ and the weights; the split-TF32 route forms C·Bᵀ of the
     chunk's tile pairs first, once for all heads), then the state pass,
     which turns the chunk states into the state entering each chunk in
@@ -280,6 +413,25 @@ def ssd_cost(x, B_ssm, chunk: int):
     return flops, nbytes
 
 
+def _launch_recurrent(x, dt, A, B_ssm, C_ssm, chunk: int):
+    """The recurrent pair (``ssd_scores_kernel``, ``ssd_recurrent_kernel``)
+    on checked CUDA inputs at any chunk below 64; counts nothing. Returns
+    (y, final state)."""
+    Bb, S, nh, hd = x.shape
+    N = B_ssm.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    final = torch.empty((Bb, nh, hd, N), **f32)
+    scores = torch.empty((Bb, S, chunk), **f32)
+    err = _build.function("ssd_chunk", "repro_ssd_chunk_recurrent")(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_ssm.data_ptr(),
+        C_ssm.data_ptr(), scores.data_ptr(), y.data_ptr(), final.data_ptr(),
+        Bb, S, nh, hd, N, chunk, _build.dtype_code(x.dtype),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "recurrent", Bb, S, nh, hd, N, chunk)
+    return y, final
+
+
 def _forward(x, dt, A, B_ssm, C_ssm, chunk: int):
     """The shape-only path on fake or meta tensors, the plain version on
     the CPU, else the kernels of the route."""
@@ -300,16 +452,19 @@ def _forward(x, dt, A, B_ssm, C_ssm, chunk: int):
     route = ssd_route(x.dtype, chunk, hd, N)
     f32 = dict(dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if route == "recurrent":
+    if route == "tc_scan":
         y = torch.empty_like(x)
         final = torch.empty((Bb, nh, hd, N), **f32)
-        scores = torch.empty((Bb, S, chunk), **f32)
-        err = _build.function("ssd_chunk", "repro_ssd_chunk_recurrent")(
+        err = _build.function("ssd_chunk", "repro_ssd_chunk_tc_scan")(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_ssm.data_ptr(),
-            C_ssm.data_ptr(), scores.data_ptr(), y.data_ptr(),
-            final.data_ptr(), Bb, S, nh, hd, N, chunk,
-            _build.dtype_code(x.dtype), stream)
+            C_ssm.data_ptr(), y.data_ptr(), final.data_ptr(), Bb, S, nh, hd,
+            N, chunk, stream)
         _raise_on(err, route, Bb, S, nh, hd, N, chunk)
+        ssd_chunked.launches += 1
+        ssd_chunked.tc_scan_launches += 1
+        return y, final
+    if route == "recurrent":
+        y, final = _launch_recurrent(x, dt, A, B_ssm, C_ssm, chunk)
         ssd_chunked.launches += 1
         ssd_chunked.recurrent_launches += 1
         return y, final
@@ -353,6 +508,7 @@ ssd_chunked.launches = 0            # every launch, any route
 ssd_chunked.tc_launches = 0         # the tensor-core route's
 ssd_chunked.tf32_launches = 0       # the split-TF32 route's
 ssd_chunked.recurrent_launches = 0  # the recurrent route's
+ssd_chunked.tc_scan_launches = 0    # the tensor-core scan's
 
 
 class SSDChunked(torch.autograd.Function):

@@ -511,7 +511,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
                                  "fused_rmsnorm": 0, "flash_attention": 0,
                                  "ssd_chunked": 0, "ssd_chunked_tc": 0,
                                  "ssd_chunked_tf32": 0,
-                                 "ssd_chunked_recurrent": 0}
+                                 "ssd_chunked_recurrent": 0,
+                                 "ssd_chunked_tc_scan": 0}
 
 
 @pytest.mark.parametrize("dtype,chunk,hd,N,route", [
@@ -527,21 +528,37 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     (torch.float32, 200, 64, 128, "cuda_cores"),
     (torch.float32, 256, 32, 128, "cuda_cores"),
     (torch.float32, 256, 64, 256, "cuda_cores"),
-    (torch.bfloat16, 1, 64, 128, "recurrent"),   # odd prefill length
-    (torch.bfloat16, 32, 64, 128, "recurrent"),
-    (torch.float32, 1, 64, 128, "recurrent"),
-    (torch.bfloat16, 63, 64, 128, "recurrent"),
+    (torch.bfloat16, 1, 64, 128, "tc_scan"),     # odd prefill length
+    (torch.bfloat16, 32, 64, 128, "tc_scan"),
+    (torch.float32, 1, 64, 128, "recurrent"),    # mamba exact's chunk 1
+    (torch.bfloat16, 63, 64, 128, "recurrent"),  # divides no tile
     (torch.float32, 2, 128, 256, "recurrent"),
     (torch.bfloat16, 200, 64, 128, "cuda_cores"),
     (torch.bfloat16, 256, 32, 128, "cuda_cores"),
     (torch.bfloat16, 256, 64, 256, "cuda_cores"),
+    (torch.float32, 32, 64, 128, "recurrent"),   # train mamba's chunk 32
+    (torch.bfloat16, 3, 64, 128, "recurrent"),
+    (torch.bfloat16, 1, 32, 128, "recurrent"),   # other hd and N
+    (torch.bfloat16, 2, 128, 64, "recurrent"),
+    (torch.bfloat16, 1, 64, 256, "recurrent"),
 ])
 def test_ssd_route_by_dtype_and_shape(dtype, chunk, hd, N, route):
-    """Every chunk below 64 takes the recurrent kernel, in both dtypes;
-    chunks of whole 64-row tiles (hd 64, N 32, 64 or 128) the tensor-core
-    kernel in bf16 and the split-TF32 kernel in float32; every other shape
-    the CUDA cores."""
+    """Chunks below 64 that divide 64 take the tensor-core scan in bf16 at
+    hd 64, N 32, 64 or 128, every other chunk below 64 the recurrent
+    kernel; chunks of whole 64-row tiles (hd 64, N 32, 64 or 128) the
+    tensor-core kernel in bf16 and the split-TF32 kernel in float32; every
+    other shape the CUDA cores."""
     assert K.ssd_route(dtype, chunk, hd, N) == route
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("N", [32, 64, 128])
+def test_ssd_tc_scan_takes_every_halved_chunk(chunk, N):
+    """Every chunk the halving rule from 256 gives below 64, at hd 64 and
+    each tensor-core state size: the tensor-core scan in bf16, the
+    recurrent kernel in float32."""
+    assert K.ssd_route(torch.bfloat16, chunk, 64, N) == "tc_scan"
+    assert K.ssd_route(torch.float32, chunk, 64, N) == "recurrent"
 
 
 @pytest.mark.parametrize("Bb,S,nh,chunk,heads", [
@@ -563,7 +580,8 @@ def test_build_sources_and_dtype_codes():
     assert set(_build.SIGNATURES) == set(_build.sources())
     assert set(_build.SIGNATURES["ssd_chunk"]) == {
         "repro_ssd_chunk", "repro_ssd_chunk_tc", "repro_ssd_chunk_tf32",
-        "repro_ssd_chunk_recurrent"}
+        "repro_ssd_chunk_recurrent", "repro_ssd_chunk_tc_scan",
+        "repro_ssd_tc_scan_info"}
     assert set(_build.SIGNATURES["rmsnorm"]) == {"repro_rmsnorm"}
     for name in _build.sources():
         path = _build.library_path(name)

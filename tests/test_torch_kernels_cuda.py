@@ -14,7 +14,7 @@ ragged lengths, padding rows at an out-of-range slot,
 sliding windows, query offsets and tails that are no multiple of a tile —
 in float32 (tolerance 2e-5) and bfloat16 (2e-2); the SSD scan over its
 shapes, full width and chunks 1 … 256 in float32 (1e-4) and bfloat16
-(5e-2 on y, 1e-4 on the float32 states), on each of its four routes;
+(5e-2 on y, 1e-4 on the float32 states), on each of its five routes;
 ragged decode without slots at batches 3 and 7 (the legacy engine's
 decode), and tiny engines of every family on the card against the CPU
 engine, in arena and in legacy mode.
@@ -91,6 +91,22 @@ SSD_RECURRENT_CASES = [
     (2, 126, 3, 32, 24, 63),        # the longest chunk it takes, odd
     (2, 258, 80, 64, 128, 2),       # mamba2-2.7b prefill 258: chunk 2
     (2, 383, 80, 64, 128, 1),       # prefill 383: chunk 1
+]
+
+# bf16 chunks below 64 that divide 64 on the tensor-core scan: B = 2, nh 3
+# and 80, N 32, 64 and 128, chunks 1, 2, 16 and 32, mamba2-2.7b's prefill
+# lengths 383, 258 and 127 (partial last tiles) and 64 (one whole tile)
+SSD_TC_SCAN_CASES = [
+    (2, 383, 80, 64, 128, 1),       # mamba2-2.7b prefill 383: chunk 1
+    (2, 258, 80, 64, 128, 2),       # prefill 258: chunk 2
+    (2, 127, 80, 64, 128, 1),       # prefill 127
+    (2, 64, 80, 64, 128, 32),
+    (2, 383, 3, 64, 32, 1),
+    (2, 258, 3, 64, 64, 2),
+    (2, 127, 3, 64, 64, 1),
+    (2, 64, 3, 64, 32, 16),
+    (2, 64, 3, 64, 128, 16),
+    (2, 64, 3, 64, 64, 32),
 ]
 
 LLAMA_KERNELS = ("ragged_decode_attention", "fused_rmsnorm", "flash_attention")
@@ -716,6 +732,7 @@ def test_ssd_kernel_on_card(cuda, B, S, nh, hd, N, chunk, dtype):
     n0, tc0 = K.ssd_chunked.launches, K.ssd_chunked.tc_launches
     rc0 = K.ssd_chunked.recurrent_launches
     tf0 = K.ssd_chunked.tf32_launches
+    ts0 = K.ssd_chunked.tc_scan_launches
     y, st = K.ssd_chunked(*inputs, chunk)
     y_ref, st_ref = K.ssd_chunked_plain(*inputs, chunk)
     route = K.ssd_route(dtype, chunk, hd, N)
@@ -723,6 +740,7 @@ def test_ssd_kernel_on_card(cuda, B, S, nh, hd, N, chunk, dtype):
     assert K.ssd_chunked.tc_launches == tc0 + (route == "tc")
     assert K.ssd_chunked.tf32_launches == tf0 + (route == "tf32")
     assert K.ssd_chunked.recurrent_launches == rc0 + (route == "recurrent")
+    assert K.ssd_chunked.tc_scan_launches == ts0 + (route == "tc_scan")
     _check_ssd(y, st, y_ref, st_ref)
 
 
@@ -774,31 +792,65 @@ def test_ssd_tf32_route_on_card(cuda, monkeypatch, B, S, nh, hd, N, chunk,
 def test_ssd_recurrent_route_on_card(cuda, B, S, nh, hd, N, chunk, dtype):
     """The recurrent route: its counter moves, two launches on the same
     inputs are bit-equal, and y and the final state agree with the plain
-    version (per head too)."""
-    assert K.ssd_route(dtype, chunk, hd, N) == "recurrent"
+    version (per head too). The bf16 shapes that now take the tensor-core
+    scan run the recurrent pair through its launcher directly (the pair
+    ``chip_smoke.py`` times the scan against)."""
+    from repro_torch.kernels import ssd_chunk
     inputs = _ssd_inputs(cuda, B, S, nh, hd, N, dtype)
+    route = K.ssd_route(dtype, chunk, hd, N)
+    if route == "recurrent":
+        run = lambda: K.ssd_chunked(*inputs, chunk)
+    else:
+        assert route == "tc_scan" and dtype == torch.bfloat16
+        run = lambda: ssd_chunk._launch_recurrent(*inputs, chunk)
     n0, rc0 = K.ssd_chunked.launches, K.ssd_chunked.recurrent_launches
-    y, st = K.ssd_chunked(*inputs, chunk)
-    assert K.ssd_chunked.launches == n0 + 1
-    assert K.ssd_chunked.recurrent_launches == rc0 + 1
-    y2, st2 = K.ssd_chunked(*inputs, chunk)
+    y, st = run()
+    assert K.ssd_chunked.launches == n0 + (route == "recurrent")
+    assert K.ssd_chunked.recurrent_launches == rc0 + (route == "recurrent")
+    y2, st2 = run()
     torch.cuda.synchronize()
     assert torch.equal(y, y2) and torch.equal(st, st2)
     _check_ssd(y, st, *K.ssd_chunked_plain(*inputs, chunk))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", SSD_TC_SCAN_CASES)
+def test_ssd_tc_scan_route_on_card(cuda, B, S, nh, hd, N, chunk):
+    """The tensor-core scan: its counter moves, two launches on the same
+    inputs are bit-equal, and y and the final state agree with the plain
+    version and with the scan's own arithmetic in plain PyTorch (per head
+    too)."""
+    assert K.ssd_route(torch.bfloat16, chunk, hd, N) == "tc_scan"
+    inputs = _ssd_inputs(cuda, B, S, nh, hd, N, torch.bfloat16)
+    n0, ts0 = K.ssd_chunked.launches, K.ssd_chunked.tc_scan_launches
+    rc0 = K.ssd_chunked.recurrent_launches
+    y, st = K.ssd_chunked(*inputs, chunk)
+    assert K.ssd_chunked.launches == n0 + 1
+    assert K.ssd_chunked.tc_scan_launches == ts0 + 1
+    assert K.ssd_chunked.recurrent_launches == rc0
+    y2, st2 = K.ssd_chunked(*inputs, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    _check_ssd(y, st, *K.ssd_chunked_plain(*inputs, chunk))
+    _check_ssd(y, st, *K.ssd_chunked_tiled_plain(*inputs, chunk))
+
+
+@pytest.mark.cuda
 def test_ssd_recurrent_route_keeps_no_chunk_states(cuda):
-    """mamba2-2.7b's chunk-1 prefill (S 383, bf16) allocates y and the
-    final state only, not a state per chunk (1.0 GB there)."""
-    inputs = _ssd_inputs(cuda, 1, 383, 80, 64, 128, torch.bfloat16)
-    K.ssd_chunked(*inputs, 1)                # load the library first
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    y, st = K.ssd_chunked(*inputs, 1)
-    torch.cuda.synchronize()
-    assert torch.cuda.max_memory_allocated() - base < 64 << 20
+    """mamba2-2.7b's chunk-1 prefill (S 383) allocates y and the final
+    state only, not a state per chunk (1.0 GB there): in float32 on the
+    recurrent route (with its (B, S, chunk) scores), in bf16 on the
+    tensor-core scan."""
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs = _ssd_inputs(cuda, 1, 383, 80, 64, 128, dtype)
+        K.ssd_chunked(*inputs, 1)            # load the library first
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y, st = K.ssd_chunked(*inputs, 1)
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base < 64 << 20
+        del y, st
 
 
 @pytest.mark.cuda

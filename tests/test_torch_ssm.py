@@ -8,7 +8,12 @@ On the CPU ``repro_torch.kernels.ssd_chunked`` takes its plain version.
 ``tests/test_kernels.py`` plus chunk-1 cases, which is what an odd prefill
 length runs. ``ssd_chunked_recurrent_plain`` (the recurrent kernel's
 arithmetic) is held against the JAX model's ``ssd_chunked`` and
-``ssd_chunked_plain`` at chunks 1, 2, 4 and 32. Tolerances as there:
+``ssd_chunked_plain`` at chunks 1, 2, 4 and 32, and so is
+``ssd_chunked_tiled_plain`` (the tensor-core scan's: 64-row tiles, the
+pairs inside a chunk rounded as the reference, those across chunks in
+float32), also against ``ssd_chunked_pallas`` and the recurrent version,
+at S below, equal to and past 64 with a partial last tile, and with heads
+whose decay underflows inside a tile. Tolerances as there:
 float32 1e-4, bfloat16 5e-2 on y; the float32 states, cumsums and decays
 1e-4 in both.
 
@@ -64,11 +69,11 @@ def _pair(a: np.ndarray, dtype=jnp.float32):
     return j, t.to(torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
 
 
-def _ssd_inputs(B, S, nh, hd, N, dtype, seed=7):
+def _ssd_inputs(B, S, nh, hd, N, dtype, seed=7, A=None):
     rng = np.random.default_rng(seed)
     x = _pair(rng.standard_normal((B, S, nh, hd)), dtype)
     dt = _pair(np.logaddexp(rng.standard_normal((B, S, nh)), 0.0))
-    A = _pair(-np.exp(rng.standard_normal((nh,)) * 0.3))
+    A = _pair(-np.exp(rng.standard_normal((nh,)) * 0.3) if A is None else A)
     Bm = _pair(rng.standard_normal((B, S, N)), dtype)
     Cm = _pair(rng.standard_normal((B, S, N)), dtype)
     return x, dt, A, Bm, Cm
@@ -138,6 +143,66 @@ def test_ssd_chunked_recurrent_plain_matches_jax_and_plain(B, S, nh, hd, N,
         assert tuple(y.shape) == tuple(yw.shape)
         np.testing.assert_allclose(_np(y), _np(yw), **_y_tol(dtype))
         np.testing.assert_allclose(_np(st), _np(sw), **TOL)
+
+
+# the tensor-core scan's chunks (below 64, dividing 64): S below 64, equal
+# to it, a multiple of it, and past it with a partial last tile (383-like)
+SSD_TILED_SHAPES = [
+    (2, 7, 2, 64, 24, 1),
+    (1, 64, 3, 32, 16, 2),
+    (2, 128, 2, 16, 8, 4),
+    (1, 96, 2, 16, 8, 32),
+    (1, 191, 2, 16, 8, 1),
+    (2, 130, 2, 16, 8, 2),
+]
+
+
+def _tiled_against_references(inputs, chunk, dtype, pallas=True):
+    (xj, xt), (dj, dt_), (aj, at), (bj, bt), (cj, ct) = inputs
+    y, st = K.ssd_chunked_tiled_plain(xt, dt_, at, bt, ct, chunk)
+    assert y.dtype == xt.dtype and st.dtype == torch.float32
+    wants = [jax_ssd_chunked(xj, dj, aj, bj, cj, chunk),
+             K.ssd_chunked_recurrent_plain(xt, dt_, at, bt, ct, chunk)]
+    if pallas:
+        wants.append(ops.ssd_chunked_pallas(xj, dj, aj, bj, cj, chunk,
+                                            interpret=True))
+    for yw, sw in wants:
+        assert tuple(y.shape) == tuple(yw.shape)
+        np.testing.assert_allclose(_np(y), _np(yw), **_y_tol(dtype))
+        np.testing.assert_allclose(_np(st), _np(sw), **TOL)
+
+
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", SSD_TILED_SHAPES)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_ssd_chunked_tiled_plain_matches_jax_and_recurrent(B, S, nh, hd, N,
+                                                           chunk, dtype):
+    """The tensor-core scan's arithmetic against the JAX model's
+    ``ssd_chunked``, ``ssd_chunked_pallas`` (interpret) and the recurrent
+    kernel's arithmetic."""
+    _tiled_against_references(_ssd_inputs(B, S, nh, hd, N, dtype), chunk,
+                              dtype)
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 32])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_ssd_chunked_tiled_plain_where_the_decay_underflows(chunk, dtype):
+    """mamba2-2.7b's decay range: dt at init (softplus of noise plus the
+    inverse softplus of a log-uniform [1e-3, 1e-1] draw) and A down to -80,
+    so exp(G) underflows to 0 inside a 64-row tile on the last heads, over
+    three tiles, the last one partial."""
+    B, S, nh, hd, N = 1, 160, 4, 16, 8
+    rng = np.random.default_rng(13)
+    dt0 = np.exp(np.log(1e-3) + rng.random(nh) * (np.log(1e-1)
+                                                    - np.log(1e-3)))
+    (xj, xt), _, _, (bj, bt), (cj, ct) = _ssd_inputs(B, S, nh, hd, N, dtype,
+                                                     seed=14)
+    dt = _pair(np.logaddexp(rng.standard_normal((B, S, nh))
+                            + np.log(np.expm1(dt0)), 0.0))
+    A = _pair(np.array([-1.0, -20.0, -60.0, -80.0]))
+    tile_decay = float((dt[1].numpy()[0, :64] * A[1].numpy()).sum(0).min())
+    assert tile_decay < -104     # exp underflows float32 in the first tile
+    _tiled_against_references(((xj, xt), dt, A, (bj, bt), (cj, ct)), chunk,
+                              dtype, pallas=chunk > 1)
 
 
 @pytest.mark.parametrize("chunks", [(32, 64), (1, 16)])
