@@ -11,10 +11,13 @@ Phases, always all of them, in order:
            instantiation at each served shape (registers, spill bytes, CTAs
            an SM holds); fail when the RMSNorm kernel, the float32 flash
            kernel at D 64, any instantiation of the bf16 flash kernel, a
-           flash or ragged decode kernel at D 256, a kernel of the SSD
+           flash or ragged decode kernel at D 256, any instantiation of
+           ragged decode's tensor-core kernel, a kernel of the SSD
            scan's split-TF32 route or its tensor-core scan spills (the
            scan's registers, spill bytes and CTAs an SM are printed at
-           each state size),
+           each state size, and the decode tensor-core kernel's,
+           with its shared memory and the clusters of 8 the card holds,
+           at each head dim),
            when ptxas serializes the float32 flash kernel's wgmmas at D 256
            (its 255 registers a thread leave no room), when the flash or
            SSD library holds no
@@ -28,7 +31,12 @@ Phases, always all of them, in order:
            binds; ragged decode at llama's, nemo's, granite's and
            recurrentgemma-9b's heads (G 16, D 256), and without slots
            over a contiguous (B, 256) stack at B 3 and 7, the legacy
-           engine's decode, at llama's heads and at G 16 / D 256; RMSNorm
+           engine's decode, at llama's heads and at G 16 / D 256, and
+           in bfloat16 at recurrentgemma-9b's decode_32k (B 128 over
+           full rings of 2048); the bfloat16 cases at G 16 take the
+           tensor-core kernel and are also held and timed against the
+           CUDA-core kernel through its C entry on the same inputs, in
+           turns, and fail when their device time is the longer; RMSNorm
            at llama's width 2048, mamba's 2560 and 5120 and
            recurrentgemma-9b's 4096;
            the SSD scan at
@@ -142,7 +150,9 @@ Phases, always all of them, in order:
            the serve phase: flash prefill and ragged decode at head_dim 256,
            RMSNorm at 4096, the RG-LRU in PyTorch ops (each request
            prefills at its exact length: padding would run through the
-           recurrence). Also prints the device ops of one decode
+           recurrence); every ragged decode launch must be on the
+           tensor-core route (``ragged_decode_attention_tc``), none on
+           the CUDA-core kernel. Also prints the device ops of one decode
            layer-step of a rec layer and of an attn layer apart, at batch 8.
   rgemma exact  as exact, on full-width recurrentgemma-9b at all 38 layers
            in float32 (37.6 GB): the float32 flash kernel at D 256 (split
@@ -288,7 +298,9 @@ Phases, always all of them, in order:
            against the same step on plain tensors (bf16 tolerance 2e-2;
            bit-equality printed), each kernel of the path launched, and
            per layer (t(2 x base) - t(base)) / base by CUDA events of both
-           (the faster of two turns, each the median of 3 calls; the plain
+           (the faster of two turns, each the median of 3 calls, each call
+           queued behind a 100 ms spin kernel so that the events time the
+           device and not DTensor's host dispatch; the plain
            step runs on a copy of a decode's cache);
            beside them the roofline's per-layer terms of the same
            combination on a (1, 1) mesh (``python -m
@@ -318,7 +330,8 @@ flash at
 MiniCPM3's widths in bfloat16, launched in ``minicpm serve``, and
 float32, in ``minicpm exact``; ragged decode at granite's G 3 in
 bfloat16, launched in ``granite serve``; flash and ragged decode at
-head_dim 256 in bfloat16, launched in ``rgemma serve``, and float32, in
+head_dim 256 in bfloat16, launched in ``rgemma serve`` (ragged decode:
+its tensor-core route's launches there), and float32, in
 ``rgemma exact``, and RMSNorm at 4096 in bfloat16, launched in ``rgemma
 serve``; float32 flash at (8, 256, 32 / 8, 64) and RMSNorm at (8, 256,
 2048), launched in ``train``, and the float32 SSD scan at (4, 256, 80,
@@ -426,13 +439,17 @@ ROWS = {("ragged_decode_attention", "bfloat16", 64): "ragged_decode_attention",
         ("flash_attention", "bfloat16", 256): "flash_attention_d256",
         ("flash_attention", "float32", 256): "flash_attention_f32_d256"}
 # a substring of each hand-written kernel's symbol, for the profile windows
-SYMBOLS = {"ragged decode": "ragged_decode_split_kernel",
+SYMBOLS = {"ragged decode (CUDA cores)": "ragged_decode_split_kernel",
+           "ragged decode (bf16, tensor cores, G > 8)":
+               "ragged_decode_tc_kernel",
            "flash prefill (bf16, tensor cores)": "flash_tc_kernel",
            "flash prefill (f32, split TF32 tensor cores)":
                "flash_tf32x3_kernel",
            "flash prefill (f32, split TF32 tensor cores, D 256)":
                "flash_tf32x3_d256_kernel",
            "SSD scan": "ssd_", "RMSNorm": "rmsnorm_kernel"}
+# a substring of both ragged decode kernels' symbols
+DECODE_ANY = "ragged_decode_"
 # the symbols (substrings) of the kernels one call launches: the SSD
 # scan's by route, the others' by launch counter in bfloat16 (the serves'
 # type; float32 flash runs flash_tf32x3_kernel). A trace that lacks one of
@@ -446,7 +463,9 @@ SSD_ROUTE_SYMBOLS = {
     "tc_scan": ("ssd_tc_scan_kernel",),
 }
 COUNTER_SYMBOLS = {
-    "ragged_decode_attention": ("ragged_decode_split_kernel",),
+    # every ragged decode launch, either route: a prefix of both kernels
+    "ragged_decode_attention": (DECODE_ANY,),
+    "ragged_decode_attention_tc": ("ragged_decode_tc_kernel",),
     "fused_rmsnorm": ("rmsnorm_kernel",),
     "flash_attention": ("flash_tc_kernel",),
     **{f"ssd_chunked_{route}": syms
@@ -468,6 +487,9 @@ MAMBA_EXACT_KERNELS = ("ssd_chunked", "ssd_chunked_recurrent",
 # v 64; its decode over the latent cache is PyTorch ops, so no ragged
 # decode may launch
 MLA_KERNELS = ("fused_rmsnorm", "flash_attention")
+# recurrentgemma-9b's bf16 serve: every ragged decode on the tensor-core
+# route (G 16)
+RGEMMA_KERNELS = LLAMA_KERNELS + ("ragged_decode_attention_tc",)
 MLA_ABSENT = ("ragged_decode_attention",)
 # training: llama's forward runs flash (f32, split TF32) and RMSNorm, and
 # mamba's the SSD scan at chunk 256 (the split-TF32 route) and RMSNorm;
@@ -544,9 +566,13 @@ class SmiSampler:
 # timing and bounds
 # ---------------------------------------------------------------------------
 
-def cuda_ms(torch, fn, reps: int = 25, warmup: int = 3):
+def cuda_ms(torch, fn, reps: int = 25, warmup: int = 3,
+            ahead_ms: float = 0.0):
     """Median time of ``fn`` in ms over CUDA events, L2 flushed before each
-    call (the serving path meets its operands cold); None without ``fn``."""
+    call (the serving path meets its operands cold); None without ``fn``.
+    With ``ahead_ms`` each call is queued behind a spin kernel of at least
+    that long, so a call whose host dispatch outlasts its device work is
+    timed on the device and not at the host's pace."""
     if fn is None:
         return None
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -556,6 +582,8 @@ def cuda_ms(torch, fn, reps: int = 25, warmup: int = 3):
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        if ahead_ms:        # cycles at 2 GHz, above the H100's SM clock
+            torch.cuda._sleep(int(ahead_ms * 2e6))
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -804,6 +832,7 @@ FLASH_TC_SHAPES = (("llama prefill", 4, 512, 32, 8, 64, 64),
                    ("rgemma prefill", 4, 512, 16, 1, 256, 256))
 
 DECODE_D256 = "Li256E"
+DECODE_TC = "ragged_decode_tc_kernel"     # every instantiation
 SSD_TF32 = ("ssd_intra_tf32_kernel", "ssd_scores_tf32_kernel")
 SSD_TC_SCAN = "ssd_tc_scan_kernel"
 
@@ -843,7 +872,8 @@ def phase_build():
                     name == "flash_attn" and any(
                         k in kernel for k in (F32_FLASH_D64, F32_FLASH_D256,
                                               FLASH_TC))) or (
-                    name == "ragged_decode_attn" and DECODE_D256 in kernel) or (
+                    name == "ragged_decode_attn" and any(
+                        k in kernel for k in (DECODE_D256, DECODE_TC))) or (
                     name == "ssd_chunk" and any(k in kernel for k in (
                         *SSD_TF32, SSD_TC_SCAN)))
                 check(not (no_spill and any(spilled)),
@@ -856,6 +886,12 @@ def phase_build():
         print(f"[build] flash_tc_kernel at {what} (B {B}, S {S}, H {H}, KV "
               f"{KV}, q/k {D}, v {Dv}): "
               f"{K.flash_attn.tc_info(B, S, S, H, KV, D, Dv)}")
+    # ragged decode's tensor-core kernel at each head dim (recurrentgemma-
+    # 9b: 256): registers, spill bytes, CTAs an SM, shared memory, clusters
+    # of 8 the card holds at once
+    for D in K.ragged_decode_attn.HEAD_DIMS:
+        print(f"[build] {DECODE_TC}<{D}>: "
+              f"{K.ragged_decode_attn.tc_info(D)}")
     # the SSD scan's tensor-core scan at each state size (mamba2-2.7b: 128)
     for N in K.ssd_chunk.TC_STATES:
         print(f"[build] {SSD_TC_SCAN}<{N}>: "
@@ -896,13 +932,19 @@ DECODE_CASES = (
 
 # the legacy engine's decode: no slots, B no power of two, max_len 256
 SLOTLESS_LENS = ((1, 256, 133), (1, 256, 17, 133, 255, 64, 200))
+# recurrentgemma-9b's decode_32k: B 128 over rings of its window of 2048,
+# every row full
+LONG_LENS = (2048,) * 128
 
 
 def kernel_decode(torch, K, dtype, lens, slots, ctx, H=32, KV=8, D=64,
                   n_slots=32, layer=5, row=None, T=1024):
     """Ragged decode over layer ``layer`` of a flat slot arena of 16 layers
     (``slots``), or without slots over a contiguous (B, T) stack, the
-    legacy engine's decode (``slots`` None)."""
+    legacy engine's decode (``slots`` None). A case on the tensor-core
+    route (bf16 at G > 8) also holds and times the CUDA-core kernel it
+    replaced, through its C entry on the same inputs (``before``)."""
+    from repro_torch.kernels import ragged_decode_attn as RD
     B, L = len(lens), 16
     g = torch.Generator(device="cuda").manual_seed(1)
     N = B if slots is None else L * n_slots
@@ -917,11 +959,24 @@ def kernel_decode(torch, K, dtype, lens, slots, ctx, H=32, KV=8, D=64,
                                           ctx=ctx)
     torch.cuda.synchronize()
     cache = "arena" if slots is not None else "stack, no slots, "
+    tc = K.decode_route(dtype, H // KV, D) == "tc"
+    shown = (list(lens) if len(set(lens)) > 1
+             else f"{len(lens)} x [{lens[0]}]")
     res = {"shape": f"q{tuple(q.shape)} {cache}{tuple(k.shape)} "
-                    f"lengths{list(lens)} ctx {ctx}", "out": out, "ref": ref,
+                    f"lengths{shown} ctx {ctx}"
+                    + (" (tensor-core route)" if tc else ""),
+           "out": out, "ref": ref,
            "row": row or (None if B != 8 or ctx is not None else ROWS.get(
                ("ragged_decode_attention", dtype_name(dtype), D))),
-           "symbols": COUNTER_SYMBOLS["ragged_decode_attention"]}
+           "symbols": (COUNTER_SYMBOLS["ragged_decode_attention_tc"] if tc
+                       else ("ragged_decode_split_kernel",))}
+    slot_rows = (torch.arange(B, dtype=torch.int32, device="cuda")
+                 if rows is None else rows)
+    res["inputs"] = (q, k, v, lengths, slot_rows, ctx)
+    if tc:
+        res["before"] = (lambda: RD._launch_split(q, k, v, lengths,
+                                                  slot_rows, ctx),
+                         ("ragged_decode_split_kernel",))
     # library yardstick: SDPA over the gathered, head-repeated rows
     span = T if ctx is None else ctx
     grow = (torch.arange(B, device="cuda") if rows is None
@@ -1302,6 +1357,13 @@ def phase_kernels(torch):
                               lambda dt=dt, a=stack_lens, H=H, KV=KV, D=D:
                               kernel_decode(torch, K, dt, a, None, None, H=H,
                                             KV=KV, D=D, T=256)))
+        # recurrentgemma-9b's decode_32k (B 128, rings of 2048, full): the
+        # tensor-core route at its longest context, in bf16
+        if dt == torch.bfloat16:
+            cases.append(("ragged_decode_attention", dt,
+                          lambda dt=dt: kernel_decode(
+                              torch, K, dt, LONG_LENS, None, None, H=16,
+                              KV=1, D=256, T=LONG_LENS[0])))
         for shape in ((8, 4096), (1, 384, 4096)):
             cases.append(("fused_rmsnorm", dt,
                           lambda dt=dt, s=shape: kernel_rmsnorm(torch, K, dt,
@@ -1528,6 +1590,12 @@ def phase_serve(torch, arch, tag, kernels, prompts, absent=()):
               f"{h.request.decode_len}")
         n_tok += len(got)
     check_launched(counts, tag, kernels, absent)
+    if "ragged_decode_attention_tc" in kernels:     # every decode on it
+        check(counts["ragged_decode_attention"]
+              == counts["ragged_decode_attention_tc"],
+              f"{tag}: {counts['ragged_decode_attention']} ragged decode "
+              f"launches, {counts['ragged_decode_attention_tc']} of them on "
+              f"the tensor-core route: the CUDA-core kernel ran in bf16")
     san = engine.sanitizer_stats()
     s = stats.summary(sla=kw["sla"])
     lat = [h.latency for h in handles]
@@ -1580,7 +1648,7 @@ def ops_by_kind(torch, engine, tag, B=8, ctx=512, reps=10):
         fn = functools.partial(engine.model.apply_span_decode, bps, x,
                                engine.arenas[si], pos, kind=kind, offs=offs,
                                slots=slots, ctx=ctx, live=B)
-        syms = ("rmsnorm_kernel",) + (("ragged_decode_split_kernel",)
+        syms = ("rmsnorm_kernel",) + ((DECODE_ANY,)
                                       if kind == "attn" else ())
         with torch.no_grad():
             fn()
@@ -2579,13 +2647,20 @@ ROOFLINE_PROBES = (
     ("mamba2-2.7b", "prefill_32k", ("ssd_chunked", "ssd_chunked_tc",
                                     "fused_rmsnorm")),
     ("recurrentgemma-9b", "decode_32k", ("ragged_decode_attention",
+                                         "ragged_decode_attention_tc",
                                          "fused_rmsnorm")),
 )
-KERNEL_SYMBOL = {"ragged_decode_attention": "ragged_decode_split_kernel",
+KERNEL_SYMBOL = {"ragged_decode_attention": DECODE_ANY,
+                 "ragged_decode_attention_tc": "ragged_decode_tc_kernel",
                  "flash_attention": "flash_tc_kernel",
                  "fused_rmsnorm": "rmsnorm_kernel", "ssd_chunked": "ssd_"}
 BOUND_FLOOR = 0.95      # a measured layer under this share of its bound fails
 ROOFLINE_REPS = 3
+# each timed step waits behind a spin kernel this long: a mesh step's host
+# dispatch (DTensor's) has taken up to 35 ms, more than a 1-layer step's
+# device time, which the difference t(2 x base) - t(base) would otherwise
+# take for the layer's
+ROOFLINE_AHEAD_MS = 100.0
 
 
 def _run_module(argv, limit_s: float, log: Path):
@@ -2671,6 +2746,7 @@ def _roofline_step(torch, arch, shape, L, B, mesh, rules, kernels, smi):
     for which in ("mesh", "plain", "plain", "mesh"):
         fn = mesh_step if which == "mesh" else lambda: combo.fn(*plain_args)
         times[which].append(cuda_ms(torch, fn, reps=ROOFLINE_REPS,
+                                    ahead_ms=ROOFLINE_AHEAD_MS,
                                     warmup=1))
     syms = [KERNEL_SYMBOL[k] for k in kernels if k in KERNEL_SYMBOL]
     _, dev, _, missing = traced_device_s(torch, mesh_step, what, syms)
@@ -3595,7 +3671,7 @@ def main() -> int:
         LLAMA_KERNELS, (64, 128, 256, 384))
     # recurrentgemma-9b: RG-LRU blocks beside local attention at D 256
     r_counts = run(phase_serve, torch, "recurrentgemma-9b", "rgemma serve",
-                   LLAMA_KERNELS, (64, 128, 256, 384))
+                   RGEMMA_KERNELS, (64, 128, 256, 384))
     rx_counts = run(phase_exact, torch, "recurrentgemma-9b", "rgemma exact",
                     LLAMA_KERNELS, (64, 128, 256, 384))
     # the RuntimeFlags variants through the Model API; their launches stay
@@ -3646,6 +3722,9 @@ def main() -> int:
     for name in ("ragged_decode_attention", "flash_attention"):
         counts[f"{name}_d256"] = r_counts[name]
         counts[f"{name}_f32_d256"] = rx_counts[name]
+    # bf16 decode at D 256 runs the tensor-core kernel
+    counts["ragged_decode_attention_d256"] = r_counts[
+        "ragged_decode_attention_tc"]
     counts["fused_rmsnorm_4096"] = r_counts["fused_rmsnorm"]
     # the training rows: f32 flash and RMSNorm launches in train, the
     # split-TF32 SSD route's in train mamba

@@ -9,15 +9,26 @@
 // read the clamped row min(slot, N - 1), as the TPU kernel's gather does.
 //
 // Bound on the H100: the bytes of K/V read. One decode step touches every
-// live row's sum(lengths) * KV * D * 2 elements once and does 4 flops per
-// element pair, far below the ~295 flop/byte ridge, so the floor is
-// bytes / 3.35 TB/s. The kernel stays on the CUDA cores; what it has to get
-// right is parallelism and how the bytes move.
+// live row's sum(lengths) * KV * D * 2 elements once and does 4 * G flops
+// per K/V element pair (G = H / KV query heads share each pair): G
+// flop/byte in bf16, 16 at recurrentgemma-9b's G 16. The tensor cores'
+// ridge is ~295 flop/byte and the CUDA cores' ~20 (67 TFLOP/s over 3.35
+// TB/s): at G <= 8 the CUDA cores stay below theirs and the floor is
+// bytes / 3.35 TB/s, but at G 16 a CUDA-core kernel is bound by its own
+// arithmetic (and its shuffles and exponentials) before the bytes. So
+// there are two kernels in this file:
 //
-// Design: grid (n_split, KV, B). CTA (s, kv, b) owns positions
-// [s * split_t, (s + 1) * split_t) of row b's context for the G = H / KV
-// query heads of group kv; n_split (at most kMaxSplits) and split_t are
-// planned on the host from the static context bound
+//  - ragged_decode_split_kernel (below): the CUDA cores, for G <= 8 and
+//    for float32 at any G; what it has to get right is parallelism and
+//    how the bytes move.
+//  - ragged_decode_tc_kernel (further down): bf16 at 8 < G <= 16 on the
+//    tensor cores, one pass over K/V for all heads of a group, the spans
+//    of a (b, kv) group merged across a thread-block cluster.
+//
+// ragged_decode_split_kernel. Design: grid (n_split, KV, B). CTA (s, kv,
+// b) owns positions [s * split_t, (s + 1) * split_t) of row b's context
+// for the G = H / KV query heads of group kv; n_split (at most
+// kMaxSplits) and split_t are planned on the host from the static context bound
 // (kernels/ragged_decode_attn.py: split_plan), so a batch of 8 rows at a
 // context of 1024 runs 512 CTAs on the 132 SMs. A CTA whose span starts at
 // or past lengths[b] exits at once. Each warp reads K and V rows straight
@@ -37,9 +48,10 @@
 // per head weighs the spans, then every thread sums four neighbouring
 // outputs over them, 16-byte loads of eight spans in flight), writes the
 // output and resets the counter for the next launch. So the split adds no launch. Heads are processed GC at
-// a time (a compile-time chunk of at most 8) to bound the registers at
-// G = 16, D = 128 and 256 (recurrentgemma-9b's MQA: one kv head of 256 for
-// 16 q heads, two chunks of 8).
+// a time (a compile-time chunk of at most 8) to bound the registers; a
+// float32 group above 8 heads (recurrentgemma-9b's MQA in float32: one kv
+// head of 256 for 16 q heads) goes in two chunks of 8, each reading the
+// span's K/V again.
 #include <math.h>
 #include <stdint.h>
 
@@ -441,4 +453,616 @@ extern "C" int repro_ragged_decode_attention(
                                      part_acc, part_ml, counters, B, H, KV, N,
                                      T, n_split, split_t, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// ragged_decode_tc_kernel: bf16 at 8 < G <= 16 query heads a kv head, on the
+// tensor cores (recurrentgemma-9b's MQA: G 16 at D 256).
+//
+// Replaces, like the kernel above, the TPU kernel
+// src/repro/kernels/ragged_decode_attn.py (_kernel), which computes each
+// group as a (G, D) x (D, block_t) product on the MXU. Here the G <= 16
+// query heads of a group pad one m16 tile of mma.sync.m16n8k16 (bf16
+// operands, float32 accumulators), so K and V are read once for all heads:
+//
+//   S = Q . K^T   Q goes in unscaled: the products of bf16 values are
+//                 exact and summed in float32, as the reference's float32
+//                 dot of the widened values; S times 1 / sqrt(D) after it
+//                 (and times log2(e): the softmax runs in base 2, ex2 on
+//                 the MUFU pipe, one instruction an exponential);
+//   P             the online softmax in float32 (m and l per head);
+//   O += P . V    P enters as two bf16 terms, hi = bf16(p) and
+//                 lo = bf16(p - hi): P keeps about 2^-16 of its float32
+//                 value, where one bf16 term would keep 2^-8 (the
+//                 reference keeps P in float32).
+//
+// Why mma.sync and not wgmma: a wgmma tile is 64 rows and a group has at
+// most 16 heads, so three quarters of every product would be padding; and
+// once on the tensor cores the work is memory-bound (G flop/byte, 16 at
+// G 16 in bf16, against a ridge of ~295), so what decides the time is
+// the bytes in flight, which a ring of cp.async stages gives, not the
+// product's issue rate.
+//
+// Design: grid (cluster, KV, B), one thread-block cluster of `cluster`
+// CTAs (at most 8, launched with cudaLaunchKernelEx) per (b, kv) group.
+// The row's context [0, min(lengths[b], span, n_split * split_t)) is cut
+// into spans of split_t rows, planned on the host from static sizes
+// (kernels/ragged_decode_attn.py: tc_plan). CTA c walks spans c,
+// c + cluster, c + 2 * cluster, ... and carries one online softmax across
+// them in registers, so every split_t runs on the same code. It reads its
+// spans by tiles of TR rows (32 at D 256, 64 below) through a ring of
+// kStages K and V tiles in shared memory, loaded by 16-byte cp.async:
+// rows past the span's end are zero-filled and never read from the arena
+// (at KV > 1 a tile's rows lie KV * D apart). A tile's 16-byte chunks are
+// XOR-swizzled by row, so the ldmatrix reads that feed the fragments
+// (.trans for V) hit no bank twice. No tensor map is encoded: the host does
+// nothing per call but the launch. Per tile, with four warps:
+//   1. warp w computes S for keys 8w .. 8w + 7 of the tile (and
+//      8(w + 4) .. at TR 64) over all of D, and writes it scaled, and -inf
+//      past the span's end, to a 16 x TR float32 tile in shared memory;
+//   2. after a barrier every warp reads the whole S tile and runs the same
+//      online softmax on it (the same operations on the same values, so the
+//      warps' m and l stay equal), keeping P as hi / lo A fragments;
+//   3. warp w accumulates O for its D / 4 columns (a 16 x D / 4 float32
+//      accumulator, D / 8 registers a thread).
+// Q's loads are issued first and the K/V tiles' next, so Q's latency hides
+// under that of lengths and slots, which the K/V addresses wait for. After
+// its last tile each CTA leaves its (m, l, O) in its own shared memory;
+// after a cluster barrier, CTA c merges its share of the group's G * D
+// outputs over the peers in rank order, reading each peer's (m, l) of a
+// head and its 16-byte piece of O together (DSMEM, every peer's read in
+// flight at once: one round trip), merged online,
+// divides and writes bf16. No partial goes to device memory, and no
+// counter or fence is needed. A CTA with no rows (its spans start past the
+// row's length, or the length is 0: the output is then zeros, as the TPU
+// kernel's) still arrives at both cluster barriers, with m = -1e30, l = 0
+// and O = 0.
+namespace {
+namespace tc {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kHeads = 16;       // the m16 tile: a group's query heads
+constexpr int kStages = 3;       // the ring of K / V tiles
+constexpr int kMaxCluster = 8;   // portable cluster size (tc_plan caps it)
+constexpr int kChains = 4;       // accumulators of S: independent products
+
+template <int D>
+struct Cfg {
+  static constexpr int TR = D == 256 ? 32 : 64;  // rows a tile
+  static constexpr int CPR = D / 8;              // 16-byte chunks a row
+  static constexpr int kTile = TR * D * 2;       // bytes of K (or V) a tile
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kSStride = TR + 4;        // floats a row of the S tile
+  static constexpr int kNT = D / 32;             // n8 tiles of O a warp
+  static constexpr int kKS = TR / 16;            // k16 steps of P . V
+  static constexpr int kKB = TR / 8 / kWarps;    // key blocks of S a warp
+  // shared memory: the ring (after the last tile: this CTA's O, 16 x D
+  // float32), Q (16 x D bf16), the S tile, this CTA's (m, l) per head
+  static constexpr int kQ = kStages * kStage;
+  static constexpr int kS = kQ + kHeads * D * 2;
+  static constexpr int kML = kS + kHeads * kSStride * 4;
+  static constexpr int kBytes = kML + kHeads * 8;
+  static_assert(kHeads * D * 4 <= kQ, "O fits in the ring");
+  static_assert(TR * CPR % kThreads == 0 && kKB >= 1, "tile shape");
+  static constexpr int kQL = (kHeads * CPR + kThreads - 1) / kThreads;
+};
+
+// byte offset of 16-byte chunk c of row r in a tile D columns wide: a
+// row's chunks XOR-swizzled by the row, so the 8 rows (8-aligned) of one
+// ldmatrix matrix fall in 8 different bank groups
+template <int D>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  if constexpr (D >= 64)
+    return (uint32_t)(r * (D / 8) + (c ^ (r & 7))) << 4;
+  else  // D 32: two rows a 128-byte line
+    return (uint32_t)(r * (D / 8) + (c ^ ((r >> 1) & 3))) << 4;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ float ex2(float x) {   // 2^x; ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a . b: m16n8k16, bf16 operands, float32 accumulators
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// (p0, p1) of neighbouring columns as hi + lo, two bf16 pairs: p0 in the
+// low half of each, as the fragments take the lower column there
+__device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+}
+
+// every CTA of the cluster arrives (release) and waits (acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// the address of shared-memory address `addr` in cluster CTA `rank`
+__device__ __forceinline__ uint32_t peer(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float2 ld_peer2(uint32_t addr) {
+  float2 x;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(x.x), "=f"(x.y)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
+
+__device__ __forceinline__ float4 ld_peer4(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+ragged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const int* __restrict__ lengths,
+                        const int* __restrict__ slots,
+                        __nv_bfloat16* __restrict__ out, int H, int KV, int N,
+                        int T, int span, int n_split, int split_t,
+                        float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int TR = C::TR, CPR = C::CPR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+  float* s_tile = reinterpret_cast<float*>(smem + C::kS);
+  const int cs = gridDim.x;        // CTAs of the cluster
+  const int c = cluster_rank();
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KV;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;         // a fragment's rows g and g + 8
+  const int t = lane & 3;          // and its column pair 2t, 2t + 1
+
+  // Q's loads first: its latency then hides under that of lengths and
+  // slots, which the K/V addresses wait for
+  const __nv_bfloat16* qg = q + ((size_t)b * H + (size_t)kvh * G) * D;
+  uint4 qx[C::kQL];               // 16-byte chunks e = tid + 128 i
+#pragma unroll
+  for (int i = 0; i < C::kQL; ++i) {
+    const int e = tid + i * kThreads;
+    qx[i] = e / CPR < G
+                ? __ldg(reinterpret_cast<const uint4*>(qg + (size_t)e * 8))
+                : make_uint4(0u, 0u, 0u, 0u);
+  }
+  const int len = max(0, min(min(lengths[b], span), n_split * split_t));
+  int slot = slots[b];
+  slot = slot < 0 ? 0 : (slot > N - 1 ? N - 1 : slot);
+  const size_t t_stride = (size_t)KV * D;
+  const size_t row0 = (size_t)slot * T * t_stride + (size_t)kvh * D;
+  const __nv_bfloat16* kb = k + row0;
+  const __nv_bfloat16* vb = v + row0;
+
+  // this CTA's spans c, c + cs, ... below n_active, by tiles of TR rows
+  const int n_active = (len + split_t - 1) / split_t;
+  const int tps = (split_t + TR - 1) / TR;     // tiles of a whole span
+  const int n_mine = c < n_active ? (n_active - 1 - c) / cs + 1 : 0;
+  int n_tiles = 0;
+  if (n_mine > 0) {
+    const int last = c + (n_mine - 1) * cs;
+    const int rows = min(split_t, len - last * split_t);
+    n_tiles = (n_mine - 1) * tps + (rows + TR - 1) / TR;
+  }
+  // tile j of this CTA: its first row and how many rows it has
+  auto tile = [&](int j, int& t0, int& nrows) {
+    const int s = c + (j / tps) * cs;
+    t0 = s * split_t + (j % tps) * TR;
+    nrows = min(min(t0 + TR, (s + 1) * split_t), len) - t0;
+  };
+  // tile j's K and V into stage j % kStages, one cp.async group a tile
+  // (an empty group past the last tile keeps the count of groups)
+  auto issue = [&](int j) {
+    if (j < n_tiles) {
+      int t0, nrows;
+      tile(j, t0, nrows);
+      const uint32_t st = base + (j % kStages) * C::kStage;
+#pragma unroll
+      for (int i = 0; i < TR * CPR / kThreads; ++i) {
+        const int e = tid + i * kThreads;
+        const int r = e / CPR, ch = e % CPR;
+        const bool ok = r < nrows;
+        const size_t off = (size_t)(t0 + (ok ? r : 0)) * t_stride + ch * 8;
+        cp_async16(st + swz<D>(r, ch), kb + off, ok);
+        cp_async16(st + C::kTile + swz<D>(r, ch), vb + off, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the first tiles' loads, then Q of the group's heads (rows G .. 15
+  // zero) into shared memory
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) issue(j);
+#pragma unroll
+  for (int i = 0; i < C::kQL; ++i) {
+    const int e = tid + i * kThreads;
+    if (e < kHeads * CPR)
+      *reinterpret_cast<uint4*>(smem + C::kQ + swz<D>(e / CPR, e % CPR)) =
+          qx[i];
+  }
+  __syncthreads();
+  uint32_t qf[D / 16][4];          // Q's A fragments, one a k16 step
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    ldsm_x4(qf[ks], base + C::kQ +
+                        swz<D>((lane & 7) + 8 * ((lane >> 3) & 1),
+                               2 * ks + (lane >> 4)));
+
+  float m[2] = {-1e30f, -1e30f};   // rows g and g + 8
+  float l[2] = {0.f, 0.f};
+  float acc[C::kNT][4];
+#pragma unroll
+  for (int nt = 0; nt < C::kNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kStages - 2>();
+    // tile j is in for every thread; tile j - 1's stage and the S tile
+    // are free
+    __syncthreads();
+    issue(j + kStages - 1);
+    int t0, nrows;
+    tile(j, t0, nrows);
+    const uint32_t kt = base + (j % kStages) * C::kStage;
+    const uint32_t vt = kt + C::kTile;
+
+    // 1. S for this warp's key blocks, in kChains accumulators (k16 steps
+    // ks, ks + kChains, ...) for independent chains of products; stored
+    // times scale * log2(e), the softmax's base-2 exponents
+#pragma unroll
+    for (int i = 0; i < C::kKB; ++i) {
+      const int kb8 = warp + i * kWarps;
+      float sc[kChains][4] = {};
+#pragma unroll
+      for (int j2 = 0; j2 < D / 32; ++j2) {
+        uint32_t bf[4];
+        ldsm_x4(bf, kt + swz<D>(kb8 * 8 + (lane & 7), 4 * j2 + (lane >> 3)));
+        mma(sc[(2 * j2) % kChains], qf[2 * j2], bf[0], bf[1]);
+        mma(sc[(2 * j2 + 1) % kChains], qf[2 * j2 + 1], bf[2], bf[3]);
+      }
+#pragma unroll
+      for (int ch = 1; ch < kChains; ++ch)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[0][e] += sc[ch][e];
+      const int col = kb8 * 8 + 2 * t;
+      const bool ok0 = col < nrows, ok1 = col + 1 < nrows;
+      *reinterpret_cast<float2*>(s_tile + g * C::kSStride + col) =
+          make_float2(ok0 ? sc[0][0] * scale_log2 : -INFINITY,
+                      ok1 ? sc[0][1] * scale_log2 : -INFINITY);
+      *reinterpret_cast<float2*>(s_tile + (g + 8) * C::kSStride + col) =
+          make_float2(ok0 ? sc[0][2] * scale_log2 : -INFINITY,
+                      ok1 ? sc[0][3] * scale_log2 : -INFINITY);
+    }
+    __syncthreads();
+
+    // 2. the online softmax over the tile, the same in every warp: this
+    // thread's columns 16 ks + 2t, + 1, + 8, + 9 of rows g and g + 8
+    float p[2][C::kKS][4];
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int ks = 0; ks < C::kKS; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* row =
+            s_tile + (g + 8 * h) * C::kSStride + 16 * ks + 2 * t;
+        const float2 lo = *reinterpret_cast<const float2*>(row);
+        const float2 hi = *reinterpret_cast<const float2*>(row + 8);
+        p[h][ks][0] = lo.x;
+        p[h][ks][1] = lo.y;
+        p[h][ks][2] = hi.x;
+        p[h][ks][3] = hi.y;
+        mx[h] = fmaxf(mx[h], fmaxf(fmaxf(lo.x, lo.y), fmaxf(hi.x, hi.y)));
+      }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float mn = fmaxf(m[h], mx[h]);
+      corr[h] = ex2(m[h] - mn);
+      m[h] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < C::kKS; ++ks)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[h][ks][e] = ex2(p[h][ks][e] - mn);   // ex2(-inf) = 0
+          sum += p[h][ks][e];
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[h] = l[h] * corr[h] + sum;
+    }
+#pragma unroll
+    for (int nt = 0; nt < C::kNT; ++nt) {
+      acc[nt][0] *= corr[0];
+      acc[nt][1] *= corr[0];
+      acc[nt][2] *= corr[1];
+      acc[nt][3] *= corr[1];
+    }
+
+    // 3. O += P . V over this warp's D / 4 columns, P as hi + lo
+#pragma unroll
+    for (int ks = 0; ks < C::kKS; ++ks) {
+      uint32_t ph[4], pl[4];
+      split_pair(p[0][ks][0], p[0][ks][1], ph[0], pl[0]);
+      split_pair(p[1][ks][0], p[1][ks][1], ph[1], pl[1]);
+      split_pair(p[0][ks][2], p[0][ks][3], ph[2], pl[2]);
+      split_pair(p[1][ks][2], p[1][ks][3], ph[3], pl[3]);
+      const int vrow = 16 * ks + (lane & 7) + 8 * ((lane >> 3) & 1);
+      if constexpr (C::kNT >= 2) {
+#pragma unroll
+        for (int nt = 0; nt < C::kNT; nt += 2) {
+          uint32_t bf[4];
+          ldsm_x4_t(bf, vt + swz<D>(vrow, warp * C::kNT + nt + (lane >> 4)));
+          mma(acc[nt], ph, bf[0], bf[1]);
+          mma(acc[nt], pl, bf[0], bf[1]);
+          mma(acc[nt + 1], ph, bf[2], bf[3]);
+          mma(acc[nt + 1], pl, bf[2], bf[3]);
+        }
+      } else {
+        uint32_t bf[2];
+        ldsm_x2_t(bf, vt + swz<D>(vrow, warp));
+        mma(acc[0], ph, bf[0], bf[1]);
+        mma(acc[0], pl, bf[0], bf[1]);
+      }
+    }
+  }
+
+  // 4. this CTA's (m, l, O) into its shared memory, O where the ring was
+  cp_async_wait<0>();
+  __syncthreads();
+  float* s_o = reinterpret_cast<float*>(smem);   // 16 x D
+#pragma unroll
+  for (int nt = 0; nt < C::kNT; ++nt) {
+    const int col = (warp * C::kNT + nt) * 8 + 2 * t;
+    *reinterpret_cast<float2*>(s_o + g * D + col) =
+        make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(s_o + (g + 8) * D + col) =
+        make_float2(acc[nt][2], acc[nt][3]);
+  }
+  float2* s_ml = reinterpret_cast<float2*>(smem + C::kML);   // (m, l)
+  if (warp == 0 && t == 0) {
+    s_ml[g] = make_float2(m[0], l[0]);
+    s_ml[g + 8] = make_float2(m[1], l[1]);
+  }
+  cluster_sync();   // every CTA of the group has left its (m, l, O)
+
+  // 5. CTA c merges float4s [c * per, (c + 1) * per) of the group's G * D
+  // outputs over the cluster's CTAs in rank order: every peer's (m, l) of
+  // the float4's head and its float4 of O read together (DSMEM, all in
+  // flight at once), then merged online into (M, L, a)
+  const int n4 = G * D / 4;
+  const int per = (n4 + cs - 1) / cs;
+  const uint32_t ml_at = smem_addr(s_ml);
+  __nv_bfloat16* og = out + ((size_t)b * H + (size_t)kvh * G) * D;
+  for (int i = c * per + tid; i < min(n4, (c + 1) * per); i += kThreads) {
+    const int h = 4 * i / D;
+    float2 ml[kMaxCluster];
+    float4 x[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < cs) {
+        ml[r] = ld_peer2(peer(ml_at + 8 * h, r));
+        x[r] = ld_peer4(peer(base + 16 * i, r));
+      }
+    float mm = -1e30f, ll = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < cs) {
+        const float mn = fmaxf(mm, ml[r].x);
+        const float ca = ex2(mm - mn), cb = ex2(ml[r].x - mn);
+        ll = ll * ca + ml[r].y * cb;
+        a.x = a.x * ca + x[r].x * cb;
+        a.y = a.y * ca + x[r].y * cb;
+        a.z = a.z * ca + x[r].z * cb;
+        a.w = a.w * ca + x[r].w * cb;
+        mm = mn;
+      }
+    const float den = fmaxf(ll, 1e-30f);
+    const __nv_bfloat162 o01 = __floats2bfloat162_rn(a.x / den, a.y / den);
+    const __nv_bfloat162 o23 = __floats2bfloat162_rn(a.z / den, a.w / den);
+    *reinterpret_cast<uint2*>(og + 4 * i) = make_uint2(bits(o01), bits(o23));
+  }
+  cluster_sync();   // no CTA leaves while a peer still reads its memory
+}
+
+template <int D>
+cudaLaunchConfig_t config(int cluster, int KV, int B, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, KV, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Cfg<D>::kBytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int D>
+cudaError_t grant() {
+  static int granted = 48 * 1024;
+  return repro::allow_smem(ragged_decode_tc_kernel<D>, Cfg<D>::kBytes,
+                           &granted);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* lengths,
+           const void* slots, void* out, int B, int H, int KV, int N, int T,
+           int span, int n_split, int split_t, int cluster,
+           cudaStream_t stream) {
+  cudaError_t err = grant<D>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config<D>(cluster, KV, B, stream, attr);
+  // the scores' scale times log2(e): the softmax runs in base 2
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  err = cudaLaunchKernelEx(
+      &cfg, ragged_decode_tc_kernel<D>,
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
+      static_cast<const int*>(slots), static_cast<__nv_bfloat16*>(out), H, KV,
+      N, T, span, n_split, split_t, scale_log2);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// registers and local (spill) bytes a thread, CTAs an SM, shared memory
+// bytes a CTA, clusters of kMaxCluster CTAs the card holds at once
+template <int D>
+int info(int* out) {
+  cudaError_t err = grant<D>();
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, ragged_decode_tc_kernel<D>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], ragged_decode_tc_kernel<D>, kThreads, Cfg<D>::kBytes);
+  if (err == cudaSuccess) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        config<D>(kMaxCluster, 1, 1, nullptr, attr);
+    err = cudaOccupancyMaxActiveClusters(&out[4], ragged_decode_tc_kernel<D>,
+                                         &cfg);
+  }
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[3] = Cfg<D>::kBytes;
+  return 0;
+}
+
+}  // namespace tc
+}  // namespace
+
+// bf16 q (B, H, D), k, v (N, T, KV, D), lengths and slots (B,) int32, out
+// (B, H, D) bf16, at 8 < H / KV <= 16; row b attends positions below
+// min(lengths[b], span, n_split * split_t) of arena row min(slots[b],
+// N - 1); `cluster` CTAs (at most 8) per (b, kv) group.
+extern "C" int repro_ragged_decode_tc(const void* q, const void* k,
+                                      const void* v, const void* lengths,
+                                      const void* slots, void* out, int B,
+                                      int H, int KV, int D, int N, int T,
+                                      int span, int n_split, int split_t,
+                                      int cluster, void* stream) {
+  if (B <= 0 || KV <= 0 || H % KV != 0 || H / KV > tc::kHeads || N <= 0 ||
+      span <= 0 || span > T || n_split <= 0 || split_t <= 0 ||
+      cluster < 1 || cluster > tc::kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_TC(DD)                                                     \
+  return tc::launch<DD>(q, k, v, lengths, slots, out, B, H, KV, N, T, span, \
+                        n_split, split_t, cluster, s)
+  switch (D) {
+    case 32: REPRO_TC(32);
+    case 64: REPRO_TC(64);
+    case 128: REPRO_TC(128);
+    case 256: REPRO_TC(256);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_TC
+}
+
+// info: registers, spill bytes, CTAs an SM, shared memory bytes, clusters
+// of 8 held at once, for the instantiation at head dim D
+extern "C" int repro_ragged_decode_tc_info(int D, int* info) {
+  switch (D) {
+    case 32: return tc::info<32>(info);
+    case 64: return tc::info<64>(info);
+    case 128: return tc::info<128>(info);
+    case 256: return tc::info<256>(info);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -15,8 +15,9 @@ shape-only path instead (``_shape.py``): empty outputs of the right
 shapes, the kernel's flops and bytes handed to the trace, no launch.
 """
 from .flash_attn import FlashAttention, flash_attention, flash_attention_plain
-from .ragged_decode_attn import (ragged_decode_attention,
-                                 ragged_decode_attention_plain)
+from .ragged_decode_attn import (decode_route, ragged_decode_attention,
+                                 ragged_decode_attention_plain,
+                                 ragged_decode_tc_plain)
 from .rmsnorm import FusedRMSNorm, fused_rmsnorm, fused_rmsnorm_plain
 from .ssd_chunk import (SSDChunked, ssd_chunk_intra_plain, ssd_chunked,
                         ssd_chunked_plain, ssd_chunked_recurrent_plain,
@@ -28,9 +29,11 @@ KERNELS = (ragged_decode_attention, fused_rmsnorm, flash_attention,
 
 
 def launch_counts() -> dict:
-    """Launches per wrapper, and of the SSD scan's tensor-core, split-TF32,
-    recurrent and tensor-core scan routes."""
+    """Launches per wrapper, of ragged decode's tensor-core route, and of
+    the SSD scan's tensor-core, split-TF32, recurrent and tensor-core scan
+    routes."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
+    counts["ragged_decode_attention_tc"] = ragged_decode_attention.tc_launches
     counts["ssd_chunked_tc"] = ssd_chunked.tc_launches
     counts["ssd_chunked_tf32"] = ssd_chunked.tf32_launches
     counts["ssd_chunked_recurrent"] = ssd_chunked.recurrent_launches
@@ -41,6 +44,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    ragged_decode_attention.tc_launches = 0
     ssd_chunked.tc_launches = 0
     ssd_chunked.tf32_launches = 0
     ssd_chunked.recurrent_launches = 0
@@ -49,8 +53,9 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "FlashAttention", "FusedRMSNorm", "SSDChunked",
-    "flash_attention", "flash_attention_plain", "ragged_decode_attention",
-    "ragged_decode_attention_plain", "fused_rmsnorm", "fused_rmsnorm_plain",
+    "flash_attention", "flash_attention_plain", "decode_route",
+    "ragged_decode_attention", "ragged_decode_attention_plain",
+    "ragged_decode_tc_plain", "fused_rmsnorm", "fused_rmsnorm_plain",
     "ssd_chunk_intra_plain", "ssd_chunked", "ssd_chunked_plain",
     "ssd_chunked_recurrent_plain", "ssd_chunked_tiled_plain", "ssd_route",
     "KERNELS", "launch_counts", "reset_launch_counts",

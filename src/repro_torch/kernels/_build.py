@@ -32,7 +32,12 @@ SIGNATURES = {
     "ragged_decode_attn": {
         # q, k, v, lengths, slots, out, part_acc, part_ml, counters, B, H,
         # KV, D, N, T, n_split, split_t, dtype, stream
-        "repro_ragged_decode_attention": [_VP] * 9 + [_I] * 9 + [_VP]},
+        "repro_ragged_decode_attention": [_VP] * 9 + [_I] * 9 + [_VP],
+        # bf16 at 8 < G <= 16 on the tensor cores: q, k, v, lengths, slots,
+        # out, B, H, KV, D, N, T, span, n_split, split_t, cluster, stream
+        "repro_ragged_decode_tc": [_VP] * 6 + [_I] * 10 + [_VP],
+        # D, info (five ints out)
+        "repro_ragged_decode_tc_info": [_I, _VP]},
     "flash_attn": {
         # q, k, v, o, B, S, T, H, KV, width, Dqk, Dv, q_offset, window,
         # scale, dtype, stream

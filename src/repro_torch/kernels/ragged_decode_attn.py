@@ -1,10 +1,14 @@
-"""Ragged decode attention: the CUDA kernel's wrapper and plain version.
+"""Ragged decode attention: the CUDA kernels' wrapper and plain version.
 
 Replaces the TPU kernel ``src/repro/kernels/ragged_decode_attn.py``
 (``ragged_decode_attention``). Lazily merged sub-batches have ragged
 per-request progress, so row b of one merged decode step attends its own
-``lengths[b]`` cached tokens. Source, bound and design notes:
-``csrc/ragged_decode_attn.cu``.
+``lengths[b]`` cached tokens. Two routes, picked by :func:`decode_route`
+on dtype and shape alone: bfloat16 at 8 < G <= 16 query heads a kv head
+(recurrentgemma-9b's G 16) runs ``ragged_decode_tc_kernel`` on the tensor
+cores, every other call (G <= 8, and float32 at any G)
+``ragged_decode_split_kernel`` on the CUDA cores. Source, bound and design
+notes: ``csrc/ragged_decode_attn.cu``.
 """
 from __future__ import annotations
 
@@ -147,6 +151,135 @@ def _plan(B: int, KV: int, span: int, split_t: Optional[int],
     return n_split, split_t
 
 
+# the tensor-core route (bf16, 8 < G <= 16)
+TC_MAX_GROUP = 16           # query heads a kv head: one m16 tile
+TC_MAX_CLUSTER = 8          # CTAs a (b, kv) group: a portable cluster
+
+
+def decode_route(dtype, G: int, D: int) -> str:
+    """The kernel a CUDA call takes, by dtype and shape alone: ``"tc"``
+    (``ragged_decode_tc_kernel``: all G heads of a group in one pass over
+    K/V on the tensor cores, spans merged across a cluster) for bfloat16
+    at 8 < G <= 16 and a head dim in ``HEAD_DIMS``; else ``"cuda_cores"``
+    (``ragged_decode_split_kernel``). Up to 8 heads the CUDA-core kernel
+    already reads K/V once; float32 stays on it at every G, where a group
+    above 8 heads reads each span's K/V once per chunk of 8 heads."""
+    if dtype == torch.bfloat16 and 8 < G <= TC_MAX_GROUP and D in HEAD_DIMS:
+        return "tc"
+    return "cuda_cores"
+
+
+def tc_tile_rows(D: int) -> int:
+    """Rows of a K/V tile of the tensor-core kernel at head dim ``D``: 32
+    at D 256, 64 below (16 or 32 KB of K and V a stage)."""
+    return 32 if D == 256 else 64
+
+
+def tc_plan(B: int, KV: int, D: int, span: int,
+            split_t: Optional[int] = None):
+    """``(cluster, n_split, split_t)`` of the tensor-core route, from static
+    sizes only (no ``lengths``: no host sync).
+
+    The grid is (cluster, KV, B): a cluster of ``cluster`` CTAs per (b, kv)
+    group, CTA c walking spans c, c + cluster, ... of ``split_t`` rows
+    each, ``n_split`` spans covering ``span``. Without ``split_t`` the
+    cluster is as large as one wave of two CTAs an SM allows (at most
+    ``TC_MAX_CLUSTER``, at most one CTA per tile of
+    :func:`tc_tile_rows` rows of the context), and each CTA takes one span
+    of whole tiles. An explicit ``split_t`` is kept; spans past the cluster
+    are walked by its CTAs in turn."""
+    span = max(1, int(span))
+    if split_t is None:
+        tile = tc_tile_rows(D)
+        want = max(1, 2 * H100_SMS // max(1, B * KV))
+        cluster = max(1, min(TC_MAX_CLUSTER, want, -(-span // tile)))
+        per = -(-span // cluster)
+        split_t = -(-per // tile) * tile
+    if split_t <= 0:
+        raise ValueError(f"tc_plan: split_t must be > 0, got {split_t}")
+    n_split = -(-span // split_t)
+    return min(TC_MAX_CLUSTER, n_split), n_split, split_t
+
+
+def ragged_decode_tc_plain(q, k, v, lengths, *, slots=None,
+                           ctx: Optional[int] = None,
+                           split_t: Optional[int] = None):
+    """The tensor-core route's arithmetic in plain PyTorch, for the tests
+    only: the spans of :func:`tc_plan`, each CTA of a (b, kv) group walking
+    its spans by tiles of :func:`tc_tile_rows` rows with one online
+    softmax in base 2 (float32 scores of the widened values times
+    log2(e) / sqrt(D), P as bf16 hi + lo in P·V), then the cluster merge
+    of the CTAs' (m, l, O), online in rank order. A row of length 0 gives
+    zeros (as the TPU kernel). Same arguments as
+    :func:`ragged_decode_attention`; returns (B, H, D) in q.dtype."""
+    B, H, D = q.shape
+    N, T, KV = k.shape[0], k.shape[1], k.shape[2]
+    G = H // KV
+    span = T if ctx is None else min(ctx, T)
+    cluster, n_split, split_t = tc_plan(B, KV, D, span, split_t)
+    TR = tc_tile_rows(D)
+    scale_log2 = math.log2(math.e) / math.sqrt(D)
+    rows = (torch.arange(B) if slots is None
+            else torch.clamp(slots.long().cpu(), max=N - 1))
+    f32 = torch.float32
+    out = torch.zeros((B, KV, G, D), dtype=f32, device=q.device)
+    bf = lambda x: x.to(torch.bfloat16).to(f32)
+    for b in range(B):
+        n = max(0, min(int(lengths[b]), span, n_split * split_t))
+        qb = q[b].to(f32).reshape(KV, G, D)
+        parts = []
+        for c in range(cluster):
+            m = torch.full((KV, G), -1e30, dtype=f32, device=q.device)
+            l = torch.zeros((KV, G), dtype=f32, device=q.device)
+            o = torch.zeros((KV, G, D), dtype=f32, device=q.device)
+            for s in range(c, n_split, cluster):
+                end = min((s + 1) * split_t, n)
+                for t0 in range(s * split_t, end, TR):
+                    t1 = min(t0 + TR, end)
+                    kt = k[rows[b], t0:t1].to(f32)        # (n, KV, D)
+                    vt = v[rows[b], t0:t1].to(f32)
+                    sc = torch.einsum("kgd,nkd->kgn", qb, kt) * scale_log2
+                    mn = torch.maximum(m, sc.amax(-1))
+                    corr = torch.exp2(m - mn)
+                    p = torch.exp2(sc - mn[..., None])
+                    l = l * corr + p.sum(-1)
+                    hi = bf(p)
+                    lo = bf(p - hi)
+                    o = (o * corr[..., None]
+                         + torch.einsum("kgn,nkd->kgd", hi, vt)
+                         + torch.einsum("kgn,nkd->kgd", lo, vt))
+                    m = mn
+            parts.append((m, l, o))
+        mm = torch.full_like(parts[0][0], -1e30)
+        den = torch.zeros_like(mm)
+        acc = torch.zeros_like(parts[0][2])
+        for pm, pl, po in parts:          # online, in rank order
+            mn = torch.maximum(mm, pm)
+            ca, cb = torch.exp2(mm - mn), torch.exp2(pm - mn)
+            den = den * ca + pl * cb
+            acc = acc * ca[..., None] + po * cb[..., None]
+            mm = mn
+        out[b] = acc / torch.clamp(den, min=1e-30)[..., None]
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def tc_info(D: int) -> dict:
+    """The tensor-core kernel's instantiation at head dim ``D``, read on
+    the card without launching it: {"regs", "spill_bytes", "ctas_per_sm",
+    "smem", "clusters_of_8"} (registers and local bytes a thread by
+    ``cudaFuncGetAttributes``; resident CTAs an SM and clusters of
+    ``TC_MAX_CLUSTER`` CTAs held at once by the occupancy calculator;
+    shared memory bytes a CTA)."""
+    import ctypes
+    info = (ctypes.c_int * 5)()
+    err = _build.function("ragged_decode_attn", "repro_ragged_decode_tc_info")(
+        D, ctypes.addressof(info))
+    if err:
+        raise RuntimeError(f"tc_info: CUDA error {err} (D={D})")
+    return dict(zip(("regs", "spill_bytes", "ctas_per_sm", "smem",
+                     "clusters_of_8"), info))
+
+
 _COUNTERS = {}              # device -> int32 zeros, one per (b, kv) group
 
 
@@ -160,6 +293,58 @@ def _counters(device, n: int) -> torch.Tensor:
     return buf
 
 
+def _raise_on(err: int, route: str, B, H, KV, D, N, T, n_split,
+              split_t) -> None:
+    if err:
+        raise RuntimeError(f"ragged_decode_attention: CUDA error {err} at "
+                           f"launch ({route} route, B={B}, H={H}, KV={KV}, "
+                           f"D={D}, N={N}, T={T}, n_split={n_split}, "
+                           f"split_t={split_t})")
+
+
+def _launch_split(q, k, v, lengths, slots, ctx=None, split_t=None):
+    """``ragged_decode_split_kernel`` (the CUDA cores) on checked CUDA
+    inputs; counts nothing. Returns the output."""
+    B, H, D = q.shape
+    N, T, KV = k.shape[0], k.shape[1], k.shape[2]
+    G = H // KV
+    span = T if ctx is None else min(ctx, T)
+    n_split, split_t = _plan(B, KV, span, split_t, split_granule(D))
+    out = torch.empty_like(q)
+    n_part = B * KV * n_split * G if n_split > 1 else 0
+    part_acc = torch.empty((n_part * D,), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((n_part * 2,), dtype=torch.float32,
+                          device=q.device)
+    counters = _counters(q.device, B * KV)
+    fn = _build.function("ragged_decode_attn",
+                         "repro_ragged_decode_attention")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+             slots.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+             part_ml.data_ptr(), counters.data_ptr(), B, H, KV, D, N, T,
+             n_split, split_t, _build.dtype_code(q.dtype),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "cuda_cores", B, H, KV, D, N, T, n_split, split_t)
+    return out
+
+
+def _launch_tc(q, k, v, lengths, slots, ctx=None, split_t=None):
+    """``ragged_decode_tc_kernel`` (bf16, the tensor cores) on checked CUDA
+    inputs; counts nothing. Returns the output."""
+    B, H, D = q.shape
+    N, T, KV = k.shape[0], k.shape[1], k.shape[2]
+    span = T if ctx is None else min(ctx, T)
+    cluster, n_split, split_t = tc_plan(B, KV, D, span, split_t)
+    out = torch.empty_like(q)
+    fn = _build.function("ragged_decode_attn", "repro_ragged_decode_tc")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+             slots.data_ptr(), out.data_ptr(), B, H, KV, D, N, T, span,
+             n_split, split_t, cluster,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "tc", B, H, KV, D, N, T, n_split, split_t)
+    return out
+
+
 def ragged_decode_attention(q, k, v, lengths, *,
                             slots: Optional[torch.Tensor] = None,
                             ctx: Optional[int] = None,
@@ -171,12 +356,17 @@ def ragged_decode_attention(q, k, v, lengths, *,
 
     A CPU tensor takes :func:`ragged_decode_attention_plain`, which reads
     only the first ``ctx`` time rows when that bound is given; a CUDA
-    tensor launches the kernel on the current stream or raises. The kernel
-    splits ``ctx`` (T without it) into spans of ``split_t`` rows
-    (planned as :func:`split_plan` plans it, in granules of
-    :func:`split_granule` rows, when not given) and stops at each row's
-    length; a bound below a row's length would drop its tail, as in the
-    plain version.
+    tensor launches, on the current stream, the kernel of the route
+    :func:`decode_route` picks, or raises (no route falls back to the
+    other). Both kernels split ``ctx`` (T without it) into spans of
+    ``split_t`` rows and stop at each row's length; a bound below a row's
+    length would drop its tail, as in the plain version. The CUDA-core
+    kernel (G <= 8, and float32 at any G) plans its spans as
+    :func:`split_plan` does, in granules of :func:`split_granule` rows, one
+    CTA a span; the tensor-core kernel (bf16 at 8 < G <= 16) as
+    :func:`tc_plan` does, a cluster of CTAs per (row, kv head) walking the
+    spans. ``launches`` counts both routes, ``tc_launches`` the
+    tensor-core one.
 
     Decode is on no loss path and has no gradient: with grad mode on and
     q, k or v requiring grad it raises (on the CPU too), rather than
@@ -200,30 +390,14 @@ def ragged_decode_attention(q, k, v, lengths, *,
     if slots is None:
         slots = torch.arange(B, dtype=torch.int32, device=q.device)
     _check(q, k, v, lengths, slots)
-    N, T, KV = k.shape[0], k.shape[1], k.shape[2]
-    G = H // KV
-    span = T if ctx is None else min(ctx, T)
-    n_split, split_t = _plan(B, KV, span, split_t, split_granule(D))
-    out = torch.empty_like(q)
-    n_part = B * KV * n_split * G if n_split > 1 else 0
-    part_acc = torch.empty((n_part * D,), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((n_part * 2,), dtype=torch.float32,
-                          device=q.device)
-    counters = _counters(q.device, B * KV)
-    fn = _build.function("ragged_decode_attn",
-                         "repro_ragged_decode_attention")
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             slots.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-             part_ml.data_ptr(), counters.data_ptr(), B, H, KV, D, N, T,
-             n_split, split_t, _build.dtype_code(q.dtype),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"ragged_decode_attention: CUDA error {err} at "
-                           f"launch (B={B}, H={H}, KV={KV}, D={D}, N={N}, "
-                           f"T={T}, n_split={n_split}, split_t={split_t})")
+    if decode_route(q.dtype, H // k.shape[2], D) == "tc":
+        out = _launch_tc(q, k, v, lengths, slots, ctx, split_t)
+        ragged_decode_attention.tc_launches += 1
+    else:
+        out = _launch_split(q, k, v, lengths, slots, ctx, split_t)
     ragged_decode_attention.launches += 1
     return out
 
 
-ragged_decode_attention.launches = 0
+ragged_decode_attention.launches = 0      # every launch, either route
+ragged_decode_attention.tc_launches = 0   # the tensor-core route's

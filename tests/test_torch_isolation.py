@@ -21,7 +21,7 @@ PORT = REPO / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "check_f32_sync.py",
     REPO / "tools" / "flash_ab.py", REPO / "tools" / "ssd_scan_ab.py",
-    REPO / "tools" / "serve_ab.py",
+    REPO / "tools" / "serve_ab.py", REPO / "tools" / "decode_ab.py",
     REPO / "tests" / "test_torch_kernels_cuda.py",
     REPO / "examples" / "serve_real_model_torch.py",
     REPO / "examples" / "train_small_torch.py",

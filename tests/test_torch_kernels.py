@@ -165,6 +165,167 @@ def test_ragged_decode_slot_indexed_arena_read(dtype):
     np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
 
 
+# the decode route at every attention head shape of the repo's configs (full
+# width: bf16 serves, f32 exact checks) and of the tests: (dtype, G, D)
+DECODE_ROUTES = [
+    (torch.bfloat16, 16, 256, "tc"),           # recurrentgemma-9b serve
+    (torch.float32, 16, 256, "cuda_cores"),    # its f32 exact check
+    (torch.bfloat16, 4, 64, "cuda_cores"),     # llama3.2-1b, reduced()
+    (torch.bfloat16, 4, 128, "cuda_cores"),    # mistral-nemo-12b
+    (torch.bfloat16, 5, 128, "cuda_cores"),    # qwen2.5-32b
+    (torch.bfloat16, 6, 128, "cuda_cores"),    # internvl2-26b, grok-1-314b
+    (torch.bfloat16, 3, 64, "cuda_cores"),     # granite-moe-3b-a800m
+    (torch.bfloat16, 1, 64, "cuda_cores"),     # musicgen-large (MHA)
+    (torch.bfloat16, 8, 64, "cuda_cores"),     # 8 heads: one pass already
+    (torch.bfloat16, 9, 128, "tc"),
+    (torch.bfloat16, 12, 64, "tc"),
+    (torch.bfloat16, 12, 256, "tc"),
+    (torch.bfloat16, 16, 32, "tc"),
+    (torch.bfloat16, 16, 64, "tc"),
+    (torch.bfloat16, 16, 128, "tc"),
+    (torch.bfloat16, 17, 256, "cuda_cores"),   # above one m16 tile
+    (torch.bfloat16, 32, 64, "cuda_cores"),
+    (torch.bfloat16, 16, 16, "cuda_cores"),    # no compiled head dim
+    (torch.float32, 12, 64, "cuda_cores"),
+    (torch.float32, 4, 64, "cuda_cores"),
+    (torch.float16, 16, 256, "cuda_cores"),
+]
+
+
+@pytest.mark.parametrize("dtype,G,D,route", DECODE_ROUTES)
+def test_decode_route_by_dtype_and_shape(dtype, G, D, route):
+    """bf16 at 8 < G <= 16 and a compiled head dim takes the tensor-core
+    kernel; float32 at every G, and G <= 8, the CUDA-core kernel."""
+    assert K.decode_route(dtype, G, D) == route
+
+
+def test_decode_route_of_every_config():
+    """The configs' own heads: only recurrentgemma-9b's bf16 decode (G 16,
+    D 256) takes the tensor-core route; its reduced() widths (G 4) and
+    every other architecture's stay on the CUDA cores."""
+    from repro_torch.configs import ARCHITECTURES
+    tc = set()
+    for name, cfg in ARCHITECTURES.items():
+        for c in (cfg, cfg.reduced()):
+            if c.num_kv_heads and c.mla is None and c.ssm is None:
+                G = c.num_heads // c.num_kv_heads
+                for dt in (torch.bfloat16, torch.float32):
+                    if K.decode_route(dt, G, c.head_dim) == "tc":
+                        tc.add((name, c is cfg, dt))
+    assert tc == {("recurrentgemma-9b", True, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("B,KV,D,span,split_t", [
+    (8, 1, 256, 1024, None),     # recurrentgemma-9b serve: arena T 1024
+    (3, 1, 256, 256, None),      # the legacy stacks at B 3 and 7
+    (7, 1, 256, 256, None),
+    (128, 1, 256, 2048, None),   # decode_32k: rings of 2048 at B 128
+    (8, 1, 256, 1000, None),     # the card tests' T 1000
+    (8, 1, 256, 1000, 32),       # 32 spans walked by 8 CTAs
+    (8, 1, 256, 1000, 160),
+    (8, 1, 256, 1000, 1024),
+    (1, 1, 256, 1, None),
+    (2, 3, 64, 100, None),
+    (1, 1, 128, 65536, None),
+    (4, 1, 64, 70, 8),
+    (8, 2, 32, 1000, None),
+])
+def test_ragged_decode_tc_plan(B, KV, D, span, split_t):
+    """The tensor-core route's plan: spans cover the context exactly once,
+    an explicit split_t is kept, every cluster is at most 8 CTAs and at
+    most the spans, and without split_t the grid fits one wave of two
+    CTAs an SM, one span of whole tiles a CTA."""
+    from repro_torch.kernels.ragged_decode_attn import (H100_SMS,
+                                                        TC_MAX_CLUSTER,
+                                                        tc_plan,
+                                                        tc_tile_rows)
+    cluster, n, st = tc_plan(B, KV, D, span, split_t)
+    assert (n - 1) * st < span <= n * st
+    assert 1 <= cluster <= TC_MAX_CLUSTER and cluster <= n
+    assert cluster == min(TC_MAX_CLUSTER, n)
+    if split_t is not None:
+        assert st == split_t
+    else:
+        assert st % tc_tile_rows(D) == 0 and n == cluster
+        assert cluster == 1 or B * KV * cluster <= 2 * H100_SMS
+
+
+def test_ragged_decode_tc_plan_reads_no_lengths():
+    """The plan takes sizes only (no host sync): at the rgemma serve's
+    arena 8 CTAs a row over spans of 128; at the legacy stacks' 256 rows
+    8 of one 32-row tile; at decode_32k's B 128 two."""
+    import inspect
+    from repro_torch.kernels.ragged_decode_attn import tc_plan
+    assert list(inspect.signature(tc_plan).parameters) == [
+        "B", "KV", "D", "span", "split_t"]
+    assert tc_plan(8, 1, 256, 1024) == (8, 8, 128)
+    assert tc_plan(3, 1, 256, 256) == (8, 8, 32)
+    assert tc_plan(128, 1, 256, 2048) == (2, 2, 1024)
+    assert tc_plan(8, 1, 256, 1000, 32) == (8, 32, 32)
+    assert tc_plan(8, 1, 64, 1024) == (8, 8, 128)
+    with pytest.raises(ValueError):
+        tc_plan(8, 1, 256, 64, split_t=0)
+
+
+def _tc_case(G, D, T, dtype, seed):
+    """B 5 over an arena of N 6: a padding row at _PAD_SLOT, a row of
+    length 0, one of length 1, one at T and one in between."""
+    rng = np.random.default_rng(seed)
+    B, N = 5, 6
+    q = _pair(rng.standard_normal((B, G, D)), dtype)
+    k = _pair(rng.standard_normal((N, T, 1, D)), dtype)
+    v = _pair(rng.standard_normal((N, T, 1, D)), dtype)
+    lens = np.array([T, 0, T // 2 + 3, 1, T - 5], np.int32)
+    slots = np.array([4, 0, 2, 5, _PAD_SLOT], np.int32)
+    return q, k, v, lens, slots
+
+
+# (G, D, T): G 12 and 16 at D 64 and 256, T no multiple of a tile (64 at
+# D 64, 32 at D 256)
+TC_CASES = [(12, 64, 100), (16, 64, 100), (12, 256, 70), (16, 256, 70)]
+
+
+@pytest.mark.parametrize("G,D,T", TC_CASES)
+@pytest.mark.parametrize("split_t,ctx", [(None, None), (8, None),
+                                         (48, 50)])
+def test_ragged_decode_tc_plain_matches_plain(G, D, T, split_t, ctx):
+    """The tensor-core route's arithmetic (its spans walked by the CTAs of
+    a cluster, tiles, P as bf16 hi + lo, the cluster merge) against the
+    plain version in float32 at 1e-5, every row of nonzero length: with
+    spans of 8 rows (9 spans of 70 rows over 8 CTAs, so CTA 0 walks two)
+    and of 48 (tiles cut by a span's end), and ``ctx`` 50 below a row's
+    length. A row of length 0 gives zeros (the plain softmax over no
+    position gives the mean of V; the TPU kernel zeros)."""
+    (_, q), (_, k), (_, v), lens, slots = _tc_case(G, D, T, jnp.float32,
+                                                   seed=G + D)
+    lt, st = torch.from_numpy(lens), torch.from_numpy(slots)
+    got = K.ragged_decode_tc_plain(q, k, v, lt, slots=st, ctx=ctx,
+                                   split_t=split_t)
+    want = K.ragged_decode_attention_plain(q, k, v, lt, slots=st, ctx=ctx)
+    live = lens > 0
+    np.testing.assert_allclose(_np(got)[live], _np(want)[live], rtol=1e-5,
+                               atol=1e-5)
+    assert not _np(got)[~live].any()
+
+
+@pytest.mark.parametrize("G,D,T", TC_CASES)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_ragged_decode_tc_plain_matches_pallas(G, D, T, dtype):
+    """The same arithmetic against the Pallas kernel in interpret mode
+    (one block of T rows, the clamped slots), at tests/test_kernels.py's
+    tolerances, the row of length 0 included (zeros in both)."""
+    (qj, qt), (kj, kt), (vj, vt), lens, slots = _tc_case(G, D, T, dtype,
+                                                         seed=G * D)
+    pallas = ops.ragged_decode_attention(
+        qj, kj, vj, jnp.asarray(lens), slots=jnp.asarray(np.minimum(slots,
+                                                                    5)),
+        block_t=T, interpret=True)
+    got = K.ragged_decode_tc_plain(qt, kt, vt, torch.from_numpy(lens),
+                                   slots=torch.from_numpy(slots))
+    assert got.dtype == qt.dtype
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
+
+
 # ---------------------------------------------------------------------------
 # flash prefill attention
 # ---------------------------------------------------------------------------
@@ -508,6 +669,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     K.ssd_chunked(torch.randn(1, 8, 2, 16), torch.rand(1, 8, 2),
                   -torch.rand(2), torch.randn(1, 8, 4), torch.randn(1, 8, 4), 4)
     assert K.launch_counts() == {"ragged_decode_attention": 0,
+                                 "ragged_decode_attention_tc": 0,
                                  "fused_rmsnorm": 0, "flash_attention": 0,
                                  "ssd_chunked": 0, "ssd_chunked_tc": 0,
                                  "ssd_chunked_tf32": 0,

@@ -16,7 +16,10 @@ in float32 (tolerance 2e-5) and bfloat16 (2e-2); the SSD scan over its
 shapes, full width and chunks 1 … 256 in float32 (1e-4) and bfloat16
 (5e-2 on y, 1e-4 on the float32 states), on each of its five routes;
 ragged decode without slots at batches 3 and 7 (the legacy engine's
-decode), and tiny engines of every family on the card against the CPU
+decode), ragged decode's tensor-core route (bf16 at G 12 and 16, D 32 to
+256, one or more kv heads, explicit spans walked by a cluster, its launch
+counter, two calls bit-equal) and float32 at G 16 staying on the CUDA
+cores, and tiny engines of every family on the card against the CPU
 engine, in arena and in legacy mode.
 """
 import pytest
@@ -393,9 +396,10 @@ def test_flash_kernel_where_the_window_binds_at_head_dim_256(cuda, dtype):
 @pytest.mark.parametrize("split_t", [None, 32, 160, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ragged_decode_kernel_at_head_dim_256(cuda, split_t, dtype):
-    """recurrentgemma-9b's decode (G 16 in two chunks of 8 heads, one kv
-    head of 256: each float32 lane carries two 16-byte chunks of a row)
-    over a T 1000 arena with a padding row, split any way."""
+    """recurrentgemma-9b's decode (one kv head of 256 for G 16; bf16 on the
+    tensor-core kernel, float32 on the CUDA cores in two chunks of 8 heads,
+    each float32 lane carrying two 16-byte chunks of a row) over a T 1000
+    arena with a padding row, split any way."""
     q, k, v, lengths, slots = _decode_case(cuda, 8, 16, 1, 256, 1000, dtype,
                                            seed=7)
     got = K.ragged_decode_attention(q, k, v, lengths, slots=slots,
@@ -403,6 +407,91 @@ def test_ragged_decode_kernel_at_head_dim_256(cuda, split_t, dtype):
     want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _tc_call(q, k, v, lengths, slots=None, split_t=None):
+    """One call that must take the tensor-core route: both counters move
+    by one."""
+    n0 = K.ragged_decode_attention.launches
+    t0 = K.ragged_decode_attention.tc_launches
+    got = K.ragged_decode_attention(q, k, v, lengths, slots=slots,
+                                    split_t=split_t)
+    assert K.ragged_decode_attention.launches == n0 + 1
+    assert K.ragged_decode_attention.tc_launches == t0 + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_t", [None, 32, 160, 1024])
+def test_ragged_decode_tc_route_at_g16_d256(cuda, split_t):
+    """bf16 at recurrentgemma-9b's heads (G 16, D 256) takes the
+    tensor-core kernel: a T 1000 arena with a padding row, spans of 32 (32
+    spans walked by a cluster of 8), 160 (a cluster of 7), 1024 (one CTA)
+    or planned (8 of 128); within 2e-2 of the plain version, and two
+    calls equal bit for bit."""
+    q, k, v, lengths, slots = _decode_case(cuda, 8, 16, 1, 256, 1000,
+                                           torch.bfloat16, seed=7)
+    got = _tc_call(q, k, v, lengths, slots, split_t)
+    again = _tc_call(q, k, v, lengths, slots, split_t)
+    want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 7])
+def test_ragged_decode_tc_route_without_slots(cuda, B):
+    """The legacy engine's decode at G 16 / D 256: no slot vector, a
+    (B, 256) stack, on the tensor-core kernel."""
+    T = 256
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((B, 16, 256), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, T, 1, 256), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, T, 1, 256), generator=g, device=cuda).bfloat16()
+    lengths = torch.tensor([1, T, 17, 133, T - 1, 64, 200][:B],
+                           dtype=torch.int32, device=cuda)
+    got = _tc_call(q, k, v, lengths)
+    want = K.ragged_decode_attention_plain(q, k, v, lengths)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", [(12, 1, 256), (12, 1, 64), (24, 2, 128),
+                                    (16, 1, 64), (16, 1, 128), (32, 2, 32),
+                                    (48, 4, 64)])
+def test_ragged_decode_tc_route_at_other_groups(cuda, H, KV, D):
+    """G 12 (padding rows of the m16 tile), G 16 at D 32, 64 and 128, and
+    more than one kv head (a tile's rows KV * D apart): a T 1000 arena
+    with a padding row, within 2e-2 of the plain version; a row of length
+    0 gives zeros (the TPU kernel's), every other row the plain version's
+    output."""
+    q, k, v, lengths, slots = _decode_case(cuda, 8, H, KV, D, 1000,
+                                           torch.bfloat16, seed=H + D)
+    lengths[2] = 0
+    got = _tc_call(q, k, v, lengths, slots)
+    want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
+    live = lengths > 0
+    assert not got[~live].float().any()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_ragged_decode_f32_at_g16_stays_on_the_cuda_cores(cuda):
+    """float32 at G 16 runs the CUDA-core kernel: ``launches`` moves,
+    ``tc_launches`` does not."""
+    q, k, v, lengths, slots = _decode_case(cuda, 8, 16, 1, 256, 1000,
+                                           torch.float32, seed=7)
+    n0 = K.ragged_decode_attention.launches
+    t0 = K.ragged_decode_attention.tc_launches
+    got = K.ragged_decode_attention(q, k, v, lengths, slots=slots)
+    assert K.ragged_decode_attention.launches == n0 + 1
+    assert K.ragged_decode_attention.tc_launches == t0
+    want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 # RuntimeFlags.window's decode: a ring of T rows; a row past T has wrapped
