@@ -9,7 +9,9 @@ Phases, always all of them, in order:
            (one process per source, all started together); print seconds
            and what ptxas reports per kernel, then the bf16 flash kernel's
            instantiation at each served shape (registers, spill bytes, CTAs
-           an SM holds); fail when the RMSNorm kernel, the float32 flash
+           an SM holds, heads a CTA: two at recurrentgemma-9b's B 4 x S
+           512, one at its serve's prefill of 384); fail when the RMSNorm
+           kernel, the float32 flash
            kernel at D 64, any instantiation of the bf16 flash kernel, a
            flash or ragged decode kernel at D 256, any instantiation of
            ragged decode's tensor-core kernel, a kernel of the SSD
@@ -18,8 +20,9 @@ Phases, always all of them, in order:
            each state size, and the decode tensor-core kernel's,
            with its shared memory and the clusters of 8 the card holds,
            at each head dim),
-           when ptxas serializes the float32 flash kernel's wgmmas at D 256
-           (its 255 registers a thread leave no room), when the flash or
+           when ptxas serializes the wgmmas of a flash kernel at D 256 (the
+           float32 one's 255 registers a thread leave no room; the bf16
+           one in either layout), when the flash or
            SSD library holds no
            HGMMA (wgmma) instruction, or when either holds no TF32
            tensor-core instruction.
@@ -28,7 +31,12 @@ Phases, always all of them, in order:
            and MiniCPM3's MLA prefill, whose q and k are 96 wide and v 64,
            and at recurrentgemma-9b's, 16 q heads over one kv head of 256
            with its window of 2048, at S 512 and at S 4096 where the window
-           binds; ragged decode at llama's, nemo's, granite's and
+           binds, and at its serve's prefill of one request of 384; in
+           bfloat16 at S 512 and 4096 it takes two heads a CTA and is also
+           held and timed against the one-head layout on the same inputs,
+           in turns, and fails when its device time is the longer, and
+           200 launches in a row must agree bit for bit; ragged decode at
+           llama's, nemo's, granite's and
            recurrentgemma-9b's heads (G 16, D 256), and without slots
            over a contiguous (B, 256) stack at B 3 and 7, the legacy
            engine's decode, at llama's heads and at G 16 / D 256, and
@@ -823,13 +831,16 @@ def compare(torch, got, ref, dtype_name: str, what: str, tols=None) -> float:
 F32_FLASH_D64 = "flash_tf32x3_kernelILi64E"
 F32_FLASH_D256 = "flash_tf32x3_d256_kernel"
 FLASH_TC = "flash_tc_kernel"
+# its instantiations at D 256: one head a CTA, and two (flash_tc_kernel_pp)
+FLASH_TC_D256 = ("flash_tc_kernelILi256E", "flash_tc_kernel_pp")
 # the bf16 kernel's instantiations on the served paths, by the shape a
 # launch gives them: (what, B, S, H, KV, Dqk, Dv)
 FLASH_TC_SHAPES = (("llama prefill", 4, 512, 32, 8, 64, 64),
                    ("nemo prefill", 4, 512, 32, 8, 128, 128),
                    ("minicpm3 prefill", 4, 512, 40, 40, 96, 64),
                    ("granite prefill", 4, 512, 24, 8, 64, 64),
-                   ("rgemma prefill", 4, 512, 16, 1, 256, 256))
+                   ("rgemma prefill", 4, 512, 16, 1, 256, 256),
+                   ("rgemma serve prefill", 1, 384, 16, 1, 256, 256))
 
 DECODE_D256 = "Li256E"
 DECODE_TC = "ragged_decode_tc_kernel"     # every instantiation
@@ -854,12 +865,14 @@ def phase_build():
             elif "wgmma.mma_async instructions are serialized" in line:
                 # the split-TF32 flash kernel at D 256 holds 255 registers
                 # a thread: one more live value and ptxas waits after
-                # every wgmma
+                # every wgmma; nor may the bf16 kernel's wgmmas at D 256
+                # (either layout) be serialized
                 print(f"[build] {name}: {line.strip()}")
-                check(not (name == "flash_attn"
-                           and F32_FLASH_D256 in line),
-                      f"{name}: ptxas serializes the wgmmas of "
-                      f"{F32_FLASH_D256}")
+                check(not (name == "flash_attn" and (
+                          F32_FLASH_D256 in line or any(
+                              k in line for k in FLASH_TC_D256))),
+                      f"{name}: ptxas serializes the wgmmas of a flash "
+                      f"kernel at D 256: {line.strip()}")
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name} {kernel}: {line.strip()}")
                 spilled = [int(b) for b in re.findall(
@@ -1025,6 +1038,12 @@ def kernel_rmsnorm(torch, K, dtype, shape, row=None, grad=False):
             "flops": 4 * x.numel()}
 
 
+# the bf16 flash kernel's layout at D 256 (q heads a CTA) by (B, S) at
+# recurrentgemma-9b's heads: two where the grid still fills the card, one
+# at the serve's prefills of one request
+D256_HEADS = {(4, 512): 2, (1, 4096): 2, (1, 384): 1}
+
+
 def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64, Dv=None,
                  window=None, row=None, grad=False):
     """Causal prefill at q/k width D and v width Dv (D by default), with a
@@ -1056,6 +1075,14 @@ def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64, Dv=None,
                                                      is_causal=True)
     # the (query, key) pairs the mask keeps: query i sees min(i + 1, window)
     pairs = sum(min(i + 1, window or S) for i in range(S))
+    # bf16 at D 256 in the two-head layout (recurrentgemma-9b at B 4): held
+    # and timed in turns against the one-head layout on the same inputs
+    info = (K.flash_attn.tc_info(B, S, S, H, KV, D, Dv)
+            if dtype == torch.bfloat16 and D == 256 else None)
+    check(info is None or info["heads"] == D256_HEADS.get((B, S),
+                                                          info["heads"]),
+          f"flash_attention bf16 q{tuple(q.shape)}: layout {info}")
+    two_heads = info is not None and info["heads"] == 2
     return {"shape": f"q{tuple(q.shape)} {kv_shape} causal"
                      + (f" window {window}" if window else ""),
             "out": out, "ref": ref,
@@ -1071,7 +1098,13 @@ def kernel_flash(torch, K, dtype, S, B=4, H=32, KV=8, D=64, Dv=None,
                         else ("flash_tf32x3_kernel",) if D <= 128
                         else ("flash_tf32x3_d256_kernel",)),
             "lib_kernels": dtype == torch.float32,
-            "repeats": dtype == torch.float32 and S == 512,
+            "repeats": dtype == torch.float32 and S == 512 or two_heads,
+            **({} if not two_heads else {
+                "before": (lambda: K.flash_attn._launch_heads(
+                    q, k, v, 1, window=window), COUNTER_SYMBOLS[
+                        "flash_attention"]),
+                "before_what": "the one-head layout",
+                "note": f"two heads a CTA: {info}"}),
             "fns": (lambda: K.flash_attention(q, k, v, window=window),
                     lambda: K.flash_attention_plain(q, k, v, window=window),
                     lib),
@@ -1197,33 +1230,35 @@ def ssd_cuda_cores(torch, x, dt, A, Bm, Cm, chunk):
 
 def before_vs(torch, r, kernel_fn, dname, what):
     """The kernel against the kernels it replaced (``r["before"]``: their
-    call and their profiler symbols), on the same inputs in one run: both
+    call and their profiler symbols; ``r["before_what"]`` names them, by
+    default "the kernel it replaced"), on the same inputs in one run: both
     held to the plain version; events, host time and device time from the
     profiler in turns (before, kernel, kernel, before), the replaced pair's
     device time by kernel; fails when the kernel's device time is the
     longer. Returns the replaced pair's numbers for the case's JSON row."""
     before, symbols = r["before"]
+    who_b = r.get("before_what", "the kernel it replaced")
     err = compare(torch, before(), r["ref"], dname,
-                  f"{what}, the kernel it replaced", r.get("tols"))
+                  f"{what}, {who_b}", r.get("tols"))
     ev, ev_b, _ = in_turns(lambda f: cuda_ms(torch, f), kernel_fn, before)
     host, host_b, _ = in_turns(lambda f: host_us(torch, f), kernel_fn,
                                before)
     turns = []
-    for fn, syms, who in ((before, symbols, "the kernel it replaced"),
+    for fn, syms, who in ((before, symbols, who_b),
                           (kernel_fn, r["symbols"], "the kernel"),
                           (kernel_fn, r["symbols"], "the kernel"),
-                          (before, symbols, "the kernel it replaced")):
+                          (before, symbols, who_b)):
         ms, _, missing = device_ms(torch, fn, f"{who}, {what}",
                                    symbols=syms)
         check_trace(ms, missing, f"{what}, {who}")
         turns.append(ms)
     dev, dev_b = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
     _, by_kernel, _, _ = traced_device_s(torch, before,
-                                         f"{what}, the kernel it replaced, "
-                                         f"by kernel", symbols)
+                                         f"{what}, {who_b}, by kernel",
+                                         symbols)
     check(dev <= dev_b, f"{what}: device time {dev:.4f} ms, longer than "
-                        f"the {dev_b:.4f} ms of the kernel it replaced")
-    print(f"[kernels] {what}: against the kernel it replaced, same inputs "
+                        f"the {dev_b:.4f} ms of {who_b}")
+    print(f"[kernels] {what}: against {who_b}, same inputs "
           f"(its max|err| {err:.3e}): events {ev:.4f} vs {ev_b:.4f} ms, host "
           f"{host:.2f} vs {host_b:.2f} us per call, device in turns "
           f"(replaced, kernel, kernel, replaced) "
@@ -1344,6 +1379,11 @@ def phase_kernels(torch):
                                                  KV=1, D=256, window=2048)))
         cases.append(("flash_attention", dt,
                       lambda dt=dt: kernel_flash(torch, K, dt, 4096, B=1,
+                                                 H=16, KV=1, D=256,
+                                                 window=2048)))
+        # its serve's longest prefill: one request of 384 (one head a CTA)
+        cases.append(("flash_attention", dt,
+                      lambda dt=dt: kernel_flash(torch, K, dt, 384, B=1,
                                                  H=16, KV=1, D=256,
                                                  window=2048)))
         cases.append(("ragged_decode_attention", dt,

@@ -30,7 +30,8 @@
 // in bfloat16, and from S of about 250 in float32, whose products cost
 // three TF32 ones each.
 //
-// One C entry point, three kernels chosen by dtype and width:
+// One C entry point, three kernels chosen by dtype and width (and at D =
+// 256 in bfloat16 two layouts chosen by the grid):
 //
 // bfloat16 (what the serve runs): flash_tc_kernel<D, DV, KS, NC>, on the
 // tensor cores, instantiated at the pairs (D, DV) = (32, 32), (64, 64), (128,
@@ -40,16 +41,15 @@
 // each K/V tile the producer loads, so a tile serves NC * 64 query rows. NC
 // is 4 at D = DV <= 64 (2 for G 2 and 3, 1 for G 1) and 1 at D = 128 (two
 // heads a CTA lost in turns to one head with two CTAs an SM), at D = 256
-// (registers: two consumers get 168 registers a thread and spill, one gets
-// 208 and does not) and at the MLA pairs (two or four q-row tiles of one
-// head a CTA lost in turns to one row tile with three CTAs an SM: the (128,
-// 64) pair's CTA holds 66,600 bytes of shared memory and 160 threads); a
-// group of G > NC heads takes (G + NC - 1) / NC CTAs side by side, each
-// loading the group's K/V tiles, mostly from L2. A producer warp streams K
-// and V tiles by TMA (cp.async.bulk.tensor through 4-D tensor maps (B, T,
-// KV, width) with a box of (1, 64, 1, <= 64 columns: two boxes per row of a
-// tile at D = 128, four at D = 256), so rows t >= T of a batch row and
-// columns past a head's width read as zeros; V's map is DV wide) into a
+// where the grid is small (below) and at the MLA pairs (two or four q-row
+// tiles of one head a CTA lost in turns to one row tile with three CTAs an
+// SM: the (128, 64) pair's CTA holds 66,600 bytes of shared memory and 160
+// threads); a group of G > NC heads takes (G + NC - 1) / NC CTAs side by
+// side, each loading the group's K/V tiles, mostly from L2. A producer warp
+// streams K and V tiles by TMA (cp.async.bulk.tensor through 4-D tensor maps
+// (B, T, KV, width) with a box of (1, 64, 1, <= 64 columns: two boxes per
+// row of a tile at D = 128, four at D = 256), so rows t >= T of a batch row
+// and columns past a head's width read as zeros; V's map is DV wide) into a
 // ring of 2-4 stages with mbarrier completion: tile j + 1 loads while tile j
 // computes. Each consumer warpgroup loads its Q tile by TMA, forms S = Q K^T
 // with wgmma m64n64k16 (both operands K-major from shared memory, 128-byte
@@ -70,8 +70,27 @@
 // the warpgroups taking turns at the tensor cores; at D 128 and MLA, where
 // ptxas then serialized the wgmmas), and rescaling l and acc only when a
 // row's max grew by more than 2^8. K/V tiles are not multicast across a
-// cluster (PERF.md: what the K/V loads cost at D 128, by
-// tools/flash_ab.py --probe no-kv-loads).
+// cluster (PERF.md: what the K/V loads cost at D 128 and at D 256 in two
+// heads a CTA, by tools/flash_ab.py --probe no-kv-loads / pp-no-kv-loads).
+//
+// bfloat16 at D = 256 (recurrentgemma-9b: 16 q heads over one kv head, so
+// every head of a group reads the same K/V tiles): a consumer's tile is 16
+// wgmmas of S (Q and K both from shared memory), a softmax on the CUDA cores
+// that takes as long as either product, then 4 of P V; one consumer a CTA
+// (208 registers, its 230,456 bytes of shared memory leave one CTA an SM)
+// idles the tensor cores through every softmax, and 16 CTAs read each K/V
+// tile from L2. Where the two-head grid, KV * ceil(G / 2) * B * q-tiles
+// CTAs, still fills the card (heads_at_256), flash_tc_kernel_pp takes two
+// heads of a group a CTA: two consumer warpgroups share each K/V tile (a
+// tile serves 128 query rows) and take turns at the tensor cores, one's
+// softmax under the other's products, with registers moved to them by
+// setmaxnreg; its output leaves through shared memory and one TMA store a
+// 64-column atom, since the direct stores of eight 128-byte lines a warp
+// instruction held each CTA for ~4,400 cycles (its design note below).
+// Where the two-head grid would not fill the card (the serve's prefills of
+// one request at S <= 384: 8-48 CTAs) flash_tc_kernel<256, DV, 16, 1> runs
+// as before. Both give the same bits: the same products in the same order,
+// the same softmax.
 //
 // float32 at D <= 128 (the exact checks, training): flash_tf32x3_kernel,
 // on the tensor cores at
@@ -866,8 +885,8 @@ constexpr int kRows = repro::kTileRows;   // q rows and keys per tile
 // K/V ring depth: four stages at D <= 64 (16 KB of K and V), two at D =
 // 128 (24 KB at DV 64, 32 KB at DV 128: three CTAs of the MLA pair fit an
 // SM, where three stages left two and lost in turns) and three at D = 256
-// (up to 64 KB beside its one 32 KB Q tile: 230,456 bytes of the 232,448 a
-// block may have)
+// in one head a CTA (up to 64 KB beside its one 32 KB Q tile: 230,456 bytes
+// of the 232,448 a block may have; two heads a CTA: namespace pp)
 template <int D>
 __host__ __device__ constexpr int stages() {
   return D == 128 ? 2 : D > 128 ? 3 : 4;
@@ -880,6 +899,145 @@ constexpr size_t smem_bytes() {
   // 1 KB of slack to align the tiles to the 1024-byte swizzle period
   return 1024 + (size_t)(NC + stages<D>()) * Tile<D>::kBytes +
          (size_t)stages<D>() * Tile<DV>::kBytes + 8 * (2 * stages<D>() + NC);
+}
+
+// The consumers' steps between the products. Fragments (wgmma.cuh): s[4 jj
+// + 2 h + e] is row row0 + 8 h, key k0 + 8 jj + 2 (lane % 4) + e of a
+// 64-key tile; acc[4 jj + 2 h + e] the same rows, column 8 jj + 2 (lane %
+// 4) + e.
+
+// The online softmax of one key tile for the 64 rows q0 ... q0 + 63: masks
+// the keys past T, above the causal diagonal and below the window (only in
+// a tile that crosses one of them), takes each row's max and sum over its
+// quad, rescales l and acc by the change of the row max (ex2 on the
+// log2-scaled scores) and packs P as bf16 A registers
+template <int DV>
+__device__ __forceinline__ void softmax_tile(float (&s)[32],
+                                             float (&acc)[DV / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             uint32_t (&pa)[4][4], int k0,
+                                             int q0, int row0, int lane,
+                                             int T, int q_offset, int window,
+                                             float scale_log2) {
+  const bool edge =
+      k0 + kRows > T || k0 + kRows - 1 > q_offset + q0 ||
+      (window > 0 && k0 <= q_offset + q0 + kRows - 1 - window);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = q_offset + row0 + 8 * h;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * jj + 2 * h + e];
+        if (edge) {
+          const int kpos = k0 + 8 * jj + 2 * (lane & 3) + e;
+          const bool ok = kpos < T && kpos <= qpos &&
+                          (window <= 0 || kpos > qpos - window);
+          if (!ok) x = -INFINITY;
+        }
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[h], mx);
+    // a row that has seen no key yet keeps p = 0 and l = 0
+    const float m_use = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+    const float corr = ex2(m[h] * scale_log2 - m_use);
+    m[h] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * jj + 2 * h + e];
+        x = ex2(fmaf(x, scale_log2, -m_use));
+        sum += x;
+      }
+    l[h] = l[h] * corr + sum;
+#pragma unroll
+    for (int jj = 0; jj < DV / 8; ++jj) {
+      acc[4 * jj + 2 * h] *= corr;
+      acc[4 * jj + 2 * h + 1] *= corr;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// 1 / a row's sum, its four lanes' parts added over the quad
+__device__ __forceinline__ float inv_row_sum(float l) {
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  return 1.f / fmaxf(l, 1e-30f);
+}
+
+// Each row's output, acc over the row's sum in bf16; rows past S and
+// columns past Dv are not stored
+template <int DV>
+__device__ __forceinline__ void store_tile(const float (&acc)[DV / 2],
+                                           const float (&l)[2],
+                                           __nv_bfloat16* o, int b, int S,
+                                           int H, int head, int Dv, int row0,
+                                           int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float inv = inv_row_sum(l[h]);
+    const int row = row0 + 8 * h;
+    if (row >= S) continue;
+    __nv_bfloat16* orow = o + (((size_t)b * S + row) * H + head) * Dv;
+#pragma unroll
+    for (int jj = 0; jj < DV / 8; ++jj) {
+      if (8 * jj >= Dv) continue;        // columns past Dv are not stored
+      const __nv_bfloat162 v = __floats2bfloat162_rn(
+          acc[4 * jj + 2 * h] * inv, acc[4 * jj + 2 * h + 1] * inv);
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj + 2 * (lane & 3)) =
+          v;
+    }
+  }
+}
+
+// The same output through shared memory: the warpgroup writes its 64 rows
+// as bf16 into `tile` (its Q tile, dead after its last S), laid out as TMA
+// loads a tile, then its first thread stores them with one TMA store per
+// 64-column atom (rows past S and columns past Dv fall outside the map) and
+// waits only until the copy has read shared memory. Each thread's stores
+// hit 32 distinct banks (the 128-byte swizzle), where the direct stores of
+// store_tile touch eight 128-byte lines a warp instruction.
+template <int DV>
+__device__ __forceinline__ void store_tile_tma(const float (&acc)[DV / 2],
+                                               const float (&l)[2],
+                                               uint32_t tile,
+                                               const CUtensorMap* to,
+                                               int b, int head, int q0,
+                                               int wg, int wl, int lane) {
+  using LV = Tile<DV>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float inv = inv_row_sum(l[h]);
+    const int r = 16 * wl + (lane >> 2) + 8 * h;
+#pragma unroll
+    for (int jj = 0; jj < DV / 8; ++jj) {
+      const uint32_t v = pack_bf16(acc[4 * jj + 2 * h] * inv,
+                                   acc[4 * jj + 2 * h + 1] * inv);
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                       tile + LV::elem(r, 8 * jj + 2 * (lane & 3))),
+                   "r"(v)
+                   : "memory");
+    }
+  }
+  // written by the generic proxy, read by the TMA's async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  repro::named_sync(3 + wg, 128);
+  if ((threadIdx.x & 127) == 0) {
+    repro::tma_store_head_tile<DV>(to, tile, head, q0, b);
+    repro::bulk_commit();
+    repro::bulk_wait_read();
+  }
 }
 
 // One CTA: one q tile of 64 rows of NC heads of a KV group, one consumer
@@ -995,56 +1153,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       repro::wgmma_wait_all();
       repro::fence_regs(s);
 
-      const bool edge = k0 + kRows > T ||
-                        k0 + kRows - 1 > q_offset + q0 ||
-                        (window > 0 &&
-                         k0 <= q_offset + q0 + kRows - 1 - window);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int qpos = q_offset + row0 + 8 * h;
-        float mx = -INFINITY;
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& x = s[4 * jj + 2 * h + e];
-            if (edge) {
-              const int kpos = k0 + 8 * jj + 2 * (lane & 3) + e;
-              const bool ok = kpos < T && kpos <= qpos &&
-                              (window <= 0 || kpos > qpos - window);
-              if (!ok) x = -INFINITY;
-            }
-            mx = fmaxf(mx, x);
-          }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[h], mx);
-        // a row that has seen no key yet keeps p = 0 and l = 0
-        const float m_use = m_new == -INFINITY ? 0.f : m_new * scale_log2;
-        const float corr = ex2(m[h] * scale_log2 - m_use);
-        m[h] = m_new;
-        float sum = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& x = s[4 * jj + 2 * h + e];
-            x = ex2(fmaf(x, scale_log2, -m_use));
-            sum += x;
-          }
-        l[h] = l[h] * corr + sum;
-#pragma unroll
-        for (int jj = 0; jj < DV / 8; ++jj) {
-          acc[4 * jj + 2 * h] *= corr;
-          acc[4 * jj + 2 * h + 1] *= corr;
-        }
-      }
       uint32_t pa[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      softmax_tile<DV>(s, acc, m, l, pa, k0, q0, row0, lane, T, q_offset,
+                       window, scale_log2);
 
       // O += P V at the V tile's width DV
       repro::fence_regs(acc);
@@ -1065,25 +1176,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(empty(st));
   }
 
-  if (!active) return;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float den = l[h];
-    den += __shfl_xor_sync(0xffffffffu, den, 1);
-    den += __shfl_xor_sync(0xffffffffu, den, 2);
-    const float inv = 1.f / fmaxf(den, 1e-30f);
-    const int row = row0 + 8 * h;
-    if (row >= S) continue;
-    __nv_bfloat16* orow = o + (((size_t)b * S + row) * H + head) * Dv;
-#pragma unroll
-    for (int jj = 0; jj < DV / 8; ++jj) {
-      if (8 * jj >= Dv) continue;        // columns past Dv are not stored
-      const __nv_bfloat162 v = __floats2bfloat162_rn(
-          acc[4 * jj + 2 * h] * inv, acc[4 * jj + 2 * h + 1] * inv);
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj + 2 * (lane & 3)) =
-          v;
-    }
-  }
+  if (active) store_tile<DV>(acc, l, o, b, S, H, head, Dv, row0, lane);
 }
 
 // One launch; with info, no launch: the instantiation's registers a
@@ -1123,20 +1216,291 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// ---- D = 256, two heads a CTA: consumers that take turns ---------------
+//
+// Two consumer warpgroups on two q heads of one KV group share every K/V
+// tile (under MQA both heads attend the same keys with the same bounds, so
+// both run the same tiles), and a producer warpgroup streams them. One
+// warpgroup's softmax runs on the CUDA cores while the other's products run
+// on the tensor cores: turn k of a warpgroup is P V of tile k - 1, then S of
+// tile k, each ended by its wgmma wait, so within a warpgroup the order is
+// S, wait, softmax, P V, wait as in flash_tc_kernel. Named barriers 1 and 2
+// hand the turn over: warpgroup w waits on barrier 1 + w (bar.sync, 256
+// threads) and, its products done, arrives on the other's (bar.arrive), so
+// the turns alternate 0, 1, 0, 1, ...; warpgroup 1 arrives on barrier 1
+// once before its loop (warpgroup 0 goes first) and not after its last
+// turn, so every barrier's arrivals match its waits. A CTA whose second
+// head is past the group (G odd, the last pass) runs its one consumer
+// without turns. K and V have a ring of two stages each with barriers of
+// their own: K(j) is freed by both consumers' S(j), V(j) by their P V(j),
+// so the producer refills K a turn and a half before V. Registers move by
+// setmaxnreg: the producer warpgroup drops to 40 a thread (one lane issues
+// TMA), the consumers rise to 232 (2 x 128 x 232 + 128 x 40 = 64,512 of
+// the SM's 65,536; the launch's 168 a thread is what 384 threads may
+// have), room for the 128-float accumulator, S's 32 floats and P's 16 A
+// registers. Shared memory: two 32 KB Q tiles, two stages of K (32 KB) and
+// of V (DV wide), 197,712 bytes at DV 256: one CTA an SM. Thread 0 issues
+// both Q tiles as soon as the barriers exist, ahead of the producer's
+// first K/V tiles. Each warpgroup's output goes out through its Q tile
+// (store_tile_tma). What bounds it (PERF.md, tools/flash_ab.py --probe
+// tc-phases): a turn's products run at ~70 % of the tensor cores' rate (S
+// reads both operands from shared memory), and a CTA spends about a fifth
+// of its time before its loop, loading 192 KB into the SM, and a tenth
+// storing; removing the K/V loads after the first fill changed nothing.
+namespace pp {
+
+constexpr int kD = 256;
+constexpr int kStages = 2;
+constexpr int kThreads = 3 * 128;   // consumers 0 and 1, then the producer
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+static_assert(2 * 128 * kConsumerRegs + 128 * kProducerRegs <= 65536,
+              "pp: the SM's registers");
+
+template <int DV>
+constexpr size_t smem_bytes() {
+  // 1 KB of slack to align the tiles to the 1024-byte swizzle period
+  return 1024 + (size_t)(2 + kStages) * Tile<kD>::kBytes +
+         (size_t)kStages * Tile<DV>::kBytes + 8 * (4 * kStages + 2);
+}
+static_assert(smem_bytes<256>() <= 232448, "pp: a block's shared memory");
+
+}  // namespace pp
+
+template <int DV, int KS>
+__global__ void __launch_bounds__(pp::kThreads, 1)
+flash_tc_kernel_pp(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap to, int S, int T,
+                   int H, int KV, int q_offset, int window,
+                   float scale_log2) {
+  constexpr int D = pp::kD;
+  constexpr int kStages = pp::kStages;
+  static_assert(KS >= 1 && KS <= D / 16, "flash_tc_kernel_pp: k slices");
+  using LQ = Tile<D>;                    // Q and K tiles
+  using LV = Tile<DV>;                   // V tiles
+  constexpr int kOut = DV / 2;           // accumulator floats per thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;                              // 2 tiles
+  const uint32_t k_s = q_s + 2 * LQ::kBytes;              // kStages tiles
+  const uint32_t v_s = k_s + kStages * LQ::kBytes;        // kStages tiles
+  const uint32_t bars = v_s + kStages * LV::kBytes;
+  auto full_k = [&](int st) { return bars + 8 * st; };
+  auto full_v = [&](int st) { return bars + 8 * (kStages + st); };
+  auto empty_k = [&](int st) { return bars + 8 * (2 * kStages + st); };
+  auto empty_v = [&](int st) { return bars + 8 * (3 * kStages + st); };
+  auto qbar = [&](int w) { return bars + 8 * (4 * kStages + w); };
+
+  // grid (KV * passes, B, q-tiles) as flash_tc_kernel's, two heads a pass
+  const int G = H / KV;
+  const int passes = (G + 1) / 2;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;
+  const int kvh = blockIdx.x / passes;
+  const int pass = blockIdx.x % passes;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const bool both = 2 * pass + 1 < G;    // two heads: the turns are taken
+
+  const int last_q = q_offset + min(q0 + kRows, S) - 1;
+  const int k_hi = min(T, last_q + 1);
+  int k_lo = 0;
+  if (window > 0) k_lo = max(0, q_offset + q0 - window + 1);
+  k_lo = (k_lo / kRows) * kRows;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kRows - 1) / kRows : 0;
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty_k(st), both ? 8 : 4);   // lane 0 of each consumer warp
+      mbar_init(empty_v(st), both ? 8 : 4);
+    }
+    mbar_init(qbar(0), 1);
+    mbar_init(qbar(1), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // the Q tiles first, ahead of the producer's K/V tiles in the SM's
+    // load queue: the first S needs Q and K(0) only
+    for (int w = 0; w < (both ? 2 : 1); ++w) {
+      mbar_expect_tx(qbar(w), LQ::kBytes);
+      tma_head_tile<D>(q_s + w * LQ::kBytes, &tq, qbar(w),
+                       kvh * G + 2 * pass + w, q0, b);
+    }
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer warpgroup: its first warp's lane 0 issues K and V of tile j
+    // as soon as both consumers have freed the stage's previous tile
+    repro::setmaxnreg_dec<pp::kProducerRegs>();
+    if (warp == 8) {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        const int free_parity = ((j / kStages) & 1) ^ 1;
+        const int k0 = k_lo + j * kRows;
+        mbar_wait(empty_k(st), free_parity);
+        repro::jitter(1);
+        if (lane == 0) {
+          mbar_expect_tx(full_k(st), LQ::kBytes);
+          tma_head_tile<D>(k_s + st * LQ::kBytes, &tk, full_k(st), kvh, k0,
+                           b);
+        }
+        mbar_wait(empty_v(st), free_parity);
+        repro::jitter(2);
+        if (lane == 0) {
+          mbar_expect_tx(full_v(st), LV::kBytes);
+          tma_head_tile<DV>(v_s + st * LV::kBytes, &tv, full_v(st), kvh, k0,
+                            b);
+        }
+        __syncwarp();
+      }
+    }
+    return;
+  }
+
+  repro::setmaxnreg_inc<pp::kConsumerRegs>();
+  const int wg = warp >> 2;              // consumer warpgroup = head slot
+  if (wg == 1 && !both) return;
+  const int wl = warp & 3;
+  const uint32_t my_q = q_s + wg * LQ::kBytes;
+  const int head = kvh * G + 2 * pass + wg;
+  float acc[kOut];
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int row0 = q0 + 16 * wl + (lane >> 2);   // rows row0, row0 + 8
+  uint32_t pa[4][4];                     // P of the last tile, as A
+  mbar_wait(qbar(wg), 0);
+  if (both && wg == 1) repro::named_arrive(1, 256);
+
+  // turn j: P V of tile j - 1 (j > 0), then S of tile j (j < n_tiles)
+  for (int j = 0; j <= n_tiles; ++j) {
+    const int st = j % kStages, sp = (j + 1) % kStages;   // tiles j, j - 1
+    const int k0 = k_lo + j * kRows;
+    if (j < n_tiles) mbar_wait(full_k(st), (j / kStages) & 1);
+    if (j > 0) mbar_wait(full_v(sp), ((j - 1) / kStages) & 1);
+    repro::jitter(6);
+    if (both) repro::named_sync(1 + wg, 256);
+    if (j > 0) {
+      // O += P V at the V tile's width DV
+      repro::fence_regs(acc);
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        repro::wgmma_rs<DV>(acc, pa[kk],
+                            LV::mnmajor(v_s + sp * LV::kBytes, kk));
+      repro::wgmma_commit();
+      repro::wgmma_wait_all();
+      repro::fence_regs(acc);
+    }
+    float s[32];
+    if (j < n_tiles) {
+      // S = Q K^T over the KS k slices that hold columns of q and k
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        repro::wgmma_ss_n64(s, LQ::kmajor(my_q, kk),
+                            LQ::kmajor(k_s + st * LQ::kBytes, kk), kk > 0);
+      repro::wgmma_commit();
+      repro::wgmma_wait_all();
+      repro::fence_regs(s);
+    }
+    if (both && !(wg == 1 && j == n_tiles))
+      repro::named_arrive(2 - wg, 256);
+    // this warp's reads of K(j) and V(j - 1) are done
+    repro::jitter(7);
+    __syncwarp();
+    if (lane == 0) {
+      if (j < n_tiles) mbar_arrive(empty_k(st));
+      if (j > 0) mbar_arrive(empty_v(sp));
+    }
+    if (j < n_tiles)
+      softmax_tile<DV>(s, acc, m, l, pa, k0, q0, row0, lane, T, q_offset,
+                       window, scale_log2);
+  }
+
+  store_tile_tma<DV>(acc, l, my_q, &to, b, head, q0, wg, wl, lane);
+}
+
+// One launch of the two-head layout, or with info its report (as
+// launch_tc's)
+template <int DV, int KS>
+int launch_pp(const void* q, const void* k, const void* v, void* o,
+              const Shape& sh, cudaStream_t stream, int* info) {
+  static int granted = 48 * 1024;
+  constexpr size_t smem = pp::smem_bytes<DV>();
+  auto kernel = flash_tc_kernel_pp<DV, KS>;
+  cudaError_t err = repro::allow_smem(kernel, smem, &granted);
+  if (err != cudaSuccess) return (int)err;
+  if (info != nullptr) {
+    cudaFuncAttributes a{};
+    err = cudaFuncGetAttributes(&a, kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &info[2], kernel, pp::kThreads, smem);
+    info[0] = a.numRegs;
+    info[1] = (int)a.localSizeBytes;
+    info[3] = (int)smem;
+    info[4] = 2;
+    return (int)err;
+  }
+  CUtensorMap tq, tk, tv, to;
+  if (!head_tensor_map<pp::kD>(&tq, q, sh.B, sh.S, sh.H, sh.Dqk) ||
+      !head_tensor_map<pp::kD>(&tk, k, sh.B, sh.T, sh.KV, sh.Dqk) ||
+      !head_tensor_map<DV>(&tv, v, sh.B, sh.T, sh.KV, sh.Dv) ||
+      !head_tensor_map<DV>(&to, o, sh.B, sh.S, sh.H, sh.Dv))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(sh.KV * ((sh.H / sh.KV + 1) / 2), sh.B,
+            (sh.S + kRows - 1) / kRows);
+  kernel<<<grid, pp::kThreads, smem, stream>>>(
+      tq, tk, tv, to, sh.S, sh.T, sh.H, sh.KV, sh.q_offset, sh.window,
+      sh.scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// The layout at D = 256 (heads a CTA) that a launch of these sizes takes:
+// two where G >= 2 and the two-head grid, KV * ceil(G / 2) * B * q-tiles
+// CTAs at one an SM, still fills the card's SMs; else one (the serve's
+// prefills of one request at S <= 384 give 8-48 two-head CTAs, under a
+// wave: one head a CTA keeps 16-96 of them and two or three an SM)
+int heads_at_256(const Shape& sh) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  const int G = sh.H / sh.KV;
+  const long long ctas = (long long)sh.KV * ((G + 1) / 2) * sh.B *
+                         ((sh.S + kRows - 1) / kRows);
+  return G >= 2 && ctas >= sms ? 2 : 1;
+}
+
 // NC consumer warpgroups by the pair (D, DV) and the group G: at DV = D <=
 // 64, 4, 2 or 1 heads of a group (registers: four accumulators of 64
 // columns fit); one at D = DV = 128 (two heads a CTA, each K/V tile read by
 // both consumers, lost in turns at mistral-nemo-12b's G 4 to one head with
-// two CTAs an SM), at D = 256 (registers) and at the MLA pairs (more q-row
-// tiles of one head a CTA lost in turns to more, smaller CTAs). Q K^T runs
-// D / 16 k slices, and at the MLA pairs 3 D / 64 where Dqk <= 3 D / 4
-// (MiniCPM3's 96 of 128: 6; its reduced 48 of 64: 3).
+// two CTAs an SM) and at the MLA pairs (more q-row tiles of one head a CTA
+// lost in turns to more, smaller CTAs); at D = 256 two (flash_tc_kernel_pp)
+// or one by heads_at_256, or `heads` where a caller forces the layout. Q
+// K^T runs D / 16 k slices, and at the MLA pairs 3 D / 64 where Dqk <= 3 D
+// / 4 (MiniCPM3's 96 of 128: 6; its reduced 48 of 64: 3).
 template <int D, int DV>
 int dispatch_pair(const void* q, const void* k, const void* v, void* o,
-                  const Shape& sh, cudaStream_t stream, int* info) {
+                  const Shape& sh, cudaStream_t stream, int* info,
+                  int heads) {
   constexpr int kAll = D / 16;
   if constexpr (D == 256) {
+    if ((heads == 0 ? heads_at_256(sh) : heads) == 2)
+      return launch_pp<DV, kAll>(q, k, v, o, sh, stream, info);
     return launch_tc<D, DV, kAll, 1>(q, k, v, o, sh, stream, info);
+  } else if (heads != 0) {
+    return (int)cudaErrorInvalidValue;   // a layout is forced at 256 only
   } else if constexpr (DV < D) {
     constexpr int kMla = 3 * D / 64;
     if ((sh.Dqk + 15) / 16 <= kMla)
@@ -1157,24 +1521,32 @@ int dispatch_pair(const void* q, const void* k, const void* v, void* o,
 // (256, 128) and (256, 64). Any other pair is refused with
 // cudaErrorNotSupported.
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             const Shape& sh, cudaStream_t stream, int* info) {
+             const Shape& sh, cudaStream_t stream, int* info, int heads) {
   switch (sh.width * 1000 + sh.v_width) {
     case 32032:
-      return dispatch_pair<32, 32>(q, k, v, o, sh, stream, info);
+      return dispatch_pair<32, 32>(q, k, v, o, sh, stream, info,
+                                      heads);
     case 64064:
-      return dispatch_pair<64, 64>(q, k, v, o, sh, stream, info);
+      return dispatch_pair<64, 64>(q, k, v, o, sh, stream, info,
+                                      heads);
     case 64032:
-      return dispatch_pair<64, 32>(q, k, v, o, sh, stream, info);
+      return dispatch_pair<64, 32>(q, k, v, o, sh, stream, info,
+                                      heads);
     case 128128:
-      return dispatch_pair<128, 128>(q, k, v, o, sh, stream, info);
+      return dispatch_pair<128, 128>(q, k, v, o, sh, stream, info,
+                                      heads);
     case 128064:
-      return dispatch_pair<128, 64>(q, k, v, o, sh, stream, info);
+      return dispatch_pair<128, 64>(q, k, v, o, sh, stream, info,
+                                      heads);
     case 256256:
-      return dispatch_pair<256, 256>(q, k, v, o, sh, stream, info);
+      return dispatch_pair<256, 256>(q, k, v, o, sh, stream, info,
+                                      heads);
     case 256128:
-      return dispatch_pair<256, 128>(q, k, v, o, sh, stream, info);
+      return dispatch_pair<256, 128>(q, k, v, o, sh, stream, info,
+                                      heads);
     case 256064:
-      return dispatch_pair<256, 64>(q, k, v, o, sh, stream, info);
+      return dispatch_pair<256, 64>(q, k, v, o, sh, stream, info,
+                                      heads);
     default:
       return (int)cudaErrorNotSupported;
   }
@@ -1216,7 +1588,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32) return f32::dispatch(q, k, v, o, sh, s);
   if (dtype == repro::kBFloat16)
-    return tc::dispatch(q, k, v, o, sh, s, nullptr);
+    return tc::dispatch(q, k, v, o, sh, s, nullptr, 0);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1230,5 +1602,27 @@ extern "C" int repro_flash_tc_info(int B, int S, int T, int H, int KV,
   Shape sh;
   if (!make_shape(B, S, T, H, KV, width, Dqk, Dv, 0, -1, 1.f, &sh))
     return (int)cudaErrorInvalidValue;
-  return tc::dispatch(nullptr, nullptr, nullptr, nullptr, sh, nullptr, info);
+  return tc::dispatch(nullptr, nullptr, nullptr, nullptr, sh, nullptr, info,
+                      0);
+}
+
+// The bf16 kernel at width 256 in the layout `heads` (1 or 2 q heads a
+// CTA) whatever the grid, to compare the two on the same inputs; with
+// info, no launch: info as repro_flash_tc_info's. The same arguments and
+// return codes as repro_flash_attention's otherwise (bfloat16 only); any
+// other width or heads is refused with cudaErrorInvalidValue.
+extern "C" int repro_flash_attention_heads(const void* q, const void* k,
+                                           const void* v, void* o, int B,
+                                           int S, int T, int H, int KV,
+                                           int width, int Dqk, int Dv,
+                                           int q_offset, int window,
+                                           float scale, int heads, int* info,
+                                           void* stream) {
+  Shape sh;
+  if (width != 256 || (heads != 1 && heads != 2) ||
+      !make_shape(B, S, T, H, KV, width, Dqk, Dv, q_offset, window, scale,
+                  &sh))
+    return (int)cudaErrorInvalidValue;
+  return tc::dispatch(q, k, v, o, sh, static_cast<cudaStream_t>(stream),
+                      info, heads);
 }

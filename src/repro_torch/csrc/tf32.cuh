@@ -68,6 +68,10 @@ struct Plane {
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+// arrive on named barrier `id` (of `threads`) without waiting for it
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // The synchronization check's builds (-DREPRO_SYNC_JITTER, made only by
 // tools/check_f32_sync.py) make each warp sleep a pseudo-random 0-4 us at

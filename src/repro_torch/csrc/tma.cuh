@@ -137,6 +137,36 @@ __device__ __forceinline__ void tma_head_tile(uint32_t dst,
     tma_load4(dst + a * L::kAtomBytes, map, bar, a * L::kAtomCols, head, row,
               b);
 }
+// the reverse: the 64 x D tile at `src` in shared memory (laid out as
+// tma_head_tile leaves it) stored to head `head`, rows `row` ..., batch row
+// b through a 4-D map; rows and columns past the map's bounds are not
+// written. One thread issues it; bulk_commit and bulk_wait_read follow.
+__device__ __forceinline__ void tma_store4(const CUtensorMap* map,
+                                           uint32_t src, int c0, int c1,
+                                           int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+template <int D>
+__device__ __forceinline__ void tma_store_head_tile(const CUtensorMap* map,
+                                                    uint32_t src, int head,
+                                                    int row, int b) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int a = 0; a < L::kAtoms; ++a)
+    tma_store4(map, src + a * L::kAtomBytes, a * L::kAtomCols, head, row, b);
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until the committed bulk stores have read their shared memory (the
+// writes to global memory go on after it)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);

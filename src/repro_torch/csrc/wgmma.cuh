@@ -40,6 +40,19 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+// Move registers between the warpgroups of a warp-specialized CTA: the
+// calling warpgroup's threads drop to (dec) or rise to (inc) N registers
+// each, N a multiple of 8 in [24, 256]; every warp of the warpgroup runs
+// it, on a path that does not join the other roles' again (else ptxas
+// ignores it, C7508)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 // Shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (16-byte units), layout type 1 = 128-byte swizzle, 2 = 64-byte.
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,

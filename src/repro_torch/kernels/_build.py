@@ -42,8 +42,12 @@ SIGNATURES = {
         # q, k, v, o, B, S, T, H, KV, width, Dqk, Dv, q_offset, window,
         # scale, dtype, stream
         "repro_flash_attention": [_VP] * 4 + [_I] * 10 + [_F, _I, _VP],
-        # B, S, T, H, KV, width, Dqk, Dv, info (six ints out)
-        "repro_flash_tc_info": [_I] * 8 + [_VP]},
+        # B, S, T, H, KV, width, Dqk, Dv, info (five ints out)
+        "repro_flash_tc_info": [_I] * 8 + [_VP],
+        # bf16 at width 256 in a forced layout: q, k, v, o, B, S, T, H, KV,
+        # width, Dqk, Dv, q_offset, window, scale, heads, info, stream
+        "repro_flash_attention_heads": [_VP] * 4 + [_I] * 10
+                                       + [_F, _I, _VP, _VP]},
     "ssd_chunk": {
         # one entry per route. CUDA and tensor cores: x, dt, A, B, C, y,
         # states, cum_exp, decay, final, B, S, nh, hd, N, chunk, then dtype

@@ -88,19 +88,27 @@ def _not_compiled(what: str, D: int, Dv: int) -> ValueError:
                       f"them")
 
 
-def tc_info(B: int, S: int, T: int, H: int, KV: int, D: int, Dv: int):
+def tc_info(B: int, S: int, T: int, H: int, KV: int, D: int, Dv: int,
+            heads: Optional[int] = None):
     """The bf16 kernel instantiation a launch of these sizes runs, read on
     the card without launching it: {"regs", "spill_bytes", "ctas_per_sm",
     "smem", "heads"} (registers and local bytes a thread, by
     ``cudaFuncGetAttributes``; resident CTAs by
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; "heads" the q heads
+    a CTA, the layout). ``heads`` (1 or 2, width 256 only) asks for that
+    layout's instantiation instead of the one the sizes pick."""
     import ctypes
     width = kernel_width(D, Dv)
     if width is None:
         raise ValueError(f"tc_info: head dims q/k {D}, v {Dv}")
     info = (ctypes.c_int * 5)()
-    fn = _build.function("flash_attn", "repro_flash_tc_info")
-    err = fn(B, S, T, H, KV, width, D, Dv, ctypes.addressof(info))
+    if heads is None:
+        fn = _build.function("flash_attn", "repro_flash_tc_info")
+        err = fn(B, S, T, H, KV, width, D, Dv, ctypes.addressof(info))
+    else:
+        fn = _build.function("flash_attn", "repro_flash_attention_heads")
+        err = fn(None, None, None, None, B, S, T, H, KV, width, D, Dv, 0, -1,
+                 1.0, heads, ctypes.addressof(info), None)
     if err == NOT_COMPILED:
         raise _not_compiled("tc_info", D, Dv)
     if err:
@@ -162,6 +170,55 @@ def _forward(q, k, v, window: Optional[int], q_offset: int):
                                      q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    width = _check(q, k, v, window)
+    B, S, H, D = q.shape
+    T, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    out = q.new_empty((B, S, H, Dv))
+    fn = _build.function("flash_attn", "repro_flash_attention")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             B, S, T, H, KV, width, D, Dv, q_offset,
+             -1 if window is None else window, 1.0 / math.sqrt(D),
+             _build.dtype_code(q.dtype),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err == NOT_COMPILED:
+        raise _not_compiled("flash_attention", D, Dv)
+    if err:
+        raise RuntimeError(f"flash_attention: CUDA error {err} at launch "
+                           f"(B={B}, S={S}, T={T}, H={H}, KV={KV}, D={D}, "
+                           f"Dv={Dv})")
+    flash_attention.launches += 1
+    return out
+
+
+def _launch_heads(q, k, v, heads: int, window: Optional[int] = None,
+                  q_offset: int = 0):
+    """The bf16 kernel at width 256 on CUDA inputs in the layout ``heads``
+    (1 or 2 q heads a CTA) whatever the grid; counts nothing. It compares
+    the two layouts on the same inputs (``chip_smoke.py``, the card tests,
+    ``tools/flash_ab.py``); the main path takes the layout the sizes pick.
+    Returns the output."""
+    width = _check(q, k, v, window)
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16 or width != 256 \
+            or heads not in (1, 2):
+        raise ValueError(f"_launch_heads: bf16 at width 256 and heads 1 or "
+                         f"2, got {q.dtype}, width {width}, heads {heads}")
+    B, S, H, D = q.shape
+    T, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    out = q.new_empty((B, S, H, Dv))
+    fn = _build.function("flash_attn", "repro_flash_attention_heads")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             B, S, T, H, KV, width, D, Dv, q_offset,
+             -1 if window is None else window, 1.0 / math.sqrt(D), heads,
+             None, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"_launch_heads: CUDA error {err} at launch "
+                           f"(B={B}, S={S}, T={T}, H={H}, KV={KV}, heads="
+                           f"{heads})")
+    return out
+
+
+def _check(q, k, v, window: Optional[int]) -> int:
+    """Raises on inputs the kernel does not take; returns its width."""
     B, S, H, D = q.shape
     if k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3] \
             or k.shape[0] != B or k.shape[3] != D or H % k.shape[2] != 0:
@@ -183,22 +240,7 @@ def _forward(q, k, v, window: Optional[int], q_offset: int):
                          "(TMA tensor maps)")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be > 0, got {window}")
-    T, KV = k.shape[1], k.shape[2]
-    out = q.new_empty((B, S, H, Dv))
-    fn = _build.function("flash_attn", "repro_flash_attention")
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             B, S, T, H, KV, width, D, Dv, q_offset,
-             -1 if window is None else window, 1.0 / math.sqrt(D),
-             _build.dtype_code(q.dtype),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err == NOT_COMPILED:
-        raise _not_compiled("flash_attention", D, Dv)
-    if err:
-        raise RuntimeError(f"flash_attention: CUDA error {err} at launch "
-                           f"(B={B}, S={S}, T={T}, H={H}, KV={KV}, D={D}, "
-                           f"Dv={Dv})")
-    flash_attention.launches += 1
-    return out
+    return width
 
 
 flash_attention.launches = 0

@@ -443,6 +443,20 @@ def test_flash_kernel_width(D, Dv, width):
     assert K.flash_attn.kernel_width(D, Dv) == width
 
 
+@pytest.mark.parametrize("D,Dv,dtype,heads", [
+    (256, 256, torch.bfloat16, 2), (256, 128, torch.bfloat16, 1),
+    (128, 128, torch.bfloat16, 2), (256, 256, torch.float32, 2)])
+def test_flash_forced_layout_takes_cuda_inputs_only(D, Dv, dtype, heads):
+    """The forced-layout entry (one or two q heads a CTA of the bf16 kernel
+    at width 256, for comparing the layouts on the card) launches or
+    raises: on CPU tensors it raises before any library is built, and it
+    never falls back to the plain version."""
+    q = torch.zeros((1, 64, 2, D), dtype=dtype)
+    v = torch.zeros((1, 64, 2, Dv), dtype=dtype)
+    with pytest.raises(ValueError, match="_launch_heads"):
+        K.flash_attn._launch_heads(q, q, v, heads)
+
+
 def _tf32(x):
     """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
     nearest on the low 13 mantissa bits, ties away from zero (the carry

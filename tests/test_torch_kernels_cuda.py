@@ -323,12 +323,14 @@ def test_flash_kernel_at_mla_widths(cuda, B, S, T, H, q_offset, window, Dqk,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,KV,Dqk,Dv", [(40, 40, 96, 64), (32, 8, 128, 128)])
+@pytest.mark.parametrize("H,KV,Dqk,Dv", [(40, 40, 96, 64), (32, 8, 128, 128),
+                                        (16, 1, 256, 256)])
 def test_flash_bf16_kernel_is_batch_invariant(cuda, H, KV, Dqk, Dv):
-    """minicpm3-4b's MLA prefill and mistral-nemo-12b's heads in bfloat16:
-    row b of a B 4 call equals the same request run at B 1 bit for bit, and
-    a 384-token prompt gives the same rows at S 384 as padded to the 512
-    bucket."""
+    """minicpm3-4b's MLA prefill, mistral-nemo-12b's and recurrentgemma-
+    9b's heads in bfloat16: row b of a B 4 call equals the same request run
+    at B 1 bit for bit, and a 384-token prompt gives the same rows at S 384
+    as padded to the 512 bucket (at D 256 the B 4 calls take two heads a
+    CTA and the B 1 ones one)."""
     g = torch.Generator(device=cuda).manual_seed(7)
     q = torch.randn((4, 512, H, Dqk), generator=g, device=cuda).bfloat16()
     k = torch.randn((4, 512, KV, Dqk), generator=g, device=cuda).bfloat16()
@@ -382,6 +384,75 @@ def test_flash_kernel_at_head_dim_256(cuda, B, S, T, H, KV, window, q_offset,
     time, 32-key tiles); (256, 128) and (136, 64) run at 256 with the
     columns past each width zero."""
     _flash_case(cuda, B, S, T, H, KV, Dqk, dtype, window, q_offset, Dv=Dv)
+
+
+def _flash_layouts(cuda, B, S, T, H, KV, Dqk, Dv, window, q_offset):
+    """The bf16 kernel at width 256 in each forced layout (one and two q
+    heads a CTA) on the same inputs: each within 2e-2 of the plain version,
+    two launches of each bit-equal, and the two layouts bit-equal (the same
+    products and softmax in the same order)."""
+    from repro_torch.kernels.flash_attn import _launch_heads
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((B, S, H, Dqk), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, T, KV, Dqk), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, T, KV, Dv), generator=g, device=cuda).bfloat16()
+    want = K.flash_attention_plain(q, k, v, window=window, q_offset=q_offset)
+    n0 = K.flash_attention.launches
+    outs = {}
+    for heads in (1, 2):
+        got = _launch_heads(q, k, v, heads, window=window, q_offset=q_offset)
+        again = _launch_heads(q, k, v, heads, window=window,
+                              q_offset=q_offset)
+        assert torch.equal(got, again), heads
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        outs[heads] = got
+    assert K.flash_attention.launches == n0     # forced launches count none
+    assert torch.equal(outs[1], outs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,KV,window,q_offset", RGEMMA_FLASH_CASES + [
+    (2, 200, 200, 12, 4, None, 0),       # G 3: the last pass's second
+    (1, 130, 190, 12, 4, 64, 60)])       # consumer idle
+@pytest.mark.parametrize("Dqk,Dv", [(256, 256), (256, 128), (136, 64)])
+def test_flash_bf16_layouts_at_head_dim_256(cuda, B, S, T, H, KV, window,
+                                            q_offset, Dqk, Dv):
+    """recurrentgemma-9b's shapes (and a G of 3) in both layouts of the
+    bf16 kernel at width 256: one head a CTA, and two heads a CTA whose
+    consumer warpgroups share each K/V tile and take turns at the tensor
+    cores."""
+    _flash_layouts(cuda, B, S, T, H, KV, Dqk, Dv, window, q_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [64, 128, 256, 384])
+def test_flash_bf16_at_the_rgemma_serves_prefills(cuda, S):
+    """The rgemma serve's prefills (one request at its exact length, 16 q
+    heads over one kv head of 256, window 2048): the wrapper takes one head
+    a CTA, and both layouts agree."""
+    assert K.flash_attn.tc_info(1, S, S, 16, 1, 256, 256)["heads"] == 1
+    _flash_case(cuda, 1, S, S, 16, 1, 256, torch.bfloat16, 2048, 0)
+    _flash_layouts(cuda, 1, S, S, 16, 1, 256, 256, 2048, 0)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_layout_by_grid_at_head_dim_256(cuda):
+    """Two heads a CTA where the two-head grid still fills the card (B 4 x
+    S 512 at G 16: 256 CTAs), one where it would not (the serve's B 1 x S
+    384: 48) or where a group has one head; the report names the
+    instantiation: no spill, one CTA an SM in the two-head layout."""
+    info = K.flash_attn.tc_info
+    two = info(4, 512, 512, 16, 1, 256, 256)
+    assert two["heads"] == 2 and two["spill_bytes"] == 0
+    assert two["ctas_per_sm"] == 1
+    assert info(1, 384, 384, 16, 1, 256, 256)["heads"] == 1
+    assert info(1, 4096, 4096, 16, 1, 256, 256)["heads"] == 2
+    assert info(4, 512, 512, 4, 4, 256, 256)["heads"] == 1       # G 1
+    assert info(1, 384, 384, 16, 1, 256, 256, heads=2)["heads"] == 2
+    assert info(4, 512, 512, 16, 1, 256, 256, heads=1)["heads"] == 1
+    with pytest.raises(RuntimeError):      # a layout is forced at 256 only
+        info(4, 512, 512, 32, 8, 128, 128, heads=2)
 
 
 @pytest.mark.cuda
