@@ -14,11 +14,11 @@ Phases, always all of them, in order:
            kernel, the float32 flash
            kernel at D 64, any instantiation of the bf16 flash kernel, a
            flash or ragged decode kernel at D 256, any instantiation of
-           ragged decode's tensor-core kernel, a kernel of the SSD
+           ragged decode's two tensor-core kernels, a kernel of the SSD
            scan's split-TF32 route or its tensor-core scan spills (the
            scan's registers, spill bytes and CTAs an SM are printed at
-           each state size, and the decode tensor-core kernel's,
-           with its shared memory and the clusters of 8 the card holds,
+           each state size, and the decode tensor-core kernels',
+           with their shared memory and the clusters of 8 the card holds,
            at each head dim),
            when ptxas serializes the wgmmas of a flash kernel at D 256 (the
            float32 one's 255 registers a thread leave no room; the bf16
@@ -42,9 +42,11 @@ Phases, always all of them, in order:
            engine's decode, at llama's heads and at G 16 / D 256, and
            in bfloat16 at recurrentgemma-9b's decode_32k (B 128 over
            full rings of 2048); the bfloat16 cases at G 16 take the
-           tensor-core kernel and are also held and timed against the
-           CUDA-core kernel through its C entry on the same inputs, in
-           turns, and fail when their device time is the longer; RMSNorm
+           tensor-core kernel, those at G <= 8 (llama's, nemo's D 128,
+           granite's G 3, with and without slots) the n8 kernel, and each
+           is also held and timed against the CUDA-core kernel through
+           its C entry on the same inputs, in turns, and fails when its
+           device time is the longer; RMSNorm
            at llama's width 2048, mamba's 2560 and 5120 and
            recurrentgemma-9b's 4096;
            the SSD scan at
@@ -105,13 +107,17 @@ Phases, always all of them, in order:
            printed); checks every handle DONE, streamed tokens == engine
            tokens, and
            that every kernel of the llama path (ragged decode, RMSNorm,
-           flash prefill) launched during this phase.
+           flash prefill) launched during this phase, every ragged decode
+           on the n8 route (``ragged_decode_attention_n8``; nemo serve and
+           granite serve the same).
   exact    full width in float32 with TF32 off: four requests served
            batched (fused runs), then each alone through the same engine
            (node by node); tokens must be equal, apart from near-ties
            (reference top-2 logit gap below 1e-3), which are printed. The
            launch counters are reset before and read after each of the two
-           paths: every kernel of the path must have run on both.
+           paths: every kernel of the path must have run on both, and
+           neither tensor-core decode route (float32 decode runs the
+           CUDA-core kernel at every G).
   mamba serve  full-width mamba2-2.7b (64 layers, d_model 2560, 80 SSD
            heads of 64, state 128) in bfloat16, as the serve phase: 24
            requests at 20/s with prompts of 128, 257, 259 and 384 tokens
@@ -450,13 +456,15 @@ ROWS = {("ragged_decode_attention", "bfloat16", 64): "ragged_decode_attention",
 SYMBOLS = {"ragged decode (CUDA cores)": "ragged_decode_split_kernel",
            "ragged decode (bf16, tensor cores, G > 8)":
                "ragged_decode_tc_kernel",
+           "ragged decode (bf16, tensor cores, G <= 8)":
+               "ragged_decode_n8_kernel",
            "flash prefill (bf16, tensor cores)": "flash_tc_kernel",
            "flash prefill (f32, split TF32 tensor cores)":
                "flash_tf32x3_kernel",
            "flash prefill (f32, split TF32 tensor cores, D 256)":
                "flash_tf32x3_d256_kernel",
            "SSD scan": "ssd_", "RMSNorm": "rmsnorm_kernel"}
-# a substring of both ragged decode kernels' symbols
+# a substring of every ragged decode kernel's symbol
 DECODE_ANY = "ragged_decode_"
 # the symbols (substrings) of the kernels one call launches: the SSD
 # scan's by route, the others' by launch counter in bfloat16 (the serves'
@@ -471,9 +479,10 @@ SSD_ROUTE_SYMBOLS = {
     "tc_scan": ("ssd_tc_scan_kernel",),
 }
 COUNTER_SYMBOLS = {
-    # every ragged decode launch, either route: a prefix of both kernels
+    # every ragged decode launch, any route: a prefix of every kernel
     "ragged_decode_attention": (DECODE_ANY,),
     "ragged_decode_attention_tc": ("ragged_decode_tc_kernel",),
+    "ragged_decode_attention_n8": ("ragged_decode_n8_kernel",),
     "fused_rmsnorm": ("rmsnorm_kernel",),
     "flash_attention": ("flash_tc_kernel",),
     **{f"ssd_chunked_{route}": syms
@@ -485,6 +494,12 @@ COUNTER_SYMBOLS = {
 # float32 exact check the recurrent route and the split-TF32 route
 # (ssd_chunked_tf32)
 LLAMA_KERNELS = ("ragged_decode_attention", "fused_rmsnorm", "flash_attention")
+# the bf16 serves of llama3.2-1b, mistral-nemo-12b and granite-moe-3b-a800m
+# (G 4 at D 64 and 128, G 3 at D 64): every ragged decode on the n8 route;
+# float32 decode stays on the CUDA-core kernel at every G, so no exact
+# check may launch either tensor-core route
+DENSE_KERNELS = LLAMA_KERNELS + ("ragged_decode_attention_n8",)
+EXACT_ABSENT = ("ragged_decode_attention_tc", "ragged_decode_attention_n8")
 MAMBA_KERNELS = ("ssd_chunked", "ssd_chunked_tc", "ssd_chunked_tc_scan",
                  "fused_rmsnorm")
 MAMBA_ABSENT = ("ssd_chunked_recurrent",)
@@ -844,6 +859,7 @@ FLASH_TC_SHAPES = (("llama prefill", 4, 512, 32, 8, 64, 64),
 
 DECODE_D256 = "Li256E"
 DECODE_TC = "ragged_decode_tc_kernel"     # every instantiation
+DECODE_N8 = "ragged_decode_n8_kernel"     # every instantiation
 SSD_TF32 = ("ssd_intra_tf32_kernel", "ssd_scores_tf32_kernel")
 SSD_TC_SCAN = "ssd_tc_scan_kernel"
 
@@ -886,7 +902,8 @@ def phase_build():
                         k in kernel for k in (F32_FLASH_D64, F32_FLASH_D256,
                                               FLASH_TC))) or (
                     name == "ragged_decode_attn" and any(
-                        k in kernel for k in (DECODE_D256, DECODE_TC))) or (
+                        k in kernel for k in (DECODE_D256, DECODE_TC,
+                                              DECODE_N8))) or (
                     name == "ssd_chunk" and any(k in kernel for k in (
                         *SSD_TF32, SSD_TC_SCAN)))
                 check(not (no_spill and any(spilled)),
@@ -905,6 +922,10 @@ def phase_build():
     for D in K.ragged_decode_attn.HEAD_DIMS:
         print(f"[build] {DECODE_TC}<{D}>: "
               f"{K.ragged_decode_attn.tc_info(D)}")
+    # and its n8 kernel (llama3.2-1b and granite: 64; mistral-nemo-12b: 128)
+    for D in K.ragged_decode_attn.N8_HEAD_DIMS:
+        print(f"[build] {DECODE_N8}<{D}>: "
+              f"{K.ragged_decode_attn.tc_info(D, 'n8')}")
     # the SSD scan's tensor-core scan at each state size (mamba2-2.7b: 128)
     for N in K.ssd_chunk.TC_STATES:
         print(f"[build] {SSD_TC_SCAN}<{N}>: "
@@ -954,9 +975,10 @@ def kernel_decode(torch, K, dtype, lens, slots, ctx, H=32, KV=8, D=64,
                   n_slots=32, layer=5, row=None, T=1024):
     """Ragged decode over layer ``layer`` of a flat slot arena of 16 layers
     (``slots``), or without slots over a contiguous (B, T) stack, the
-    legacy engine's decode (``slots`` None). A case on the tensor-core
-    route (bf16 at G > 8) also holds and times the CUDA-core kernel it
-    replaced, through its C entry on the same inputs (``before``)."""
+    legacy engine's decode (``slots`` None: no slot vector is made). A
+    case on a tensor-core route (bf16: "tc" at G > 8, "n8" at G <= 8)
+    also holds and times the CUDA-core kernel it replaced, through its C
+    entry on the same inputs (``before``)."""
     from repro_torch.kernels import ragged_decode_attn as RD
     B, L = len(lens), 16
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -972,23 +994,23 @@ def kernel_decode(torch, K, dtype, lens, slots, ctx, H=32, KV=8, D=64,
                                           ctx=ctx)
     torch.cuda.synchronize()
     cache = "arena" if slots is not None else "stack, no slots, "
-    tc = K.decode_route(dtype, H // KV, D) == "tc"
+    route = K.decode_route(dtype, H // KV, D)
     shown = (list(lens) if len(set(lens)) > 1
              else f"{len(lens)} x [{lens[0]}]")
     res = {"shape": f"q{tuple(q.shape)} {cache}{tuple(k.shape)} "
                     f"lengths{shown} ctx {ctx}"
-                    + (" (tensor-core route)" if tc else ""),
+                    + ({"tc": " (tensor-core route)",
+                        "n8": " (n8 route)"}.get(route, "")),
            "out": out, "ref": ref,
            "row": row or (None if B != 8 or ctx is not None else ROWS.get(
                ("ragged_decode_attention", dtype_name(dtype), D))),
-           "symbols": (COUNTER_SYMBOLS["ragged_decode_attention_tc"] if tc
-                       else ("ragged_decode_split_kernel",))}
-    slot_rows = (torch.arange(B, dtype=torch.int32, device="cuda")
-                 if rows is None else rows)
-    res["inputs"] = (q, k, v, lengths, slot_rows, ctx)
-    if tc:
-        res["before"] = (lambda: RD._launch_split(q, k, v, lengths,
-                                                  slot_rows, ctx),
+           "symbols": (("ragged_decode_split_kernel",)
+                       if route == "cuda_cores" else COUNTER_SYMBOLS[
+                           f"ragged_decode_attention_{route}"])}
+    res["inputs"] = (q, k, v, lengths, rows, ctx)
+    if route != "cuda_cores":
+        res["before"] = (lambda: RD._launch_split(q, k, v, lengths, rows,
+                                                  ctx),
                          ("ragged_decode_split_kernel",))
     # library yardstick: SDPA over the gathered, head-repeated rows
     span = T if ctx is None else ctx
@@ -1008,7 +1030,10 @@ def kernel_decode(torch, K, dtype, lens, slots, ctx, H=32, KV=8, D=64,
         lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask))
     elt = q.element_size()
     tot = sum(lens)
-    res["bytes"] = 2 * q.numel() * elt + 2 * tot * KV * D * elt + 8 * B
+    # q in, the output out, the K/V rows the lengths need, lengths and
+    # (with an arena) slots as int32
+    res["bytes"] = (2 * q.numel() * elt + 2 * tot * KV * D * elt
+                    + (4 if rows is None else 8) * B)
     res["flops"] = 4 * H * D * tot
     return res
 
@@ -1523,6 +1548,7 @@ def phase_kernels(torch):
         if key is not None:
             route, source = SOURCES[key]
             rows[key] = {"name": key, "route": route, "source": source,
+                         "kernel": ", ".join(syms),
                          "replaces": REPLACES[key], "max_abs_err": err,
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                          "bound_by": b_by, "library_ms": lib_ms,
@@ -1630,12 +1656,13 @@ def phase_serve(torch, arch, tag, kernels, prompts, absent=()):
               f"{h.request.decode_len}")
         n_tok += len(got)
     check_launched(counts, tag, kernels, absent)
-    if "ragged_decode_attention_tc" in kernels:     # every decode on it
-        check(counts["ragged_decode_attention"]
-              == counts["ragged_decode_attention_tc"],
-              f"{tag}: {counts['ragged_decode_attention']} ragged decode "
-              f"launches, {counts['ragged_decode_attention_tc']} of them on "
-              f"the tensor-core route: the CUDA-core kernel ran in bf16")
+    for route in ("tc", "n8"):      # every decode on the path's route
+        key = f"ragged_decode_attention_{route}"
+        if key in kernels:
+            check(counts["ragged_decode_attention"] == counts[key],
+                  f"{tag}: {counts['ragged_decode_attention']} ragged "
+                  f"decode launches, {counts[key]} of them on the {route} "
+                  f"route: another kernel ran in bf16")
     san = engine.sanitizer_stats()
     s = stats.summary(sla=kw["sla"])
     lat = [h.latency for h in handles]
@@ -2682,6 +2709,7 @@ ROOFLINE_LIMIT_S = 300          # the (1, 1) roofline probes' own limit
 # (arch, shape, the kernels its step must launch, their profiler symbols)
 ROOFLINE_PROBES = (
     ("llama3.2-1b", "decode_32k", ("ragged_decode_attention",
+                                   "ragged_decode_attention_n8",
                                    "fused_rmsnorm")),
     ("llama3.2-1b", "prefill_32k", ("flash_attention", "fused_rmsnorm")),
     ("mamba2-2.7b", "prefill_32k", ("ssd_chunked", "ssd_chunked_tc",
@@ -2692,6 +2720,7 @@ ROOFLINE_PROBES = (
 )
 KERNEL_SYMBOL = {"ragged_decode_attention": DECODE_ANY,
                  "ragged_decode_attention_tc": "ragged_decode_tc_kernel",
+                 "ragged_decode_attention_n8": "ragged_decode_n8_kernel",
                  "flash_attention": "flash_tc_kernel",
                  "fused_rmsnorm": "rmsnorm_kernel", "ssd_chunked": "ssd_"}
 BOUND_FLOOR = 0.95      # a measured layer under this share of its bound fails
@@ -3686,19 +3715,19 @@ def main() -> int:
     rows = run(phase_kernels, torch)
     # each serving path's own launches: llama's for its three kernels,
     # mamba's for the SSD scan
-    counts = run(phase_serve, torch, "llama3.2-1b", "serve", LLAMA_KERNELS,
+    counts = run(phase_serve, torch, "llama3.2-1b", "serve", DENSE_KERNELS,
                  (64, 128, 256, 384))
     run(phase_exact, torch, "llama3.2-1b", "exact", LLAMA_KERNELS,
-        (64, 128, 256, 384))
+        (64, 128, 256, 384), EXACT_ABSENT)
     m_counts = run(phase_serve, torch, "mamba2-2.7b", "mamba serve",
                    MAMBA_KERNELS, (128, 257, 259, 384), MAMBA_ABSENT)
     x_counts = run(phase_exact, torch, "mamba2-2.7b", "mamba exact",
                    MAMBA_EXACT_KERNELS, (34, 97, 257, 385))
     # mistral-nemo-12b: head_dim 128, 4 q heads per kv head, an untied head
     n_counts = run(phase_serve, torch, "mistral-nemo-12b", "nemo serve",
-                   LLAMA_KERNELS, (64, 128, 256, 384))
+                   DENSE_KERNELS, (64, 128, 256, 384))
     nx_counts = run(phase_exact, torch, "mistral-nemo-12b", "nemo exact",
-                    LLAMA_KERNELS, (64, 128, 256, 384))
+                    LLAMA_KERNELS, (64, 128, 256, 384), EXACT_ABSENT)
     # minicpm3-4b: MLA, flash at q/k 96 and v 64, no ragged decode
     c_counts = run(phase_serve, torch, "minicpm3-4b", "minicpm serve",
                    MLA_KERNELS, (64, 128, 256, 384), MLA_ABSENT)
@@ -3706,14 +3735,14 @@ def main() -> int:
                     MLA_KERNELS, (64, 128, 256, 384), MLA_ABSENT)
     # granite-moe-3b-a800m: 40 experts top 8 over GQA at G 3
     g_counts = run(phase_serve, torch, "granite-moe-3b-a800m",
-                   "granite serve", LLAMA_KERNELS, (64, 128, 256, 384))
+                   "granite serve", DENSE_KERNELS, (64, 128, 256, 384))
     run(phase_exact, torch, "granite-moe-3b-a800m", "granite exact",
-        LLAMA_KERNELS, (64, 128, 256, 384))
+        LLAMA_KERNELS, (64, 128, 256, 384), EXACT_ABSENT)
     # recurrentgemma-9b: RG-LRU blocks beside local attention at D 256
     r_counts = run(phase_serve, torch, "recurrentgemma-9b", "rgemma serve",
                    RGEMMA_KERNELS, (64, 128, 256, 384))
     rx_counts = run(phase_exact, torch, "recurrentgemma-9b", "rgemma exact",
-                    LLAMA_KERNELS, (64, 128, 256, 384))
+                    LLAMA_KERNELS, (64, 128, 256, 384), EXACT_ABSENT)
     # the RuntimeFlags variants through the Model API; their launches stay
     # on the phase's own line
     run(phase_variants, torch)
@@ -3756,15 +3785,20 @@ def main() -> int:
     # G 3 decode row: launches in granite serve
     counts["flash_attention_mla"] = c_counts["flash_attention"]
     counts["flash_attention_f32_mla"] = cx_counts["flash_attention"]
-    counts["ragged_decode_attention_g3"] = g_counts["ragged_decode_attention"]
+    counts["ragged_decode_attention_g3"] = g_counts[
+        "ragged_decode_attention_n8"]
     # the D 256 rows: bf16 launches in rgemma serve, f32 in rgemma exact;
     # RMSNorm at 4096: launches in rgemma serve
     for name in ("ragged_decode_attention", "flash_attention"):
         counts[f"{name}_d256"] = r_counts[name]
         counts[f"{name}_f32_d256"] = rx_counts[name]
-    # bf16 decode at D 256 runs the tensor-core kernel
+    # bf16 decode at D 256 runs the tensor-core kernel, at G <= 8 (llama's
+    # row, nemo's D 128, granite's G 3) the n8 kernel
     counts["ragged_decode_attention_d256"] = r_counts[
         "ragged_decode_attention_tc"]
+    counts["ragged_decode_attention"] = counts["ragged_decode_attention_n8"]
+    counts["ragged_decode_attention_d128"] = n_counts[
+        "ragged_decode_attention_n8"]
     counts["fused_rmsnorm_4096"] = r_counts["fused_rmsnorm"]
     # the training rows: f32 flash and RMSNorm launches in train, the
     # split-TF32 SSD route's in train mamba

@@ -145,7 +145,7 @@ ragged_decode_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
   if (split >= n_active) return;
   const int t_begin = split * split_t;
   const int t_end = min(t_begin + split_t, len);
-  int slot = slots[b];
+  int slot = slots != nullptr ? slots[b] : b;   // no slots: row b
   slot = slot < 0 ? 0 : (slot > N - 1 ? N - 1 : slot);
 
   __shared__ float s_acc[kWarps][GC][D];
@@ -434,7 +434,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 
 // part_acc: (B * KV, n_split, G, D) float32 and part_ml: (B * KV, n_split,
 // G, 2) float32 scratch, unused when n_split == 1; counters: B * KV int32,
-// zero before the launch and zero again after it.
+// zero before the launch and zero again after it; slots null: row b.
 extern "C" int repro_ragged_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
     const void* slots, void* out, void* part_acc, void* part_ml,
@@ -711,7 +711,7 @@ ragged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 : make_uint4(0u, 0u, 0u, 0u);
   }
   const int len = max(0, min(min(lengths[b], span), n_split * split_t));
-  int slot = slots[b];
+  int slot = slots != nullptr ? slots[b] : b;   // no slots: row b
   slot = slot < 0 ? 0 : (slot > N - 1 ? N - 1 : slot);
   const size_t t_stride = (size_t)KV * D;
   const size_t row0 = (size_t)slot * T * t_stride + (size_t)kvh * D;
@@ -1027,10 +1027,11 @@ int info(int* out) {
 }  // namespace tc
 }  // namespace
 
-// bf16 q (B, H, D), k, v (N, T, KV, D), lengths and slots (B,) int32, out
-// (B, H, D) bf16, at 8 < H / KV <= 16; row b attends positions below
-// min(lengths[b], span, n_split * split_t) of arena row min(slots[b],
-// N - 1); `cluster` CTAs (at most 8) per (b, kv) group.
+// bf16 q (B, H, D), k, v (N, T, KV, D), lengths (B,) int32, slots (B,)
+// int32 or null (row b), out (B, H, D) bf16, at 8 < H / KV <= 16; row b
+// attends positions below min(lengths[b], span, n_split * split_t) of
+// arena row min(slots[b], N - 1); `cluster` CTAs (at most 8) per (b, kv)
+// group.
 extern "C" int repro_ragged_decode_tc(const void* q, const void* k,
                                       const void* v, const void* lengths,
                                       const void* slots, void* out, int B,
@@ -1063,6 +1064,546 @@ extern "C" int repro_ragged_decode_tc_info(int D, int* info) {
     case 64: return tc::info<64>(info);
     case 128: return tc::info<128>(info);
     case 256: return tc::info<256>(info);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ragged_decode_n8_kernel: bf16 at G <= 8 query heads a kv head, on the
+// tensor cores (llama3.2-1b and mistral-nemo-12b at G 4, granite-moe-3b-
+// a800m at G 3, each with eight kv heads).
+//
+// Replaces, like the kernels above, the TPU kernel
+// src/repro/kernels/ragged_decode_attn.py (_kernel). Bound: the bytes of
+// K/V (G flop/byte, 4 at G 4 in bf16). At the serves' shapes that bound
+// is 2.2 us (D 64) and 4.4 us (D 128), so what the split kernel loses
+// there is latency: a chain of dependent loads before the first K/V byte
+// (lengths, then slots, then K/V), few bytes in flight (registers), a
+// shuffle reduction per head per key, and a second pass of float32
+// partials through L2 behind a fence and an arrival counter. This kernel
+// keeps ragged_decode_tc_kernel's rules (one pass over K/V for the G
+// heads, a cp.async ring, P as bf16 hi + lo, a cluster merge through
+// DSMEM, one launch, no scratch) and turns the product around, so that G
+// <= 8 heads fill the n8 side of mma.sync.m16n8k16 and 16 keys its m16:
+//
+//   S^T = K . Q^T   A: 16 keys by 16 columns of D (ldmatrix from the
+//                   ring); B: Q^T, the G heads as columns (heads G .. 7
+//                   zero), loaded once from device memory into registers;
+//                   Q unscaled, S times log2(e) / sqrt(D) after it;
+//   P^T             the online softmax per head (a column: 8 lanes share
+//                   it) in base 2, float32;
+//   O^T += V^T . P^T  A: 16 columns of D by the 16 keys (ldmatrix.trans of
+//                   V); B: P^T as hi + lo, made from S^T's accumulators
+//                   in registers: each 8 x 8 block packed to bf16 and
+//                   transposed by movmatrix.
+//
+// Design: grid (cluster, KV, B), a thread-block cluster of `cluster` CTAs
+// (at most 8) per (b, kv) group, planned on the host from static sizes
+// (kernels/ragged_decode_attn.py: n8_plan); CTA c walks spans c, c +
+// cluster, ... of split_t rows. Each of its W warps (8 at D 64, 4 at D
+// 128) walks its own 16-row sub-tiles of those spans (warp w the CTA's
+// sub-tiles w, w + W, ...) through its own ring of kStages stages (16-byte cp.async, rows past
+// the span's end zero-filled and never read from the arena, chunks XOR-
+// swizzled by row for ldmatrix) with its own online softmax: the loop has
+// no CTA barrier, only cp.async.wait_group and __syncwarp. lengths, slots
+// and Q are issued together, so the K/V addresses wait on one latency. A
+// CTA whose spans start past the row's length exits at once (a cluster
+// barrier waits only for threads that have not exited), except CTA 0,
+// which writes zeros for a row of length 0. After the loop the warps
+// leave (m, l, O) where their rings were and merge in warp order; a row
+// with one CTA of rows writes its output there. Otherwise the merge is
+// pushed to CTA 0: at the start CTA 0 readies an mbarrier that expects the
+// bytes of its peers' slots, and every CTA with rows arrives at the
+// cluster barrier (each waits on it before it first touches a peer);
+// after its loop a peer stores its merged (m, l, O) into its slot of CTA
+// 0's shared memory with st.async, whose bytes count on that mbarrier as
+// they land, and exits; CTA 0 waits on the mbarrier (a wait past ~10 s
+// traps) and merges the slots in rank order from its own memory. Only CTA
+// 0 waits for another CTA; no fence, no arrival and no DSMEM load.
+namespace {
+namespace n8 {
+
+constexpr int kHeads = 8;        // the n8 side: a group's query heads
+constexpr int kRows = 16;        // the m16 side: keys of a warp's sub-tile
+constexpr int kMaxCluster = 8;   // portable cluster size (n8_plan caps it)
+
+template <int D>
+struct Cfg {
+  // eight warps at D 64 and four at D 128, so that the CTA's rows are a
+  // short chain of sub-tiles for each; a warp's ring: 3 stages of 4 KB (D
+  // 64) or 8 KB (D 128): 96 KB a CTA, two CTAs an SM (eight warps at D
+  // 128 would take 192 KB, one CTA an SM, and lost: PERF.md)
+  static constexpr int kWarps = D == 64 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kStages = 3;
+  static constexpr int CPR = D / 8;              // 16-byte chunks a row
+  static constexpr int kTile = kRows * D * 2;    // bytes of K (or V)
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kMT = D / 16;             // k16 steps of S, m16 of O
+  static constexpr int kCopies = kRows * CPR / 32;   // K copies a lane
+  // after the loop, where the rings were: the warps' O (kWarps x 8 x D
+  // float32) and (m, l), then the CTA's merged O (8 x D) and (m, l)
+  static constexpr int kWarpML = kWarps * kHeads * D * 4;
+  static constexpr int kCtaO = kWarpML + kWarps * kHeads * 8;
+  static constexpr int kCtaML = kCtaO + kHeads * D * 4;
+  static constexpr int kBytes = kWarps * kRing;
+  static_assert(kCtaML + kHeads * 8 <= kBytes, "states fit in the rings");
+  // after the rings, in CTA 0 of a cluster: the barrier its peers arrive
+  // on, then a slot a peer for its (O, (m, l)), written by the peer
+  static constexpr int kBar = kBytes;
+  static constexpr int kMail = kBar + 16;
+  static constexpr int kSlot = kHeads * D * 4 + kHeads * 8;
+  static constexpr int bytes(int cluster) {
+    return kMail + (cluster - 1) * kSlot;
+  }
+  static_assert(kRows * CPR % 32 == 0 && D >= 64, "tile shape");
+};
+
+// the 8 x 8 bf16 matrix whose row g, columns 2t and 2t + 1 lane (g, t)
+// holds, transposed in registers
+__device__ __forceinline__ uint32_t transpose8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+// stores into a peer's shared memory that count their bytes on the
+// peer's barrier `bar` when they land (no fence, no arrival)
+__device__ __forceinline__ void st_peer(uint32_t addr, float x,
+                                        uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "f"(x), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_peer2(uint32_t addr, float x, float y,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(addr),
+      "f"(x), "f"(y), "r"(bar)
+      : "memory");
+}
+
+// a wait for phase `parity` of the barrier at `bar` that acquires at
+// cluster scope (the peers' stores); past ~10 s of clock it traps, so a
+// lost arrival is a launch error and not a hung card
+__device__ __forceinline__ void wait_cluster(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > (1ll << 34)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 2)
+ragged_decode_n8_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const int* __restrict__ lengths,
+                        const int* __restrict__ slots,
+                        __nv_bfloat16* __restrict__ out, int H, int KV, int N,
+                        int T, int span, int n_split, int split_t,
+                        float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int kWarps = C::kWarps, kThreads = C::kThreads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = tc::smem_addr(smem);
+  const int cs = gridDim.x;        // CTAs of the cluster
+  const int c = tc::cluster_rank();
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KV;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;         // an accumulator's rows g and g + 8
+  const int t = lane & 3;          // and its column pair 2t, 2t + 1
+
+  // lengths and slots first, Q under their latency (no slots: row b)
+  const int len_in = lengths[b];
+  const int slot_in = slots != nullptr ? slots[b] : b;
+  uint32_t qf[C::kMT][2];          // Q^T's B fragments: head g, columns
+  {                                // 16 ks + 2t, + 1 and 16 ks + 2t + 8, + 9
+    const unsigned int* qh = reinterpret_cast<const unsigned int*>(
+        q + ((size_t)b * H + (size_t)kvh * G + (g < G ? g : 0)) * D + 2 * t);
+#pragma unroll
+    for (int ks = 0; ks < C::kMT; ++ks) {
+      qf[ks][0] = g < G ? __ldg(qh + 8 * ks) : 0u;
+      qf[ks][1] = g < G ? __ldg(qh + 8 * ks + 4) : 0u;
+    }
+  }
+  const int len = max(0, min(min(len_in, span), n_split * split_t));
+  const int n_active = (len + split_t - 1) / split_t;   // spans with rows
+  const int n_act = max(1, min(cs, n_active));          // CTAs with rows
+  if (c >= n_act) return;
+  // a row of several CTAs: CTA 0 readies the barrier its peers will
+  // arrive on, and every CTA with rows arrives at the cluster barrier
+  // (each waits on it before its first access to a peer's memory)
+  const uint32_t bar = base + C::kBar;
+  if (n_act > 1) {
+    if (c == 0 && tid == 0) {
+      // one arrival (this one) and the bytes of every peer's slot
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+                   : "memory");
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              bar),
+          "r"((n_act - 1) * (G * D * 4 + G * 8))
+          : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  }
+  const int slot = slot_in < 0 ? 0 : (slot_in > N - 1 ? N - 1 : slot_in);
+  const size_t t_stride = (size_t)KV * D;
+  const size_t row0 = (size_t)slot * T * t_stride + (size_t)kvh * D;
+  const __nv_bfloat16* kb = k + row0;
+  const __nv_bfloat16* vb = v + row0;
+
+  // this CTA's spans c, c + cs, ... below n_active, in sub-tiles of 16
+  // rows; this warp's: sub-tiles warp, warp + kWarps, ...
+  const int sps = (split_t + kRows - 1) / kRows;   // sub-tiles a span
+  const int n_mine = c < n_active ? (n_active - 1 - c) / cs + 1 : 0;
+  int n_sub = 0;
+  if (n_mine > 0) {
+    const int last = c + (n_mine - 1) * cs;
+    const int rows = min(split_t, len - last * split_t);
+    n_sub = (n_mine - 1) * sps + (rows + kRows - 1) / kRows;
+  }
+  const int n_w = n_sub > warp ? (n_sub - 1 - warp) / kWarps + 1 : 0;
+  // this warp's sub-tile j: its first row and how many rows it has
+  auto sub = [&](int j, int& t0, int& nrows) {
+    const int u = warp + j * kWarps;
+    const int s = c + (u / sps) * cs;
+    t0 = s * split_t + (u % sps) * kRows;
+    nrows = min(min(t0 + kRows, (s + 1) * split_t), len) - t0;
+  };
+  const uint32_t ring = base + warp * C::kRing;
+  // sub-tile j's K and V into stage j % kStages of this warp's ring, one
+  // cp.async group a sub-tile (an empty group past the last keeps the
+  // count of groups)
+  auto issue = [&](int j) {
+    if (j < n_w) {
+      int t0, nrows;
+      sub(j, t0, nrows);
+      const uint32_t st = ring + (j % C::kStages) * C::kStage;
+#pragma unroll
+      for (int i = 0; i < C::kCopies; ++i) {
+        const int e = lane + 32 * i;
+        const int r = e / C::CPR, ch = e % C::CPR;
+        const bool ok = r < nrows;
+        const size_t off = (size_t)(t0 + (ok ? r : 0)) * t_stride + ch * 8;
+        tc::cp_async16(st + tc::swz<D>(r, ch), kb + off, ok);
+        tc::cp_async16(st + C::kTile + tc::swz<D>(r, ch), vb + off, ok);
+      }
+    }
+    tc::cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < C::kStages - 1; ++j) issue(j);
+
+  float m[2] = {-1e30f, -1e30f};   // heads 2t and 2t + 1
+  float l[2] = {0.f, 0.f};         // this lane's share: keys g and g + 8
+  float o[C::kMT][4];              // O^T: rows (D) 16 mt + g, + 8; columns
+#pragma unroll                     // (heads) 2t, 2t + 1
+  for (int mt = 0; mt < C::kMT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[mt][e] = 0.f;
+
+  for (int j = 0; j < n_w; ++j) {
+    tc::cp_async_wait<C::kStages - 2>();
+    // sub-tile j is in for every lane; sub-tile j - 1's stage is free
+    __syncwarp();
+    issue(j + C::kStages - 1);
+    int t0, nrows;
+    sub(j, t0, nrows);
+    const uint32_t kt = ring + (j % C::kStages) * C::kStage;
+    const uint32_t vt = kt + C::kTile;
+
+    // 1. S^T for the sub-tile's 16 keys over all of D, two chains
+    float sc[2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < C::kMT; ++ks) {
+      uint32_t a[4];
+      tc::ldsm_x4(a, kt + tc::swz<D>((lane & 7) + 8 * ((lane >> 3) & 1),
+                                     2 * ks + (lane >> 4)));
+      tc::mma(sc[ks & 1], a, qf[ks][0], qf[ks][1]);
+    }
+    // base-2 exponents; keys past the sub-tile's rows -inf
+    const bool ok0 = g < nrows, ok1 = g + 8 < nrows;
+    float s[4];                    // (key g, key g + 8) x (head 2t, 2t + 1)
+    s[0] = ok0 ? (sc[0][0] + sc[1][0]) * scale_log2 : -INFINITY;
+    s[1] = ok0 ? (sc[0][1] + sc[1][1]) * scale_log2 : -INFINITY;
+    s[2] = ok1 ? (sc[0][2] + sc[1][2]) * scale_log2 : -INFINITY;
+    s[3] = ok1 ? (sc[0][3] + sc[1][3]) * scale_log2 : -INFINITY;
+
+    // 2. the online softmax of each head over the 8 lanes that share t
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = fmaxf(s[h], s[2 + h]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      const float mn = fmaxf(m[h], mx);
+      corr[h] = tc::ex2(m[h] - mn);
+      m[h] = mn;
+      s[h] = tc::ex2(s[h] - mn);           // ex2(-inf) = 0
+      s[2 + h] = tc::ex2(s[2 + h] - mn);
+      l[h] = l[h] * corr[h] + s[h] + s[2 + h];
+    }
+#pragma unroll
+    for (int mt = 0; mt < C::kMT; ++mt) {
+      o[mt][0] *= corr[0];
+      o[mt][1] *= corr[1];
+      o[mt][2] *= corr[0];
+      o[mt][3] *= corr[1];
+    }
+
+    // 3. O^T += V^T . P^T, P as hi + lo: lane (g, t) holds P of key g (and
+    // g + 8) for heads 2t, 2t + 1; transposed, keys 2t, 2t + 1 (and + 8)
+    // for head g, the B fragment's
+    uint32_t hi0, lo0, hi1, lo1;
+    tc::split_pair(s[0], s[1], hi0, lo0);
+    tc::split_pair(s[2], s[3], hi1, lo1);
+    const uint32_t bh0 = transpose8(hi0), bh1 = transpose8(hi1);
+    const uint32_t bl0 = transpose8(lo0), bl1 = transpose8(lo1);
+#pragma unroll
+    for (int mt = 0; mt < C::kMT; ++mt) {
+      uint32_t a[4];
+      tc::ldsm_x4_t(a, vt + tc::swz<D>((lane & 7) + 8 * (lane >> 4),
+                                       2 * mt + ((lane >> 3) & 1)));
+      tc::mma(o[mt], a, bh0, bh1);
+      tc::mma(o[mt], a, bl0, bl1);
+    }
+  }
+
+  // 4. every warp's (m, l, O) where the rings were, then merged in warp
+  // order: the row's output, or this CTA's (m, l, O) for the cluster
+  tc::cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 4);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 8);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 16);
+  }
+  float* s_wo = reinterpret_cast<float*>(smem);             // [w][head][D]
+  float2* s_wml = reinterpret_cast<float2*>(smem + C::kWarpML);
+  {
+    float* wo = s_wo + warp * kHeads * D;
+#pragma unroll
+    for (int mt = 0; mt < C::kMT; ++mt) {
+      const int d = 16 * mt + g;
+      wo[2 * t * D + d] = o[mt][0];
+      wo[(2 * t + 1) * D + d] = o[mt][1];
+      wo[2 * t * D + d + 8] = o[mt][2];
+      wo[(2 * t + 1) * D + d + 8] = o[mt][3];
+    }
+    if (g == 0) {
+      s_wml[warp * kHeads + 2 * t] = make_float2(m[0], l[0]);
+      s_wml[warp * kHeads + 2 * t + 1] = make_float2(m[1], l[1]);
+    }
+  }
+  __syncthreads();
+  float* s_co = reinterpret_cast<float*>(smem + C::kCtaO);  // [head][D]
+  float2* s_cml = reinterpret_cast<float2*>(smem + C::kCtaML);
+  __nv_bfloat16* og = out + ((size_t)b * H + (size_t)kvh * G) * D;
+  // a peer writes its merged (m, l, O) into its slot of CTA 0's mailbox
+  if (n_act > 1)
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  const uint32_t mail = c > 0 ? tc::peer(base + C::kMail + (c - 1) * C::kSlot,
+                                         0)
+                              : 0u;
+  const uint32_t bar0 = c > 0 ? tc::peer(bar, 0) : 0u;
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int h = i / D, d = i % D;
+    float mm = -1e30f, ll = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float2 ml = s_wml[w * kHeads + h];
+      const float mn = fmaxf(mm, ml.x);
+      const float ca = tc::ex2(mm - mn), cb = tc::ex2(ml.x - mn);
+      ll = ll * ca + ml.y * cb;
+      a = a * ca + s_wo[(w * kHeads + h) * D + d] * cb;
+      mm = mn;
+    }
+    if (n_act == 1) {
+      og[i] = __float2bfloat16_rn(a / fmaxf(ll, 1e-30f));
+    } else if (c == 0) {
+      s_co[i] = a;
+      if (d == 0) s_cml[h] = make_float2(mm, ll);
+    } else {
+      st_peer(mail + 4 * i, a, bar0);
+      if (d == 0) st_peer2(mail + kHeads * D * 4 + 8 * h, mm, ll, bar0);
+    }
+  }
+  if (n_act == 1 || c > 0) return;   // a peer's stores land on their own
+
+  // 5. CTA 0 merges the group's G * D outputs over its own (m, l, O) and
+  // its peers' slots, in rank order, once every peer's bytes have landed
+  __syncthreads();
+  wait_cluster(bar, 0);
+  const int n4 = G * D / 4;
+  for (int i = tid; i < n4; i += kThreads) {
+    const int h = 4 * i / D;
+    float2 ml[kMaxCluster];
+    float4 x[kMaxCluster];
+    ml[0] = s_cml[h];
+    x[0] = reinterpret_cast<const float4*>(s_co)[i];
+#pragma unroll
+    for (int r = 1; r < kMaxCluster; ++r)
+      if (r < n_act) {
+        const unsigned char* slot_r = smem + C::kMail + (r - 1) * C::kSlot;
+        ml[r] = reinterpret_cast<const float2*>(slot_r + kHeads * D * 4)[h];
+        x[r] = reinterpret_cast<const float4*>(slot_r)[i];
+      }
+    float mm = -1e30f, ll = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < n_act) {
+        const float mn = fmaxf(mm, ml[r].x);
+        const float ca = tc::ex2(mm - mn), cb = tc::ex2(ml[r].x - mn);
+        ll = ll * ca + ml[r].y * cb;
+        a.x = a.x * ca + x[r].x * cb;
+        a.y = a.y * ca + x[r].y * cb;
+        a.z = a.z * ca + x[r].z * cb;
+        a.w = a.w * ca + x[r].w * cb;
+        mm = mn;
+      }
+    const float den = fmaxf(ll, 1e-30f);
+    const __nv_bfloat162 o01 = __floats2bfloat162_rn(a.x / den, a.y / den);
+    const __nv_bfloat162 o23 = __floats2bfloat162_rn(a.z / den, a.w / den);
+    *reinterpret_cast<uint2*>(og + 4 * i) =
+        make_uint2(tc::bits(o01), tc::bits(o23));
+  }
+}
+
+template <int D>
+cudaLaunchConfig_t config(int cluster, int KV, int B, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, KV, B);
+  cfg.blockDim = dim3(Cfg<D>::kThreads);
+  cfg.dynamicSmemBytes = Cfg<D>::bytes(cluster);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int D>
+cudaError_t grant() {
+  static int granted = 48 * 1024;
+  return repro::allow_smem(ragged_decode_n8_kernel<D>,
+                           Cfg<D>::bytes(kMaxCluster), &granted);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* lengths,
+           const void* slots, void* out, int B, int H, int KV, int N, int T,
+           int span, int n_split, int split_t, int cluster,
+           cudaStream_t stream) {
+  cudaError_t err = grant<D>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config<D>(cluster, KV, B, stream, attr);
+  // the scores' scale times log2(e): the softmax runs in base 2
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  err = cudaLaunchKernelEx(
+      &cfg, ragged_decode_n8_kernel<D>,
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
+      static_cast<const int*>(slots), static_cast<__nv_bfloat16*>(out), H, KV,
+      N, T, span, n_split, split_t, scale_log2);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// registers and local (spill) bytes a thread, CTAs an SM and shared
+// memory bytes a CTA at clusters of 4 (the serves'), clusters of
+// kMaxCluster CTAs the card holds at once
+template <int D>
+int info(int* out) {
+  cudaError_t err = grant<D>();
+  cudaFuncAttributes a;
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&a, ragged_decode_n8_kernel<D>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], ragged_decode_n8_kernel<D>, Cfg<D>::kThreads,
+        Cfg<D>::bytes(4));
+  if (err == cudaSuccess) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        config<D>(kMaxCluster, 1, 1, nullptr, attr);
+    err = cudaOccupancyMaxActiveClusters(&out[4], ragged_decode_n8_kernel<D>,
+                                         &cfg);
+  }
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[3] = Cfg<D>::bytes(4);
+  return 0;
+}
+
+}  // namespace n8
+}  // namespace
+
+// bf16 q (B, H, D), k, v (N, T, KV, D), lengths (B,) int32, slots (B,)
+// int32 or null (row b), out (B, H, D) bf16, at H / KV <= 8 and D 64 or
+// 128; row b attends positions below min(lengths[b], span, n_split *
+// split_t) of arena row min(slots[b], N - 1); `cluster` CTAs (at most 8)
+// per (b, kv) group.
+extern "C" int repro_ragged_decode_n8(const void* q, const void* k,
+                                      const void* v, const void* lengths,
+                                      const void* slots, void* out, int B,
+                                      int H, int KV, int D, int N, int T,
+                                      int span, int n_split, int split_t,
+                                      int cluster, void* stream) {
+  if (B <= 0 || KV <= 0 || H % KV != 0 || H / KV > n8::kHeads || N <= 0 ||
+      span <= 0 || span > T || n_split <= 0 || split_t <= 0 ||
+      cluster < 1 || cluster > n8::kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return n8::launch<64>(q, k, v, lengths, slots, out, B, H, KV, N, T,
+                            span, n_split, split_t, cluster, s);
+    case 128:
+      return n8::launch<128>(q, k, v, lengths, slots, out, B, H, KV, N, T,
+                             span, n_split, split_t, cluster, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// info: registers, spill bytes, CTAs an SM, shared memory bytes, clusters
+// of 8 held at once, for the instantiation at head dim D (64 or 128)
+extern "C" int repro_ragged_decode_n8_info(int D, int* info) {
+  switch (D) {
+    case 64: return n8::info<64>(info);
+    case 128: return n8::info<128>(info);
     default: return (int)cudaErrorInvalidValue;
   }
 }

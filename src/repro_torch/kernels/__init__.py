@@ -17,6 +17,7 @@ shapes, the kernel's flops and bytes handed to the trace, no launch.
 from .flash_attn import FlashAttention, flash_attention, flash_attention_plain
 from .ragged_decode_attn import (decode_route, ragged_decode_attention,
                                  ragged_decode_attention_plain,
+                                 ragged_decode_n8_plain,
                                  ragged_decode_tc_plain)
 from .rmsnorm import FusedRMSNorm, fused_rmsnorm, fused_rmsnorm_plain
 from .ssd_chunk import (SSDChunked, ssd_chunk_intra_plain, ssd_chunked,
@@ -29,11 +30,12 @@ KERNELS = (ragged_decode_attention, fused_rmsnorm, flash_attention,
 
 
 def launch_counts() -> dict:
-    """Launches per wrapper, of ragged decode's tensor-core route, and of
-    the SSD scan's tensor-core, split-TF32, recurrent and tensor-core scan
-    routes."""
+    """Launches per wrapper, of ragged decode's two tensor-core routes,
+    and of the SSD scan's tensor-core, split-TF32, recurrent and
+    tensor-core scan routes."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts["ragged_decode_attention_tc"] = ragged_decode_attention.tc_launches
+    counts["ragged_decode_attention_n8"] = ragged_decode_attention.n8_launches
     counts["ssd_chunked_tc"] = ssd_chunked.tc_launches
     counts["ssd_chunked_tf32"] = ssd_chunked.tf32_launches
     counts["ssd_chunked_recurrent"] = ssd_chunked.recurrent_launches
@@ -45,6 +47,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     ragged_decode_attention.tc_launches = 0
+    ragged_decode_attention.n8_launches = 0
     ssd_chunked.tc_launches = 0
     ssd_chunked.tf32_launches = 0
     ssd_chunked.recurrent_launches = 0
@@ -55,7 +58,7 @@ __all__ = [
     "FlashAttention", "FusedRMSNorm", "SSDChunked",
     "flash_attention", "flash_attention_plain", "decode_route",
     "ragged_decode_attention", "ragged_decode_attention_plain",
-    "ragged_decode_tc_plain", "fused_rmsnorm", "fused_rmsnorm_plain",
+    "ragged_decode_n8_plain", "ragged_decode_tc_plain", "fused_rmsnorm", "fused_rmsnorm_plain",
     "ssd_chunk_intra_plain", "ssd_chunked", "ssd_chunked_plain",
     "ssd_chunked_recurrent_plain", "ssd_chunked_tiled_plain", "ssd_route",
     "KERNELS", "launch_counts", "reset_launch_counts",

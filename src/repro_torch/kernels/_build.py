@@ -37,7 +37,11 @@ SIGNATURES = {
         # out, B, H, KV, D, N, T, span, n_split, split_t, cluster, stream
         "repro_ragged_decode_tc": [_VP] * 6 + [_I] * 10 + [_VP],
         # D, info (five ints out)
-        "repro_ragged_decode_tc_info": [_I, _VP]},
+        "repro_ragged_decode_tc_info": [_I, _VP],
+        # bf16 at G <= 8 on the tensor cores, D 64 or 128: the arguments
+        # of repro_ragged_decode_tc
+        "repro_ragged_decode_n8": [_VP] * 6 + [_I] * 10 + [_VP],
+        "repro_ragged_decode_n8_info": [_I, _VP]},
     "flash_attn": {
         # q, k, v, o, B, S, T, H, KV, width, Dqk, Dv, q_offset, window,
         # scale, dtype, stream

@@ -3,10 +3,12 @@
 Replaces the TPU kernel ``src/repro/kernels/ragged_decode_attn.py``
 (``ragged_decode_attention``). Lazily merged sub-batches have ragged
 per-request progress, so row b of one merged decode step attends its own
-``lengths[b]`` cached tokens. Two routes, picked by :func:`decode_route`
+``lengths[b]`` cached tokens. Three routes, picked by :func:`decode_route`
 on dtype and shape alone: bfloat16 at 8 < G <= 16 query heads a kv head
 (recurrentgemma-9b's G 16) runs ``ragged_decode_tc_kernel`` on the tensor
-cores, every other call (G <= 8, and float32 at any G)
+cores, bfloat16 at G <= 8 and head dim 64 or 128 (llama3.2-1b,
+mistral-nemo-12b, granite-moe-3b-a800m) ``ragged_decode_n8_kernel`` on the
+tensor cores, every other call (float32 at any G, other head dims)
 ``ragged_decode_split_kernel`` on the CUDA cores. Source, bound and design
 notes: ``csrc/ragged_decode_attn.cu``.
 """
@@ -79,19 +81,20 @@ def _check(q, k, v, lengths, slots):
     if D not in HEAD_DIMS:
         raise ValueError(f"ragged_decode_attention: head_dim {D} not in "
                          f"{HEAD_DIMS}")
-    for name, t in (("k", k), ("v", v), ("lengths", lengths),
-                    ("slots", slots)):
+    named = [("k", k), ("v", v), ("lengths", lengths)]
+    if slots is not None:
+        named.append(("slots", slots))
+    for name, t in named:
         if t.device != q.device:
             raise ValueError(f"ragged_decode_attention: {name} on "
                              f"{t.device}, q on {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("ragged_decode_attention: q, k, v dtypes differ")
-    for name, t in (("lengths", lengths), ("slots", slots)):
+    for name, t in named[2:]:
         if t.dtype != torch.int32 or t.shape != (B,):
             raise ValueError(f"ragged_decode_attention: {name} must be "
                              f"({B},) int32, got {tuple(t.shape)} {t.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths),
-                    ("slots", slots)):
+    for name, t in [("q", q), *named]:
         if not t.is_contiguous():
             raise ValueError(f"ragged_decode_attention: {name} must be "
                              f"contiguous")
@@ -151,21 +154,37 @@ def _plan(B: int, KV: int, span: int, split_t: Optional[int],
     return n_split, split_t
 
 
-# the tensor-core route (bf16, 8 < G <= 16)
+# the tensor-core routes (bf16): 8 < G <= 16, and G <= 8
 TC_MAX_GROUP = 16           # query heads a kv head: one m16 tile
 TC_MAX_CLUSTER = 8          # CTAs a (b, kv) group: a portable cluster
+N8_MAX_GROUP = 8            # query heads a kv head: the n8 of the product
+N8_HEAD_DIMS = (64, 128)    # the n8 kernel's compiled head dims
+N8_CTA_ROWS = 256           # rows a CTA takes at least before a cluster
+N8_SM_WARPS = 8             # the plan's wave: warps of n8 CTAs an SM
+
+
+def n8_warps(D: int) -> int:
+    """Warps of an n8 CTA at head dim ``D``, each walking its own 16-row
+    sub-tiles: 8 at D 64, 4 at D 128 (96 KB of rings a CTA either way)."""
+    return 8 if D == 64 else 4
 
 
 def decode_route(dtype, G: int, D: int) -> str:
     """The kernel a CUDA call takes, by dtype and shape alone: ``"tc"``
-    (``ragged_decode_tc_kernel``: all G heads of a group in one pass over
-    K/V on the tensor cores, spans merged across a cluster) for bfloat16
-    at 8 < G <= 16 and a head dim in ``HEAD_DIMS``; else ``"cuda_cores"``
-    (``ragged_decode_split_kernel``). Up to 8 heads the CUDA-core kernel
-    already reads K/V once; float32 stays on it at every G, where a group
-    above 8 heads reads each span's K/V once per chunk of 8 heads."""
-    if dtype == torch.bfloat16 and 8 < G <= TC_MAX_GROUP and D in HEAD_DIMS:
-        return "tc"
+    (``ragged_decode_tc_kernel``: the G heads of a group an m16 tile, one
+    pass over K/V on the tensor cores, spans merged across a cluster) for
+    bfloat16 at 8 < G <= 16 and a head dim in ``HEAD_DIMS``; ``"n8"``
+    (``ragged_decode_n8_kernel``: the G heads the n8 side of the product,
+    16 keys its m16, each warp its own ring and softmax, a cluster merge)
+    for bfloat16 at G <= 8 and a head dim in ``N8_HEAD_DIMS``; else
+    ``"cuda_cores"`` (``ragged_decode_split_kernel``). Float32 stays on
+    the CUDA cores at every G, where a group above 8 heads reads each
+    span's K/V once per chunk of 8 heads."""
+    if dtype == torch.bfloat16:
+        if 8 < G <= TC_MAX_GROUP and D in HEAD_DIMS:
+            return "tc"
+        if G <= N8_MAX_GROUP and D in N8_HEAD_DIMS:
+            return "n8"
     return "cuda_cores"
 
 
@@ -188,17 +207,53 @@ def tc_plan(B: int, KV: int, D: int, span: int,
     :func:`tc_tile_rows` rows of the context), and each CTA takes one span
     of whole tiles. An explicit ``split_t`` is kept; spans past the cluster
     are walked by its CTAs in turn."""
+    return _cluster_plan(B, KV, span, split_t, tc_tile_rows(D), "tc_plan")
+
+
+def n8_plan(B: int, KV: int, D: int, span: int,
+            split_t: Optional[int] = None):
+    """``(cluster, n_split, split_t)`` of the n8 route, from static sizes
+    only (no ``lengths``: no host sync): :func:`tc_plan`'s rule with spans
+    of whole rounds of the CTA's warps' 16-row sub-tiles (``16 *
+    n8_warps(D)`` rows) in place of the tensor-core kernel's tiles, one
+    wave at ``N8_SM_WARPS`` warps an SM in place of two CTAs an SM, and at
+    least ``N8_CTA_ROWS`` rows a CTA: below that a cluster merge costs
+    more than the rows it moves off the CTA."""
+    warps = n8_warps(D)
+    return _cluster_plan(B, KV, span, split_t, 16 * warps, "n8_plan",
+                         N8_CTA_ROWS, N8_SM_WARPS // warps)
+
+
+def _cluster_plan(B: int, KV: int, span: int, split_t: Optional[int],
+                  tile: int, who: str, least: int = 1, per_sm: int = 2):
     span = max(1, int(span))
     if split_t is None:
-        tile = tc_tile_rows(D)
-        want = max(1, 2 * H100_SMS // max(1, B * KV))
-        cluster = max(1, min(TC_MAX_CLUSTER, want, -(-span // tile)))
+        want = max(1, per_sm * H100_SMS // max(1, B * KV))
+        cluster = max(1, min(TC_MAX_CLUSTER, want, -(-span // tile),
+                             -(-span // least)))
         per = -(-span // cluster)
         split_t = -(-per // tile) * tile
     if split_t <= 0:
-        raise ValueError(f"tc_plan: split_t must be > 0, got {split_t}")
+        raise ValueError(f"{who}: split_t must be > 0, got {split_t}")
     n_split = -(-span // split_t)
     return min(TC_MAX_CLUSTER, n_split), n_split, split_t
+
+
+def ragged_decode_n8_plain(q, k, v, lengths, *, slots=None,
+                           ctx: Optional[int] = None,
+                           split_t: Optional[int] = None):
+    """The n8 route's arithmetic in plain PyTorch, for the tests only: the
+    spans of :func:`n8_plan`, each CTA of a (b, kv) group cutting its spans
+    into 16-row sub-tiles dealt to its warps in turn (:func:`n8_warps`),
+    each warp one online softmax in base 2 over its sub-tiles (float32
+    scores of the widened values times log2(e) / sqrt(D), P as bf16 hi +
+    lo in P·V), the warps merged in order, then the CTAs merged online in
+    rank order. A row of length 0 gives zeros (as the TPU kernel). Same
+    arguments as :func:`ragged_decode_attention`; returns (B, H, D) in
+    q.dtype."""
+    D = q.shape[2]
+    return _mirror(q, k, v, lengths, slots, ctx, n8_plan, split_t, 16,
+                   n8_warps(D))
 
 
 def ragged_decode_tc_plain(q, k, v, lengths, *, slots=None,
@@ -212,70 +267,90 @@ def ragged_decode_tc_plain(q, k, v, lengths, *, slots=None,
     of the CTAs' (m, l, O), online in rank order. A row of length 0 gives
     zeros (as the TPU kernel). Same arguments as
     :func:`ragged_decode_attention`; returns (B, H, D) in q.dtype."""
+    D = q.shape[2]
+    return _mirror(q, k, v, lengths, slots, ctx, tc_plan, split_t,
+                   tc_tile_rows(D), 1)
+
+
+def _mirror(q, k, v, lengths, slots, ctx, plan, split_t, tile: int,
+            streams: int):
+    """The tensor-core routes' arithmetic: ``plan``'s spans, CTA c of a
+    (b, kv) group walking spans c, c + cluster, ... by tiles of ``tile``
+    rows dealt in turn to ``streams`` online softmaxes (the CTA's, or each
+    warp's), those merged in order, then the CTAs in rank order."""
     B, H, D = q.shape
     N, T, KV = k.shape[0], k.shape[1], k.shape[2]
     G = H // KV
     span = T if ctx is None else min(ctx, T)
-    cluster, n_split, split_t = tc_plan(B, KV, D, span, split_t)
-    TR = tc_tile_rows(D)
+    cluster, n_split, split_t = plan(B, KV, D, span, split_t)
     scale_log2 = math.log2(math.e) / math.sqrt(D)
     rows = (torch.arange(B) if slots is None
             else torch.clamp(slots.long().cpu(), max=N - 1))
     f32 = torch.float32
     out = torch.zeros((B, KV, G, D), dtype=f32, device=q.device)
     bf = lambda x: x.to(torch.bfloat16).to(f32)
-    for b in range(B):
-        n = max(0, min(int(lengths[b]), span, n_split * split_t))
-        qb = q[b].to(f32).reshape(KV, G, D)
-        parts = []
-        for c in range(cluster):
-            m = torch.full((KV, G), -1e30, dtype=f32, device=q.device)
-            l = torch.zeros((KV, G), dtype=f32, device=q.device)
-            o = torch.zeros((KV, G, D), dtype=f32, device=q.device)
-            for s in range(c, n_split, cluster):
-                end = min((s + 1) * split_t, n)
-                for t0 in range(s * split_t, end, TR):
-                    t1 = min(t0 + TR, end)
-                    kt = k[rows[b], t0:t1].to(f32)        # (n, KV, D)
-                    vt = v[rows[b], t0:t1].to(f32)
-                    sc = torch.einsum("kgd,nkd->kgn", qb, kt) * scale_log2
-                    mn = torch.maximum(m, sc.amax(-1))
-                    corr = torch.exp2(m - mn)
-                    p = torch.exp2(sc - mn[..., None])
-                    l = l * corr + p.sum(-1)
-                    hi = bf(p)
-                    lo = bf(p - hi)
-                    o = (o * corr[..., None]
-                         + torch.einsum("kgn,nkd->kgd", hi, vt)
-                         + torch.einsum("kgn,nkd->kgd", lo, vt))
-                    m = mn
-            parts.append((m, l, o))
+
+    def online(qb, rk, rv, tiles):
+        m = torch.full((KV, G), -1e30, dtype=f32, device=q.device)
+        l = torch.zeros((KV, G), dtype=f32, device=q.device)
+        o = torch.zeros((KV, G, D), dtype=f32, device=q.device)
+        for t0, t1 in tiles:
+            kt, vt = rk[t0:t1].to(f32), rv[t0:t1].to(f32)   # (n, KV, D)
+            sc = torch.einsum("kgd,nkd->kgn", qb, kt) * scale_log2
+            mn = torch.maximum(m, sc.amax(-1))
+            corr = torch.exp2(m - mn)
+            p = torch.exp2(sc - mn[..., None])
+            l = l * corr + p.sum(-1)
+            hi = bf(p)
+            lo = bf(p - hi)
+            o = (o * corr[..., None] + torch.einsum("kgn,nkd->kgd", hi, vt)
+                 + torch.einsum("kgn,nkd->kgd", lo, vt))
+            m = mn
+        return m, l, o
+
+    def merge(parts):               # online, in order
         mm = torch.full_like(parts[0][0], -1e30)
         den = torch.zeros_like(mm)
         acc = torch.zeros_like(parts[0][2])
-        for pm, pl, po in parts:          # online, in rank order
+        for pm, pl, po in parts:
             mn = torch.maximum(mm, pm)
             ca, cb = torch.exp2(mm - mn), torch.exp2(pm - mn)
             den = den * ca + pl * cb
             acc = acc * ca[..., None] + po * cb[..., None]
             mm = mn
+        return mm, den, acc
+
+    for b in range(B):
+        n = max(0, min(int(lengths[b]), span, n_split * split_t))
+        qb = q[b].to(f32).reshape(KV, G, D)
+        ctas = []
+        for c in range(cluster):
+            tiles = [(t0, min(t0 + tile, (s + 1) * split_t, n))
+                     for s in range(c, n_split, cluster)
+                     for t0 in range(s * split_t, min((s + 1) * split_t, n),
+                                     tile)]
+            ctas.append(merge([online(qb, k[rows[b]], v[rows[b]],
+                                      tiles[w::streams])
+                               for w in range(streams)]))
+        _, den, acc = merge(ctas)
         out[b] = acc / torch.clamp(den, min=1e-30)[..., None]
     return out.reshape(B, H, D).to(q.dtype)
 
 
-def tc_info(D: int) -> dict:
-    """The tensor-core kernel's instantiation at head dim ``D``, read on
-    the card without launching it: {"regs", "spill_bytes", "ctas_per_sm",
-    "smem", "clusters_of_8"} (registers and local bytes a thread by
-    ``cudaFuncGetAttributes``; resident CTAs an SM and clusters of
-    ``TC_MAX_CLUSTER`` CTAs held at once by the occupancy calculator;
-    shared memory bytes a CTA)."""
+def tc_info(D: int, route: str = "tc") -> dict:
+    """A tensor-core kernel's instantiation at head dim ``D`` (``route``
+    "tc" or "n8"), read on the card without launching it: {"regs",
+    "spill_bytes", "ctas_per_sm", "smem", "clusters_of_8"} (registers and
+    local bytes a thread by ``cudaFuncGetAttributes``; resident CTAs an SM
+    and clusters of ``TC_MAX_CLUSTER`` CTAs held at once by the occupancy
+    calculator; shared memory bytes a CTA)."""
     import ctypes
     info = (ctypes.c_int * 5)()
-    err = _build.function("ragged_decode_attn", "repro_ragged_decode_tc_info")(
+    err = _build.function("ragged_decode_attn",
+                          f"repro_ragged_decode_{route}_info")(
         D, ctypes.addressof(info))
     if err:
-        raise RuntimeError(f"tc_info: CUDA error {err} (D={D})")
+        raise RuntimeError(f"tc_info: CUDA error {err} (D={D}, {route})")
     return dict(zip(("regs", "spill_bytes", "ctas_per_sm", "smem",
                      "clusters_of_8"), info))
 
@@ -302,9 +377,14 @@ def _raise_on(err: int, route: str, B, H, KV, D, N, T, n_split,
                            f"split_t={split_t})")
 
 
+def _ptr(slots) -> int:
+    """The slot vector's address; 0 without one (the kernels read row b)."""
+    return 0 if slots is None else slots.data_ptr()
+
+
 def _launch_split(q, k, v, lengths, slots, ctx=None, split_t=None):
     """``ragged_decode_split_kernel`` (the CUDA cores) on checked CUDA
-    inputs; counts nothing. Returns the output."""
+    inputs (``slots`` may be None); counts nothing. Returns the output."""
     B, H, D = q.shape
     N, T, KV = k.shape[0], k.shape[1], k.shape[2]
     G = H // KV
@@ -320,7 +400,7 @@ def _launch_split(q, k, v, lengths, slots, ctx=None, split_t=None):
     fn = _build.function("ragged_decode_attn",
                          "repro_ragged_decode_attention")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             slots.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+             _ptr(slots), out.data_ptr(), part_acc.data_ptr(),
              part_ml.data_ptr(), counters.data_ptr(), B, H, KV, D, N, T,
              n_split, split_t, _build.dtype_code(q.dtype),
              torch.cuda.current_stream(q.device).cuda_stream)
@@ -328,21 +408,31 @@ def _launch_split(q, k, v, lengths, slots, ctx=None, split_t=None):
     return out
 
 
-def _launch_tc(q, k, v, lengths, slots, ctx=None, split_t=None):
-    """``ragged_decode_tc_kernel`` (bf16, the tensor cores) on checked CUDA
-    inputs; counts nothing. Returns the output."""
+def _launch_tc(q, k, v, lengths, slots, ctx=None, split_t=None,
+               route="tc"):
+    """``ragged_decode_tc_kernel`` (``route`` "tc") or
+    ``ragged_decode_n8_kernel`` ("n8"), bf16 on the tensor cores, on
+    checked CUDA inputs (``slots`` may be None); counts nothing. Returns
+    the output."""
     B, H, D = q.shape
     N, T, KV = k.shape[0], k.shape[1], k.shape[2]
     span = T if ctx is None else min(ctx, T)
-    cluster, n_split, split_t = tc_plan(B, KV, D, span, split_t)
+    plan = tc_plan if route == "tc" else n8_plan
+    cluster, n_split, split_t = plan(B, KV, D, span, split_t)
     out = torch.empty_like(q)
-    fn = _build.function("ragged_decode_attn", "repro_ragged_decode_tc")
+    fn = _build.function("ragged_decode_attn", f"repro_ragged_decode_{route}")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             slots.data_ptr(), out.data_ptr(), B, H, KV, D, N, T, span,
+             _ptr(slots), out.data_ptr(), B, H, KV, D, N, T, span,
              n_split, split_t, cluster,
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "tc", B, H, KV, D, N, T, n_split, split_t)
+    _raise_on(err, route, B, H, KV, D, N, T, n_split, split_t)
     return out
+
+
+def _launch_n8(q, k, v, lengths, slots, ctx=None, split_t=None):
+    """``ragged_decode_n8_kernel`` (bf16 at G <= 8, the tensor cores) on
+    checked CUDA inputs; counts nothing. Returns the output."""
+    return _launch_tc(q, k, v, lengths, slots, ctx, split_t, route="n8")
 
 
 def ragged_decode_attention(q, k, v, lengths, *,
@@ -358,15 +448,16 @@ def ragged_decode_attention(q, k, v, lengths, *,
     only the first ``ctx`` time rows when that bound is given; a CUDA
     tensor launches, on the current stream, the kernel of the route
     :func:`decode_route` picks, or raises (no route falls back to the
-    other). Both kernels split ``ctx`` (T without it) into spans of
-    ``split_t`` rows and stop at each row's length; a bound below a row's
+    other). Every kernel splits ``ctx`` (T without it) into spans of
+    ``split_t`` rows and stops at each row's length; a bound below a row's
     length would drop its tail, as in the plain version. The CUDA-core
-    kernel (G <= 8, and float32 at any G) plans its spans as
-    :func:`split_plan` does, in granules of :func:`split_granule` rows, one
-    CTA a span; the tensor-core kernel (bf16 at 8 < G <= 16) as
-    :func:`tc_plan` does, a cluster of CTAs per (row, kv head) walking the
-    spans. ``launches`` counts both routes, ``tc_launches`` the
-    tensor-core one.
+    kernel (float32 at any G) plans its spans as :func:`split_plan` does,
+    in granules of :func:`split_granule` rows, one CTA a span; the
+    tensor-core kernels (bf16 at 8 < G <= 16, and at G <= 8) as
+    :func:`tc_plan` and :func:`n8_plan` do, a cluster of CTAs per (row, kv
+    head) walking the spans. Without ``slots`` the kernels read row b of
+    the stack (no slot vector is made). ``launches`` counts every route,
+    ``tc_launches`` and ``n8_launches`` the tensor-core ones.
 
     Decode is on no loss path and has no gradient: with grad mode on and
     q, k or v requiring grad it raises (on the CPU too), rather than
@@ -387,17 +478,20 @@ def ragged_decode_attention(q, k, v, lengths, *,
         raise ValueError(f"ragged_decode_attention: unsupported device "
                          f"{q.device}")
     B, H, D = q.shape
-    if slots is None:
-        slots = torch.arange(B, dtype=torch.int32, device=q.device)
     _check(q, k, v, lengths, slots)
-    if decode_route(q.dtype, H // k.shape[2], D) == "tc":
+    route = decode_route(q.dtype, H // k.shape[2], D)
+    if route == "tc":
         out = _launch_tc(q, k, v, lengths, slots, ctx, split_t)
         ragged_decode_attention.tc_launches += 1
+    elif route == "n8":
+        out = _launch_n8(q, k, v, lengths, slots, ctx, split_t)
+        ragged_decode_attention.n8_launches += 1
     else:
         out = _launch_split(q, k, v, lengths, slots, ctx, split_t)
     ragged_decode_attention.launches += 1
     return out
 
 
-ragged_decode_attention.launches = 0      # every launch, either route
-ragged_decode_attention.tc_launches = 0   # the tensor-core route's
+ragged_decode_attention.launches = 0      # every launch, any route
+ragged_decode_attention.tc_launches = 0   # the tensor-core route's (G > 8)
+ragged_decode_attention.n8_launches = 0   # the n8 route's (bf16, G <= 8)

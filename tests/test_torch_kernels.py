@@ -170,13 +170,16 @@ def test_ragged_decode_slot_indexed_arena_read(dtype):
 DECODE_ROUTES = [
     (torch.bfloat16, 16, 256, "tc"),           # recurrentgemma-9b serve
     (torch.float32, 16, 256, "cuda_cores"),    # its f32 exact check
-    (torch.bfloat16, 4, 64, "cuda_cores"),     # llama3.2-1b, reduced()
-    (torch.bfloat16, 4, 128, "cuda_cores"),    # mistral-nemo-12b
-    (torch.bfloat16, 5, 128, "cuda_cores"),    # qwen2.5-32b
-    (torch.bfloat16, 6, 128, "cuda_cores"),    # internvl2-26b, grok-1-314b
-    (torch.bfloat16, 3, 64, "cuda_cores"),     # granite-moe-3b-a800m
-    (torch.bfloat16, 1, 64, "cuda_cores"),     # musicgen-large (MHA)
-    (torch.bfloat16, 8, 64, "cuda_cores"),     # 8 heads: one pass already
+    (torch.bfloat16, 4, 64, "n8"),             # llama3.2-1b, reduced()
+    (torch.bfloat16, 4, 128, "n8"),            # mistral-nemo-12b
+    (torch.bfloat16, 5, 128, "n8"),            # qwen2.5-32b
+    (torch.bfloat16, 6, 128, "n8"),            # internvl2-26b, grok-1-314b
+    (torch.bfloat16, 3, 64, "n8"),             # granite-moe-3b-a800m
+    (torch.bfloat16, 1, 64, "n8"),             # musicgen-large (MHA)
+    (torch.bfloat16, 8, 64, "n8"),             # 8 heads: one n8 tile
+    (torch.bfloat16, 4, 32, "cuda_cores"),     # no n8 instantiation
+    (torch.bfloat16, 4, 256, "cuda_cores"),
+    (torch.float32, 4, 128, "cuda_cores"),     # nemo's f32 exact check
     (torch.bfloat16, 9, 128, "tc"),
     (torch.bfloat16, 12, 64, "tc"),
     (torch.bfloat16, 12, 256, "tc"),
@@ -195,24 +198,33 @@ DECODE_ROUTES = [
 @pytest.mark.parametrize("dtype,G,D,route", DECODE_ROUTES)
 def test_decode_route_by_dtype_and_shape(dtype, G, D, route):
     """bf16 at 8 < G <= 16 and a compiled head dim takes the tensor-core
-    kernel; float32 at every G, and G <= 8, the CUDA-core kernel."""
+    kernel, bf16 at G <= 8 and head dim 64 or 128 the n8 kernel; float32
+    at every G, and other head dims, the CUDA-core kernel."""
     assert K.decode_route(dtype, G, D) == route
 
 
 def test_decode_route_of_every_config():
-    """The configs' own heads: only recurrentgemma-9b's bf16 decode (G 16,
-    D 256) takes the tensor-core route; its reduced() widths (G 4) and
-    every other architecture's stay on the CUDA cores."""
+    """The configs' own heads: recurrentgemma-9b's bf16 decode (G 16, D
+    256) takes the tensor-core route, every other dense, MoE and hybrid
+    architecture's bf16 decode (G 1 to 6 at D 64 or 128, and every
+    reduced() width, G 1 or 4 at D 64) the n8 route; float32 stays on the
+    CUDA cores everywhere."""
     from repro_torch.configs import ARCHITECTURES
-    tc = set()
+    routes = {}
     for name, cfg in ARCHITECTURES.items():
         for c in (cfg, cfg.reduced()):
             if c.num_kv_heads and c.mla is None and c.ssm is None:
                 G = c.num_heads // c.num_kv_heads
                 for dt in (torch.bfloat16, torch.float32):
-                    if K.decode_route(dt, G, c.head_dim) == "tc":
-                        tc.add((name, c is cfg, dt))
-    assert tc == {("recurrentgemma-9b", True, torch.bfloat16)}
+                    routes[name, c is cfg, dt] = K.decode_route(
+                        dt, G, c.head_dim)
+    assert {key for key, r in routes.items() if r == "tc"} == {
+        ("recurrentgemma-9b", True, torch.bfloat16)}
+    assert {key for key, r in routes.items() if r == "n8"} == {
+        key for key in routes if key[2] == torch.bfloat16
+        and key[:2] != ("recurrentgemma-9b", True)}
+    assert all(r == "cuda_cores" for key, r in routes.items()
+               if key[2] == torch.float32)
 
 
 @pytest.mark.parametrize("B,KV,D,span,split_t", [
@@ -324,6 +336,114 @@ def test_ragged_decode_tc_plain_matches_pallas(G, D, T, dtype):
                                    slots=torch.from_numpy(slots))
     assert got.dtype == qt.dtype
     np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
+
+
+@pytest.mark.parametrize("B,KV,D,span,split_t,want", [
+    (8, 8, 64, 1024, None, (2, 2, 512)),    # the llama and granite serves
+    (8, 8, 128, 1024, None, (4, 4, 256)),   # the nemo serve
+    (3, 8, 64, 256, None, (1, 1, 256)),     # the legacy stacks at B 3, 7
+    (7, 8, 64, 256, None, (1, 1, 256)),
+    (128, 8, 64, 32768, None, (1, 1, 32768)),   # decode_32k: a CTA a group
+    (1, 8, 64, 1024, None, (4, 4, 256)),    # 256 rows a CTA at least
+    (1, 8, 128, 4096, None, (8, 8, 512)),
+    (8, 32, 64, 1024, None, (1, 1, 1024)),  # 256 groups: one wave already
+    (8, 8, 64, 64, None, (1, 1, 128)),      # one round of sub-tiles
+    (8, 8, 128, 64, None, (1, 1, 64)),
+    (8, 8, 64, 1000, 16, (8, 63, 16)),      # 63 spans walked by 8 CTAs
+    (8, 8, 128, 1000, 48, (8, 21, 48)),
+])
+def test_ragged_decode_n8_plan(B, KV, D, span, split_t, want):
+    """The n8 route's plan, from static sizes only: spans of whole rounds
+    of the CTA's warps' 16-row sub-tiles (8 warps at D 64, 4 at D 128), at
+    least 256 rows a CTA, a cluster that fits one wave of 8 warps an SM,
+    spans covering the context once, an explicit split_t kept."""
+    import inspect
+    from repro_torch.kernels.ragged_decode_attn import n8_plan, n8_warps
+    assert list(inspect.signature(n8_plan).parameters) == [
+        "B", "KV", "D", "span", "split_t"]
+    assert (n8_warps(64), n8_warps(128)) == (8, 4)
+    cluster, n, st = n8_plan(B, KV, D, span, split_t)
+    assert (cluster, n, st) == want
+    assert (n - 1) * st < span <= n * st
+    with pytest.raises(ValueError):
+        n8_plan(8, 8, 64, 64, split_t=0)
+
+
+def _n8_case(H, D, T, dtype, seed):
+    """B 5 over an arena of N 6 at eight kv heads: a padding row at
+    _PAD_SLOT, a row of length 0, one of length 1, one at T and one in
+    between."""
+    rng = np.random.default_rng(seed)
+    B, N, KV = 5, 6, 8
+    q = _pair(rng.standard_normal((B, H, D)), dtype)
+    k = _pair(rng.standard_normal((N, T, KV, D)), dtype)
+    v = _pair(rng.standard_normal((N, T, KV, D)), dtype)
+    lens = np.array([T, 0, T // 2 + 3, 1, T - 5], np.int32)
+    slots = np.array([4, 0, 2, 5, _PAD_SLOT], np.int32)
+    return q, k, v, lens, slots
+
+
+# (H, D, T) over eight kv heads: granite's G 3 and llama's G 4 at D 64,
+# nemo's G 4 at D 128; T no multiple of a 16-row sub-tile
+N8_CASES = [(24, 64, 100), (32, 64, 100), (32, 128, 70)]
+
+
+@pytest.mark.parametrize("H,D,T", N8_CASES)
+@pytest.mark.parametrize("split_t,ctx", [(None, None), (8, None),
+                                         (48, 50), (16, None)])
+def test_ragged_decode_n8_plain_matches_plain(H, D, T, split_t, ctx):
+    """The n8 route's arithmetic (spans walked by the CTAs of a cluster,
+    16-row sub-tiles dealt to the warps, a softmax a warp, P as bf16 hi +
+    lo, the warps' and the CTAs' merges) against the plain version in
+    float32 at 1e-5, every row of nonzero length: planned spans; spans of
+    8 rows (sub-tiles cut by a span's end, 13 spans of 100 rows over 8
+    CTAs, so CTA 0 walks two); of 48 (``ctx`` 50 below a row's length); of
+    16 (one sub-tile a span). A row of length 0 gives zeros."""
+    (_, q), (_, k), (_, v), lens, slots = _n8_case(H, D, T, jnp.float32,
+                                                   seed=H + D)
+    lt, st = torch.from_numpy(lens), torch.from_numpy(slots)
+    got = K.ragged_decode_n8_plain(q, k, v, lt, slots=st, ctx=ctx,
+                                   split_t=split_t)
+    want = K.ragged_decode_attention_plain(q, k, v, lt, slots=st, ctx=ctx)
+    live = lens > 0
+    np.testing.assert_allclose(_np(got)[live], _np(want)[live], rtol=1e-5,
+                               atol=1e-5)
+    assert not _np(got)[~live].any()
+
+
+@pytest.mark.parametrize("H,D,T", N8_CASES)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_ragged_decode_n8_plain_matches_pallas(H, D, T, dtype):
+    """The same arithmetic against the Pallas kernel in interpret mode
+    (one block of T rows, the clamped slots), at tests/test_kernels.py's
+    tolerances, the row of length 0 included (zeros in both)."""
+    (qj, qt), (kj, kt), (vj, vt), lens, slots = _n8_case(H, D, T, dtype,
+                                                         seed=H * D)
+    pallas = ops.ragged_decode_attention(
+        qj, kj, vj, jnp.asarray(lens), slots=jnp.asarray(np.minimum(slots,
+                                                                    5)),
+        block_t=T, interpret=True)
+    got = K.ragged_decode_n8_plain(qt, kt, vt, torch.from_numpy(lens),
+                                   slots=torch.from_numpy(slots))
+    assert got.dtype == qt.dtype
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
+
+
+def test_ragged_decode_n8_plain_without_slots():
+    """Without a slot vector row b of the stack is read, as the kernels
+    read a null slot pointer: equal to the same call given slots 0 .. B -
+    1, and to the plain version."""
+    (_, q), (_, k), (_, v), lens, _ = _n8_case(32, 64, 60, jnp.float32, 3)
+    q, lens = q[:5], torch.from_numpy(lens)
+    k, v = k[:5], v[:5]
+    got = K.ragged_decode_n8_plain(q, k, v, lens)
+    same = K.ragged_decode_n8_plain(q, k, v, lens,
+                                    slots=torch.arange(5, dtype=torch.int32))
+    np.testing.assert_array_equal(_np(got), _np(same))
+    live = lens.numpy() > 0
+    want = K.ragged_decode_attention_plain(q, k, v, lens)
+    np.testing.assert_allclose(_np(got)[live], _np(want)[live], rtol=1e-5,
+                               atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -684,6 +804,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
                   -torch.rand(2), torch.randn(1, 8, 4), torch.randn(1, 8, 4), 4)
     assert K.launch_counts() == {"ragged_decode_attention": 0,
                                  "ragged_decode_attention_tc": 0,
+                                 "ragged_decode_attention_n8": 0,
                                  "fused_rmsnorm": 0, "flash_attention": 0,
                                  "ssd_chunked": 0, "ssd_chunked_tc": 0,
                                  "ssd_chunked_tf32": 0,

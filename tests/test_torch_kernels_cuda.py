@@ -19,6 +19,10 @@ ragged decode without slots at batches 3 and 7 (the legacy engine's
 decode), ragged decode's tensor-core route (bf16 at G 12 and 16, D 32 to
 256, one or more kv heads, explicit spans walked by a cluster, its launch
 counter, two calls bit-equal) and float32 at G 16 staying on the CUDA
+cores, its n8 route (bf16 at G <= 8, D 64 and 128: llama3.2-1b's,
+mistral-nemo-12b's and granite-moe-3b-a800m's heads with and without
+slots, a row of length 0, rings and a dequantized int8 cache, repeat
+calls bit-equal, every span size) and float32 at G 4 staying on the CUDA
 cores, and tiny engines of every family on the card against the CPU
 engine, in arena and in legacy mode.
 """
@@ -565,6 +569,130 @@ def test_ragged_decode_f32_at_g16_stays_on_the_cuda_cores(cuda):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+def _n8_call(q, k, v, lengths, slots=None, split_t=None):
+    """One call that must take the n8 route: ``launches`` and
+    ``n8_launches`` move by one, ``tc_launches`` not."""
+    n0 = K.ragged_decode_attention.launches
+    t0 = K.ragged_decode_attention.tc_launches
+    e0 = K.ragged_decode_attention.n8_launches
+    got = K.ragged_decode_attention(q, k, v, lengths, slots=slots,
+                                    split_t=split_t)
+    assert K.ragged_decode_attention.launches == n0 + 1
+    assert K.ragged_decode_attention.n8_launches == e0 + 1
+    assert K.ragged_decode_attention.tc_launches == t0
+    return got
+
+
+# the serves' bf16 decode heads over eight kv heads: llama3.2-1b's G 4 at
+# D 64, mistral-nemo-12b's at D 128, granite-moe-3b-a800m's G 3
+N8_SERVE_HEADS = [(32, 8, 64), (32, 8, 128), (24, 8, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", N8_SERVE_HEADS)
+@pytest.mark.parametrize("with_slots", [True, False])
+def test_ragged_decode_n8_route_at_the_serves_heads(cuda, H, KV, D,
+                                                    with_slots):
+    """bf16 at the serves' heads takes the n8 kernel, over a T 1000 arena
+    with a padding row (slots) or a stack read row by row (no slots: the
+    legacy engine's decode, no slot vector made): a row of length 0 gives
+    zeros, every other row the plain version's output within 2e-2, and
+    two calls are equal bit for bit."""
+    q, k, v, lengths, slots = _decode_case(cuda, 8, H, KV, D, 1000,
+                                           torch.bfloat16, seed=H + D)
+    lengths[3] = 0
+    if not with_slots:
+        k, v, slots = k[:8].contiguous(), v[:8].contiguous(), None
+    got = _n8_call(q, k, v, lengths, slots)
+    again = _n8_call(q, k, v, lengths, slots)
+    want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    live = lengths > 0
+    assert not got[~live].float().any()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", N8_SERVE_HEADS)
+@pytest.mark.parametrize("split_t", [16, 48, 64, 128, 320, 1024])
+def test_ragged_decode_n8_route_split_invariance(cuda, H, KV, D, split_t):
+    """Every span size (sub-tiles cut by a span's end at 48 and 320; 63
+    spans of 16 rows walked by 8 CTAs; one CTA a row at 1024) agrees with
+    the planned spans and with the plain version within 2e-2 (bf16
+    outputs: the order of the merges moves the last bits)."""
+    q, k, v, lengths, slots = _decode_case(cuda, 8, H, KV, D, 1000,
+                                           torch.bfloat16, seed=11)
+    planned = _n8_call(q, k, v, lengths, slots)
+    got = _n8_call(q, k, v, lengths, slots, split_t)
+    want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
+    torch.testing.assert_close(got.float(), planned.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", [(8, 8, 64), (40, 8, 128), (48, 8, 128),
+                                    (64, 8, 64), (16, 8, 128), (8, 1, 64)])
+def test_ragged_decode_n8_route_at_other_groups(cuda, H, KV, D):
+    """G 1 (MHA), 5 (qwen2.5-32b), 6 (internvl2-26b, grok-1-314b), 8 and 2
+    over eight kv heads, and G 8 over one: within 2e-2 of the plain
+    version, a row of length 0 zeros."""
+    q, k, v, lengths, slots = _decode_case(cuda, 8, H, KV, D, 1000,
+                                           torch.bfloat16, seed=H * D)
+    lengths[2] = 0
+    got = _n8_call(q, k, v, lengths, slots)
+    want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
+    live = lengths > 0
+    assert not got[~live].float().any()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 7, 128])
+def test_ragged_decode_n8_route_at_the_legacy_and_long_batches(cuda, B):
+    """The legacy engine's stacks at B 3 and 7 (T 256) and B 128 (T 2048,
+    every row full: one CTA a group), no slots, at llama's heads."""
+    T = 256 if B < 128 else 2048
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn((B, 32, 64), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, T, 8, 64), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, T, 8, 64), generator=g, device=cuda).bfloat16()
+    lens = [1, T, 17, 133, T - 1, 64, 200] if B < 128 else [T] * B
+    lengths = torch.tensor(lens[:B], dtype=torch.int32, device=cuda)
+    got = _n8_call(q, k, v, lengths)
+    want = K.ragged_decode_attention_plain(q, k, v, lengths)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", N8_SERVE_HEADS)
+def test_ragged_decode_f32_at_g4_stays_on_the_cuda_cores(cuda, H, KV, D):
+    """float32 at the serves' heads runs the CUDA-core kernel: ``launches``
+    moves, neither tensor-core counter does; without slots it reads row b
+    (a null slot pointer), equal bit for bit to slots 0 .. B - 1."""
+    q, k, v, lengths, _ = _decode_case(cuda, 8, H, KV, D, 1000,
+                                       torch.float32, seed=13)
+    k, v = k[:8].contiguous(), v[:8].contiguous()
+    n0 = K.ragged_decode_attention.launches
+    e0 = K.ragged_decode_attention.n8_launches
+    t0 = K.ragged_decode_attention.tc_launches
+    got = K.ragged_decode_attention(q, k, v, lengths)
+    assert K.ragged_decode_attention.launches == n0 + 1
+    assert K.ragged_decode_attention.n8_launches == e0
+    assert K.ragged_decode_attention.tc_launches == t0
+    rows = torch.arange(8, dtype=torch.int32, device=cuda)
+    same = K.ragged_decode_attention(q, k, v, lengths, slots=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, same)
+    want = K.ragged_decode_attention_plain(q, k, v, lengths)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
 # RuntimeFlags.window's decode: a ring of T rows; a row past T has wrapped
 # and reads all T rows (lengths min(pos + 1, T))
 RING_CASES = [
@@ -586,7 +714,10 @@ def test_ragged_decode_kernel_over_a_wrapped_ring(cuda, B, H, KV, D, T, pos,
     lengths = torch.clamp(torch.tensor(pos, device=cuda) + 1,
                           max=T).to(torch.int32)
     assert int(lengths.max()) == T
+    e0 = K.ragged_decode_attention.n8_launches
     got = K.ragged_decode_attention(q, k, v, lengths)
+    assert K.ragged_decode_attention.n8_launches == e0 + (
+        dtype == torch.bfloat16)
     want = K.ragged_decode_attention_plain(q, k, v, lengths)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -608,7 +739,10 @@ def test_ragged_decode_kernel_over_a_dequantized_int8_cache(cuda, H, KV, D,
     rows = torch.clamp(slots, max=k.shape[0] - 1)
     ck = k8[rows].to(dtype) * ks[rows, ..., None].to(dtype)
     cv = v8[rows].to(dtype) * vs[rows, ..., None].to(dtype)
+    e0 = K.ragged_decode_attention.n8_launches
     got = K.ragged_decode_attention(q, ck, cv, lengths)
+    assert K.ragged_decode_attention.n8_launches == e0 + (
+        dtype == torch.bfloat16)
     want = K.ragged_decode_attention_plain(q, ck, cv, lengths)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -1,48 +1,94 @@
 #!/usr/bin/env python3
-"""Time ragged decode's tensor-core kernel against the CUDA-core kernel at
-recurrentgemma-9b's heads, in turns, on one card; or a probe of it, a copy
-of this tree's source with clock64 stamps around each phase of a tile.
+"""Time ragged decode's kernels against each other in turns, on one card,
+at the serves' head shapes; or probes of them, a copy of this tree's
+source with clock64 stamps around each phase.
 
-    python3 tools/decode_ab.py [--cases serve legacy3 legacy7 long]
-    python3 tools/decode_ab.py --probe [--sass] [--cases ...]
+    python3 tools/decode_ab.py [--cases llama nemo ...] [--kernels cores tc]
+    python3 tools/decode_ab.py --probe cores tc n8 [--sass] [--cases ...]
+    python3 tools/decode_ab.py --variants w4 w8 [--other _scratch/parent]
 
-Cases, bf16, 16 query heads over one kv head of 256 (G 16, D 256), with
-``chip_smoke.py``'s inputs (``kernel_decode``):
+Kernels (``--kernels``, each called through its C entry on the same
+inputs, whatever route ``decode_route`` would pick):
 
-  serve    q (8, 16, 256) over a slot arena (512, 1024, 1, 256), the
+  cores    ``ragged_decode_split_kernel`` (``_launch_split``: the CUDA
+           cores, split over the context, the last CTA of a row merging
+           the spans' float32 partials)
+  tc       ``ragged_decode_tc_kernel`` (``_launch_tc``: the heads of a kv
+           group one m16 tile of ``mma.sync``, a cluster merge), also at
+           G <= 8, where its m16 tile holds G live rows
+  n8       ``ragged_decode_n8_kernel`` (``_launch_n8``: bf16 at G <= 8, the
+           heads the n8 side of ``mma.sync``, 16 keys its m16, a ring and
+           an online softmax a warp, a cluster merge)
+
+Cases, bf16, with ``chip_smoke.py``'s inputs (``kernel_decode``):
+
+  llama    q (8, 32, 64) over a slot arena (512, 1024, 8, 64), the
            smoke's first decode case (lengths 1 ... 1024, one padding row)
-  legacy3  q (3, 16, 256) over a (3, 256, 1, 256) stack, no slots (the
+  nemo     the same at D 128: q (8, 32, 128) over (512, 1024, 8, 128)
+  granite  the same at G 3: q (8, 24, 64)
+  llama-one, llama-ctx64  the smoke's other two decode cases at llama's
+           heads: one row of 1024 (B 1), and B 8 under a context bound of
+           64
+  qwen, internvl, musicgen  the same at qwen2.5-32b's heads (40 / 8 of
+           128, G 5), internvl2-26b's (48 / 8 of 128, G 6) and
+           musicgen-large's (32 / 32 of 64, G 1); no serve runs them on
+           the card
+  llama-legacy3  q (3, 32, 64) over a (3, 256, 8, 64) stack, no slots (the
            legacy engine's decode), lengths 1, 256, 133
-  legacy7  the same at B 7
+  llama-legacy7  the same at B 7
+  llama-long  q (128, 32, 64) over (128, 32768, 8, 64), every row 32768
+           long (llama's decode_32k)
+  serve    recurrentgemma-9b's heads (G 16, D 256): q (8, 16, 256) over a
+           slot arena (512, 1024, 1, 256)
+  legacy3, legacy7  q (B, 16, 256) over a (B, 256, 1, 256) stack, no slots
   long     q (128, 16, 256) over (128, 2048, 1, 256), every row 2048 long
-           (decode_32k's rings of the local window)
 
-Per case: the output of the tensor-core kernel (``ragged_decode_attention``
-on its ``tc`` route) and of the CUDA-core kernel
-(``ragged_decode_split_kernel``, called through its C entry on the same
-inputs) against ``ragged_decode_attention_plain`` (2e-2); then, in turns
-cores, tc, tc, cores: CUDA-event medians with the L2 flushed, the
-profiler's device time per call (L2 warm) and the host's cost per call, by
-``chip_smoke.py``'s own timers; the plain version's and SDPA's (the
-smoke's yardstick over the gathered, head-repeated rows) device time; the
-bound and each kernel's share of it. ptxas's report for
-``ragged_decode_tc_kernel`` comes first, with its registers, spill bytes,
-CTAs an SM, shared memory and clusters of 8 held at once at each head dim
-(``kernels.ragged_decode_attn.tc_info``).
+Per case: each kernel's output against ``ragged_decode_attention_plain``
+(2e-2); then, in turns (the kernels in order, then in reverse order):
+CUDA-event medians with the L2 flushed, the profiler's device time per
+call (L2 warm) and the host's cost per call, by ``chip_smoke.py``'s own
+timers; the plain version's and SDPA's (the smoke's yardstick over the
+gathered, head-repeated rows) device time; the bound and each kernel's
+share of it. ptxas's report for both kernels comes first, then the
+tensor-core kernel's registers, spill bytes, CTAs an SM, shared memory
+and clusters of 8 held at once at each head dim (``tc_info``).
 
-``--probe`` builds a copy of this tree's ``csrc/`` into
-``build/decode_ab/`` whose ``ragged_decode_tc_kernel`` adds, on thread 0
-of every CTA, clock64 cycles of each phase into a device array that
-``repro_probe_cycles`` reads (and zeroes): per tile the wait for its loads
-(the first tile's apart), the next tile's issue, S on the tensor cores,
-the barrier after S, the softmax and P·V; per CTA the prologue (Q and the
-first issues), the loop, (m, l, O) into shared memory, the first cluster
-barrier, the merge over the cluster and the second cluster barrier. Its atomics slow the kernel a little; its output
-is checked like the kernel's. With ``--sass`` it also prints, from the
-probe library's SASS at D 256, the instructions between consecutive clock
-reads: how many, and how many are exponentials (MUFU), tensor-core
-products (HMMA), shared-memory matrix loads (LDSM), async copies (LDGSTS)
-and branches (BRA).
+``--probe KERNEL ...`` builds one copy of this tree's ``csrc/`` into
+``build/decode_ab/`` whose kernels add, on thread 0 of every CTA, clock64
+cycles of each phase into device arrays that ``repro_probe_*_cycles``
+read (and zero), and runs each probed kernel once per case. ``tc``: per
+tile the wait for its loads (the first tile's apart), the next tile's
+issue, S on the tensor cores, the barrier after S, the softmax and P·V;
+per CTA the prologue (Q and the first issues), the loop, (m, l, O) into
+shared memory, the first cluster barrier, the merge over the cluster and
+the second cluster barrier. ``n8``: per sub-tile of warp 0 the wait for
+its loads (the first's apart), the next sub-tile's issue, S^T, the
+softmax with P's packing, P·V; per CTA the prologue (lengths, slots, Q,
+the first issues), the loop over warp 0's sub-tiles, the warps' states
+and their merge with a peer's stores into CTA 0, CTA 0's wait for its
+peers' bytes and its merge; the CTAs that exit at once apart.
+``cores``: per CTA with rows the prologue (lengths, the exit test,
+slots), Q into registers, the loop over its
+rows (warp 0's), the warp merge and the write of the output or the
+span's partial (with the wait for the other warps), the fence and the
+arrival count, and the last CTA's merge of the partials; the CTAs that
+exit at once apart. The atomics slow the kernels a little; outputs are
+checked like the kernels'. With ``--sass`` it also prints, from the probe
+library's SASS of the tensor-core kernel at D 256, the instructions
+between consecutive clock reads: how many, and how many are exponentials
+(MUFU), tensor-core products (HMMA), shared-memory matrix loads (LDSM),
+async copies (LDGSTS) and branches (BRA). ``--variants w4 w8`` also
+builds other layouts of the n8 kernel from substituted copies (``w4``:
+four warps a CTA at both widths, rings of 6 stages at D 64; ``w8``: eight
+warps at both widths, one CTA an SM at D 128) and times them in the same
+turns, with this tree's plan. ``--other DIR`` builds another checkout's
+``ragged_decode_attn.cu`` (e.g. the parent commit unpacked by ``git
+archive`` into the ignored ``_scratch/``) and times its kernels
+(``--other-kernels``, n8 by default) in the same turns, with this tree's
+plans. ``--cluster N ...`` also times the tensor-core kernel (and
+``--n8-cluster N ...`` the n8 kernel) at clusters of up to N CTAs, one
+span of whole tiles a CTA.
+
 Prints the card's name and power limit; exits 1 when an output disagrees,
 2 without a card.
 """
@@ -59,18 +105,42 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 OUT = ROOT / "build" / "decode_ab"
-CASES = ("serve", "legacy3", "legacy7", "long")
-TC_SYMBOLS = ("ragged_decode_tc_kernel",)
-CORE_SYMBOLS = ("ragged_decode_split_kernel",)
+CASES = ("llama", "nemo", "granite", "llama-one", "llama-ctx64",
+         "llama-legacy3", "llama-legacy7", "llama-long", "qwen", "internvl",
+         "musicgen", "serve", "legacy3", "legacy7", "long")
+# kernel: (launcher in kernels/ragged_decode_attn.py, C entry, symbols)
+KERNELS = {
+    "cores": ("_launch_split", "repro_ragged_decode_attention",
+              ("ragged_decode_split_kernel",)),
+    "tc": ("_launch_tc", "repro_ragged_decode_tc",
+           ("ragged_decode_tc_kernel",)),
+    "n8": ("_launch_n8", "repro_ragged_decode_n8",
+           ("ragged_decode_n8_kernel",)),
+}
+LONG_LLAMA = (32768,) * 128    # llama's decode_32k: B 128, every row full
 
 PROBE_HEAD = (
     "namespace tc {\n\n"
     "__device__ unsigned long long probe_cycles[24];\n"
     "__device__ void probe_add(int i, long long v) {\n"
     "  atomicAdd(&probe_cycles[i], (unsigned long long)v);\n}\n")
-# (text of ragged_decode_attn.cu, its replacement): each text must be there
-# once
-PROBE = [
+
+
+def reader(array: str, symbol: str, n: int) -> str:
+    """C text of an entry that copies ``array``'s ``n`` counters out and
+    zeroes them."""
+    return (f"\nextern \"C\" int {symbol}(unsigned long long* host) {{\n"
+            f"  cudaError_t e = cudaMemcpyFromSymbol(host, {array},\n"
+            f"      sizeof(unsigned long long) * {n});\n"
+            f"  if (e == cudaSuccess) {{\n"
+            f"    unsigned long long zero[{n}] = {{0}};\n"
+            f"    e = cudaMemcpyToSymbol({array}, zero, sizeof(zero));\n"
+            f"  }}\n  return (int)e;\n}}\n")
+
+
+# (text of ragged_decode_attn.cu, its replacement), per probed kernel: each
+# text must be there once
+PROBES = {"tc": [
     ("namespace tc {\n", PROBE_HEAD),
     ("  using C = Cfg<D>;\n  constexpr int TR = C::TR, CPR = C::CPR;\n",
      "  using C = Cfg<D>;\n  constexpr int TR = C::TR, CPR = C::CPR;\n"
@@ -118,60 +188,224 @@ PROBE = [
      "    probe_add(13, k6 - k4); probe_add(14, k7 - k6);\n"
      "    probe_add(18, k7 - k0);\n"
      "    probe_add(16, 1); probe_add(17, n_tiles);\n  }\n"),
-    ("// bf16 q (B, H, D), k, v (N, T, KV, D), lengths and slots (B,) int32, out\n",
-     "extern \"C\" int repro_probe_cycles(unsigned long long* host) {\n"
-     "  cudaError_t e = cudaMemcpyFromSymbol(host, tc::probe_cycles,\n"
-     "                                       sizeof(unsigned long long) * 24);\n"
-     "  if (e == cudaSuccess) {\n"
-     "    unsigned long long zero[24] = {0};\n"
-     "    e = cudaMemcpyToSymbol(tc::probe_cycles, zero, sizeof(zero));\n"
-     "  }\n  return (int)e;\n}\n\n"
-     "// bf16 q (B, H, D), k, v (N, T, KV, D), lengths and slots (B,) int32, out\n"),
-]
-# (slot of the cycles, slot of its count, label)
-PHASES = ((0, 6, "wait for the tile's loads (every tile)"),
-          (7, 8, "wait for the tile's loads (first tile)"),
-          (1, 6, "issue the next tile"), (2, 6, "S on the tensor cores"),
-          (3, 6, "barrier after S"), (4, 6, "softmax"),
-          (5, 6, "P.V on the tensor cores"),
-          (9, 16, "CTA prologue (Q, first issues) (per CTA)"),
-          (10, 16, "CTA loop over its tiles (per CTA)"),
-          (11, 16, "O, m, l into shared memory (per CTA)"),
-          (12, 16, "first cluster barrier (per CTA)"),
-          (13, 16, "the merge over the cluster (per CTA)"),
-          (14, 16, "second cluster barrier (per CTA)"),
-          (18, 16, "whole CTA (per CTA)"))
+], "n8": [
+    ("template <int D>\n__global__ void __launch_bounds__(Cfg<D>::kThreads, "
+     "2)\nragged_decode_n8_kernel(",
+     "__device__ unsigned long long n8_cycles[24];\n"
+     "__device__ void n8_add(int i, long long v) {\n"
+     "  atomicAdd(&n8_cycles[i], (unsigned long long)v);\n}\n\n"
+     "template <int D>\n__global__ void __launch_bounds__(Cfg<D>::kThreads, "
+     "2)\nragged_decode_n8_kernel("),
+    ("  extern __shared__ __align__(128) unsigned char smem[];\n"
+     "  const uint32_t base = tc::smem_addr(smem);\n",
+     "  extern __shared__ __align__(128) unsigned char smem[];\n"
+     "  const uint32_t base = tc::smem_addr(smem);\n"
+     "  const long long k0 = clock64();\n"),
+    ("  if (c >= n_act) return;\n",
+     "  if (c >= n_act) {\n"
+     "    if (tid == 0) { n8_add(20, clock64() - k0); n8_add(21, 1); }\n"
+     "    return;\n  }\n"),
+    ("  float m[2] = {-1e30f, -1e30f};   // heads 2t and 2t + 1\n",
+     "  const long long k1 = clock64();\n"
+     "  float m[2] = {-1e30f, -1e30f};   // heads 2t and 2t + 1\n"),
+    ("  for (int j = 0; j < n_w; ++j) {\n"
+     "    tc::cp_async_wait<C::kStages - 2>();\n",
+     "  for (int j = 0; j < n_w; ++j) {\n"
+     "    const long long c0 = clock64();\n"
+     "    tc::cp_async_wait<C::kStages - 2>();\n"),
+    ("    __syncwarp();\n    issue(j + C::kStages - 1);\n",
+     "    __syncwarp();\n    const long long c1 = clock64();\n"
+     "    issue(j + C::kStages - 1);\n    const long long c2 = clock64();\n"),
+    ("    // base-2 exponents; keys past the sub-tile's rows -inf\n",
+     "    const long long c3 = clock64();\n"
+     "    // base-2 exponents; keys past the sub-tile's rows -inf\n"),
+    ("    // 3. O^T += V^T . P^T, P as hi + lo: lane (g, t) holds P of key g "
+     "(and\n",
+     "    const long long c4 = clock64();\n"
+     "    // 3. O^T += V^T . P^T, P as hi + lo: lane (g, t) holds P of key g "
+     "(and\n"),
+    ("      tc::mma(o[mt], a, bl0, bl1);\n    }\n  }\n",
+     "      tc::mma(o[mt], a, bl0, bl1);\n    }\n"
+     "    if (tid == 0) {\n      const long long c5 = clock64();\n"
+     "      n8_add(0, c1 - c0); n8_add(1, c2 - c1); n8_add(2, c3 - c2);\n"
+     "      n8_add(3, c4 - c3); n8_add(4, c5 - c4); n8_add(6, 1);\n"
+     "      if (j == 0) { n8_add(7, c1 - c0); n8_add(8, 1); }\n"
+     "    }\n  }\n  const long long k2 = clock64();\n"),
+    ("  if (n_act == 1 || c > 0) return;   // a peer's stores land on "
+     "their own\n",
+     "  const long long k3 = clock64();\n"
+     "  if (tid == 0) {\n"
+     "    n8_add(9, k1 - k0); n8_add(10, k2 - k1); n8_add(11, k3 - k2);\n"
+     "    n8_add(16, 1); if (n_act == 1 || c > 0) n8_add(18, k3 - k0);\n"
+     "    if (n_act > 1 && c > 0) n8_add(19, 1);\n  }\n"
+     "  if (n_act == 1 || c > 0) return;   // a peer's stores land on "
+     "their own\n"),
+    ("  wait_cluster(bar, 0);\n",
+     "  wait_cluster(bar, 0);\n  const long long k5 = clock64();\n"),
+    ("        make_uint2(tc::bits(o01), tc::bits(o23));\n  }\n}\n",
+     "        make_uint2(tc::bits(o01), tc::bits(o23));\n  }\n"
+     "  if (tid == 0) {\n    const long long k6 = clock64();\n"
+     "    n8_add(13, k5 - k3); n8_add(14, k6 - k5); n8_add(22, 1);\n"
+     "    n8_add(18, k6 - k0);\n  }\n}\n"),
+], "cores": [
+    ("template <typename E, int D, int GC>\n__global__ void "
+     "__launch_bounds__(kThreads)\nragged_decode_split_kernel(",
+     "__device__ unsigned long long split_cycles[16];\n"
+     "__device__ void split_add(int i, long long v) {\n"
+     "  atomicAdd(&split_cycles[i], (unsigned long long)v);\n}\n\n"
+     "template <typename E, int D, int GC>\n__global__ void "
+     "__launch_bounds__(kThreads)\nragged_decode_split_kernel("),
+    ("  const int r = lane / LPR;        // row within the warp's load\n",
+     "  const int r = lane / LPR;        // row within the warp's load\n"
+     "  const long long k0 = clock64();\n"),
+    ("  if (split >= n_active) return;\n",
+     "  if (split >= n_active) {\n"
+     "    if (tid == 0) { split_add(8, clock64() - k0); split_add(9, 1); }\n"
+     "    return;\n  }\n"),
+    ("  for (int g0 = 0; g0 < G; g0 += GC) {\n    float qr[GC][EPL],",
+     "  const long long k1 = clock64();\n"
+     "  long long p_q = 0, p_loop = 0, p_write = 0;\n"
+     "  for (int g0 = 0; g0 < G; g0 += GC) {\n"
+     "    const long long za = clock64();\n    float qr[GC][EPL],"),
+    ("    // this lane's rows: t_begin + (it * kWarps + warp) * RPW + r\n",
+     "    const long long zb = clock64();\n"
+     "    // this lane's rows: t_begin + (it * kWarps + warp) * RPW + r\n"),
+    ("    // merge the row groups of the warp (lanes with the same chunk c)\n",
+     "    const long long zc = clock64();\n"
+     "    // merge the row groups of the warp (lanes with the same chunk c)\n"),
+    ("    __syncthreads();\n  }\n  if (n_active == 1) return;\n",
+     "    __syncthreads();\n"
+     "    const long long zd = clock64();\n"
+     "    p_q += zb - za; p_loop += zc - zb; p_write += zd - zc;\n  }\n"
+     "  const long long k2 = clock64();\n"
+     "  if (tid == 0) {\n"
+     "    split_add(0, k1 - k0); split_add(1, p_q); split_add(2, p_loop);\n"
+     "    split_add(3, p_write); split_add(6, 1);\n"
+     "    split_add(12, t_end - t_begin);\n"
+     "    if (n_active == 1) split_add(11, k2 - k0);\n  }\n"
+     "  if (n_active == 1) return;\n"),
+    ("  if (!s_last) return;\n",
+     "  const long long k3 = clock64();\n"
+     "  if (tid == 0) {\n"
+     "    split_add(4, k3 - k2); split_add(7, 1);\n"
+     "    if (!s_last) split_add(11, k3 - k0);\n  }\n"
+     "  if (!s_last) return;\n"),
+    ("  if (tid == 0) counters[group] = 0;\n}\n",
+     "  if (tid == 0) {\n    counters[group] = 0;\n"
+     "    const long long k4 = clock64();\n"
+     "    split_add(5, k4 - k3); split_add(10, 1); split_add(11, k4 - k0);\n"
+     "  }\n}\n"),
+]}
+# other layouts of the n8 kernel, built from substituted copies and timed
+# beside it (``--variants``): w4, four warps a CTA at both widths with
+# rings of 6 stages at D 64 (96 KB a CTA); w8, eight warps at both widths
+# (at D 128 192 KB, one CTA an SM). The plan stays this tree's.
+VARIANTS = {
+    "w4": [("  static constexpr int kWarps = D == 64 ? 8 : 4;\n",
+            "  static constexpr int kWarps = 4;\n"),
+           ("  static constexpr int kStages = 3;\n",
+            "  static constexpr int kStages = D == 64 ? 6 : 3;\n")],
+    "w8": [("  static constexpr int kWarps = D == 64 ? 8 : 4;\n",
+            "  static constexpr int kWarps = 8;\n")],
+}
+# per probed kernel: (its counters, how many, the reader's C entry)
+READERS = {"tc": ("tc::probe_cycles", 24, "repro_probe_tc_cycles"),
+           "n8": ("n8::n8_cycles", 24, "repro_probe_n8_cycles"),
+           "cores": ("split_cycles", 16, "repro_probe_split_cycles")}
+# per probed kernel: (slot of the cycles, slot of its count, label)
+PHASES = {
+    "tc": ((0, 6, "wait for the tile's loads (every tile)"),
+           (7, 8, "wait for the tile's loads (first tile)"),
+           (1, 6, "issue the next tile"), (2, 6, "S on the tensor cores"),
+           (3, 6, "barrier after S"), (4, 6, "softmax"),
+           (5, 6, "P.V on the tensor cores"),
+           (9, 16, "CTA prologue (Q, first issues) (per CTA)"),
+           (10, 16, "CTA loop over its tiles (per CTA)"),
+           (11, 16, "O, m, l into shared memory (per CTA)"),
+           (12, 16, "first cluster barrier (per CTA)"),
+           (13, 16, "the merge over the cluster (per CTA)"),
+           (14, 16, "second cluster barrier (per CTA)"),
+           (18, 16, "whole CTA (per CTA)")),
+    "n8": ((0, 6, "wait for the sub-tile's loads (every sub-tile)"),
+           (7, 8, "wait for the sub-tile's loads (first sub-tile)"),
+           (1, 6, "issue the next sub-tile"), (2, 6, "S^T on the tensor cores"),
+           (3, 6, "softmax and P's packing"),
+           (4, 6, "P.V on the tensor cores"),
+           (9, 16, "prologue (lengths, slots, Q, first issues) (per CTA)"),
+           (10, 16, "loop over warp 0's sub-tiles (per CTA)"),
+           (11, 16, "the warps' states, their merge and a peer's "
+                    "stores into CTA 0 (per CTA)"),
+           (13, 22, "CTA 0 of a cluster: the wait for its peers"),
+           (14, 22, "CTA 0 of a cluster: the merge and the stores"),
+           (18, 16, "whole CTA (per CTA with rows)"),
+           (20, 21, "CTAs without rows, until their exit")),
+    "cores": ((0, 6, "prologue: lengths, the exit test, slots"),
+              (1, 6, "Q into registers"),
+              (2, 6, "the loop over the span's rows (warp 0)"),
+              (3, 6, "warp merge and output or partial write (with the "
+                     "wait for the other warps)"),
+              (4, 7, "fence and arrival count (rows of several spans)"),
+              (5, 10, "the last CTA's merge of the partials"),
+              (11, 6, "whole CTA"),
+              (8, 9, "CTAs past the row's length, until their exit")),
+}
+# per probed kernel: the counts printed, (slot, label)
+COUNTS = {"tc": ((6, "tiles"), (16, "CTAs"), (17, "tiles counted")),
+          "n8": ((6, "sub-tiles of warp 0"), (16, "CTAs with rows"),
+                 (19, "peers that pushed"), (22, "CTAs 0 that merged"),
+                 (21, "CTAs without rows")),
+          "cores": ((6, "CTAs with rows"), (9, "CTAs that exit at once"),
+                    (7, "CTAs of rows with several spans"),
+                    (10, "merges"), (12, "rows"))}
 
 
-def probe_lib() -> Path:
-    """The probe's library, built from a substituted copy of csrc/."""
+def build_copies(copies) -> dict:
+    """``{tag: library}`` of substituted copies of a csrc/ (this tree's,
+    or another checkout's), one nvcc each, all at once: ``copies`` maps a
+    tag to its (old, new) substitutions, the text appended to
+    ragged_decode_attn.cu and the csrc/ directory (None: this tree's)."""
     from repro_torch.kernels import _build
-    src_dir = OUT / "probe-csrc"
-    shutil.rmtree(src_dir, ignore_errors=True)
-    shutil.copytree(_build.CSRC, src_dir)
-    path = src_dir / "ragged_decode_attn.cu"
-    text = path.read_text()
-    for old, new in PROBE:
-        if text.count(old) != 1:
-            raise RuntimeError(f"probe: {old!r} is not in "
-                               f"ragged_decode_attn.cu exactly once")
-        text = text.replace(old, new)
-    path.write_text(text)
-    lib = OUT / "libragged_decode_attn_probe.so"
-    out = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I",
-                          str(src_dir), "-o", str(lib), str(path)],
-                         capture_output=True, text=True)
-    if out.returncode:
-        raise RuntimeError(f"nvcc failed for the probe:\n{out.stdout}"
-                           f"{out.stderr}")
-    for line in ptxas_lines(out.stdout + out.stderr):
-        print(f"[ptxas] probe {line}", flush=True)
-    return lib
+    procs = {}
+    for tag, (subs, tail, csrc) in copies.items():
+        src_dir = OUT / f"{tag}-csrc"
+        shutil.rmtree(src_dir, ignore_errors=True)
+        shutil.copytree(csrc or _build.CSRC, src_dir)
+        path = src_dir / "ragged_decode_attn.cu"
+        text = path.read_text()
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{tag}: {old!r} is not in "
+                                   f"ragged_decode_attn.cu exactly once")
+            text = text.replace(old, new)
+        path.write_text(text + tail)
+        lib = OUT / f"libragged_decode_attn_{tag}.so"
+        procs[tag] = (lib, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(src_dir), "-o",
+             str(lib), str(path)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for tag, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {tag}:\n{log}")
+        for line in ptxas_lines(log):
+            print(f"[ptxas] {tag} {line}", flush=True)
+        libs[tag] = lib
+    return libs
+
+
+def probe_copy(kernels):
+    """The probe's substitutions, appended readers and csrc/ for
+    ``kernels``."""
+    subs = [sub for name in kernels for sub in PROBES[name]]
+    tail = "".join(reader(READERS[n][0], READERS[n][2], READERS[n][1])
+                   for n in kernels)
+    return subs, tail, None
 
 
 def sass_phases(lib: Path):
-    """Instruction counts between the clock reads of the probe's kernel at
-    D 256, from its SASS."""
+    """Instruction counts between the clock reads of the probe's
+    tensor-core kernel at D 256, from its SASS."""
     import re
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent
@@ -196,47 +430,123 @@ def sass_phases(lib: Path):
 
 
 def ptxas_lines(log: str):
+    """ptxas's registers and spills of the bf16 decode kernels (every
+    instantiation of the tensor-core kernel; the CUDA-core kernel's bf16
+    ones)."""
     kernel, lines = "?", []
     for line in log.splitlines():
         if "Function properties for" in line:
             kernel = line.split(" for ", 1)[1].strip()
-        elif "ragged_decode_tc_kernel" in kernel and ("registers" in line
-                                                      or "spill" in line):
-            lines.append(f"{kernel[-60:]}: {line.strip()}")
+        elif "ragged_decode_" in kernel and ("registers" in line
+                                             or "spill" in line):
+            if "split_kernel" not in kernel or "bfloat16" in kernel:
+                lines.append(f"{kernel[-64:]}: {line.strip()}")
     return lines
 
 
 def case(torch, K, smoke, name):
     """``chip_smoke.kernel_decode``'s case ``name``."""
     bf16 = torch.bfloat16
-    if name == "serve":
-        lens, slots, ctx = smoke.DECODE_CASES[0]
-        return smoke.kernel_decode(torch, K, bf16, lens, slots, ctx, H=16,
-                                   KV=1, D=256)
+    lens, slots, _ = smoke.DECODE_CASES[0]
+    heads = {"llama": (32, 8, 64), "nemo": (32, 8, 128),
+             "granite": (24, 8, 64), "qwen": (40, 8, 128),
+             "internvl": (48, 8, 128), "musicgen": (32, 32, 64),
+             "serve": (16, 1, 256)}
+    if name in heads:
+        H, KV, D = heads[name]
+        return smoke.kernel_decode(torch, K, bf16, lens, slots, None, H=H,
+                                   KV=KV, D=D)
+    if name in ("llama-one", "llama-ctx64"):
+        lens, slots, ctx = smoke.DECODE_CASES[1 if name == "llama-one"
+                                              else 2]
+        return smoke.kernel_decode(torch, K, bf16, lens, slots, ctx)
     if name == "long":
         return smoke.kernel_decode(torch, K, bf16, smoke.LONG_LENS, None,
                                    None, H=16, KV=1, D=256,
                                    T=smoke.LONG_LENS[0])
-    lens = smoke.SLOTLESS_LENS[0 if name == "legacy3" else 1]
-    return smoke.kernel_decode(torch, K, bf16, lens, None, None, H=16, KV=1,
-                               D=256, T=256)
+    if name == "llama-long":
+        return smoke.kernel_decode(torch, K, bf16, LONG_LLAMA, None, None,
+                                   T=LONG_LLAMA[0])
+    stack = smoke.SLOTLESS_LENS[0 if name.endswith("3") else 1]
+    H, KV, D = (32, 8, 64) if name.startswith("llama") else (16, 1, 256)
+    return smoke.kernel_decode(torch, K, bf16, stack, None, None, H=H, KV=KV,
+                               D=D, T=256)
 
 
-def clustered(torch, RD, _build, inputs, n):
-    """The tensor-core kernel through its C entry at clusters of up to
-    ``n`` CTAs, one span of whole 32-row tiles a CTA."""
+def launcher(torch, RD, name, inputs):
+    """``name``'s kernel through its launcher on ``inputs``."""
+    q, k, v, lengths, slots, ctx = inputs
+    fn = getattr(RD, KERNELS[name][0])
+    return lambda: fn(q, k, v, lengths, slots, ctx)
+
+
+def from_lib(torch, RD, dll, name, inputs):
+    """``name``'s kernel from a library built here (the probe's, a
+    variant's), planned and called as its launcher does."""
+    from repro_torch.kernels import _build
+    q, k, v, lengths, slots, ctx = inputs
+    entry = getattr(dll, KERNELS[name][1])
+    entry.argtypes = _build.SIGNATURES["ragged_decode_attn"][KERNELS[name][1]]
+    entry.restype = ctypes.c_int
+    B, H, D = q.shape
+    N, T, KV = k.shape[:3]
+    span = T if ctx is None else min(ctx, T)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    if name in ("tc", "n8"):
+        plan = RD.tc_plan if name == "tc" else RD.n8_plan
+        cluster, n_split, split_t = plan(B, KV, D, span)
+
+        def call():
+            out = torch.empty_like(q)
+            err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        lengths.data_ptr(), RD._ptr(slots), out.data_ptr(),
+                        B, H, KV, D, N, T, span, n_split, split_t, cluster,
+                        stream())
+            if err:
+                raise RuntimeError(f"probe {name}: CUDA error {err}")
+            return out
+        return call
+    n_split, split_t = RD._plan(B, KV, span, None, RD.split_granule(D))
+    G = H // KV
+    n_part = B * KV * n_split * G if n_split > 1 else 0
+    part_acc = torch.empty((n_part * D,), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((n_part * 2,), dtype=torch.float32,
+                          device=q.device)
+    counters = torch.zeros(max(B * KV, 64), dtype=torch.int32,
+                           device=q.device)
+
+    def call():
+        out = torch.empty_like(q)
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    lengths.data_ptr(), RD._ptr(slots), out.data_ptr(),
+                    part_acc.data_ptr(), part_ml.data_ptr(),
+                    counters.data_ptr(), B, H, KV, D, N, T, n_split, split_t,
+                    _build.dtype_code(q.dtype), stream())
+        if err:
+            raise RuntimeError(f"probe {name}: CUDA error {err}")
+        return out
+    return call
+
+
+def clustered(torch, RD, _build, inputs, n, route="tc"):
+    """A tensor-core kernel (``route`` "tc" or "n8") through its C entry
+    at clusters of up to ``n`` CTAs, one span of whole tiles a CTA."""
     q, k, v, lengths, slots, ctx = inputs
     B, H, D = q.shape
     N, T, KV = k.shape[:3]
     span = T if ctx is None else min(ctx, T)
-    split_t = -(-(-(-span // n)) // 32) * 32
+    tile = RD.tc_tile_rows(D) if route == "tc" else 16 * RD.n8_warps(D)
+    split_t = -(-(-(-span // n)) // tile) * tile
     n_split = -(-span // split_t)
-    fn = _build.function("ragged_decode_attn", "repro_ragged_decode_tc")
+    fn = _build.function("ragged_decode_attn",
+                         f"repro_ragged_decode_{route}")
 
     def call():
         out = torch.empty_like(q)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                 slots.data_ptr(), out.data_ptr(), B, H, KV, D, N, T, span,
+                 RD._ptr(slots), out.data_ptr(), B, H, KV, D, N, T, span,
                  n_split, split_t, min(n, n_split),
                  torch.cuda.current_stream().cuda_stream)
         if err:
@@ -248,15 +558,33 @@ def clustered(torch, RD, _build, inputs, n):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--probe", action="store_true",
-                    help="also run the phase probe's copy")
+    ap.add_argument("--kernels", nargs="+", default=list(KERNELS),
+                    choices=list(KERNELS),
+                    help="the kernels timed in turns, in this order and "
+                         "then in reverse")
+    ap.add_argument("--probe", nargs="*", default=None,
+                    choices=list(PROBES),
+                    help="also run the phase probes of these kernels "
+                         "(all without a name)")
     ap.add_argument("--sass", action="store_true",
-                    help="with --probe: the probe's SASS counts per phase")
+                    help="with --probe tc: the probe's SASS counts per "
+                         "phase")
+    ap.add_argument("--variants", nargs="*", default=(),
+                    choices=list(VARIANTS),
+                    help="also time these layouts of the n8 kernel")
+    ap.add_argument("--other", type=Path, default=None,
+                    help="another checkout (e.g. the parent commit, "
+                         "unpacked by git archive): also time its kernels")
+    ap.add_argument("--other-kernels", nargs="+", default=["n8"],
+                    choices=list(KERNELS),
+                    help="with --other: which of its kernels")
     ap.add_argument("--cases", nargs="+", default=list(CASES),
                     choices=CASES)
     ap.add_argument("--cluster", type=int, nargs="*", default=(),
                     help="also time the tensor-core kernel at clusters of "
                          "these many CTAs (up to 8), one span a CTA")
+    ap.add_argument("--n8-cluster", type=int, nargs="*", default=(),
+                    help="the same for the n8 kernel")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -273,46 +601,48 @@ def main() -> int:
     for D in RD.HEAD_DIMS:
         print(f"[info] ragged_decode_tc_kernel<{D}>: {RD.tc_info(D)}",
               flush=True)
-    probe = reader = None
-    if args.probe:
-        OUT.mkdir(parents=True, exist_ok=True)
-        lib = probe_lib()
-        if args.sass:
-            sass_phases(lib)
-        dll = ctypes.PyDLL(str(lib))
-        probe = dll.repro_ragged_decode_tc
-        probe.argtypes = _build.SIGNATURES["ragged_decode_attn"][
-            "repro_ragged_decode_tc"]
-        probe.restype = ctypes.c_int
-        reader = dll.repro_probe_cycles
-        reader.argtypes = [ctypes.c_void_p]
-        reader.restype = ctypes.c_int
+    for D in RD.N8_HEAD_DIMS:
+        print(f"[info] ragged_decode_n8_kernel<{D}>: "
+              f"{RD.tc_info(D, 'n8')}", flush=True)
+    probes = [] if args.probe is None else (args.probe or list(PROBES))
+    copies = {v: (VARIANTS[v], "", None) for v in args.variants}
+    if probes:
+        copies["probe"] = probe_copy(probes)
+    if args.other is not None:
+        copies["other"] = ([], "", args.other / "src" / "repro_torch"
+                           / "csrc")
+    OUT.mkdir(parents=True, exist_ok=True)
+    libs = {tag: ctypes.PyDLL(str(lib))
+            for tag, lib in build_copies(copies).items()}
+    dll = libs.get("probe")
+    if args.sass and "tc" in probes:
+        sass_phases(OUT / "libragged_decode_attn_probe.so")
     bad = 0
     for name in args.cases:
         r = case(torch, K, smoke, name)
-        kernel_fn, plain_fn, lib_fn = r["fns"]
-        cores_fn = r["before"][0]
-        fns = {"tc": kernel_fn, "cores": cores_fn}
-        if probe is not None:
-            q, k, v, lengths, slots, ctx = r["inputs"]
-
-            def probed():
-                B, H, D = q.shape
-                N, T, KV = k.shape[:3]
-                span = T if ctx is None else min(ctx, T)
-                cluster, n_split, split_t = RD.tc_plan(B, KV, D, span)
-                out = torch.empty_like(q)
-                err = probe(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            lengths.data_ptr(), slots.data_ptr(),
-                            out.data_ptr(), B, H, KV, D, N, T, span, n_split,
-                            split_t, cluster,
-                            torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"CUDA error {err} at launch")
-                return out
-            fns["probe"] = probed
-        for n in args.cluster:
-            fns[f"tc{n}"] = clustered(torch, RD, _build, r["inputs"], n)
+        inputs = r["inputs"]
+        fns = {}
+        G = inputs[0].shape[1] // inputs[1].shape[2]
+        sweep = [("tc", n) for n in args.cluster] + [
+            ("n8", n) for n in args.n8_cluster if G <= RD.N8_MAX_GROUP]
+        for route, n in sweep:
+            fns[f"{route}@{n}"] = clustered(torch, RD, _build, inputs, n,
+                                            route)
+        kernels = [kn for kn in args.kernels
+                   if kn != "n8" or G <= RD.N8_MAX_GROUP]
+        fns.update({kn: launcher(torch, RD, kn, inputs) for kn in kernels})
+        for v in args.variants if G <= RD.N8_MAX_GROUP else ():
+            fns[f"n8:{v}"] = from_lib(torch, RD, libs[v], "n8", inputs)
+            kernels.append(f"n8:{v}")
+        for kn in args.other_kernels if args.other is not None else ():
+            if kn != "n8" or G <= RD.N8_MAX_GROUP:
+                fns[f"{kn}:other"] = from_lib(torch, RD, libs["other"], kn,
+                                              inputs)
+                kernels.append(f"{kn}:other")
+        for kn in probes:
+            if kn == "n8" and G > RD.N8_MAX_GROUP:
+                continue
+            fns[f"probe-{kn}"] = from_lib(torch, RD, dll, kn, inputs)
         what = f"bf16 {r['shape']}"
         ref = r["ref"]
         for tag, fn in fns.items():
@@ -324,59 +654,73 @@ def main() -> int:
             bad += not ok
             print(f"[ab] {name} {what}: {tag} max|err| {err:.3e}"
                   f"{'' if ok else '  DISAGREES'}", flush=True)
-        if reader is not None:
-            buf = (ctypes.c_ulonglong * 24)()
-            reader(ctypes.addressof(buf))
-            fns["probe"]()
+        for kn in probes:
+            if f"probe-{kn}" not in fns:
+                continue
+            array, n_slots, symbol = READERS[kn]
+            read = getattr(dll, symbol)
+            read.argtypes = [ctypes.c_void_p]
+            read.restype = ctypes.c_int
+            buf = (ctypes.c_ulonglong * n_slots)()
+            read(ctypes.addressof(buf))
+            fns[f"probe-{kn}"]()
             torch.cuda.synchronize()
-            if reader(ctypes.addressof(buf)):
-                raise RuntimeError("repro_probe_cycles failed")
-            print(f"[probe] {name}: {buf[6]} tiles over {buf[16]} CTAs "
-                  f"({buf[17]} tiles counted); cycles (thread 0 of each "
-                  f"CTA): " + ", ".join(
+            if read(ctypes.addressof(buf)):
+                raise RuntimeError(f"{symbol} failed")
+            print(f"[probe] {name} {kn}: " + ", ".join(
+                      f"{buf[i]} {label}" for i, label in COUNTS[kn])
+                  + "; cycles (thread 0 of each CTA): " + ", ".join(
                       f"{label} {buf[i] / max(buf[n], 1):.0f}"
-                      for i, n, label in PHASES), flush=True)
-        res = {tag: {"events": [], "device": [], "host": []}
-               for tag in ("cores", "tc")}
-        for tag in ("cores", "tc", "tc", "cores"):
-            out = res[tag]
-            out["events"].append(smoke.cuda_ms(torch, fns[tag]))
+                      for i, n, label in PHASES[kn]), flush=True)
+        res = {kn: {"events": [], "device": [], "host": []}
+               for kn in kernels}
+        for kn in [*kernels, *reversed(kernels)]:
+            out = res[kn]
+            out["events"].append(smoke.cuda_ms(torch, fns[kn]))
             dev, _, missing = smoke.device_ms(
-                torch, fns[tag], f"{tag} {what}",
-                symbols=TC_SYMBOLS if tag == "tc" else CORE_SYMBOLS)
+                torch, fns[kn], f"{kn} {what}",
+                symbols=KERNELS[kn.split(":")[0]][2])
             out["device"].append(dev)
-            out["host"].append(smoke.host_us(torch, fns[tag]))
+            out["host"].append(smoke.host_us(torch, fns[kn]))
+        kernel_fn, plain_fn, lib_fn = r["fns"]
         dev_plain, _, _ = smoke.device_ms(torch, plain_fn, f"plain {what}")
         dev_lib, _, _ = smoke.device_ms(torch, lib_fn, f"SDPA {what}")
         ev_lib = smoke.cuda_ms(torch, lib_fn)
         b_ms, b_by = smoke.bound(r["bytes"], r["flops"], "bfloat16")
         fmt = lambda xs, f: ", ".join("not measured" if v is None else f(v)
                                       for v in xs)
-        for tag in ("tc", "cores"):
-            out = res[tag]
-            devs = [v for v in out["device"] if v is not None]
-            mean = sum(devs) / len(devs) if devs else None
-            share = ("not measured" if mean is None
-                     else f"{100 * b_ms / mean:.1f}%")
-            vs = ("not measured" if mean is None or dev_lib is None
-                  else f"{mean / dev_lib:.2f}x")
-            print(f"[time] {name} {what}: {tag} device "
+
+        def mean(xs):
+            xs = [v for v in xs if v is not None]
+            return sum(xs) / len(xs) if xs else None
+        base = mean(res[kernels[0]]["device"])
+        for kn in kernels:
+            out = res[kn]
+            m = mean(out["device"])
+            share = ("not measured" if m is None
+                     else f"{100 * b_ms / m:.1f}%")
+            vs = ("not measured" if m is None or dev_lib is None
+                  else f"{m / dev_lib:.2f}x")
+            rel = ("" if kn == kernels[0] or m is None or base is None
+                   else f"; {base / m:.2f}x faster than {kernels[0]}")
+            print(f"[time] {name} {what}: {kn} device "
                   f"{fmt(out['device'], lambda v: f'{v:.4f}')} ms, events "
                   f"{fmt(out['events'], lambda v: f'{v:.4f}')} ms, host "
                   f"{fmt(out['host'], lambda v: f'{v:.1f}')} us; bound "
                   f"{b_ms * 1e3:.2f} us ({b_by}), device at {share} of it; "
-                  f"{vs} SDPA's device time", flush=True)
+                  f"{vs} SDPA's device time{rel}", flush=True)
         show = lambda v: "not measured" if v is None else f"{v:.4f} ms"
-        for n in args.cluster:
-            tag = f"tc{n}"
+        for route, n in sweep:
+            tag = f"{route}@{n}"
             devs = [smoke.device_ms(torch, fns[tag], f"{tag} {what}",
-                                    symbols=TC_SYMBOLS)[0]
+                                    symbols=KERNELS[route][2])[0]
                     for _ in range(2)]
-            print(f"[time] {name} {what}: {tag} (clusters of up to {n}) "
-                  f"device {fmt(devs, lambda v: f'{v:.4f}')} ms", flush=True)
+            print(f"[time] {name} {what}: {tag} ({route} at clusters of up "
+                  f"to {n}) device {fmt(devs, lambda v: f'{v:.4f}')} ms",
+                  flush=True)
         print(f"[time] {name} {what}: plain device {show(dev_plain)}; SDPA "
               f"device {show(dev_lib)}, events {show(ev_lib)}", flush=True)
-        del r, fns
+        del r, fns, inputs, ref
         torch.cuda.empty_cache()
     return 1 if bad else 0
 
