@@ -14,12 +14,13 @@ Phases, always all of them, in order:
            kernel, the float32 flash
            kernel at D 64, any instantiation of the bf16 flash kernel, a
            flash or ragged decode kernel at D 256, any instantiation of
-           ragged decode's two tensor-core kernels, a kernel of the SSD
+           ragged decode's three tensor-core kernels, a kernel of the SSD
            scan's split-TF32 route or its tensor-core scan spills (the
            scan's registers, spill bytes and CTAs an SM are printed at
            each state size, and the decode tensor-core kernels',
            with their shared memory and the clusters of 8 the card holds,
-           at each head dim),
+           at each head dim), when the ragged decode library holds no
+           TF32 tensor-core (HMMA) instruction,
            when ptxas serializes the wgmmas of a flash kernel at D 256 (the
            float32 one's 255 registers a thread leave no room; the bf16
            one in either layout), when the flash or
@@ -43,7 +44,8 @@ Phases, always all of them, in order:
            in bfloat16 at recurrentgemma-9b's decode_32k (B 128 over
            full rings of 2048); the bfloat16 cases at G 16 take the
            tensor-core kernel, those at G <= 8 (llama's, nemo's D 128,
-           granite's G 3, with and without slots) the n8 kernel, and each
+           granite's G 3, with and without slots) the n8 kernel, the
+           float32 cases at G <= 8 the split-TF32 n8 kernel, and each
            is also held and timed against the CUDA-core kernel through
            its C entry on the same inputs, in turns, and fails when its
            device time is the longer; RMSNorm
@@ -115,9 +117,11 @@ Phases, always all of them, in order:
            (node by node); tokens must be equal, apart from near-ties
            (reference top-2 logit gap below 1e-3), which are printed. The
            launch counters are reset before and read after each of the two
-           paths: every kernel of the path must have run on both, and
-           neither tensor-core decode route (float32 decode runs the
-           CUDA-core kernel at every G).
+           paths: every kernel of the path must have run on both, every
+           ragged decode on the split-TF32 n8 route
+           (``ragged_decode_attention_n8_tf32``; float32 at G <= 8) and
+           none on either bf16 tensor-core route or the CUDA-core kernel
+           (nemo exact and granite exact the same).
   mamba serve  full-width mamba2-2.7b (64 layers, d_model 2560, 80 SSD
            heads of 64, state 128) in bfloat16, as the serve phase: 24
            requests at 20/s with prompts of 128, 257, 259 and 384 tokens
@@ -171,7 +175,8 @@ Phases, always all of them, in order:
   rgemma exact  as exact, on full-width recurrentgemma-9b at all 38 layers
            in float32 (37.6 GB): the float32 flash kernel at D 256 (split
            TF32 on the tensor cores, ``flash_tf32x3_d256_kernel``) and the
-           float32 ragged decode at D 256 on both paths.
+           float32 ragged decode at D 256 on both paths, on the CUDA-core
+           kernel alone (G 16: no tensor-core route may launch).
   variants  the ``RuntimeFlags`` variants through the ``Model`` API
            (``prefill`` / ``decode_step`` / ``init_cache``), seed-0
            weights at full width. window: llama3.2-1b at full depth in
@@ -321,9 +326,11 @@ Phases, always all of them, in order:
            repro_torch.launch.roofline --mesh 1x1``, computed from the H100
            constants), the analytic bound (``analytic_bytes`` / 3.35 TB/s
            or ``model_flops`` / 989 TFLOP/s, the larger) and each kernel's
-           device time per layer (profiler) beside its bound. A measured
-           layer under 0.95 x its analytic bound fails: the counts would
-           be wrong.
+           device time per layer (profiler, the mean of 3 traces of a
+           step, each holding at least each kernel's launches in it: a
+           trace that lost a record is taken again) beside its bound. A measured layer, or a
+           kernel's row, under 0.95 x its bound (or below zero) fails: the
+           counts would be wrong.
 
 Each serve's profile window must show every hand-written kernel whose
 launch counter moved in its traced serve; a window whose trace still
@@ -340,6 +347,8 @@ serves' main shapes, the bfloat16 SSD scan's tensor-core scan at chunk
 route at chunk 256, whose launches are those of ``mamba exact``'s batched
 and isolated paths together, and flash and ragged decode at head_dim 128
 in bfloat16, launched in ``nemo serve``, and float32, in ``nemo exact``;
+ragged decode in float32 at llama's heads and at granite's G 3 (the
+split-TF32 n8 kernel), launched in ``exact`` and ``granite exact``;
 flash at
 MiniCPM3's widths in bfloat16, launched in ``minicpm serve``, and
 float32, in ``minicpm exact``; ragged decode at granite's G 3 in
@@ -397,6 +406,8 @@ REPLACES = {
     "flash_attention_mla": FLASH_TPU,
     "flash_attention_f32_mla": FLASH_TPU,
     "ragged_decode_attention_g3": DECODE_TPU,
+    "ragged_decode_attention_f32": DECODE_TPU,
+    "ragged_decode_attention_f32_g3": DECODE_TPU,
     "flash_attention_d256": FLASH_TPU,
     "flash_attention_f32_d256": FLASH_TPU,
     "ragged_decode_attention_d256": DECODE_TPU,
@@ -422,6 +433,8 @@ SOURCES = {
     "flash_attention_mla": FLASH_CU,
     "flash_attention_f32_mla": FLASH_CU,
     "ragged_decode_attention_g3": DECODE_CU,
+    "ragged_decode_attention_f32": DECODE_CU,
+    "ragged_decode_attention_f32_g3": DECODE_CU,
     "flash_attention_d256": FLASH_CU,
     "flash_attention_f32_d256": FLASH_CU,
     "ragged_decode_attention_d256": DECODE_CU,
@@ -432,11 +445,14 @@ SOURCES = {
     "ssd_chunked_tf32_train": ("cuda", "src/repro_torch/csrc/ssd_chunk.cu"),
 }
 # the JSON row a kernels-phase case fills, by (kernel, dtype, head dim):
-# llama's bf16 shapes, mistral-nemo-12b's D 128 in bf16 (its serve) and
-# float32 (its exact check), minicpm3-4b's MLA prefill (q and k 96 wide)
-# and recurrentgemma-9b's D 256 in both; granite's G 3 decode row and the
+# llama's bf16 shapes and its float32 decode (its exact check),
+# mistral-nemo-12b's D 128 in bf16 (its serve) and float32 (its exact
+# check), minicpm3-4b's MLA prefill (q and k 96 wide) and
+# recurrentgemma-9b's D 256 in both; granite's G 3 decode rows and the
 # RMSNorm row at 4096 are named by their cases
 ROWS = {("ragged_decode_attention", "bfloat16", 64): "ragged_decode_attention",
+        ("ragged_decode_attention", "float32", 64):
+            "ragged_decode_attention_f32",
         ("flash_attention", "bfloat16", 64): "flash_attention",
         ("ragged_decode_attention", "bfloat16", 128):
             "ragged_decode_attention_d128",
@@ -458,6 +474,8 @@ SYMBOLS = {"ragged decode (CUDA cores)": "ragged_decode_split_kernel",
                "ragged_decode_tc_kernel",
            "ragged decode (bf16, tensor cores, G <= 8)":
                "ragged_decode_n8_kernel",
+           "ragged decode (f32, split TF32 tensor cores, G <= 8)":
+               "ragged_decode_n8_tf32_kernel",
            "flash prefill (bf16, tensor cores)": "flash_tc_kernel",
            "flash prefill (f32, split TF32 tensor cores)":
                "flash_tf32x3_kernel",
@@ -483,6 +501,7 @@ COUNTER_SYMBOLS = {
     "ragged_decode_attention": (DECODE_ANY,),
     "ragged_decode_attention_tc": ("ragged_decode_tc_kernel",),
     "ragged_decode_attention_n8": ("ragged_decode_n8_kernel",),
+    "ragged_decode_attention_n8_tf32": ("ragged_decode_n8_tf32_kernel",),
     "fused_rmsnorm": ("rmsnorm_kernel",),
     "flash_attention": ("flash_tc_kernel",),
     **{f"ssd_chunked_{route}": syms
@@ -496,10 +515,15 @@ COUNTER_SYMBOLS = {
 LLAMA_KERNELS = ("ragged_decode_attention", "fused_rmsnorm", "flash_attention")
 # the bf16 serves of llama3.2-1b, mistral-nemo-12b and granite-moe-3b-a800m
 # (G 4 at D 64 and 128, G 3 at D 64): every ragged decode on the n8 route;
-# float32 decode stays on the CUDA-core kernel at every G, so no exact
-# check may launch either tensor-core route
+# their float32 exact checks every ragged decode on the split-TF32 n8
+# route, neither bf16 route; recurrentgemma-9b's (G 16) on the CUDA-core
+# kernel alone
 DENSE_KERNELS = LLAMA_KERNELS + ("ragged_decode_attention_n8",)
+DENSE_EXACT_KERNELS = LLAMA_KERNELS + ("ragged_decode_attention_n8_tf32",)
 EXACT_ABSENT = ("ragged_decode_attention_tc", "ragged_decode_attention_n8")
+RGEMMA_EXACT_ABSENT = EXACT_ABSENT + ("ragged_decode_attention_n8_tf32",)
+# a route's launch counter, each of whose paths must run every decode on it
+DECODE_ROUTES = ("tc", "n8", "n8_tf32")
 MAMBA_KERNELS = ("ssd_chunked", "ssd_chunked_tc", "ssd_chunked_tc_scan",
                  "fused_rmsnorm")
 MAMBA_ABSENT = ("ssd_chunked_recurrent",)
@@ -637,7 +661,7 @@ def _cupti():
     return None
 
 
-def traced_device_s(torch, fn, what: str, symbols=(), calls: int = 1):
+def traced_device_s(torch, fn, what: str, symbols=(), calls=1, warm=None):
     """(device seconds, the CUDA events summed by kernel name
     (:func:`kineto_sums`), fn's result, the ``symbols`` the trace lacks)
     of one call of ``fn`` under torch.profiler; device seconds sum every
@@ -660,11 +684,18 @@ def traced_device_s(torch, fn, what: str, symbols=(), calls: int = 1):
     contains one of ``symbols`` (the hand-written kernels ``fn`` launches,
     or a function that names them after ``fn`` ran: the trace lost
     records), or, with ``calls``, holds fewer than ``calls`` records of
-    one (each kernel launched once per call of the kernel's wrapper), is
+    one (each kernel launched once per call of the kernel's wrapper;
+    ``calls`` a number for every symbol, or a dict of each symbol's own
+    count, 1 for a symbol it does not name), is
     printed, with ``what`` it traced, and taken again
     with a pad four times longer, ``TRACE_TRIES`` times in all; then None
-    seconds for an empty trace. ``TRACES`` counts the sessions of each
-    phase and those that came back empty or incomplete."""
+    seconds for an empty trace. With ``warm`` the session first runs
+    ``warm()`` (a call like ``fn``'s) and waits for it, and every device
+    record before the marker's is left out: late in a run the roofline's
+    one-step traces lost one RMSNorm record on every try (PERF.md §6), and
+    a loss at the session's start then falls in the warm call.
+    ``TRACES`` counts the sessions of each phase and those that came back
+    empty or incomplete."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cupti = _cupti()
@@ -675,6 +706,9 @@ def traced_device_s(torch, fn, what: str, symbols=(), calls: int = 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             time.sleep(pad)
+            if warm is not None:
+                warm()
+                torch.cuda.synchronize()
             torch.cuda._sleep(1000)     # the record CUPTI may drop
             torch.cuda.synchronize()
             out = fn()
@@ -682,7 +716,8 @@ def traced_device_s(torch, fn, what: str, symbols=(), calls: int = 1):
             time.sleep(pad)
             if cupti is not None:      # CUPTI_ACTIVITY_FLAG_FLUSH_FORCED
                 cupti.cuptiActivityFlushAll(ctypes.c_uint32(1))
-        host, devs, dev = kineto_sums(prof, DeviceType.CUDA)
+        host, devs, dev = kineto_sums(prof, DeviceType.CUDA,
+                                      after_marker=warm is not None)
         if host and devs:
             early = min(h for h, _ in host) - min(d for d, _ in devs)
             late = max(d for _, d in devs) - max(h for _, h in host)
@@ -691,8 +726,10 @@ def traced_device_s(torch, fn, what: str, symbols=(), calls: int = 1):
         us = sum(e.self_device_time_total for e in dev)
         want = symbols() if callable(symbols) else symbols
         seen = {s: sum(e.count for e in dev if s in e.key) for s in want}
-        missing = [s if not n else f"{s} ({n} of {calls} records)"
-                   for s, n in seen.items() if n < calls]
+        need = {s: (calls.get(s, 1) if isinstance(calls, dict) else calls)
+                for s in want}
+        missing = [s if not n else f"{s} ({n} of {need[s]} records)"
+                   for s, n in seen.items() if n < need[s]]
         count["sessions"] += 1
         if us > 0 and not missing:
             return us / 1e6, dev, out, []
@@ -711,17 +748,25 @@ DeviceSum = collections.namedtuple("DeviceSum",
 _UTILITY_EVENTS = ("[memory]", "[OutOfMemory]")
 
 
-def kineto_sums(prof, device_type):
+def kineto_sums(prof, device_type, after_marker: bool = False):
     """(host spans, device spans, [DeviceSum] by kernel name) of a
     session, in us, from its raw kineto events, leaving out the spin
-    kernel (``MARKER``). This is what ``prof.events()`` and
+    kernel (``MARKER``) and, ``after_marker``, every device record that
+    started before its last record (none at all when that record was
+    lost). This is what ``prof.events()`` and
     ``prof.key_averages()`` give, without building their FunctionEvents,
     which takes about 70 us of Python per event: minutes for a deep
     model's serve window of a million host and device events, against
     seconds for this one pass."""
     from torch.autograd import DeviceType
     host, devs, sums = [], [], {}
-    for e in prof.profiler.kineto_results.events():
+    events = list(prof.profiler.kineto_results.events())
+    start = None
+    if after_marker:
+        marks = [e.start_ns() for e in events
+                 if e.device_type() == device_type and MARKER in e.name()]
+        start = max(marks, default=float("inf"))
+    for e in events:
         name = e.name()
         if (MARKER in name or name in _UTILITY_EVENTS
                 or getattr(e, "is_hidden_event", lambda: False)()):
@@ -730,7 +775,8 @@ def kineto_sums(prof, device_type):
         kind = e.device_type()
         if kind == DeviceType.CPU:
             host.append(span)
-        elif kind == device_type:
+        elif kind == device_type and (start is None
+                                      or e.start_ns() >= start):
             devs.append(span)
             n, us = sums.get(name, (0, 0.0))
             # an asynchronous event has no self time (FunctionEvent's rule)
@@ -807,6 +853,18 @@ def short_name(key: str) -> str:
     return key.replace("void ", "").replace("(anonymous namespace)::", "")[:44]
 
 
+def check_decode_route(counts: dict, what: str, kernels):
+    """Every ragged decode launch of the path on the route its
+    ``kernels`` name (a route's counter among them), none on another."""
+    for route in DECODE_ROUTES:
+        key = f"ragged_decode_attention_{route}"
+        if key in kernels:
+            check(counts["ragged_decode_attention"] == counts[key],
+                  f"{what}: {counts['ragged_decode_attention']} ragged "
+                  f"decode launches, {counts[key]} of them on the {route} "
+                  f"route: another kernel ran")
+
+
 def check_launched(counts: dict, what: str, kernels, absent=()):
     """Every kernel of the path (``kernels``) launched at least once, and
     none of ``absent`` (kernels the path must not run)."""
@@ -860,6 +918,7 @@ FLASH_TC_SHAPES = (("llama prefill", 4, 512, 32, 8, 64, 64),
 DECODE_D256 = "Li256E"
 DECODE_TC = "ragged_decode_tc_kernel"     # every instantiation
 DECODE_N8 = "ragged_decode_n8_kernel"     # every instantiation
+DECODE_N8_TF32 = "ragged_decode_n8_tf32_kernel"
 SSD_TF32 = ("ssd_intra_tf32_kernel", "ssd_scores_tf32_kernel")
 SSD_TC_SCAN = "ssd_tc_scan_kernel"
 
@@ -902,8 +961,8 @@ def phase_build():
                         k in kernel for k in (F32_FLASH_D64, F32_FLASH_D256,
                                               FLASH_TC))) or (
                     name == "ragged_decode_attn" and any(
-                        k in kernel for k in (DECODE_D256, DECODE_TC,
-                                              DECODE_N8))) or (
+                        k in kernel for k in (DECODE_D256, DECODE_TC, DECODE_N8,
+                                              DECODE_N8_TF32))) or (
                     name == "ssd_chunk" and any(k in kernel for k in (
                         *SSD_TF32, SSD_TC_SCAN)))
                 check(not (no_spill and any(spilled)),
@@ -926,6 +985,11 @@ def phase_build():
     for D in K.ragged_decode_attn.N8_HEAD_DIMS:
         print(f"[build] {DECODE_N8}<{D}>: "
               f"{K.ragged_decode_attn.tc_info(D, 'n8')}")
+    # and its float32 split-TF32 kernel at the same head dims (the exact
+    # checks of llama3.2-1b and granite: 64; mistral-nemo-12b: 128)
+    for D in K.ragged_decode_attn.N8_HEAD_DIMS:
+        print(f"[build] {DECODE_N8_TF32}<{D}>: "
+              f"{K.ragged_decode_attn.tc_info(D, 'n8_tf32')}")
     # the SSD scan's tensor-core scan at each state size (mamba2-2.7b: 128)
     for N in K.ssd_chunk.TC_STATES:
         print(f"[build] {SSD_TC_SCAN}<{N}>: "
@@ -951,6 +1015,18 @@ def phase_build():
               f"in its SASS, e.g. {tf32[0] if tf32 else None}")
         check(bool(tf32), f"{name}: no TF32 tensor-core instruction: the "
                           f"f32 kernel does not run on the tensor cores")
+    # the float32 decode kernel's split products are mma.sync TF32 ones
+    # (HMMA ... TF32)
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(
+        "ragged_decode_attn"))], capture_output=True, text=True,
+        check=True).stdout
+    tf32 = [line.split("*/")[1].strip() for line in sass.splitlines()
+            if "HMMA" in line and "TF32" in line and "*/" in line]
+    print(f"[build] ragged_decode_attn: {len(tf32)} TF32 tensor-core "
+          f"(HMMA) instructions in its SASS, e.g. {tf32[0] if tf32 else None}")
+    check(bool(tf32), "ragged_decode_attn: no TF32 tensor-core (HMMA) "
+                      "instruction: the f32 decode kernel does not run on "
+                      "the tensor cores")
 
 
 # ragged decode shapes: (lengths, slots, ctx); the last slot is a padding
@@ -976,9 +1052,10 @@ def kernel_decode(torch, K, dtype, lens, slots, ctx, H=32, KV=8, D=64,
     """Ragged decode over layer ``layer`` of a flat slot arena of 16 layers
     (``slots``), or without slots over a contiguous (B, T) stack, the
     legacy engine's decode (``slots`` None: no slot vector is made). A
-    case on a tensor-core route (bf16: "tc" at G > 8, "n8" at G <= 8)
-    also holds and times the CUDA-core kernel it replaced, through its C
-    entry on the same inputs (``before``)."""
+    case on a tensor-core route (bf16: "tc" at G > 8, "n8" at G <= 8;
+    float32 at G <= 8: "n8_tf32") also holds and times the CUDA-core
+    kernel it replaced, through its C entry on the same inputs
+    (``before``)."""
     from repro_torch.kernels import ragged_decode_attn as RD
     B, L = len(lens), 16
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -1000,7 +1077,8 @@ def kernel_decode(torch, K, dtype, lens, slots, ctx, H=32, KV=8, D=64,
     res = {"shape": f"q{tuple(q.shape)} {cache}{tuple(k.shape)} "
                     f"lengths{shown} ctx {ctx}"
                     + ({"tc": " (tensor-core route)",
-                        "n8": " (n8 route)"}.get(route, "")),
+                        "n8": " (n8 route)",
+                        "n8_tf32": " (n8 split-TF32 route)"}.get(route, "")),
            "out": out, "ref": ref,
            "row": row or (None if B != 8 or ctx is not None else ROWS.get(
                ("ragged_decode_attention", dtype_name(dtype), D))),
@@ -1396,7 +1474,8 @@ def phase_kernels(torch):
                       lambda dt=dt: kernel_decode(
                           torch, K, dt, lens, slots, None, H=24,
                           row=("ragged_decode_attention_g3"
-                               if dt == torch.bfloat16 else None))))
+                               if dt == torch.bfloat16
+                               else "ragged_decode_attention_f32_g3"))))
         # recurrentgemma-9b: 16 q heads over one kv head of 256, window
         # 2048 (not binding at S 512, binding at S 4096), and its width
         cases.append(("flash_attention", dt,
@@ -1656,13 +1735,7 @@ def phase_serve(torch, arch, tag, kernels, prompts, absent=()):
               f"{h.request.decode_len}")
         n_tok += len(got)
     check_launched(counts, tag, kernels, absent)
-    for route in ("tc", "n8"):      # every decode on the path's route
-        key = f"ragged_decode_attention_{route}"
-        if key in kernels:
-            check(counts["ragged_decode_attention"] == counts[key],
-                  f"{tag}: {counts['ragged_decode_attention']} ragged "
-                  f"decode launches, {counts[key]} of them on the {route} "
-                  f"route: another kernel ran in bf16")
+    check_decode_route(counts, tag, kernels)
     san = engine.sanitizer_stats()
     s = stats.summary(sla=kw["sla"])
     lat = [h.latency for h in handles]
@@ -1865,6 +1938,8 @@ def phase_exact(torch, arch, tag, kernels, prompts, absent=()):
           f"{tag}: not every request finished")
     check_launched(batched_counts, f"{tag} (batched, fused runs)", kernels,
                    absent)
+    check_decode_route(batched_counts, f"{tag} (batched, fused runs)",
+                       kernels)
     print(f"[{tag}] {len(handles)} requests batched (f32, TF32 off, prompts "
           f"{list(prompts)}) in {wall:.3f} s, {engine.runs_executed} runs; "
           f"kernel launches {batched_counts}")
@@ -1877,6 +1952,8 @@ def phase_exact(torch, arch, tag, kernels, prompts, absent=()):
     isolated_counts = K.launch_counts()
     check_launched(isolated_counts, f"{tag} (isolated, node by node)",
                    kernels, absent)
+    check_decode_route(isolated_counts, f"{tag} (isolated, node by node)",
+                       kernels)
     print(f"[{tag}] isolated references (node by node): kernel launches "
           f"{isolated_counts}")
     n_equal, n_ties = 0, 0
@@ -2721,9 +2798,12 @@ ROOFLINE_PROBES = (
 KERNEL_SYMBOL = {"ragged_decode_attention": DECODE_ANY,
                  "ragged_decode_attention_tc": "ragged_decode_tc_kernel",
                  "ragged_decode_attention_n8": "ragged_decode_n8_kernel",
+                 "ragged_decode_attention_n8_tf32":
+                     "ragged_decode_n8_tf32_kernel",
                  "flash_attention": "flash_tc_kernel",
                  "fused_rmsnorm": "rmsnorm_kernel", "ssd_chunked": "ssd_"}
-BOUND_FLOOR = 0.95      # a measured layer under this share of its bound fails
+# a measured layer or kernel row under this share of its bound fails
+BOUND_FLOOR = 0.95
 ROOFLINE_REPS = 3
 # each timed step waits behind a spin kernel this long: a mesh step's host
 # dispatch (DTensor's) has taken up to 35 ms, more than a 1-layer step's
@@ -2817,17 +2897,28 @@ def _roofline_step(torch, arch, shape, L, B, mesh, rules, kernels, smi):
         times[which].append(cuda_ms(torch, fn, reps=ROOFLINE_REPS,
                                     ahead_ms=ROOFLINE_AHEAD_MS,
                                     warmup=1))
-    syms = [KERNEL_SYMBOL[k] for k in kernels if k in KERNEL_SYMBOL]
-    _, dev, _, missing = traced_device_s(torch, mesh_step, what, syms)
-    check(not missing, f"{what}: the trace lacks {missing}")
-    dev_us = {k: sum(e.self_device_time_total for e in dev
-                     if KERNEL_SYMBOL[k] in e.key)
-              for k in kernels if k in KERNEL_SYMBOL}
+    # ROOFLINE_REPS traces of one step each, each kernel's records at
+    # least its launches in the step (a trace that lost one would read a
+    # layer's difference short); a kernel's device time a step is their
+    # mean
+    calls = {KERNEL_SYMBOL[k]: counts[k] for k in kernels
+             if k in KERNEL_SYMBOL}
+    dev_us = {k: 0.0 for k in kernels if k in KERNEL_SYMBOL}
+    for _ in range(ROOFLINE_REPS):
+        _, dev, _, missing = traced_device_s(torch, mesh_step, what,
+                                             list(calls), calls,
+                                             warm=mesh_step)
+        check(not missing, f"{what}: the trace lacks {missing}")
+        for k in dev_us:
+            dev_us[k] += sum(e.self_device_time_total for e in dev
+                             if KERNEL_SYMBOL[k] in e.key) / ROOFLINE_REPS
     launched = {k: counts[k] for k in kernels}
     print(f"[roofline] {arch} x {shape}, {L} layers, B {B}: mesh vs plain "
           f"logits "
           f"max |err| {err:.3e} (bit-equal {bit}); launches {launched}; "
-          f"ms mesh {times['mesh']}, plain {times['plain']} [{smi}]")
+          f"ms mesh {times['mesh']}, plain {times['plain']}; kernels' "
+          f"device us a step (mean of {ROOFLINE_REPS} traces) "
+          f"{ {k: round(v, 2) for k, v in dev_us.items()} } [{smi}]")
     del args, plain_args, placed, combo
     gc.collect()
     torch.cuda.empty_cache()
@@ -2936,6 +3027,10 @@ def phase_roofline(torch):
                   f"{kt['count']:g} launches, bound {b_ms:.4f} ms "
                   f"({kt['bytes'] / 1e9:.4f} GB, {kt['flops'] / 1e12:.4f} "
                   f"TFLOP) -> {d_ms / b_ms if b_ms else float('nan'):.3f}x")
+            check(d_ms >= 0 and d_ms >= BOUND_FLOOR * b_ms,
+                  f"roofline: {arch} x {shape} kernel {k} reads {d_ms:.4f} "
+                  f"ms per layer, under {BOUND_FLOOR} x its bound "
+                  f"{b_ms:.4f} ms: the trace or the counts are wrong")
         for w in ("mesh", "plain"):
             check(per[w] >= BOUND_FLOOR * a_ms,
                   f"roofline: {arch} x {shape} {w} step {per[w]:.4f} ms per "
@@ -3717,8 +3812,8 @@ def main() -> int:
     # mamba's for the SSD scan
     counts = run(phase_serve, torch, "llama3.2-1b", "serve", DENSE_KERNELS,
                  (64, 128, 256, 384))
-    run(phase_exact, torch, "llama3.2-1b", "exact", LLAMA_KERNELS,
-        (64, 128, 256, 384), EXACT_ABSENT)
+    e_counts = run(phase_exact, torch, "llama3.2-1b", "exact",
+                   DENSE_EXACT_KERNELS, (64, 128, 256, 384), EXACT_ABSENT)
     m_counts = run(phase_serve, torch, "mamba2-2.7b", "mamba serve",
                    MAMBA_KERNELS, (128, 257, 259, 384), MAMBA_ABSENT)
     x_counts = run(phase_exact, torch, "mamba2-2.7b", "mamba exact",
@@ -3727,7 +3822,7 @@ def main() -> int:
     n_counts = run(phase_serve, torch, "mistral-nemo-12b", "nemo serve",
                    DENSE_KERNELS, (64, 128, 256, 384))
     nx_counts = run(phase_exact, torch, "mistral-nemo-12b", "nemo exact",
-                    LLAMA_KERNELS, (64, 128, 256, 384), EXACT_ABSENT)
+                    DENSE_EXACT_KERNELS, (64, 128, 256, 384), EXACT_ABSENT)
     # minicpm3-4b: MLA, flash at q/k 96 and v 64, no ragged decode
     c_counts = run(phase_serve, torch, "minicpm3-4b", "minicpm serve",
                    MLA_KERNELS, (64, 128, 256, 384), MLA_ABSENT)
@@ -3736,13 +3831,14 @@ def main() -> int:
     # granite-moe-3b-a800m: 40 experts top 8 over GQA at G 3
     g_counts = run(phase_serve, torch, "granite-moe-3b-a800m",
                    "granite serve", DENSE_KERNELS, (64, 128, 256, 384))
-    run(phase_exact, torch, "granite-moe-3b-a800m", "granite exact",
-        LLAMA_KERNELS, (64, 128, 256, 384), EXACT_ABSENT)
+    gx_counts = run(phase_exact, torch, "granite-moe-3b-a800m",
+                    "granite exact", DENSE_EXACT_KERNELS, (64, 128, 256, 384),
+                    EXACT_ABSENT)
     # recurrentgemma-9b: RG-LRU blocks beside local attention at D 256
     r_counts = run(phase_serve, torch, "recurrentgemma-9b", "rgemma serve",
                    RGEMMA_KERNELS, (64, 128, 256, 384))
     rx_counts = run(phase_exact, torch, "recurrentgemma-9b", "rgemma exact",
-                    LLAMA_KERNELS, (64, 128, 256, 384), EXACT_ABSENT)
+                    LLAMA_KERNELS, (64, 128, 256, 384), RGEMMA_EXACT_ABSENT)
     # the RuntimeFlags variants through the Model API; their launches stay
     # on the phase's own line
     run(phase_variants, torch)
@@ -3799,6 +3895,15 @@ def main() -> int:
     counts["ragged_decode_attention"] = counts["ragged_decode_attention_n8"]
     counts["ragged_decode_attention_d128"] = n_counts[
         "ragged_decode_attention_n8"]
+    # float32 decode at G <= 8 runs the split-TF32 n8 kernel: its launches
+    # in exact (llama's row), nemo exact (D 128) and granite exact (G 3),
+    # batched and isolated
+    counts["ragged_decode_attention_f32"] = e_counts[
+        "ragged_decode_attention_n8_tf32"]
+    counts["ragged_decode_attention_f32_d128"] = nx_counts[
+        "ragged_decode_attention_n8_tf32"]
+    counts["ragged_decode_attention_f32_g3"] = gx_counts[
+        "ragged_decode_attention_n8_tf32"]
     counts["fused_rmsnorm_4096"] = r_counts["fused_rmsnorm"]
     # the training rows: f32 flash and RMSNorm launches in train, the
     # split-TF32 SSD route's in train mamba

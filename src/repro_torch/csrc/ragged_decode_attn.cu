@@ -16,14 +16,19 @@
 // TB/s): at G <= 8 the CUDA cores stay below theirs and the floor is
 // bytes / 3.35 TB/s, but at G 16 a CUDA-core kernel is bound by its own
 // arithmetic (and its shuffles and exponentials) before the bytes. So
-// there are two kernels in this file:
+// there are four kernels in this file:
 //
-//  - ragged_decode_split_kernel (below): the CUDA cores, for G <= 8 and
-//    for float32 at any G; what it has to get right is parallelism and
-//    how the bytes move.
+//  - ragged_decode_split_kernel (below): the CUDA cores, for the shapes
+//    no other kernel takes (float32 above 8 heads a group, head dims 32
+//    and 256 at G <= 8); what it has to get right is parallelism and how
+//    the bytes move.
 //  - ragged_decode_tc_kernel (further down): bf16 at 8 < G <= 16 on the
 //    tensor cores, one pass over K/V for all heads of a group, the spans
 //    of a (b, kv) group merged across a thread-block cluster.
+//  - ragged_decode_n8_kernel: bf16 at G <= 8 (D 64 and 128), the heads
+//    the n8 side of the product, a ring and a softmax a warp.
+//  - ragged_decode_n8_tf32_kernel (last): float32 at G <= 8 (D 64 and
+//    128), the same layout with every product as three TF32 products.
 //
 // ragged_decode_split_kernel. Design: grid (n_split, KV, B). CTA (s, kv,
 // b) owns positions [s * split_t, (s + 1) * split_t) of row b's context
@@ -56,6 +61,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -1604,6 +1610,572 @@ extern "C" int repro_ragged_decode_n8_info(int D, int* info) {
   switch (D) {
     case 64: return n8::info<64>(info);
     case 128: return n8::info<128>(info);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ragged_decode_n8_tf32_kernel: float32 at G <= 8 query heads a kv head, on
+// the tensor cores as split TF32 (the float32 exact checks of llama3.2-1b
+// and mistral-nemo-12b at G 4 and of granite-moe-3b-a800m at G 3).
+//
+// Replaces, like the kernels above, the TPU kernel
+// src/repro/kernels/ragged_decode_attn.py (_kernel), here in float32.
+// Bound: the bytes of K/V (G / 2 flop/byte in float32, 2 at G 4), 8.77 us at
+// mistral-nemo-12b's exact shape. It keeps ragged_decode_n8_kernel's layout
+// and rules: 16 keys the m16 side and the G <= 8 heads the n8 side (S^T =
+// K . Q^T, O^T += V^T . P^T); a cp.async ring, an online softmax in base 2
+// and no CTA barrier a warp; CTAs past a row's length exit at once; a
+// cluster of at most 8 CTAs a (b, kv) group, planned from static sizes
+// (kernels/ragged_decode_attn.py: n8_tf32_plan); the push merge into CTA 0
+// by st.async; one launch, no scratch; a null slot pointer reads row b.
+// Every product runs on mma.sync.m16n8k8 with TF32 operands as three
+// products, lo.hi + hi.lo + hi.hi accumulated in float32 (tf32.cuh: x = hi
+// + lo, both TF32; the lo.lo term and the residual are ~2^-22 of x), so the
+// output keeps float32 accuracy and no allow_tf32 setting is read:
+//
+//   Q   split once, into registers: Q^T's hi and lo B fragments (head g,
+//       columns 8 ks + t and 8 ks + t + 4), D / 2 registers;
+//   K   A fragments by ldmatrix (one 32-bit word is two b16, so lane (g, t)
+//       gets key g, column t of each 8 x 4 float block, as m16n8k8's TF32
+//       A fragment wants), split as they leave shared memory;
+//   P   split from the float32 softmax. P^T's B fragment wants (key, head
+//       g), where S^T's accumulators hold (key g, heads 2t, 2t + 1): each
+//       value comes from its holder by __shfl_sync, two shuffles a value
+//       (a holder keeps two heads, a reader wants one of them);
+//   V   V^T's A fragment wants (column d, key) out of (key, d) rows, and no
+//       32-bit transposing load exists (ldmatrix.trans and movmatrix move
+//       b16). So P.V takes the orders that plain 16-byte loads give: its
+//       k step kk takes keys 8 kk + 2t (k index t) and 8 kk + 2t + 1 (t +
+//       4), two neighbouring rows, and O^T's rows are permuted,
+//       m tiles 2p and 2p + 1 holding columns 32 p + 4g .. 32 p + 4g + 3
+//       (rows g and g + 8 of tile 2p the first two, of tile 2p + 1 the last
+//       two). One 16-byte load of a key row gives a lane its A words of two
+//       m tiles, and the output leaves as 16-byte stores.
+//
+// The tiles keep the bf16 kernels' swizzle (16-byte chunk c of row r at c
+// ^ (r & 7)): ldmatrix's rows and the V loads (lanes (g, t) of a quarter
+// warp at chunk 8p + g of rows 2t, 2t + 1 mod 8) each hit 8 different bank
+// groups. The three products of a k step go to different ones of four
+// accumulators of S^T, and P.V's products run over all m tiles in turn, so
+// no product waits on the one before it.
+//
+// Shared memory doubles against bf16: 16 rows of K and V are 8 KB at D 64
+// and 16 KB at D 128. A warp's sub-tile is a serial chain of ldmatrix,
+// splits and products (~2,250 cycles at D 128 on the card, ~1,650 at D 64:
+// 128 splits of five integer and float operations and 96 TF32 products),
+// and the CTA of a row's longest span is the kernel's time, so a CTA keeps
+// four warps at both widths, each with three stages: 96 KB and two CTAs an
+// SM at D 64, 192 KB and one CTA an SM at D 128. (Two warps of 96 KB at D
+// 128, two CTAs an SM, and rows by the bulk copy engine, one row a lane
+// and a stage barrier a warp, were slower: PERF.md.)
+namespace {
+namespace n8t {
+
+using n8::kHeads;
+using n8::kMaxCluster;
+using n8::kRows;
+
+template <int D>
+struct Cfg {
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kStages = 3;           // a warp's ring
+  static constexpr int CPR = D / 4;              // 16-byte chunks a row
+  static constexpr int kTile = kRows * D * 4;    // bytes of K (or V)
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kKS = D / 8;              // k8 steps of S^T
+  static constexpr int kMT = D / 16;             // m16 tiles of O^T
+  static constexpr int kCopies = kRows * CPR / 32;   // K copies a lane
+  // after the loop, where the rings were: the warps' O (kWarps x 8 heads,
+  // rows of kOS floats) and (m, l), then the CTA's merged O (8 x D) and
+  // (m, l)
+  static constexpr int kOS = D + 4;
+  static constexpr int kWarpML = kWarps * kHeads * kOS * 4;
+  static constexpr int kCtaO = kWarpML + kWarps * kHeads * 8;
+  static constexpr int kCtaML = kCtaO + kHeads * D * 4;
+  static constexpr int kBytes = kWarps * kRing;
+  static_assert(kCtaML + kHeads * 8 <= kBytes, "states fit in the rings");
+  // after the rings, in CTA 0 of a cluster: the barrier its peers arrive
+  // on, then a slot a peer for its (O, (m, l)), written by the peer
+  static constexpr int kBar = kBytes;
+  static constexpr int kMail = kBar + 16;
+  static constexpr int kSlot = kHeads * D * 4 + kHeads * 8;
+  static constexpr int bytes(int cluster) {
+    return kMail + (cluster - 1) * kSlot;
+  }
+  static_assert(kRows * CPR % 32 == 0 && D % 32 == 0 && D >= 64,
+                "tile shape");
+};
+
+// byte offset of 16-byte chunk c (four floats) of row r in a float32 tile
+// D columns wide, chunks XOR-swizzled by the row
+template <int D>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * (D / 4) + (c ^ (r & 7))) << 4;
+}
+
+// d += a . b: m16n8k8, TF32 operands, float32 accumulators
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 2)
+ragged_decode_n8_tf32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const int* __restrict__ lengths,
+                             const int* __restrict__ slots,
+                             float* __restrict__ out, int H, int KV, int N,
+                             int T, int span, int n_split, int split_t,
+                             float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int kWarps = C::kWarps, kThreads = C::kThreads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = tc::smem_addr(smem);
+  const int cs = gridDim.x;        // CTAs of the cluster
+  const int c = tc::cluster_rank();
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KV;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;         // an accumulator's rows g and g + 8
+  const int t = lane & 3;          // and its column pair 2t, 2t + 1
+
+  // lengths and slots first, Q under their latency (no slots: row b)
+  const int len_in = lengths[b];
+  const int slot_in = slots != nullptr ? slots[b] : b;
+  float qx[C::kKS][2];             // Q^T's B fragments: head g, columns
+  {                                // 8 ks + t and 8 ks + t + 4
+    const float* qp =
+        q + ((size_t)b * H + (size_t)kvh * G + (g < G ? g : 0)) * D + t;
+#pragma unroll
+    for (int ks = 0; ks < C::kKS; ++ks) {
+      qx[ks][0] = g < G ? __ldg(qp + 8 * ks) : 0.f;
+      qx[ks][1] = g < G ? __ldg(qp + 8 * ks + 4) : 0.f;
+    }
+  }
+  const int len = max(0, min(min(len_in, span), n_split * split_t));
+  const int n_active = (len + split_t - 1) / split_t;   // spans with rows
+  const int n_act = max(1, min(cs, n_active));          // CTAs with rows
+  if (c >= n_act) return;
+  // a row of several CTAs: CTA 0 readies the barrier its peers will
+  // arrive on, and every CTA with rows arrives at the cluster barrier
+  // (each waits on it before its first access to a peer's memory)
+  const uint32_t bar = base + C::kBar;
+  if (n_act > 1) {
+    if (c == 0 && tid == 0) {
+      // one arrival (this one) and the bytes of every peer's slot
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+                   : "memory");
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              bar),
+          "r"((n_act - 1) * (G * D * 4 + G * 8))
+          : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  }
+  const int slot = slot_in < 0 ? 0 : (slot_in > N - 1 ? N - 1 : slot_in);
+  const size_t t_stride = (size_t)KV * D;
+  const size_t row0 = (size_t)slot * T * t_stride + (size_t)kvh * D;
+  const float* kb = k + row0;
+  const float* vb = v + row0;
+
+  // this CTA's spans c, c + cs, ... below n_active, in sub-tiles of 16
+  // rows; this warp's: sub-tiles warp, warp + kWarps, ...
+  const int sps = (split_t + kRows - 1) / kRows;   // sub-tiles a span
+  const int n_mine = c < n_active ? (n_active - 1 - c) / cs + 1 : 0;
+  int n_sub = 0;
+  if (n_mine > 0) {
+    const int last = c + (n_mine - 1) * cs;
+    const int rows = min(split_t, len - last * split_t);
+    n_sub = (n_mine - 1) * sps + (rows + kRows - 1) / kRows;
+  }
+  const int n_w = n_sub > warp ? (n_sub - 1 - warp) / kWarps + 1 : 0;
+  // this warp's sub-tile j: its first row and how many rows it has
+  auto sub = [&](int j, int& t0, int& nrows) {
+    const int u = warp + j * kWarps;
+    const int s = c + (u / sps) * cs;
+    t0 = s * split_t + (u % sps) * kRows;
+    nrows = min(min(t0 + kRows, (s + 1) * split_t), len) - t0;
+  };
+  const uint32_t ring = base + warp * C::kRing;
+  // this lane's copies of a sub-tile: chunk ch of its rows r0, r0 + kRPI,
+  // ... (kRPI rows a copy instruction), at offsets from the sub-tile's
+  // first row that are the same for every sub-tile
+  constexpr int kRPI = 32 / C::CPR;
+  const int ch = lane % C::CPR, r0 = lane / C::CPR;
+  const size_t lane_off = (size_t)r0 * t_stride + ch * 4;
+  const size_t step = (size_t)kRPI * t_stride;
+  // sub-tile j's K and V into stage j % kStages of this warp's ring, one
+  // cp.async group a sub-tile (an empty group past the last keeps the
+  // count of groups); rows past the sub-tile's end are zero-filled
+  auto issue = [&](int j) {
+    if (j < n_w) {
+      int t0, nrows;
+      sub(j, t0, nrows);
+      const uint32_t st = ring + (j % C::kStages) * C::kStage;
+      const float* ks = kb + (size_t)t0 * t_stride;
+      const float* vs = vb + (size_t)t0 * t_stride;
+      size_t o = lane_off;
+#pragma unroll
+      for (int i = 0; i < C::kCopies; ++i, o += step) {
+        const int r = r0 + kRPI * i;
+        const bool ok = r < nrows;
+        const size_t src = ok ? o : (size_t)ch * 4;   // row t0 past the end
+        const uint32_t dst = st + swz<D>(r, ch);
+        repro::cp_async16(dst, ks + src, ok);
+        repro::cp_async16(dst + C::kTile, vs + src, ok);
+      }
+    }
+    tc::cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < C::kStages - 1; ++j) issue(j);
+
+  // Q as hi + lo, once (after the first issues: its loads are in by now)
+  uint32_t qh[C::kKS][2], ql[C::kKS][2];
+#pragma unroll
+  for (int ks = 0; ks < C::kKS; ++ks) {
+    repro::split(qx[ks][0], qh[ks][0], ql[ks][0]);
+    repro::split(qx[ks][1], qh[ks][1], ql[ks][1]);
+  }
+
+  float m[2] = {-1e30f, -1e30f};   // heads 2t and 2t + 1
+  float l[2] = {0.f, 0.f};         // this lane's share: keys g and g + 8
+  float o[C::kMT][4];              // O^T: rows (D, permuted) g, g + 8;
+#pragma unroll                     // columns (heads) 2t, 2t + 1
+  for (int mt = 0; mt < C::kMT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[mt][e] = 0.f;
+  // P^T's holders: lanes (2t, g / 2) and (2t + 1, g / 2) hold keys 8 kk +
+  // 2t and 8 kk + 2t + 1 for heads g & ~1 and g | 1
+  const int src = 8 * t + (g >> 1);
+  const bool odd = g & 1;
+
+  for (int j = 0; j < n_w; ++j) {
+    tc::cp_async_wait<C::kStages - 2>();
+    // sub-tile j is in for every lane; sub-tile j - 1's stage is free
+    __syncwarp();
+    issue(j + C::kStages - 1);
+    int t0, nrows;
+    sub(j, t0, nrows);
+    const uint32_t kt = ring + (j % C::kStages) * C::kStage;
+    const unsigned char* vt = smem + (kt - base) + C::kTile;
+
+    // 1. S^T for the sub-tile's 16 keys over all of D: per k8 step lo.hi,
+    // hi.lo and hi.hi, dealt over four accumulators in turn
+    float sc[4][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < C::kKS; ++ks) {
+      uint32_t a[4], ah[4], al[4];
+      tc::ldsm_x4(a, kt + swz<D>((lane & 7) + 8 * ((lane >> 3) & 1),
+                                 2 * ks + (lane >> 4)));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        repro::split(__uint_as_float(a[i]), ah[i], al[i]);
+      mma(sc[(3 * ks) & 3], al, qh[ks][0], qh[ks][1]);
+      mma(sc[(3 * ks + 1) & 3], ah, ql[ks][0], ql[ks][1]);
+      mma(sc[(3 * ks + 2) & 3], ah, qh[ks][0], qh[ks][1]);
+    }
+    // base-2 exponents; keys past the sub-tile's rows -inf
+    const bool ok0 = g < nrows, ok1 = g + 8 < nrows;
+    float s[4];                    // (key g, key g + 8) x (head 2t, 2t + 1)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = (sc[0][e] + sc[1][e]) + (sc[2][e] + sc[3][e]);
+      s[e] = (e < 2 ? ok0 : ok1) ? x * scale_log2 : -INFINITY;
+    }
+
+    // 2. the online softmax of each head over the 8 lanes that share t
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = fmaxf(s[h], s[2 + h]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      const float mn = fmaxf(m[h], mx);
+      corr[h] = tc::ex2(m[h] - mn);
+      m[h] = mn;
+      s[h] = tc::ex2(s[h] - mn);           // ex2(-inf) = 0
+      s[2 + h] = tc::ex2(s[2 + h] - mn);
+      l[h] = l[h] * corr[h] + s[h] + s[2 + h];
+    }
+#pragma unroll
+    for (int mt = 0; mt < C::kMT; ++mt) {
+      o[mt][0] *= corr[0];
+      o[mt][1] *= corr[1];
+      o[mt][2] *= corr[0];
+      o[mt][3] *= corr[1];
+    }
+
+    // 3. P^T's B fragments of k steps kk = 0, 1 (keys 0 .. 7, 8 .. 15):
+    // lane (g, t) takes P of head g at keys 8 kk + 2t and 8 kk + 2t + 1
+    // from their holders, as hi + lo
+    uint32_t ph[2][2], pl[2][2];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float e = __shfl_sync(0xffffffffu, s[2 * kk], src + 4 * i);
+        const float f = __shfl_sync(0xffffffffu, s[2 * kk + 1], src + 4 * i);
+        repro::split(odd ? f : e, ph[kk][i], pl[kk][i]);
+      }
+
+    // 4. O^T += V^T . P^T: per k step, lane (g, t) loads columns 32 p + 4g
+    // .. + 3 of key rows 8 kk + 2t (x0) and 8 kk + 2t + 1 (x1): the A
+    // words of m tiles 2p (columns + 0, + 1) and 2p + 1 (+ 2, + 3)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t vh[C::kMT][4], vl[C::kMT][4];
+#pragma unroll
+      for (int p = 0; p < C::kMT / 2; ++p) {
+        const float4 x0 = *reinterpret_cast<const float4*>(
+            vt + swz<D>(8 * kk + 2 * t, 8 * p + g));
+        const float4 x1 = *reinterpret_cast<const float4*>(
+            vt + swz<D>(8 * kk + 2 * t + 1, 8 * p + g));
+        const float a0[4] = {x0.x, x0.y, x1.x, x1.y};
+        const float a1[4] = {x0.z, x0.w, x1.z, x1.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          repro::split(a0[i], vh[2 * p][i], vl[2 * p][i]);
+          repro::split(a1[i], vh[2 * p + 1][i], vl[2 * p + 1][i]);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < C::kMT; ++mt)
+        mma(o[mt], vl[mt], ph[kk][0], ph[kk][1]);
+#pragma unroll
+      for (int mt = 0; mt < C::kMT; ++mt)
+        mma(o[mt], vh[mt], pl[kk][0], pl[kk][1]);
+#pragma unroll
+      for (int mt = 0; mt < C::kMT; ++mt)
+        mma(o[mt], vh[mt], ph[kk][0], ph[kk][1]);
+    }
+  }
+
+  // 5. every warp's (m, l, O) where the rings were, then merged in warp
+  // order: the row's output, or this CTA's (m, l, O) for the cluster
+  tc::cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 4);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 8);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 16);
+  }
+  float* s_wo = reinterpret_cast<float*>(smem);          // [w][head][kOS]
+  float2* s_wml = reinterpret_cast<float2*>(smem + C::kWarpML);
+  {
+    float* wo = s_wo + warp * kHeads * C::kOS;
+#pragma unroll
+    for (int p = 0; p < C::kMT / 2; ++p) {
+      const int d = 32 * p + 4 * g;
+      *reinterpret_cast<float4*>(wo + 2 * t * C::kOS + d) = make_float4(
+          o[2 * p][0], o[2 * p][2], o[2 * p + 1][0], o[2 * p + 1][2]);
+      *reinterpret_cast<float4*>(wo + (2 * t + 1) * C::kOS + d) =
+          make_float4(o[2 * p][1], o[2 * p][3], o[2 * p + 1][1],
+                      o[2 * p + 1][3]);
+    }
+    if (g == 0) {
+      s_wml[warp * kHeads + 2 * t] = make_float2(m[0], l[0]);
+      s_wml[warp * kHeads + 2 * t + 1] = make_float2(m[1], l[1]);
+    }
+  }
+  __syncthreads();
+  float* s_co = reinterpret_cast<float*>(smem + C::kCtaO);  // [head][D]
+  float2* s_cml = reinterpret_cast<float2*>(smem + C::kCtaML);
+  float* og = out + ((size_t)b * H + (size_t)kvh * G) * D;
+  // a peer writes its merged (m, l, O) into its slot of CTA 0's mailbox
+  if (n_act > 1)
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  const uint32_t mail = c > 0 ? tc::peer(base + C::kMail + (c - 1) * C::kSlot,
+                                         0)
+                              : 0u;
+  const uint32_t bar0 = c > 0 ? tc::peer(bar, 0) : 0u;
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int h = i / D, d = i % D;
+    float mm = -1e30f, ll = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float2 ml = s_wml[w * kHeads + h];
+      const float mn = fmaxf(mm, ml.x);
+      const float ca = tc::ex2(mm - mn), cb = tc::ex2(ml.x - mn);
+      ll = ll * ca + ml.y * cb;
+      a = a * ca + s_wo[(w * kHeads + h) * C::kOS + d] * cb;
+      mm = mn;
+    }
+    if (n_act == 1) {
+      og[i] = a / fmaxf(ll, 1e-30f);
+    } else if (c == 0) {
+      s_co[i] = a;
+      if (d == 0) s_cml[h] = make_float2(mm, ll);
+    } else {
+      n8::st_peer(mail + 4 * i, a, bar0);
+      if (d == 0) n8::st_peer2(mail + kHeads * D * 4 + 8 * h, mm, ll, bar0);
+    }
+  }
+  if (n_act == 1 || c > 0) return;   // a peer's stores land on their own
+
+  // 6. CTA 0 merges the group's G * D outputs over its own (m, l, O) and
+  // its peers' slots, in rank order, once every peer's bytes have landed
+  __syncthreads();
+  n8::wait_cluster(bar, 0);
+  const int n4 = G * D / 4;
+  for (int i = tid; i < n4; i += kThreads) {
+    const int h = 4 * i / D;
+    float2 ml[kMaxCluster];
+    float4 x[kMaxCluster];
+    ml[0] = s_cml[h];
+    x[0] = reinterpret_cast<const float4*>(s_co)[i];
+#pragma unroll
+    for (int r = 1; r < kMaxCluster; ++r)
+      if (r < n_act) {
+        const unsigned char* slot_r = smem + C::kMail + (r - 1) * C::kSlot;
+        ml[r] = reinterpret_cast<const float2*>(slot_r + kHeads * D * 4)[h];
+        x[r] = reinterpret_cast<const float4*>(slot_r)[i];
+      }
+    float mm = -1e30f, ll = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < n_act) {
+        const float mn = fmaxf(mm, ml[r].x);
+        const float ca = tc::ex2(mm - mn), cb = tc::ex2(ml[r].x - mn);
+        ll = ll * ca + ml[r].y * cb;
+        a.x = a.x * ca + x[r].x * cb;
+        a.y = a.y * ca + x[r].y * cb;
+        a.z = a.z * ca + x[r].z * cb;
+        a.w = a.w * ca + x[r].w * cb;
+        mm = mn;
+      }
+    const float den = fmaxf(ll, 1e-30f);
+    reinterpret_cast<float4*>(og)[i] =
+        make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
+  }
+}
+
+template <int D>
+cudaLaunchConfig_t config(int cluster, int KV, int B, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, KV, B);
+  cfg.blockDim = dim3(Cfg<D>::kThreads);
+  cfg.dynamicSmemBytes = Cfg<D>::bytes(cluster);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int D>
+cudaError_t grant() {
+  static int granted = 48 * 1024;
+  return repro::allow_smem(ragged_decode_n8_tf32_kernel<D>,
+                           Cfg<D>::bytes(kMaxCluster), &granted);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* lengths,
+           const void* slots, void* out, int B, int H, int KV, int N, int T,
+           int span, int n_split, int split_t, int cluster,
+           cudaStream_t stream) {
+  cudaError_t err = grant<D>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config<D>(cluster, KV, B, stream, attr);
+  // the scores' scale times log2(e): the softmax runs in base 2
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  err = cudaLaunchKernelEx(
+      &cfg, ragged_decode_n8_tf32_kernel<D>, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(lengths), static_cast<const int*>(slots),
+      static_cast<float*>(out), H, KV, N, T, span, n_split, split_t,
+      scale_log2);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// registers and local (spill) bytes a thread, CTAs an SM and shared
+// memory bytes a CTA at clusters of 4 (the exact checks'), clusters of
+// kMaxCluster CTAs the card holds at once
+template <int D>
+int info(int* out) {
+  cudaError_t err = grant<D>();
+  cudaFuncAttributes a;
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&a, ragged_decode_n8_tf32_kernel<D>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], ragged_decode_n8_tf32_kernel<D>, Cfg<D>::kThreads,
+        Cfg<D>::bytes(4));
+  if (err == cudaSuccess) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        config<D>(kMaxCluster, 1, 1, nullptr, attr);
+    err = cudaOccupancyMaxActiveClusters(
+        &out[4], ragged_decode_n8_tf32_kernel<D>, &cfg);
+  }
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[3] = Cfg<D>::bytes(4);
+  return 0;
+}
+
+}  // namespace n8t
+}  // namespace
+
+// float32 q (B, H, D), k, v (N, T, KV, D), lengths (B,) int32, slots (B,)
+// int32 or null (row b), out (B, H, D) float32, at H / KV <= 8 and D 64 or
+// 128; row b attends positions below min(lengths[b], span, n_split *
+// split_t) of arena row min(slots[b], N - 1); `cluster` CTAs (at most 8)
+// per (b, kv) group.
+extern "C" int repro_ragged_decode_n8_tf32(const void* q, const void* k,
+                                           const void* v, const void* lengths,
+                                           const void* slots, void* out,
+                                           int B, int H, int KV, int D,
+                                           int N, int T, int span,
+                                           int n_split, int split_t,
+                                           int cluster, void* stream) {
+  if (B <= 0 || KV <= 0 || H % KV != 0 || H / KV > n8t::kHeads || N <= 0 ||
+      span <= 0 || span > T || n_split <= 0 || split_t <= 0 ||
+      cluster < 1 || cluster > n8t::kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return n8t::launch<64>(q, k, v, lengths, slots, out, B, H, KV, N, T,
+                             span, n_split, split_t, cluster, s);
+    case 128:
+      return n8t::launch<128>(q, k, v, lengths, slots, out, B, H, KV, N, T,
+                              span, n_split, split_t, cluster, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// info: registers, spill bytes, CTAs an SM, shared memory bytes, clusters
+// of 8 held at once, for the instantiation at head dim D (64 or 128)
+extern "C" int repro_ragged_decode_n8_tf32_info(int D, int* info) {
+  switch (D) {
+    case 64: return n8t::info<64>(info);
+    case 128: return n8t::info<128>(info);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -18,6 +18,7 @@ from .flash_attn import FlashAttention, flash_attention, flash_attention_plain
 from .ragged_decode_attn import (decode_route, ragged_decode_attention,
                                  ragged_decode_attention_plain,
                                  ragged_decode_n8_plain,
+                                 ragged_decode_n8_tf32_plain,
                                  ragged_decode_tc_plain)
 from .rmsnorm import FusedRMSNorm, fused_rmsnorm, fused_rmsnorm_plain
 from .ssd_chunk import (SSDChunked, ssd_chunk_intra_plain, ssd_chunked,
@@ -30,12 +31,14 @@ KERNELS = (ragged_decode_attention, fused_rmsnorm, flash_attention,
 
 
 def launch_counts() -> dict:
-    """Launches per wrapper, of ragged decode's two tensor-core routes,
+    """Launches per wrapper, of ragged decode's three tensor-core routes,
     and of the SSD scan's tensor-core, split-TF32, recurrent and
     tensor-core scan routes."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts["ragged_decode_attention_tc"] = ragged_decode_attention.tc_launches
     counts["ragged_decode_attention_n8"] = ragged_decode_attention.n8_launches
+    counts["ragged_decode_attention_n8_tf32"] = (
+        ragged_decode_attention.n8_tf32_launches)
     counts["ssd_chunked_tc"] = ssd_chunked.tc_launches
     counts["ssd_chunked_tf32"] = ssd_chunked.tf32_launches
     counts["ssd_chunked_recurrent"] = ssd_chunked.recurrent_launches
@@ -48,6 +51,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     ragged_decode_attention.tc_launches = 0
     ragged_decode_attention.n8_launches = 0
+    ragged_decode_attention.n8_tf32_launches = 0
     ssd_chunked.tc_launches = 0
     ssd_chunked.tf32_launches = 0
     ssd_chunked.recurrent_launches = 0
@@ -58,7 +62,8 @@ __all__ = [
     "FlashAttention", "FusedRMSNorm", "SSDChunked",
     "flash_attention", "flash_attention_plain", "decode_route",
     "ragged_decode_attention", "ragged_decode_attention_plain",
-    "ragged_decode_n8_plain", "ragged_decode_tc_plain", "fused_rmsnorm", "fused_rmsnorm_plain",
+    "ragged_decode_n8_plain", "ragged_decode_n8_tf32_plain",
+    "ragged_decode_tc_plain", "fused_rmsnorm", "fused_rmsnorm_plain",
     "ssd_chunk_intra_plain", "ssd_chunked", "ssd_chunked_plain",
     "ssd_chunked_recurrent_plain", "ssd_chunked_tiled_plain", "ssd_route",
     "KERNELS", "launch_counts", "reset_launch_counts",

@@ -41,7 +41,10 @@ SIGNATURES = {
         # bf16 at G <= 8 on the tensor cores, D 64 or 128: the arguments
         # of repro_ragged_decode_tc
         "repro_ragged_decode_n8": [_VP] * 6 + [_I] * 10 + [_VP],
-        "repro_ragged_decode_n8_info": [_I, _VP]},
+        "repro_ragged_decode_n8_info": [_I, _VP],
+        # float32 at G <= 8 as split TF32, D 64 or 128: the same arguments
+        "repro_ragged_decode_n8_tf32": [_VP] * 6 + [_I] * 10 + [_VP],
+        "repro_ragged_decode_n8_tf32_info": [_I, _VP]},
     "flash_attn": {
         # q, k, v, o, B, S, T, H, KV, width, Dqk, Dv, q_offset, window,
         # scale, dtype, stream

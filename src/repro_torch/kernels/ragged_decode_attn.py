@@ -3,12 +3,14 @@
 Replaces the TPU kernel ``src/repro/kernels/ragged_decode_attn.py``
 (``ragged_decode_attention``). Lazily merged sub-batches have ragged
 per-request progress, so row b of one merged decode step attends its own
-``lengths[b]`` cached tokens. Three routes, picked by :func:`decode_route`
+``lengths[b]`` cached tokens. Four routes, picked by :func:`decode_route`
 on dtype and shape alone: bfloat16 at 8 < G <= 16 query heads a kv head
 (recurrentgemma-9b's G 16) runs ``ragged_decode_tc_kernel`` on the tensor
 cores, bfloat16 at G <= 8 and head dim 64 or 128 (llama3.2-1b,
 mistral-nemo-12b, granite-moe-3b-a800m) ``ragged_decode_n8_kernel`` on the
-tensor cores, every other call (float32 at any G, other head dims)
+tensor cores, float32 at the same shapes (their exact checks)
+``ragged_decode_n8_tf32_kernel`` on the tensor cores as split TF32, every
+other call (float32 above 8 heads a group, other head dims)
 ``ragged_decode_split_kernel`` on the CUDA cores. Source, bound and design
 notes: ``csrc/ragged_decode_attn.cu``.
 """
@@ -161,6 +163,10 @@ N8_MAX_GROUP = 8            # query heads a kv head: the n8 of the product
 N8_HEAD_DIMS = (64, 128)    # the n8 kernel's compiled head dims
 N8_CTA_ROWS = 256           # rows a CTA takes at least before a cluster
 N8_SM_WARPS = 8             # the plan's wave: warps of n8 CTAs an SM
+N8_TF32_CTA_ROWS = 128      # N8_CTA_ROWS for float32 rows, twice as wide
+# warps of a float32 n8 CTA at D 64 and 128: its stages are twice bf16's
+# (96 KB of rings a CTA at D 64, two CTAs an SM; 192 KB at D 128, one)
+N8_TF32_WARPS = 4
 
 
 def n8_warps(D: int) -> int:
@@ -177,14 +183,18 @@ def decode_route(dtype, G: int, D: int) -> str:
     (``ragged_decode_n8_kernel``: the G heads the n8 side of the product,
     16 keys its m16, each warp its own ring and softmax, a cluster merge)
     for bfloat16 at G <= 8 and a head dim in ``N8_HEAD_DIMS``; else
-    ``"cuda_cores"`` (``ragged_decode_split_kernel``). Float32 stays on
-    the CUDA cores at every G, where a group above 8 heads reads each
-    span's K/V once per chunk of 8 heads."""
+    ``"n8_tf32"`` (``ragged_decode_n8_tf32_kernel``: the n8 layout with
+    every product as three TF32 products) for float32 at G <= 8 and a
+    head dim in ``N8_HEAD_DIMS``; else ``"cuda_cores"``
+    (``ragged_decode_split_kernel``), where a float32 group above 8 heads
+    reads each span's K/V once per chunk of 8 heads."""
     if dtype == torch.bfloat16:
         if 8 < G <= TC_MAX_GROUP and D in HEAD_DIMS:
             return "tc"
         if G <= N8_MAX_GROUP and D in N8_HEAD_DIMS:
             return "n8"
+    if dtype == torch.float32 and G <= N8_MAX_GROUP and D in N8_HEAD_DIMS:
+        return "n8_tf32"
     return "cuda_cores"
 
 
@@ -224,11 +234,29 @@ def n8_plan(B: int, KV: int, D: int, span: int,
                          N8_CTA_ROWS, N8_SM_WARPS // warps)
 
 
+def n8_tf32_plan(B: int, KV: int, D: int, span: int,
+                 split_t: Optional[int] = None):
+    """``(cluster, n_split, split_t)`` of the float32 n8 route, from static
+    sizes only: :func:`n8_plan`'s rule at ``N8_TF32_WARPS`` warps a CTA
+    (spans of whole rounds of ``16 * N8_TF32_WARPS`` rows), at
+    least ``N8_TF32_CTA_ROWS`` rows a CTA (a float32 row is twice a bf16
+    row's bytes), and a cluster that covers one wave at ``N8_SM_WARPS``
+    warps an SM at least (rounded up, where n8_plan rounds down: at B 8
+    over 32 kv heads two CTAs a group, not one; the CTAs of rows shorter
+    than a span exit at once)."""
+    return _cluster_plan(B, KV, span, split_t, 16 * N8_TF32_WARPS,
+                         "n8_tf32_plan", N8_TF32_CTA_ROWS,
+                         N8_SM_WARPS // N8_TF32_WARPS, fill=True)
+
+
 def _cluster_plan(B: int, KV: int, span: int, split_t: Optional[int],
-                  tile: int, who: str, least: int = 1, per_sm: int = 2):
+                  tile: int, who: str, least: int = 1, per_sm: int = 2,
+                  fill: bool = False):
     span = max(1, int(span))
     if split_t is None:
-        want = max(1, per_sm * H100_SMS // max(1, B * KV))
+        slots = per_sm * H100_SMS     # CTAs a wave; fill: cover it
+        groups = max(1, B * KV)
+        want = max(1, -(-slots // groups) if fill else slots // groups)
         cluster = max(1, min(TC_MAX_CLUSTER, want, -(-span // tile),
                              -(-span // least)))
         per = -(-span // cluster)
@@ -256,6 +284,38 @@ def ragged_decode_n8_plain(q, k, v, lengths, *, slots=None,
                    n8_warps(D))
 
 
+def ragged_decode_n8_tf32_plain(q, k, v, lengths, *, slots=None,
+                                ctx: Optional[int] = None,
+                                split_t: Optional[int] = None):
+    """The float32 n8 route's arithmetic in plain PyTorch, for the tests
+    only: the spans of :func:`n8_tf32_plan`, 16-row sub-tiles dealt to
+    ``N8_TF32_WARPS`` warps, a softmax in base 2 a warp, the warps'
+    and the CTAs' merges in order (as :func:`ragged_decode_n8_plain`), with
+    every product as the kernel's three TF32 products: each float32
+    operand x (Q, K, P, V) split into hi = tf32(x) and lo = tf32(x - hi),
+    TF32 rounding emulated on the int32 view (``(bits + 0x1000) &
+    0xffffe000``), each product lo·hi + hi·lo + hi·hi. Same arguments as
+    :func:`ragged_decode_attention`; returns (B, H, D) in q.dtype."""
+    return _mirror(q, k, v, lengths, slots, ctx, n8_tf32_plan, split_t, 16,
+                   N8_TF32_WARPS, tf32=True)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as the kernels round it (tf32.cuh:
+    to nearest on the low 13 mantissa bits, ties away from zero)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_dot(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as three TF32 products: lo·hi + hi·lo +
+    hi·hi, each operand x split into hi = tf32(x), lo = tf32(x - hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
 def ragged_decode_tc_plain(q, k, v, lengths, *, slots=None,
                            ctx: Optional[int] = None,
                            split_t: Optional[int] = None):
@@ -273,11 +333,13 @@ def ragged_decode_tc_plain(q, k, v, lengths, *, slots=None,
 
 
 def _mirror(q, k, v, lengths, slots, ctx, plan, split_t, tile: int,
-            streams: int):
+            streams: int, tf32: bool = False):
     """The tensor-core routes' arithmetic: ``plan``'s spans, CTA c of a
     (b, kv) group walking spans c, c + cluster, ... by tiles of ``tile``
     rows dealt in turn to ``streams`` online softmaxes (the CTA's, or each
-    warp's), those merged in order, then the CTAs in rank order."""
+    warp's), those merged in order, then the CTAs in rank order. The
+    products: float32 sums of the widened values for S and P as bf16 hi +
+    lo for P·V, or, with ``tf32``, both as three TF32 products."""
     B, H, D = q.shape
     N, T, KV = k.shape[0], k.shape[1], k.shape[2]
     G = H // KV
@@ -296,15 +358,21 @@ def _mirror(q, k, v, lengths, slots, ctx, plan, split_t, tile: int,
         o = torch.zeros((KV, G, D), dtype=f32, device=q.device)
         for t0, t1 in tiles:
             kt, vt = rk[t0:t1].to(f32), rv[t0:t1].to(f32)   # (n, KV, D)
-            sc = torch.einsum("kgd,nkd->kgn", qb, kt) * scale_log2
+            if tf32:
+                sc = _split_dot("kgd,nkd->kgn", qb, kt) * scale_log2
+            else:
+                sc = torch.einsum("kgd,nkd->kgn", qb, kt) * scale_log2
             mn = torch.maximum(m, sc.amax(-1))
             corr = torch.exp2(m - mn)
             p = torch.exp2(sc - mn[..., None])
             l = l * corr + p.sum(-1)
-            hi = bf(p)
-            lo = bf(p - hi)
-            o = (o * corr[..., None] + torch.einsum("kgn,nkd->kgd", hi, vt)
-                 + torch.einsum("kgn,nkd->kgd", lo, vt))
+            if tf32:
+                pv = _split_dot("kgn,nkd->kgd", p, vt)
+            else:
+                hi = bf(p)
+                pv = (torch.einsum("kgn,nkd->kgd", hi, vt)
+                      + torch.einsum("kgn,nkd->kgd", bf(p - hi), vt))
+            o = o * corr[..., None] + pv
             m = mn
         return m, l, o
 
@@ -339,11 +407,11 @@ def _mirror(q, k, v, lengths, slots, ctx, plan, split_t, tile: int,
 
 def tc_info(D: int, route: str = "tc") -> dict:
     """A tensor-core kernel's instantiation at head dim ``D`` (``route``
-    "tc" or "n8"), read on the card without launching it: {"regs",
-    "spill_bytes", "ctas_per_sm", "smem", "clusters_of_8"} (registers and
-    local bytes a thread by ``cudaFuncGetAttributes``; resident CTAs an SM
-    and clusters of ``TC_MAX_CLUSTER`` CTAs held at once by the occupancy
-    calculator; shared memory bytes a CTA)."""
+    "tc", "n8" or "n8_tf32"), read on the card without launching it:
+    {"regs", "spill_bytes", "ctas_per_sm", "smem", "clusters_of_8"}
+    (registers and local bytes a thread by ``cudaFuncGetAttributes``;
+    resident CTAs an SM and clusters of ``TC_MAX_CLUSTER`` CTAs held at
+    once by the occupancy calculator; shared memory bytes a CTA)."""
     import ctypes
     info = (ctypes.c_int * 5)()
     err = _build.function("ragged_decode_attn",
@@ -408,16 +476,20 @@ def _launch_split(q, k, v, lengths, slots, ctx=None, split_t=None):
     return out
 
 
+_PLANS = {"tc": tc_plan, "n8": n8_plan, "n8_tf32": n8_tf32_plan}
+
+
 def _launch_tc(q, k, v, lengths, slots, ctx=None, split_t=None,
                route="tc"):
     """``ragged_decode_tc_kernel`` (``route`` "tc") or
-    ``ragged_decode_n8_kernel`` ("n8"), bf16 on the tensor cores, on
-    checked CUDA inputs (``slots`` may be None); counts nothing. Returns
-    the output."""
+    ``ragged_decode_n8_kernel`` ("n8"), bf16 on the tensor cores, or
+    ``ragged_decode_n8_tf32_kernel`` ("n8_tf32"), float32 as split TF32,
+    on checked CUDA inputs (``slots`` may be None); counts nothing.
+    Returns the output."""
     B, H, D = q.shape
     N, T, KV = k.shape[0], k.shape[1], k.shape[2]
     span = T if ctx is None else min(ctx, T)
-    plan = tc_plan if route == "tc" else n8_plan
+    plan = _PLANS[route]
     cluster, n_split, split_t = plan(B, KV, D, span, split_t)
     out = torch.empty_like(q)
     fn = _build.function("ragged_decode_attn", f"repro_ragged_decode_{route}")
@@ -433,6 +505,14 @@ def _launch_n8(q, k, v, lengths, slots, ctx=None, split_t=None):
     """``ragged_decode_n8_kernel`` (bf16 at G <= 8, the tensor cores) on
     checked CUDA inputs; counts nothing. Returns the output."""
     return _launch_tc(q, k, v, lengths, slots, ctx, split_t, route="n8")
+
+
+def _launch_n8_tf32(q, k, v, lengths, slots, ctx=None, split_t=None):
+    """``ragged_decode_n8_tf32_kernel`` (float32 at G <= 8, the tensor
+    cores as split TF32) on checked CUDA inputs; counts nothing. Returns
+    the output."""
+    return _launch_tc(q, k, v, lengths, slots, ctx, split_t,
+                      route="n8_tf32")
 
 
 def ragged_decode_attention(q, k, v, lengths, *,
@@ -451,13 +531,14 @@ def ragged_decode_attention(q, k, v, lengths, *,
     other). Every kernel splits ``ctx`` (T without it) into spans of
     ``split_t`` rows and stops at each row's length; a bound below a row's
     length would drop its tail, as in the plain version. The CUDA-core
-    kernel (float32 at any G) plans its spans as :func:`split_plan` does,
-    in granules of :func:`split_granule` rows, one CTA a span; the
-    tensor-core kernels (bf16 at 8 < G <= 16, and at G <= 8) as
-    :func:`tc_plan` and :func:`n8_plan` do, a cluster of CTAs per (row, kv
-    head) walking the spans. Without ``slots`` the kernels read row b of
-    the stack (no slot vector is made). ``launches`` counts every route,
-    ``tc_launches`` and ``n8_launches`` the tensor-core ones.
+    kernel (float32 above 8 heads a group, other head dims) plans its
+    spans as :func:`split_plan` does, in granules of :func:`split_granule`
+    rows, one CTA a span; the tensor-core kernels (bf16 at 8 < G <= 16,
+    bf16 and float32 at G <= 8) as :func:`tc_plan`, :func:`n8_plan` and
+    :func:`n8_tf32_plan` do, a cluster of CTAs per (row, kv head) walking
+    the spans. Without ``slots`` the kernels read row b of the stack (no
+    slot vector is made). ``launches`` counts every route, ``tc_launches``,
+    ``n8_launches`` and ``n8_tf32_launches`` the tensor-core ones.
 
     Decode is on no loss path and has no gradient: with grad mode on and
     q, k or v requiring grad it raises (on the CPU too), rather than
@@ -486,6 +567,9 @@ def ragged_decode_attention(q, k, v, lengths, *,
     elif route == "n8":
         out = _launch_n8(q, k, v, lengths, slots, ctx, split_t)
         ragged_decode_attention.n8_launches += 1
+    elif route == "n8_tf32":
+        out = _launch_n8_tf32(q, k, v, lengths, slots, ctx, split_t)
+        ragged_decode_attention.n8_tf32_launches += 1
     else:
         out = _launch_split(q, k, v, lengths, slots, ctx, split_t)
     ragged_decode_attention.launches += 1
@@ -495,3 +579,5 @@ def ragged_decode_attention(q, k, v, lengths, *,
 ragged_decode_attention.launches = 0      # every launch, any route
 ragged_decode_attention.tc_launches = 0   # the tensor-core route's (G > 8)
 ragged_decode_attention.n8_launches = 0   # the n8 route's (bf16, G <= 8)
+# the float32 n8 route's (G <= 8, split TF32)
+ragged_decode_attention.n8_tf32_launches = 0

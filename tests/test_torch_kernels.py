@@ -179,7 +179,13 @@ DECODE_ROUTES = [
     (torch.bfloat16, 8, 64, "n8"),             # 8 heads: one n8 tile
     (torch.bfloat16, 4, 32, "cuda_cores"),     # no n8 instantiation
     (torch.bfloat16, 4, 256, "cuda_cores"),
-    (torch.float32, 4, 128, "cuda_cores"),     # nemo's f32 exact check
+    (torch.float32, 4, 128, "n8_tf32"),        # nemo's f32 exact check
+    (torch.float32, 3, 64, "n8_tf32"),         # granite's f32 exact check
+    (torch.float32, 8, 128, "n8_tf32"),        # 8 heads: one n8 tile
+    (torch.float32, 1, 64, "n8_tf32"),         # MHA
+    (torch.float32, 4, 32, "cuda_cores"),      # no n8 instantiation
+    (torch.float32, 4, 256, "cuda_cores"),
+    (torch.float32, 9, 64, "cuda_cores"),      # above one n8 tile
     (torch.bfloat16, 9, 128, "tc"),
     (torch.bfloat16, 12, 64, "tc"),
     (torch.bfloat16, 12, 256, "tc"),
@@ -190,16 +196,18 @@ DECODE_ROUTES = [
     (torch.bfloat16, 32, 64, "cuda_cores"),
     (torch.bfloat16, 16, 16, "cuda_cores"),    # no compiled head dim
     (torch.float32, 12, 64, "cuda_cores"),
-    (torch.float32, 4, 64, "cuda_cores"),
+    (torch.float32, 4, 64, "n8_tf32"),         # llama's f32 exact check
     (torch.float16, 16, 256, "cuda_cores"),
+    (torch.float16, 4, 64, "cuda_cores"),
 ]
 
 
 @pytest.mark.parametrize("dtype,G,D,route", DECODE_ROUTES)
 def test_decode_route_by_dtype_and_shape(dtype, G, D, route):
     """bf16 at 8 < G <= 16 and a compiled head dim takes the tensor-core
-    kernel, bf16 at G <= 8 and head dim 64 or 128 the n8 kernel; float32
-    at every G, and other head dims, the CUDA-core kernel."""
+    kernel, bf16 at G <= 8 and head dim 64 or 128 the n8 kernel, float32
+    there the split-TF32 n8 kernel; float32 above 8 heads a group, and
+    other head dims, the CUDA-core kernel."""
     assert K.decode_route(dtype, G, D) == route
 
 
@@ -207,8 +215,9 @@ def test_decode_route_of_every_config():
     """The configs' own heads: recurrentgemma-9b's bf16 decode (G 16, D
     256) takes the tensor-core route, every other dense, MoE and hybrid
     architecture's bf16 decode (G 1 to 6 at D 64 or 128, and every
-    reduced() width, G 1 or 4 at D 64) the n8 route; float32 stays on the
-    CUDA cores everywhere."""
+    reduced() width, G 1 or 4 at D 64) the n8 route; their float32 decode
+    (the exact checks) the split-TF32 n8 route, and recurrentgemma-9b's
+    float32 decode (G 16) the CUDA cores."""
     from repro_torch.configs import ARCHITECTURES
     routes = {}
     for name, cfg in ARCHITECTURES.items():
@@ -223,8 +232,10 @@ def test_decode_route_of_every_config():
     assert {key for key, r in routes.items() if r == "n8"} == {
         key for key in routes if key[2] == torch.bfloat16
         and key[:2] != ("recurrentgemma-9b", True)}
-    assert all(r == "cuda_cores" for key, r in routes.items()
-               if key[2] == torch.float32)
+    assert {key for key, r in routes.items() if r == "n8_tf32"} == {
+        key for key in routes if key[2] == torch.float32
+        and key[:2] != ("recurrentgemma-9b", True)}
+    assert routes["recurrentgemma-9b", True, torch.float32] == "cuda_cores"
 
 
 @pytest.mark.parametrize("B,KV,D,span,split_t", [
@@ -786,6 +797,119 @@ def test_fused_rmsnorm_matches_layer():
     np.testing.assert_allclose(_np(b), _np(c), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("B,KV,D,span,split_t,want", [
+    (8, 8, 64, 1024, None, (4, 4, 256)),    # llama and granite exact
+    (8, 8, 128, 1024, None, (4, 4, 256)),   # nemo exact
+    (3, 8, 64, 256, None, (2, 2, 128)),     # the legacy stacks at B 3, 7
+    (7, 8, 64, 256, None, (2, 2, 128)),
+    (128, 8, 64, 32768, None, (1, 1, 32768)),   # a CTA a group
+    (1, 8, 64, 1024, None, (8, 8, 128)),    # 128 rows a CTA at least
+    (1, 8, 128, 4096, None, (8, 8, 512)),
+    (8, 32, 64, 1024, None, (2, 2, 512)),   # 256 groups: two CTAs a group
+    (8, 8, 64, 64, None, (1, 1, 64)),       # one round of sub-tiles
+    (8, 8, 128, 40, None, (1, 1, 64)),
+    (8, 8, 64, 1000, 16, (8, 63, 16)),      # 63 spans walked by 8 CTAs
+    (8, 8, 128, 1000, 48, (8, 21, 48)),
+])
+def test_ragged_decode_n8_tf32_plan(B, KV, D, span, split_t, want):
+    """The float32 n8 route's plan, from static sizes only: spans of whole
+    rounds of the CTA's warps' 16-row sub-tiles (4 warps), at least 128
+    rows a CTA, a cluster that covers one wave of 8 warps an SM (rounded
+    up), spans covering the context once, an explicit split_t kept."""
+    import inspect
+    from repro_torch.kernels.ragged_decode_attn import (N8_TF32_WARPS,
+                                                        n8_tf32_plan)
+    assert list(inspect.signature(n8_tf32_plan).parameters) == [
+        "B", "KV", "D", "span", "split_t"]
+    assert N8_TF32_WARPS == 4
+    cluster, n, st = n8_tf32_plan(B, KV, D, span, split_t)
+    assert (cluster, n, st) == want
+    assert (n - 1) * st < span <= n * st
+    with pytest.raises(ValueError):
+        n8_tf32_plan(8, 8, 64, 64, split_t=0)
+
+
+def test_tf32_rounding_is_the_kernels():
+    """The mirror's TF32 rounding is cvt.rna.tf32.f32's: to nearest with
+    10 mantissa bits, ties away from zero, on the int32 view; x = hi + lo
+    leaves a residual below 2^-21 |x|."""
+    from repro_torch.kernels.ragged_decode_attn import _tf32
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(4096).astype(np.float32) * np.float32(
+        2.0) ** rng.integers(-20, 20, 4096).astype(np.float32)
+    ties = np.array([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11,
+                     2 ** -11, 0.0, -0.0], np.float32)
+    x = np.concatenate([x, ties])
+    got = _np(_tf32(torch.from_numpy(x)))
+    m, e = np.frexp(x.astype(np.float64))      # |m| in [0.5, 1)
+    scaled = m * 2 ** 11
+    want = np.ldexp(np.sign(scaled) * np.floor(np.abs(scaled) + 0.5), e - 11)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    np.testing.assert_array_equal(got[-6:], [1 + 2 ** -10, -(1 + 2 ** -10),
+                                             1 + 2 ** -9, 2 ** -11, 0, 0])
+    lo = _np(_tf32(torch.from_numpy(x - got)))
+    resid = np.abs(x.astype(np.float64) - got - lo)
+    assert (resid <= 2.0 ** -21 * np.abs(x)).all()
+
+
+@pytest.mark.parametrize("H,D,T", N8_CASES)
+@pytest.mark.parametrize("split_t,ctx", [(None, None), (8, None),
+                                         (48, 50), (16, None)])
+def test_ragged_decode_n8_tf32_plain_matches_plain(H, D, T, split_t, ctx):
+    """The float32 n8 route's arithmetic (its plan's spans walked by the
+    CTAs of a cluster, 16-row sub-tiles dealt to 4 warps, a softmax a
+    warp, every product as three TF32 products, the warps' and the CTAs'
+    merges) against the plain version in float32 at 1e-5, every row of
+    nonzero length: planned spans; spans of 8 rows (13 spans of 100 rows
+    over 8 CTAs); of 48 (``ctx`` 50 below a row's length); of 16 (one
+    sub-tile a span). A row of length 0 gives zeros."""
+    (_, q), (_, k), (_, v), lens, slots = _n8_case(H, D, T, jnp.float32,
+                                                   seed=H + D + 1)
+    lt, st = torch.from_numpy(lens), torch.from_numpy(slots)
+    got = K.ragged_decode_n8_tf32_plain(q, k, v, lt, slots=st, ctx=ctx,
+                                        split_t=split_t)
+    want = K.ragged_decode_attention_plain(q, k, v, lt, slots=st, ctx=ctx)
+    assert got.dtype == torch.float32
+    live = lens > 0
+    np.testing.assert_allclose(_np(got)[live], _np(want)[live], rtol=1e-5,
+                               atol=1e-5)
+    assert not _np(got)[~live].any()
+
+
+@pytest.mark.parametrize("H,D,T", N8_CASES)
+def test_ragged_decode_n8_tf32_plain_matches_pallas(H, D, T):
+    """The same arithmetic against the Pallas kernel in interpret mode
+    (one block of T rows, the clamped slots) in float32 at 2e-5, the row
+    of length 0 included (zeros in both)."""
+    (qj, qt), (kj, kt), (vj, vt), lens, slots = _n8_case(H, D, T,
+                                                         jnp.float32,
+                                                         seed=H * D + 1)
+    pallas = ops.ragged_decode_attention(
+        qj, kj, vj, jnp.asarray(lens), slots=jnp.asarray(np.minimum(slots,
+                                                                    5)),
+        block_t=T, interpret=True)
+    got = K.ragged_decode_n8_tf32_plain(qt, kt, vt, torch.from_numpy(lens),
+                                        slots=torch.from_numpy(slots))
+    np.testing.assert_allclose(_np(got), _np(pallas), rtol=2e-5, atol=2e-5)
+
+
+def test_ragged_decode_n8_tf32_plain_without_slots():
+    """Without a slot vector row b of the stack is read, as the kernel
+    reads a null slot pointer: equal to the same call given slots 0 .. B -
+    1, and to the plain version."""
+    (_, q), (_, k), (_, v), lens, _ = _n8_case(32, 128, 60, jnp.float32, 4)
+    lens = torch.from_numpy(lens)
+    k, v = k[:5], v[:5]
+    got = K.ragged_decode_n8_tf32_plain(q, k, v, lens)
+    same = K.ragged_decode_n8_tf32_plain(
+        q, k, v, lens, slots=torch.arange(5, dtype=torch.int32))
+    np.testing.assert_array_equal(_np(got), _np(same))
+    live = lens.numpy() > 0
+    want = K.ragged_decode_attention_plain(q, k, v, lens)
+    np.testing.assert_allclose(_np(got)[live], _np(want)[live], rtol=1e-5,
+                               atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # wrappers: CPU dispatch, launch counters, build plumbing
 # ---------------------------------------------------------------------------
@@ -805,6 +929,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     assert K.launch_counts() == {"ragged_decode_attention": 0,
                                  "ragged_decode_attention_tc": 0,
                                  "ragged_decode_attention_n8": 0,
+                                 "ragged_decode_attention_n8_tf32": 0,
                                  "fused_rmsnorm": 0, "flash_attention": 0,
                                  "ssd_chunked": 0, "ssd_chunked_tc": 0,
                                  "ssd_chunked_tf32": 0,

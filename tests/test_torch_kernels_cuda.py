@@ -22,9 +22,12 @@ counter, two calls bit-equal) and float32 at G 16 staying on the CUDA
 cores, its n8 route (bf16 at G <= 8, D 64 and 128: llama3.2-1b's,
 mistral-nemo-12b's and granite-moe-3b-a800m's heads with and without
 slots, a row of length 0, rings and a dequantized int8 cache, repeat
-calls bit-equal, every span size) and float32 at G 4 staying on the CUDA
-cores, and tiny engines of every family on the card against the CPU
-engine, in arena and in legacy mode.
+calls bit-equal, every span size), its float32 n8 route (split TF32 at
+the same heads and at G 1, 5 and 6, against its plain mirror and the
+plain version at 2e-5, with and without slots, every span size, a
+wrapped ring, the legacy stacks, repeat calls bit-equal), and tiny
+engines of every family on the card against the CPU engine, in arena and
+in legacy mode.
 """
 import pytest
 
@@ -672,8 +675,9 @@ def test_ragged_decode_n8_route_at_the_legacy_and_long_batches(cuda, B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,KV,D", N8_SERVE_HEADS)
 def test_ragged_decode_f32_at_g4_stays_on_the_cuda_cores(cuda, H, KV, D):
-    """float32 at the serves' heads runs the CUDA-core kernel: ``launches``
-    moves, neither tensor-core counter does; without slots it reads row b
+    """float32 at the serves' heads no longer runs the CUDA-core kernel
+    but the float32 n8 route: ``launches`` and ``n8_tf32_launches`` move,
+    neither bf16 tensor-core counter does; without slots it reads row b
     (a null slot pointer), equal bit for bit to slots 0 .. B - 1."""
     q, k, v, lengths, _ = _decode_case(cuda, 8, H, KV, D, 1000,
                                        torch.float32, seed=13)
@@ -681,16 +685,138 @@ def test_ragged_decode_f32_at_g4_stays_on_the_cuda_cores(cuda, H, KV, D):
     n0 = K.ragged_decode_attention.launches
     e0 = K.ragged_decode_attention.n8_launches
     t0 = K.ragged_decode_attention.tc_launches
+    f0 = K.ragged_decode_attention.n8_tf32_launches
     got = K.ragged_decode_attention(q, k, v, lengths)
     assert K.ragged_decode_attention.launches == n0 + 1
     assert K.ragged_decode_attention.n8_launches == e0
     assert K.ragged_decode_attention.tc_launches == t0
+    assert K.ragged_decode_attention.n8_tf32_launches == f0 + 1
     rows = torch.arange(8, dtype=torch.int32, device=cuda)
     same = K.ragged_decode_attention(q, k, v, lengths, slots=rows)
     torch.cuda.synchronize()
     assert torch.equal(got, same)
     want = K.ragged_decode_attention_plain(q, k, v, lengths)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _n8_tf32_call(q, k, v, lengths, slots=None, split_t=None):
+    """One call that must take the float32 n8 route: ``launches`` and
+    ``n8_tf32_launches`` move by one, neither bf16 tensor-core counter."""
+    n0 = K.ragged_decode_attention.launches
+    t0 = K.ragged_decode_attention.tc_launches
+    e0 = K.ragged_decode_attention.n8_launches
+    f0 = K.ragged_decode_attention.n8_tf32_launches
+    got = K.ragged_decode_attention(q, k, v, lengths, slots=slots,
+                                    split_t=split_t)
+    assert K.ragged_decode_attention.launches == n0 + 1
+    assert K.ragged_decode_attention.n8_tf32_launches == f0 + 1
+    assert K.ragged_decode_attention.n8_launches == e0
+    assert K.ragged_decode_attention.tc_launches == t0
+    return got
+
+
+def _against_mirror_and_plain(got, q, k, v, lengths, slots=None,
+                              split_t=None, mirror=True):
+    """The float32 n8 kernel's output against its plain mirror (same plan
+    and split_t; a Python loop over sub-tiles, left out of the longest
+    case) and the plain version, both at 2e-5; a row of length 0 gives
+    zeros."""
+    want = K.ragged_decode_attention_plain(q, k, v, lengths, slots=slots)
+    live = lengths > 0
+    assert not got[~live].any()
+    if mirror:
+        torch.testing.assert_close(
+            got, K.ragged_decode_n8_tf32_plain(q, k, v, lengths, slots=slots,
+                                               split_t=split_t),
+            rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got[live], want[live], rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", N8_SERVE_HEADS)
+@pytest.mark.parametrize("with_slots", [True, False])
+def test_ragged_decode_n8_tf32_route_at_the_exact_checks_heads(
+        cuda, H, KV, D, with_slots):
+    """float32 at the exact checks' heads (llama's G 4 at D 64, nemo's at
+    D 128, granite's G 3) takes the split-TF32 n8 kernel, over a T 1000
+    arena with a padding row (slots) or a stack read row by row (no
+    slots): within 2e-5 of its mirror and of the plain version, a row of
+    length 0 zeros, two calls equal bit for bit."""
+    q, k, v, lengths, slots = _decode_case(cuda, 8, H, KV, D, 1000,
+                                           torch.float32, seed=H + D + 1)
+    lengths[3] = 0
+    if not with_slots:
+        k, v, slots = k[:8].contiguous(), v[:8].contiguous(), None
+    got = _n8_tf32_call(q, k, v, lengths, slots)
+    again = _n8_tf32_call(q, k, v, lengths, slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _against_mirror_and_plain(got, q, k, v, lengths, slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", N8_SERVE_HEADS)
+@pytest.mark.parametrize("split_t", [16, 48, 64, 128, 320, 1024])
+def test_ragged_decode_n8_tf32_route_split_invariance(cuda, H, KV, D,
+                                                      split_t):
+    """Every span size (sub-tiles cut by a span's end at 48 and 320; 63
+    spans of 16 rows walked by 8 CTAs; one CTA a row at 1024) within 2e-5
+    of the planned spans, of the mirror at the same spans and of the plain
+    version."""
+    q, k, v, lengths, slots = _decode_case(cuda, 8, H, KV, D, 1000,
+                                           torch.float32, seed=17)
+    planned = _n8_tf32_call(q, k, v, lengths, slots)
+    got = _n8_tf32_call(q, k, v, lengths, slots, split_t)
+    torch.testing.assert_close(got, planned, rtol=2e-5, atol=2e-5)
+    _against_mirror_and_plain(got, q, k, v, lengths, slots, split_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", [(40, 8, 128), (48, 8, 128), (32, 32, 64),
+                                    (64, 8, 64), (8, 1, 64), (16, 8, 128)])
+def test_ragged_decode_n8_tf32_route_at_other_groups(cuda, H, KV, D):
+    """qwen2.5-32b's G 5 and internvl2-26b's G 6 at D 128, musicgen-large's
+    G 1 (32 kv heads of 64), G 8 over eight kv heads and over one, G 2:
+    within 2e-5 of the mirror and of the plain version, a row of length 0
+    zeros."""
+    q, k, v, lengths, slots = _decode_case(cuda, 8, H, KV, D, 1000,
+                                           torch.float32, seed=H * D + 1)
+    lengths[2] = 0
+    got = _n8_tf32_call(q, k, v, lengths, slots)
+    _against_mirror_and_plain(got, q, k, v, lengths, slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 7, 128])
+def test_ragged_decode_n8_tf32_route_at_the_legacy_and_long_batches(cuda, B):
+    """The legacy engine's stacks at B 3 and 7 (T 256) and B 128 (T 2048,
+    every row full: one CTA a group), no slots, at llama's heads in
+    float32: within 2e-5 of the mirror (not at B 128) and of the plain
+    version."""
+    T = 256 if B < 128 else 2048
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q = torch.randn((B, 32, 64), generator=g, device=cuda)
+    k = torch.randn((B, T, 8, 64), generator=g, device=cuda)
+    v = torch.randn((B, T, 8, 64), generator=g, device=cuda)
+    lens = [1, T, 17, 133, T - 1, 64, 200] if B < 128 else [T] * B
+    lengths = torch.tensor(lens[:B], dtype=torch.int32, device=cuda)
+    got = _n8_tf32_call(q, k, v, lengths)
+    _against_mirror_and_plain(got, q, k, v, lengths, mirror=B < 128)
+
+
+@pytest.mark.cuda
+def test_ragged_decode_n8_tf32_route_over_a_wrapped_ring(cuda):
+    """RuntimeFlags.window's decode at granite's heads in float32: a ring
+    of 256 rows, two rows wrapped (all 256 rows read): within 2e-5 of the
+    mirror and of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q = torch.randn((4, 24, 64), generator=g, device=cuda)
+    k = torch.randn((4, 256, 8, 64), generator=g, device=cuda)
+    v = torch.randn((4, 256, 8, 64), generator=g, device=cuda)
+    lengths = torch.clamp(torch.tensor([300, 255, 256, 17], device=cuda) + 1,
+                          max=256).to(torch.int32)
+    got = _n8_tf32_call(q, k, v, lengths)
+    _against_mirror_and_plain(got, q, k, v, lengths)
 
 
 # RuntimeFlags.window's decode: a ring of T rows; a row past T has wrapped

@@ -6,6 +6,8 @@ source with clock64 stamps around each phase.
     python3 tools/decode_ab.py [--cases llama nemo ...] [--kernels cores tc]
     python3 tools/decode_ab.py --probe cores tc n8 [--sass] [--cases ...]
     python3 tools/decode_ab.py --variants w4 w8 [--other _scratch/parent]
+    python3 tools/decode_ab.py --dtype float32 [--kernels cores n8_tf32]
+        [--variants t-w2 t-s2 t-w8s2] [--probe n8_tf32]
 
 Kernels (``--kernels``, each called through its C entry on the same
 inputs, whatever route ``decode_route`` would pick):
@@ -19,8 +21,17 @@ inputs, whatever route ``decode_route`` would pick):
   n8       ``ragged_decode_n8_kernel`` (``_launch_n8``: bf16 at G <= 8, the
            heads the n8 side of ``mma.sync``, 16 keys its m16, a ring and
            an online softmax a warp, a cluster merge)
+  n8_tf32  ``ragged_decode_n8_tf32_kernel`` (``_launch_n8_tf32``: float32
+           at G <= 8, the n8 layout with every product as three TF32
+           products of ``mma.sync`` m16n8k8)
 
-Cases, bf16, with ``chip_smoke.py``'s inputs (``kernel_decode``):
+A kernel runs only on the cases it takes: ``tc`` and ``n8`` bf16 ones
+(``n8`` at G <= 8, D 64 or 128), ``n8_tf32`` float32 ones at G <= 8, D 64
+or 128, ``cores`` every case. Without ``--kernels``: cores, tc and n8 in
+bf16; cores and n8_tf32 in float32.
+
+Cases, in ``--dtype`` (bfloat16 by default, or float32), with
+``chip_smoke.py``'s inputs (``kernel_decode``):
 
   llama    q (8, 32, 64) over a slot arena (512, 1024, 8, 64), the
            smoke's first decode case (lengths 1 ... 1024, one padding row)
@@ -44,14 +55,15 @@ Cases, bf16, with ``chip_smoke.py``'s inputs (``kernel_decode``):
   long     q (128, 16, 256) over (128, 2048, 1, 256), every row 2048 long
 
 Per case: each kernel's output against ``ragged_decode_attention_plain``
-(2e-2); then, in turns (the kernels in order, then in reverse order):
-CUDA-event medians with the L2 flushed, the profiler's device time per
-call (L2 warm) and the host's cost per call, by ``chip_smoke.py``'s own
-timers; the plain version's and SDPA's (the smoke's yardstick over the
-gathered, head-repeated rows) device time; the bound and each kernel's
-share of it. ptxas's report for both kernels comes first, then the
-tensor-core kernel's registers, spill bytes, CTAs an SM, shared memory
-and clusters of 8 held at once at each head dim (``tc_info``).
+(2e-2 in bf16, 2e-5 in float32); then, in turns (the kernels in order,
+then in reverse order): CUDA-event medians with the L2 flushed, the
+profiler's device time per call (L2 warm) and the host's cost per call, by
+``chip_smoke.py``'s own timers; the plain version's and SDPA's (the
+smoke's yardstick over the gathered, head-repeated rows) device time; the
+bound and each kernel's share of it. ptxas's report for both kernels comes
+first, then the tensor-core kernel's registers, spill bytes, CTAs an SM,
+shared memory and clusters of 8 held at once at each head dim
+(``tc_info``).
 
 ``--probe KERNEL ...`` builds one copy of this tree's ``csrc/`` into
 ``build/decode_ab/`` whose kernels add, on thread 0 of every CTA, clock64
@@ -67,6 +79,10 @@ softmax with P's packing, P·V; per CTA the prologue (lengths, slots, Q,
 the first issues), the loop over warp 0's sub-tiles, the warps' states
 and their merge with a peer's stores into CTA 0, CTA 0's wait for its
 peers' bytes and its merge; the CTAs that exit at once apart.
+``n8_tf32``: per sub-tile of warp 0 the wait for its loads (the first's
+apart), the next sub-tile's issue, S^T (K's ldmatrix and split, three
+products a k step), the softmax, P^T's shuffles and split, P·V (V's loads
+and split, three products); per CTA as ``n8``.
 ``cores``: per CTA with rows the prologue (lengths, the exit test,
 slots), Q into registers, the loop over its
 rows (warp 0's), the warp merge and the write of the output or the
@@ -81,7 +97,9 @@ async copies (LDGSTS) and branches (BRA). ``--variants w4 w8`` also
 builds other layouts of the n8 kernel from substituted copies (``w4``:
 four warps a CTA at both widths, rings of 6 stages at D 64; ``w8``: eight
 warps at both widths, one CTA an SM at D 128) and times them in the same
-turns, with this tree's plan. ``--other DIR`` builds another checkout's
+turns, with this tree's plan; ``t-w2``, ``t-s2`` and ``t-w8s2`` the
+float32 kernel's (two warps a CTA; two stages a warp; eight warps of two
+stages at D 64). ``--other DIR`` builds another checkout's
 ``ragged_decode_attn.cu`` (e.g. the parent commit unpacked by ``git
 archive`` into the ignored ``_scratch/``) and times its kernels
 (``--other-kernels``, n8 by default) in the same turns, with this tree's
@@ -116,7 +134,13 @@ KERNELS = {
            ("ragged_decode_tc_kernel",)),
     "n8": ("_launch_n8", "repro_ragged_decode_n8",
            ("ragged_decode_n8_kernel",)),
+    "n8_tf32": ("_launch_n8_tf32", "repro_ragged_decode_n8_tf32",
+                ("ragged_decode_n8_tf32_kernel",)),
 }
+# the part of ragged_decode_attn.cu a substitution scoped to a kernel
+# applies to (its namespace; the n8 kernels share much text)
+REGIONS = {"n8": ("namespace n8 {\n", "}  // namespace n8\n"),
+           "n8_tf32": ("namespace n8t {\n", "}  // namespace n8t\n")}
 LONG_LLAMA = (32768,) * 128    # llama's decode_32k: B 128, every row full
 
 PROBE_HEAD = (
@@ -188,7 +212,7 @@ PROBES = {"tc": [
      "    probe_add(13, k6 - k4); probe_add(14, k7 - k6);\n"
      "    probe_add(18, k7 - k0);\n"
      "    probe_add(16, 1); probe_add(17, n_tiles);\n  }\n"),
-], "n8": [
+], "n8": [(old, new, "n8") for old, new in [
     ("template <int D>\n__global__ void __launch_bounds__(Cfg<D>::kThreads, "
      "2)\nragged_decode_n8_kernel(",
      "__device__ unsigned long long n8_cycles[24];\n"
@@ -247,7 +271,72 @@ PROBES = {"tc": [
      "  if (tid == 0) {\n    const long long k6 = clock64();\n"
      "    n8_add(13, k5 - k3); n8_add(14, k6 - k5); n8_add(22, 1);\n"
      "    n8_add(18, k6 - k0);\n  }\n}\n"),
-], "cores": [
+]], "n8_tf32": [(old, new, "n8_tf32") for old, new in [
+    ("template <int D>\n__global__ void __launch_bounds__(Cfg<D>::kThreads, "
+     "2)\nragged_decode_n8_tf32_kernel(",
+     "__device__ unsigned long long n8t_cycles[24];\n"
+     "__device__ void n8t_add(int i, long long v) {\n"
+     "  atomicAdd(&n8t_cycles[i], (unsigned long long)v);\n}\n\n"
+     "template <int D>\n__global__ void __launch_bounds__(Cfg<D>::kThreads, "
+     "2)\nragged_decode_n8_tf32_kernel("),
+    ("  extern __shared__ __align__(128) unsigned char smem[];\n"
+     "  const uint32_t base = tc::smem_addr(smem);\n",
+     "  extern __shared__ __align__(128) unsigned char smem[];\n"
+     "  const uint32_t base = tc::smem_addr(smem);\n"
+     "  const long long k0 = clock64();\n"),
+    ("  if (c >= n_act) return;\n",
+     "  if (c >= n_act) {\n"
+     "    if (tid == 0) { n8t_add(20, clock64() - k0); n8t_add(21, 1); }\n"
+     "    return;\n  }\n"),
+    ("  float m[2] = {-1e30f, -1e30f};   // heads 2t and 2t + 1\n",
+     "  const long long k1 = clock64();\n"
+     "  float m[2] = {-1e30f, -1e30f};   // heads 2t and 2t + 1\n"),
+    ("  for (int j = 0; j < n_w; ++j) {\n",
+     "  for (int j = 0; j < n_w; ++j) {\n"
+     "    const long long c0 = clock64();\n"),
+    ("    __syncwarp();\n    issue(j + C::kStages - 1);\n",
+     "    __syncwarp();\n    const long long c1 = clock64();\n"
+     "    issue(j + C::kStages - 1);\n    const long long c2 = clock64();\n"),
+    ("    // base-2 exponents; keys past the sub-tile's rows -inf\n",
+     "    const long long c3 = clock64();\n"
+     "    // base-2 exponents; keys past the sub-tile's rows -inf\n"),
+    ("    // 3. P^T's B fragments of k steps kk = 0, 1 (keys 0 .. 7, 8 .. "
+     "15):\n",
+     "    const long long c4 = clock64();\n"
+     "    // 3. P^T's B fragments of k steps kk = 0, 1 (keys 0 .. 7, 8 .. "
+     "15):\n"),
+    ("    // 4. O^T += V^T . P^T: per k step, lane (g, t) loads columns 32 p "
+     "+ 4g\n",
+     "    const long long c5 = clock64();\n"
+     "    // 4. O^T += V^T . P^T: per k step, lane (g, t) loads columns 32 p "
+     "+ 4g\n"),
+    ("        mma(o[mt], vh[mt], ph[kk][0], ph[kk][1]);\n    }\n  }\n",
+     "        mma(o[mt], vh[mt], ph[kk][0], ph[kk][1]);\n    }\n"
+     "    if (tid == 0) {\n      const long long c6 = clock64();\n"
+     "      n8t_add(0, c1 - c0); n8t_add(1, c2 - c1); n8t_add(2, c3 - c2);\n"
+     "      n8t_add(3, c4 - c3); n8t_add(4, c5 - c4); n8t_add(5, c6 - c5);\n"
+     "      n8t_add(6, 1);\n"
+     "      if (j == 0) { n8t_add(7, c1 - c0); n8t_add(8, 1); }\n"
+     "    }\n  }\n  const long long k2 = clock64();\n"),
+    ("  if (n_act == 1 || c > 0) return;   // a peer's stores land on "
+     "their own\n",
+     "  const long long k3 = clock64();\n"
+     "  if (tid == 0) {\n"
+     "    n8t_add(9, k1 - k0); n8t_add(10, k2 - k1); n8t_add(11, k3 - k2);\n"
+     "    n8t_add(16, 1); if (n_act == 1 || c > 0) n8t_add(18, k3 - k0);\n"
+     "    if (n_act > 1 && c > 0) n8t_add(19, 1);\n  }\n"
+     "  if (n_act == 1 || c > 0) return;   // a peer's stores land on "
+     "their own\n"),
+    ("  n8::wait_cluster(bar, 0);\n",
+     "  n8::wait_cluster(bar, 0);\n  const long long k5 = clock64();\n"),
+    ("        make_float4(a.x / den, a.y / den, a.z / den, a.w / den);\n"
+     "  }\n}\n",
+     "        make_float4(a.x / den, a.y / den, a.z / den, a.w / den);\n"
+     "  }\n"
+     "  if (tid == 0) {\n    const long long k6 = clock64();\n"
+     "    n8t_add(13, k5 - k3); n8t_add(14, k6 - k5); n8t_add(22, 1);\n"
+     "    n8t_add(18, k6 - k0);\n  }\n}\n"),
+]], "cores": [
     ("template <typename E, int D, int GC>\n__global__ void "
      "__launch_bounds__(kThreads)\nragged_decode_split_kernel(",
      "__device__ unsigned long long split_cycles[16];\n"
@@ -296,21 +385,37 @@ PROBES = {"tc": [
      "    split_add(5, k4 - k3); split_add(10, 1); split_add(11, k4 - k0);\n"
      "  }\n}\n"),
 ]}
-# other layouts of the n8 kernel, built from substituted copies and timed
-# beside it (``--variants``): w4, four warps a CTA at both widths with
-# rings of 6 stages at D 64 (96 KB a CTA); w8, eight warps at both widths
-# (at D 128 192 KB, one CTA an SM). The plan stays this tree's.
+# other layouts of the n8 kernels, built from substituted copies and timed
+# beside them (``--variants``), each (its route, the substitutions): w4,
+# four warps a CTA at both widths with rings of 6 stages at D 64 (96 KB a
+# CTA); w8, eight warps at both widths (at D 128 192 KB, one CTA an SM);
+# of the float32 kernel, t-w2: two warps a CTA (48 KB at D 64, 96 KB and
+# two CTAs an SM at D 128); t-s2: two stages a warp (64 KB, 128 KB);
+# t-w8s2: at D 64 eight warps of two stages (128 KB, one CTA an SM). The
+# plans stay this tree's.
+_T_WARPS = "  static constexpr int kWarps = 4;\n"
+_T_STAGES = "  static constexpr int kStages = 3;           // a warp's ring\n"
 VARIANTS = {
-    "w4": [("  static constexpr int kWarps = D == 64 ? 8 : 4;\n",
-            "  static constexpr int kWarps = 4;\n"),
-           ("  static constexpr int kStages = 3;\n",
-            "  static constexpr int kStages = D == 64 ? 6 : 3;\n")],
-    "w8": [("  static constexpr int kWarps = D == 64 ? 8 : 4;\n",
-            "  static constexpr int kWarps = 8;\n")],
+    "w4": ("n8", [("  static constexpr int kWarps = D == 64 ? 8 : 4;\n",
+                   "  static constexpr int kWarps = 4;\n"),
+                  ("  static constexpr int kStages = 3;\n",
+                   "  static constexpr int kStages = D == 64 ? 6 : 3;\n")]),
+    "w8": ("n8", [("  static constexpr int kWarps = D == 64 ? 8 : 4;\n",
+                   "  static constexpr int kWarps = 8;\n")]),
+    "t-w2": ("n8_tf32", [
+        (_T_WARPS, "  static constexpr int kWarps = 2;\n", "n8_tf32")]),
+    "t-s2": ("n8_tf32", [
+        (_T_STAGES, "  static constexpr int kStages = 2;\n", "n8_tf32")]),
+    "t-w8s2": ("n8_tf32", [
+        (_T_WARPS, "  static constexpr int kWarps = D == 64 ? 8 : 4;\n",
+         "n8_tf32"),
+        (_T_STAGES, "  static constexpr int kStages = D == 64 ? 2 : 3;\n",
+         "n8_tf32")]),
 }
 # per probed kernel: (its counters, how many, the reader's C entry)
 READERS = {"tc": ("tc::probe_cycles", 24, "repro_probe_tc_cycles"),
            "n8": ("n8::n8_cycles", 24, "repro_probe_n8_cycles"),
+           "n8_tf32": ("n8t::n8t_cycles", 24, "repro_probe_n8_tf32_cycles"),
            "cores": ("split_cycles", 16, "repro_probe_split_cycles")}
 # per probed kernel: (slot of the cycles, slot of its count, label)
 PHASES = {
@@ -339,6 +444,23 @@ PHASES = {
            (14, 22, "CTA 0 of a cluster: the merge and the stores"),
            (18, 16, "whole CTA (per CTA with rows)"),
            (20, 21, "CTAs without rows, until their exit")),
+    "n8_tf32": ((0, 6, "wait for the sub-tile's loads (every sub-tile)"),
+                (7, 8, "wait for the sub-tile's loads (first sub-tile)"),
+                (1, 6, "issue the next sub-tile"),
+                (2, 6, "S^T: K's ldmatrix and split, three TF32 products "
+                       "a k step"),
+                (3, 6, "softmax"),
+                (4, 6, "P^T's shuffles and split"),
+                (5, 6, "P.V: V's loads and split, three TF32 products"),
+                (9, 16, "prologue (lengths, slots, Q, first issues, Q's "
+                        "split) (per CTA)"),
+                (10, 16, "loop over warp 0's sub-tiles (per CTA)"),
+                (11, 16, "the warps' states, their merge and a peer's "
+                         "stores into CTA 0 (per CTA)"),
+                (13, 22, "CTA 0 of a cluster: the wait for its peers"),
+                (14, 22, "CTA 0 of a cluster: the merge and the stores"),
+                (18, 16, "whole CTA (per CTA with rows)"),
+                (20, 21, "CTAs without rows, until their exit")),
     "cores": ((0, 6, "prologue: lengths, the exit test, slots"),
               (1, 6, "Q into registers"),
               (2, 6, "the loop over the span's rows (warp 0)"),
@@ -354,6 +476,9 @@ COUNTS = {"tc": ((6, "tiles"), (16, "CTAs"), (17, "tiles counted")),
           "n8": ((6, "sub-tiles of warp 0"), (16, "CTAs with rows"),
                  (19, "peers that pushed"), (22, "CTAs 0 that merged"),
                  (21, "CTAs without rows")),
+          "n8_tf32": ((6, "sub-tiles of warp 0"), (16, "CTAs with rows"),
+                      (19, "peers that pushed"), (22, "CTAs 0 that merged"),
+                      (21, "CTAs without rows")),
           "cores": ((6, "CTAs with rows"), (9, "CTAs that exit at once"),
                     (7, "CTAs of rows with several spans"),
                     (10, "merges"), (12, "rows"))}
@@ -363,7 +488,9 @@ def build_copies(copies) -> dict:
     """``{tag: library}`` of substituted copies of a csrc/ (this tree's,
     or another checkout's), one nvcc each, all at once: ``copies`` maps a
     tag to its (old, new) substitutions, the text appended to
-    ragged_decode_attn.cu and the csrc/ directory (None: this tree's)."""
+    ragged_decode_attn.cu and the csrc/ directory (None: this tree's). A
+    substitution (old, new) must find ``old`` once in the file; (old, new,
+    kernel) once in that kernel's ``REGIONS``."""
     from repro_torch.kernels import _build
     procs = {}
     for tag, (subs, tail, csrc) in copies.items():
@@ -372,11 +499,19 @@ def build_copies(copies) -> dict:
         shutil.copytree(csrc or _build.CSRC, src_dir)
         path = src_dir / "ragged_decode_attn.cu"
         text = path.read_text()
-        for old, new in subs:
-            if text.count(old) != 1:
+        for old, new, *region in subs:
+            start, end = 0, len(text)
+            if region:
+                first, last = REGIONS[region[0]]
+                start = text.index(first)
+                end = text.index(last, start) + len(last)
+            part = text[start:end]
+            if part.count(old) != 1:
+                where = f" ({region[0]})" if region else ""
                 raise RuntimeError(f"{tag}: {old!r} is not in "
-                                   f"ragged_decode_attn.cu exactly once")
-            text = text.replace(old, new)
+                                   f"ragged_decode_attn.cu{where} exactly "
+                                   f"once")
+            text = text[:start] + part.replace(old, new) + text[end:]
         path.write_text(text + tail)
         lib = OUT / f"libragged_decode_attn_{tag}.so"
         procs[tag] = (lib, subprocess.Popen(
@@ -444,9 +579,8 @@ def ptxas_lines(log: str):
     return lines
 
 
-def case(torch, K, smoke, name):
-    """``chip_smoke.kernel_decode``'s case ``name``."""
-    bf16 = torch.bfloat16
+def case(torch, K, smoke, name, dtype):
+    """``chip_smoke.kernel_decode``'s case ``name`` in ``dtype``."""
     lens, slots, _ = smoke.DECODE_CASES[0]
     heads = {"llama": (32, 8, 64), "nemo": (32, 8, 128),
              "granite": (24, 8, 64), "qwen": (40, 8, 128),
@@ -454,22 +588,22 @@ def case(torch, K, smoke, name):
              "serve": (16, 1, 256)}
     if name in heads:
         H, KV, D = heads[name]
-        return smoke.kernel_decode(torch, K, bf16, lens, slots, None, H=H,
+        return smoke.kernel_decode(torch, K, dtype, lens, slots, None, H=H,
                                    KV=KV, D=D)
     if name in ("llama-one", "llama-ctx64"):
         lens, slots, ctx = smoke.DECODE_CASES[1 if name == "llama-one"
                                               else 2]
-        return smoke.kernel_decode(torch, K, bf16, lens, slots, ctx)
+        return smoke.kernel_decode(torch, K, dtype, lens, slots, ctx)
     if name == "long":
-        return smoke.kernel_decode(torch, K, bf16, smoke.LONG_LENS, None,
+        return smoke.kernel_decode(torch, K, dtype, smoke.LONG_LENS, None,
                                    None, H=16, KV=1, D=256,
                                    T=smoke.LONG_LENS[0])
     if name == "llama-long":
-        return smoke.kernel_decode(torch, K, bf16, LONG_LLAMA, None, None,
+        return smoke.kernel_decode(torch, K, dtype, LONG_LLAMA, None, None,
                                    T=LONG_LLAMA[0])
     stack = smoke.SLOTLESS_LENS[0 if name.endswith("3") else 1]
     H, KV, D = (32, 8, 64) if name.startswith("llama") else (16, 1, 256)
-    return smoke.kernel_decode(torch, K, bf16, stack, None, None, H=H, KV=KV,
+    return smoke.kernel_decode(torch, K, dtype, stack, None, None, H=H, KV=KV,
                                D=D, T=256)
 
 
@@ -493,9 +627,8 @@ def from_lib(torch, RD, dll, name, inputs):
     span = T if ctx is None else min(ctx, T)
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
-    if name in ("tc", "n8"):
-        plan = RD.tc_plan if name == "tc" else RD.n8_plan
-        cluster, n_split, split_t = plan(B, KV, D, span)
+    if name in RD._PLANS:
+        cluster, n_split, split_t = RD._PLANS[name](B, KV, D, span)
 
         def call():
             out = torch.empty_like(q)
@@ -531,13 +664,15 @@ def from_lib(torch, RD, dll, name, inputs):
 
 
 def clustered(torch, RD, _build, inputs, n, route="tc"):
-    """A tensor-core kernel (``route`` "tc" or "n8") through its C entry
-    at clusters of up to ``n`` CTAs, one span of whole tiles a CTA."""
+    """A tensor-core kernel (``route`` "tc", "n8" or "n8_tf32") through its
+    C entry at clusters of up to ``n`` CTAs, one span of whole tiles a
+    CTA."""
     q, k, v, lengths, slots, ctx = inputs
     B, H, D = q.shape
     N, T, KV = k.shape[:3]
     span = T if ctx is None else min(ctx, T)
-    tile = RD.tc_tile_rows(D) if route == "tc" else 16 * RD.n8_warps(D)
+    tile = {"tc": RD.tc_tile_rows(D), "n8": 16 * RD.n8_warps(D),
+            "n8_tf32": 16 * RD.N8_TF32_WARPS}[route]
     split_t = -(-(-(-span // n)) // tile) * tile
     n_split = -(-span // split_t)
     fn = _build.function("ragged_decode_attn",
@@ -556,12 +691,22 @@ def clustered(torch, RD, _build, inputs, n, route="tc"):
     return call
 
 
+def takes(RD, kernel: str, bf16: bool, G: int, D: int) -> bool:
+    """Whether ``kernel`` runs on a case of that dtype and shape."""
+    n8 = G <= RD.N8_MAX_GROUP and D in RD.N8_HEAD_DIMS
+    return {"cores": True, "tc": bf16, "n8": bf16 and n8,
+            "n8_tf32": not bf16 and n8}[kernel]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", nargs="+", default=list(KERNELS),
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
+    ap.add_argument("--kernels", nargs="+", default=None,
                     choices=list(KERNELS),
                     help="the kernels timed in turns, in this order and "
-                         "then in reverse")
+                         "then in reverse (default: cores, tc, n8 in "
+                         "bfloat16; cores, n8_tf32 in float32)")
     ap.add_argument("--probe", nargs="*", default=None,
                     choices=list(PROBES),
                     help="also run the phase probes of these kernels "
@@ -571,7 +716,7 @@ def main() -> int:
                          "phase")
     ap.add_argument("--variants", nargs="*", default=(),
                     choices=list(VARIANTS),
-                    help="also time these layouts of the n8 kernel")
+                    help="also time these layouts of the n8 kernels")
     ap.add_argument("--other", type=Path, default=None,
                     help="another checkout (e.g. the parent commit, "
                          "unpacked by git archive): also time its kernels")
@@ -584,9 +729,16 @@ def main() -> int:
                     help="also time the tensor-core kernel at clusters of "
                          "these many CTAs (up to 8), one span a CTA")
     ap.add_argument("--n8-cluster", type=int, nargs="*", default=(),
-                    help="the same for the n8 kernel")
+                    help="the same for the n8 kernel (the float32 one in "
+                         "float32)")
     args = ap.parse_args()
     import torch
+    dtype = getattr(torch, args.dtype)
+    bf16 = dtype == torch.bfloat16
+    tol = 2e-2 if bf16 else 2e-5
+    if args.kernels is None:
+        args.kernels = ["cores", "tc", "n8"] if bf16 else ["cores",
+                                                           "n8_tf32"]
     if not torch.cuda.is_available():
         print("decode_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -604,8 +756,10 @@ def main() -> int:
     for D in RD.N8_HEAD_DIMS:
         print(f"[info] ragged_decode_n8_kernel<{D}>: "
               f"{RD.tc_info(D, 'n8')}", flush=True)
+        print(f"[info] ragged_decode_n8_tf32_kernel<{D}>: "
+              f"{RD.tc_info(D, 'n8_tf32')}", flush=True)
     probes = [] if args.probe is None else (args.probe or list(PROBES))
-    copies = {v: (VARIANTS[v], "", None) for v in args.variants}
+    copies = {v: (VARIANTS[v][1], "", None) for v in args.variants}
     if probes:
         copies["probe"] = probe_copy(probes)
     if args.other is not None:
@@ -619,38 +773,42 @@ def main() -> int:
         sass_phases(OUT / "libragged_decode_attn_probe.so")
     bad = 0
     for name in args.cases:
-        r = case(torch, K, smoke, name)
+        r = case(torch, K, smoke, name, dtype)
         inputs = r["inputs"]
         fns = {}
         G = inputs[0].shape[1] // inputs[1].shape[2]
-        sweep = [("tc", n) for n in args.cluster] + [
-            ("n8", n) for n in args.n8_cluster if G <= RD.N8_MAX_GROUP]
+        D = inputs[0].shape[2]
+        fit = lambda kn: takes(RD, kn, bf16, G, D)
+        sweep = [("tc", n) for n in args.cluster if bf16] + [
+            ("n8" if bf16 else "n8_tf32", n) for n in args.n8_cluster
+            if fit("n8" if bf16 else "n8_tf32")]
         for route, n in sweep:
             fns[f"{route}@{n}"] = clustered(torch, RD, _build, inputs, n,
                                             route)
-        kernels = [kn for kn in args.kernels
-                   if kn != "n8" or G <= RD.N8_MAX_GROUP]
+        kernels = [kn for kn in args.kernels if fit(kn)]
         fns.update({kn: launcher(torch, RD, kn, inputs) for kn in kernels})
-        for v in args.variants if G <= RD.N8_MAX_GROUP else ():
-            fns[f"n8:{v}"] = from_lib(torch, RD, libs[v], "n8", inputs)
-            kernels.append(f"n8:{v}")
+        for v in args.variants:
+            route = VARIANTS[v][0]
+            if fit(route):
+                fns[f"{route}:{v}"] = from_lib(torch, RD, libs[v], route,
+                                               inputs)
+                kernels.append(f"{route}:{v}")
         for kn in args.other_kernels if args.other is not None else ():
-            if kn != "n8" or G <= RD.N8_MAX_GROUP:
+            if fit(kn):
                 fns[f"{kn}:other"] = from_lib(torch, RD, libs["other"], kn,
                                               inputs)
                 kernels.append(f"{kn}:other")
         for kn in probes:
-            if kn == "n8" and G > RD.N8_MAX_GROUP:
-                continue
-            fns[f"probe-{kn}"] = from_lib(torch, RD, dll, kn, inputs)
-        what = f"bf16 {r['shape']}"
+            if fit(kn):
+                fns[f"probe-{kn}"] = from_lib(torch, RD, dll, kn, inputs)
+        what = f"{args.dtype} {r['shape']}"
         ref = r["ref"]
         for tag, fn in fns.items():
             got = fn()
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs().max().item()
-            ok = torch.allclose(got.float(), ref.float(), rtol=2e-2,
-                                atol=2e-2)
+            ok = torch.allclose(got.float(), ref.float(), rtol=tol,
+                                atol=tol)
             bad += not ok
             print(f"[ab] {name} {what}: {tag} max|err| {err:.3e}"
                   f"{'' if ok else '  DISAGREES'}", flush=True)
@@ -686,7 +844,7 @@ def main() -> int:
         dev_plain, _, _ = smoke.device_ms(torch, plain_fn, f"plain {what}")
         dev_lib, _, _ = smoke.device_ms(torch, lib_fn, f"SDPA {what}")
         ev_lib = smoke.cuda_ms(torch, lib_fn)
-        b_ms, b_by = smoke.bound(r["bytes"], r["flops"], "bfloat16")
+        b_ms, b_by = smoke.bound(r["bytes"], r["flops"], args.dtype)
         fmt = lambda xs, f: ", ".join("not measured" if v is None else f(v)
                                       for v in xs)
 
